@@ -1,0 +1,189 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs a CUDA device and skips without one (a CUDA kernel
+has no CPU mode). The module imports torch and the port only, so it also
+runs on a machine without JAX:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerances are the reference harness's (relative max-abs 1e-5 for f32,
+3e-2 for bf16); plain versions run with TF32 off.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.api import NanoQuantModel
+from repro_torch.configs import get_smoke
+from repro_torch.kernels import binary_matmul, megakernel, paged_attention, ref
+from repro_torch.kernels.ops import KernelPolicy
+from repro_torch.quant.surgery import abstract_quantized_params
+from repro_torch.serve.engine import ServeConfig
+from repro_torch.serve.scheduler import Request
+from repro_torch.testing import random_packed_params
+
+TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(want, got, tol, what):
+    a, b = want.float(), got.float()
+    assert a.shape == b.shape and torch.isfinite(b).all(), what
+    err = float((a - b).abs().max()) / max(1.0, float(a.abs().max()))
+    assert err <= tol, f"{what}: rel err {err:.3e} > {tol}"
+
+
+def _words(rng, *shape):
+    return torch.from_numpy(
+        rng.integers(0, 2 ** 32, size=shape, dtype=np.uint32).view(np.int32))
+
+
+def _paged(rng, dev, dt, B=6, hq=8, hkv=2, D=64, PS=16, pages=4):
+    n_pages = B * pages + 1
+    kp = torch.from_numpy(rng.standard_normal((n_pages, PS, hkv, D),
+                                              np.float32)).to(dev, dt)
+    vp = torch.from_numpy(rng.standard_normal((n_pages, PS, hkv, D),
+                                              np.float32)).to(dev, dt)
+    q = torch.from_numpy(rng.standard_normal((B, 1, hq, D), np.float32)
+                         ).to(dev, dt)
+    perm = rng.permutation(np.arange(1, n_pages))
+    bt = np.zeros((B, pages), np.int32)
+    pos = np.zeros(B, np.int32)
+    used = 0
+    for b in range(B - 1):                  # last slot: all-null table
+        k = int(rng.integers(1, pages + 1))
+        bt[b, :k] = perm[used:used + k]
+        used += k
+        pos[b] = int(rng.integers(0, k * PS))
+    return (q, kp, vp, torch.from_numpy(bt).to(dev),
+            torch.from_numpy(pos).to(dev), torch.from_numpy(pos).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("m,shared,eff", [(1, True, None), (8, True, 96),
+                                          (37, False, None), (512, True, 64)])
+def test_grouped_matmul_vs_plain(dev, dt, m, shared, eff):
+    rng = np.random.default_rng(m)
+    G, K, R, N = 3, 256, 128, 200
+    x = torch.from_numpy(rng.standard_normal(
+        (1 if shared else G, m, K), np.float32)).to(dev, dt)
+    rmask = torch.stack([(torch.arange(R) < r).float()
+                         for r in (R, R - 32, R - 64)]).to(dev)
+    args = (x, _words(rng, G, K // 32, R).to(dev),
+            _words(rng, G, R // 32, N).to(dev),
+            torch.from_numpy(rng.standard_normal((G, N), np.float32)).to(dev),
+            torch.from_numpy(rng.standard_normal((G, K), np.float32)
+                             / K ** 0.5).to(dev), rmask)
+    n0 = binary_matmul.fused_lowrank_matmul_grouped.launches
+    got = binary_matmul.fused_lowrank_matmul_grouped(*args, x_shared=shared,
+                                                     eff_rank=eff)
+    torch.cuda.synchronize()
+    assert binary_matmul.fused_lowrank_matmul_grouped.launches == n0 + 1
+    want = binary_matmul.fused_lowrank_matmul_grouped_ref(
+        *args, x_shared=shared, eff_rank=eff)
+    assert got.dtype == dt
+    _close(want, got, TOL[dt], "grouped matmul")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("window", [0, 20])
+def test_paged_attention_vs_plain(dev, dt, window):
+    args = _paged(np.random.default_rng(7), dev, dt)
+    got = paged_attention.paged_decode_attention(*args, window=window,
+                                                 scale=0.125)
+    want = ref.paged_attention_ref(*args, window=window, scale=0.125)
+    _close(want, got, TOL[dt], "paged attention")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("ko_pad", [0, 32])
+def test_megakernel_vs_plain(dev, dt, ko_pad):
+    rng = np.random.default_rng(8 + ko_pad)
+    q, kp, vp, bt, pos, _ = _paged(rng, dev, dt, hq=8, hkv=2, D=32)
+    B, K, nq, nkv, R = q.shape[0], 256, 256, 64, 96
+    s1 = rng.standard_normal((3, nq), np.float32) / R ** 0.5
+    s1[1:, nkv:] = 0.0
+    mqkv = {"qv": _words(rng, 3, K // 32, R), "qu_t": _words(rng, 3, R // 32,
+                                                             nq),
+            "s1": torch.from_numpy(s1), "rmask": torch.stack(
+                [(torch.arange(R) < r).float() for r in (96, 64, 64)]),
+            "s2": torch.from_numpy(rng.standard_normal((3, K), np.float32)
+                                   / K ** 0.5)}
+    ko = nq + ko_pad
+    s2o = rng.standard_normal(ko, np.float32) / nq ** 0.5
+    s2o[nq:] = 0.0
+    wo = {"qv": _words(rng, ko // 32, 64), "qu_t": _words(rng, 2, K),
+          "s1": torch.from_numpy(rng.standard_normal(K, np.float32) / 8),
+          "s2": torch.from_numpy(s2o)}
+    mqkv = {k: v.to(dev) for k, v in mqkv.items()}
+    wo = {k: v.to(dev) for k, v in wo.items()}
+    x = torch.from_numpy(rng.standard_normal((B, K), np.float32)).to(dev, dt)
+    kw = dict(head_dim=32, dims=(nq, nkv), theta=5e5, scale=32 ** -0.5)
+    args = (x, mqkv, wo, kp, vp, bt, pos, pos)
+    got = megakernel.decode_step_megakernel_raw(*args, **kw)
+    want = ref.decode_step_ref(*args, **kw)
+    for nm, a, b in zip(("y", "k_new", "v_new"), want, got):
+        _close(a, b, TOL[dt], f"megakernel {nm}")
+
+
+@pytest.mark.cuda
+def test_wrappers_raise_instead_of_falling_back(dev):
+    rng = np.random.default_rng(1)
+    q, kp, vp, bt, pos, _ = _paged(rng, dev, torch.float32)
+    with pytest.raises(TypeError):                   # pool dtype != q dtype
+        paged_attention.paged_decode_attention(q, kp.bfloat16(), vp, bt,
+                                               pos, pos)
+    with pytest.raises(ValueError):                  # non-contiguous q
+        paged_attention.paged_decode_attention(
+            q.transpose(2, 3).contiguous().transpose(2, 3), kp, vp, bt, pos,
+            pos)
+    x = torch.zeros((1, 4, 64), device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError):                   # unsupported dtype
+        binary_matmul.fused_lowrank_matmul_grouped(
+            x, _words(rng, 1, 2, 32).to(dev), _words(rng, 1, 1, 16).to(dev),
+            torch.ones((1, 16), device=dev), torch.ones((1, 64), device=dev))
+
+
+@pytest.mark.cuda
+def test_engine_kernels_match_plain_engine(dev):
+    """The smoke-size engine on the card through the kernels (megakernel
+    on and off) emits the plain-oracle engine's greedy tokens (f32)."""
+    cfg = dataclasses.replace(get_smoke("llama3.2-1b"), dtype="float32")
+    tree = random_packed_params(abstract_quantized_params(cfg, 1.0,
+                                                          min_dim=16), 0)
+    m = NanoQuantModel.from_numpy(tree, cfg, device=dev)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (5, 19, 9)]
+
+    def serve(policy, mk=None):
+        eng = m.engine(ServeConfig(greedy=True, page_size=8, megakernel=mk),
+                       max_batch=2, max_len=40, policy=policy)
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid, p, max_new_tokens=7))
+        return {u: r.output for u, r in eng.run().items()}
+
+    want = serve(KernelPolicy(mode="ref"))
+    counters = (binary_matmul.fused_lowrank_matmul_grouped,
+                paged_attention.paged_decode_attention,
+                megakernel.decode_step_megakernel_raw)
+    before = [c.launches for c in counters]
+    for mk in (True, False):
+        got = serve(KernelPolicy(mode="cuda"), mk)
+        for u in want:
+            np.testing.assert_array_equal(want[u], got[u])
+    assert all(c.launches > b for c, b in zip(counters, before))
+
