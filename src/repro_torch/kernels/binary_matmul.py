@@ -1,13 +1,19 @@
-"""Fused grouped low-rank binary matmul: the CUDA kernel
-``csrc/binary_matmul.cu`` (replacing the TPU kernel
-``repro/kernels/binary_matmul.py::fused_lowrank_matmul_grouped``), its
-wrapper and its plain version.
+"""Packed binary matmuls: two CUDA kernels, their wrappers and their
+plain versions.
 
-For G groups in one launch:
-``y_g = s1_g ⊙ ((((x ⊙ s2_g) @ V±1_g) ⊙ rmask_g) @ U±1ᵀ_g)`` with the
-rank-r intermediate in f32, never written to device memory. x is shared
-by the groups (merged QKV / gate-up) or given per group. ``eff_rank``
-reads only the leading R' rank columns of the full packed operands.
+- :func:`fused_lowrank_matmul_grouped` — ``csrc/binary_matmul.cu``,
+  replacing the TPU kernel
+  ``repro/kernels/binary_matmul.py::fused_lowrank_matmul_grouped``. For G
+  groups in one launch:
+  ``y_g = s1_g ⊙ ((((x ⊙ s2_g) @ V±1_g) ⊙ rmask_g) @ U±1ᵀ_g)`` with the
+  rank-r intermediate in f32, never written to device memory. x is shared
+  by the groups (merged QKV / gate-up) or given per group. ``eff_rank``
+  reads only the leading R' rank columns of the full packed operands.
+- :func:`packed_matmul` — ``csrc/packed_matmul.cu``, replacing the TPU
+  kernel ``repro/kernels/binary_matmul.py::packed_matmul``:
+  ``y = ((x ⊙ s_k) @ W±1) ⊙ s_n`` for one packed matrix. Two launches of
+  it make :func:`lowrank_binary_matmul_twocall`, the path for ranks past
+  :data:`MAX_FUSED_RANK` and for ``KernelPolicy(fused=False)``.
 """
 from __future__ import annotations
 
@@ -19,12 +25,15 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-# ranks above this run the two-call path in the JAX package (its Pallas
-# kernel packed_matmul, not ported yet)
+# ranks above this run the two-call path (packed_matmul twice), as in
+# the JAX package; read at call time, so tests can lower it
 MAX_FUSED_RANK = 4096
 _SMS = 132                  # H100 SXM streaming multiprocessors
-_CLUSTER = 8                # blocks per cluster (CL in the kernel)
+_CLUSTER = 8                # blocks per cluster (CL / MAX_KS in the kernels)
 _COLS_PER_BLOCK = 128       # stage-2 columns a block covers at the least
+_PM_COLS = 256              # packed_matmul: output columns per block (BN)
+_PM_CHUNK_WORDS = 8         # packed_matmul: words per K chunk (KC / 32)
+_GRID_YZ_MAX = 65535
 
 
 def fused_lowrank_matmul_grouped_ref(xg, qv_g, qu_g, s1_g, s2_g,
@@ -119,4 +128,105 @@ def fused_lowrank_matmul(x, qv, qu_t, s1, s2, *,
     y = fused_lowrank_matmul_grouped(
         x.reshape(1, -1, shape[-1]), qv[None], qu_t[None], s1[None],
         s2[None], x_shared=True, eff_rank=eff_rank)[0]
+    return y.reshape(*shape[:-1], y.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# packed_matmul: one packed ±1 matrix (the two-call building block)
+# ---------------------------------------------------------------------------
+
+# plain version: the oracle, with the wrapper's out_dtype
+packed_matmul_ref = ref.packed_matmul_ref
+
+
+def _rows_per_block(M: int) -> int:
+    """Activation rows per block (BM in the kernel): the smallest of 1,
+    2, 4, 8 that covers a decode batch, 8 from 5 rows on."""
+    return next(b for b in (1, 2, 4, 8) if M <= b or b == 8)
+
+
+def _k_split(tiles: int, kw: int) -> int:
+    """K-split blocks per output tile, one cluster of at most _CLUSTER:
+    enough for about two blocks per SM when the output tiles alone fall
+    short, each split keeping at least one K chunk and none empty."""
+    want = -(-2 * _SMS // tiles)
+    ks = max(1, min(_CLUSTER, want, kw // _PM_CHUNK_WORDS))
+    per = -(-kw // ks)
+    return -(-kw // per)
+
+
+def packed_matmul(x, packed_w, s_k=None, s_n=None, *, out_dtype=None):
+    """y = ((x ⊙ s_k) @ unpack(packed_w)) ⊙ s_n for one packed ±1 matrix.
+
+    x: (M, K) f32/bf16; packed_w: (K//32, N) int32 words with unit column
+    stride (its rows may be strided, so a column slice ``w[:, :N']`` of a
+    wider matrix, an eff_rank view, is read in place); s_k: (K,) and s_n:
+    (N,) f32, or None for ones. The sum is f32; the result is (M, N) in
+    ``out_dtype`` (default x's dtype). CPU tensors take the plain
+    version; CUDA tensors launch the kernel (and raise on anything it
+    does not take)."""
+    if x.dim() != 2 or packed_w.dim() != 2:
+        raise ValueError(f"packed_matmul takes x (M, K) and words (K//32, "
+                         f"N), got {tuple(x.shape)} / "
+                         f"{tuple(packed_w.shape)}")
+    M, K = x.shape
+    KW, N = packed_w.shape
+    if KW * 32 != K:
+        raise ValueError(f"packed operand {tuple(packed_w.shape)} does not "
+                         f"match x {tuple(x.shape)}")
+    for nm, s, n in (("s_k", s_k, K), ("s_n", s_n, N)):
+        if s is not None and tuple(s.shape) != (n,):
+            raise ValueError(f"{nm} {tuple(s.shape)} != ({n},)")
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    if x.device.type == "cpu":
+        return packed_matmul_ref(x, packed_w, s_k, s_n, out_dtype=out_dtype)
+    name = "packed_matmul"
+    scales = {nm: s for nm, s in (("s_k", s_k), ("s_n", s_n))
+              if s is not None}
+    build.check_cuda(name, x=x, **scales)
+    build.check_cuda(name, torch.float32, **scales)
+    if packed_w.device != x.device or packed_w.dtype != torch.int32:
+        raise TypeError(f"{name}: packed_w must be int32 on {x.device}, got "
+                        f"{packed_w.dtype} on {packed_w.device}")
+    if N > 1 and packed_w.stride(1) != 1 or KW > 1 and packed_w.stride(0) < N:
+        raise ValueError(f"{name}: packed_w needs unit column stride and a "
+                         f"row stride >= N, got {packed_w.stride()}")
+    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    in_code, out_code = build.dtype_code(x), build.dtype_code(out)
+    if M == 0 or N == 0:
+        return out
+    bm = _rows_per_block(M)
+    m_tiles, n_tiles = -(-M // bm), -(-N // _PM_COLS)
+    if max(m_tiles, n_tiles) > _GRID_YZ_MAX:
+        raise ValueError(f"{name}: ({M}, {N}) needs more than "
+                         f"{_GRID_YZ_MAX} tiles along a grid axis")
+    ks = _k_split(m_tiles * n_tiles, KW)
+    fn = build.library("packed_matmul").nq_packed_matmul
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    none = ctypes.c_void_p(None)
+    err = fn(build.ptr(x), build.ptr(packed_w), packed_w.stride(0),
+             none if s_k is None else build.ptr(s_k),
+             none if s_n is None else build.ptr(s_n), build.ptr(out),
+             M, K, N, ks, bm, in_code, out_code,
+             build.current_stream(x.device))
+    build.check_launch(name, err)
+    packed_matmul.launches += 1
+    return out
+
+
+packed_matmul.launches = 0
+
+
+def lowrank_binary_matmul_twocall(x, qv, qu_t, s1, s2):
+    """y = s1 ⊙ ((x ⊙ s2) @ V±1) @ U±1ᵀ as two :func:`packed_matmul`
+    launches, the rank intermediate written to device memory in x's dtype
+    (the JAX package's two-call rounding; ``ref.lowrank_binary_matmul_ref``
+    is its plain version). x: (..., K); qv: (K//32, r) words, possibly a
+    column slice; qu_t: (r//32, N) words; s1: (N,), s2: (K,) f32."""
+    shape = x.shape
+    t = packed_matmul(x.reshape(-1, shape[-1]), qv, s_k=s2)
+    y = packed_matmul(t, qu_t, s_n=s1)
     return y.reshape(*shape[:-1], y.shape[-1])

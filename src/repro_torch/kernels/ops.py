@@ -4,9 +4,11 @@
 - ``mode="ref"``  — the plain oracles of :mod:`repro_torch.kernels.ref`,
   unmerged, with the JAX reference path's roundings.
 - ``mode="cuda"`` — the kernel wrappers (fused, merged projections,
-  megakernel). A wrapper launches its CUDA kernel for CUDA tensors and
-  takes its plain version for CPU tensors, so on the CPU this mode runs
-  the kernels' dispatch structure with their plain versions.
+  megakernel; the two-call ``packed_matmul`` chain for ranks past
+  ``binary_matmul.MAX_FUSED_RANK`` or with ``fused=False``). A wrapper
+  launches its CUDA kernel for CUDA tensors and takes its plain version
+  for CPU tensors, so on the CPU this mode runs the kernels' dispatch
+  structure with their plain versions.
 - ``mode="auto"`` — ``cuda`` for CUDA tensors, ``ref`` for CPU tensors.
 
 A policy can be passed explicitly or installed for a scope
@@ -31,11 +33,15 @@ _MODES = ("auto", "ref", "cuda")
 
 @dataclasses.dataclass(frozen=True)
 class KernelPolicy:
-    """mode: see the module docstring. merge_projections: allow grouped
-    QKV / gate-up launches on the kernel path. megakernel: try the fused
-    decode-step kernel (per-launch gating still applies, see
+    """mode: see the module docstring. fused: on the kernel path, run
+    packed linears up to MAX_FUSED_RANK through the fused kernel (False:
+    every packed linear through the two-call chain, unmerged).
+    merge_projections: allow grouped QKV / gate-up launches on the
+    kernel path (needs ``fused``). megakernel: try the fused decode-step
+    kernel (per-launch gating still applies, see
     :func:`decode_step_megakernel`)."""
     mode: str = "auto"
+    fused: bool = True
     merge_projections: bool = True
     megakernel: bool = True
 
@@ -51,7 +57,8 @@ class KernelPolicy:
         return self.mode == "cuda"
 
     def use_merged_projections(self, device) -> bool:
-        return self.use_kernels(device) and self.merge_projections
+        return self.use_kernels(device) and self.fused \
+            and self.merge_projections
 
     def use_megakernel(self, device) -> bool:
         return self.use_merged_projections(device) and self.megakernel
@@ -100,26 +107,29 @@ def _slice_rank(qv, qu_t, eff_rank: int):
     return qv[..., :eff_rank], qu_t[..., :eff_rank // 32, :]
 
 
-def _check_rank(r: int) -> None:
-    if r > binary_matmul.MAX_FUSED_RANK:
-        raise NotImplementedError(
-            f"rank {r} > {binary_matmul.MAX_FUSED_RANK} needs the two-call "
-            f"packed_matmul kernel, which the port has not ported yet")
+def _fits_fused(p: KernelPolicy, r: int) -> bool:
+    return p.fused and r <= binary_matmul.MAX_FUSED_RANK
 
 
 def lowrank_binary_matmul(x, qv, qu_t, s1, s2,
                           policy: Optional[KernelPolicy] = None,
                           eff_rank: Optional[int] = None):
     """y = s1 ⊙ ((x ⊙ s2) @ V±1) @ U±1ᵀ — packed operands (paper Eq. 1).
-    The kernel path runs the fused kernel (f32 intermediate); the ref
-    path the two-stage oracle (intermediate rounded to x's dtype)."""
+    The kernel path runs the fused kernel (f32 intermediate) up to
+    MAX_FUSED_RANK with ``fused``, else the two-call chain (intermediate
+    rounded to x's dtype, as the JAX package's two-call); the ref path
+    the two-stage oracle (rounded likewise)."""
     p = policy if policy is not None else current_kernel_policy()
     x = _match_packed_k(x, qv)
     if p.use_kernels(x.device):
-        _check_rank(qv.shape[-1])
-        return binary_matmul.fused_lowrank_matmul(
-            x.contiguous(), qv, qu_t, s1.float(), s2.float(),
-            eff_rank=eff_rank)
+        if _fits_fused(p, qv.shape[-1]):
+            return binary_matmul.fused_lowrank_matmul(
+                x.contiguous(), qv, qu_t, s1.float(), s2.float(),
+                eff_rank=eff_rank)
+        if eff_rank is not None:
+            qv, qu_t = _slice_rank(qv, qu_t, eff_rank)
+        return binary_matmul.lowrank_binary_matmul_twocall(
+            x.contiguous(), qv, qu_t, s1.float(), s2.float())
     if eff_rank is not None:
         qv, qu_t = _slice_rank(qv, qu_t, eff_rank)
     return ref.lowrank_binary_matmul_ref(x, qv, qu_t, s1, s2)
@@ -133,23 +143,52 @@ def lowrank_binary_matmul_merged(x, mp, dims: Sequence[int],
     launch instead of len(dims). mp: merged group from
     ``quant.surgery.merge_projection_groups``; dims: true d_out per
     projection. Off the kernel path the fallback is the grouped fused
-    oracle (f32 intermediate), as in the JAX package."""
+    oracle (f32 intermediate), as in the JAX package.
+
+    Past MAX_FUSED_RANK (or with ``fused=False``) the kernel path departs
+    from the JAX package on purpose: JAX runs its plain fused oracle
+    there (``repro.kernels.ops._local_merged``), and a plain version has
+    no place on the card's path. Each group instead runs two
+    ``packed_matmul`` launches, ``t = (x ⊙ s2_g) @ V_g`` kept in f32 and
+    ``y = ((t ⊙ rmask_g) @ U_g) ⊙ s1_g``: rmask as stage 2's s_k zeroes
+    the padded rank columns (padded V words unpack to -1, so stage 1
+    alone does not). That is the fused oracle's arithmetic, so the result
+    matches JAX's within the kernel tolerances."""
     p = policy if policy is not None else current_kernel_policy()
     x = _match_packed_k(x, mp["qv"])
     shape = x.shape
     x2 = x.reshape(1, -1, shape[-1]).contiguous()
     R = mp["qv"].shape[-1]
     rmask = mp.get("rmask")
-    if p.use_kernels(x.device):
-        _check_rank(R)
+    if p.use_kernels(x.device) and _fits_fused(p, R):
         yg = binary_matmul.fused_lowrank_matmul_grouped(
             x2, mp["qv"], mp["qu_t"], mp["s1"], mp["s2"], rmask,
             x_shared=True, eff_rank=eff_rank)
+    elif p.use_kernels(x.device):
+        yg = _merged_twocall(x2[0], mp, rmask, eff_rank)
     else:
         yg = binary_matmul.fused_lowrank_matmul_grouped_ref(
             x2, mp["qv"], mp["qu_t"], mp["s1"], mp["s2"], rmask,
             x_shared=True, eff_rank=eff_rank)
-    return [yg[i, :, :n].reshape(*shape[:-1], n) for i, n in enumerate(dims)]
+    return [yg[i][:, :n].reshape(*shape[:-1], n) for i, n in enumerate(dims)]
+
+
+def _merged_twocall(x, mp, rmask, eff_rank: Optional[int]):
+    """A merged group through two packed_matmul launches per group with
+    an f32 intermediate (see :func:`lowrank_binary_matmul_merged`).
+    x: (M, K); returns one (M, Nmax) output per group."""
+    qv, qu_t = mp["qv"], mp["qu_t"]
+    if eff_rank is not None:
+        qv, qu_t = _slice_rank(qv, qu_t, eff_rank)
+    r = qv.shape[-1]
+    ys = []
+    for g in range(qv.shape[0]):
+        t = binary_matmul.packed_matmul(x, qv[g], s_k=mp["s2"][g],
+                                        out_dtype=torch.float32)
+        ys.append(binary_matmul.packed_matmul(
+            t, qu_t[g], s_k=None if rmask is None else rmask[g, :r],
+            s_n=mp["s1"][g], out_dtype=x.dtype))
+    return ys
 
 
 def paged_attention(q, k_pool, v_pool, block_table, q_pos, cache_pos, *,

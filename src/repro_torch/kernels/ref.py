@@ -38,10 +38,10 @@ def unpack_signs(packed: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     return (bits.to(dtype) * 2 - 1).reshape(n32 * 32, N)
 
 
-def packed_matmul_ref(x, packed_w, s_k=None, s_n=None):
+def packed_matmul_ref(x, packed_w, s_k=None, s_n=None, *, out_dtype=None):
     """y = (x ⊙ s_k) @ unpack(packed_w) ⊙ s_n with an f32 accumulator;
     the result rounds to x's dtype (``repro.kernels.ref.
-    packed_matmul_ref``). x: (..., K)."""
+    packed_matmul_ref``), or to ``out_dtype`` when given. x: (..., K)."""
     w = unpack_signs(packed_w, torch.float32)
     xf = x
     if s_k is not None:
@@ -49,7 +49,7 @@ def packed_matmul_ref(x, packed_w, s_k=None, s_n=None):
     y = torch.matmul(xf.float(), w)
     if s_n is not None:
         y = y * s_n.float()
-    return y.to(x.dtype)
+    return y.to(x.dtype if out_dtype is None else out_dtype)
 
 
 def lowrank_binary_matmul_ref(x, qv, qu_t, s1, s2):

@@ -99,6 +99,39 @@ def test_grouped_matmul_vs_plain(dev, dt, m, shared, eff):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("stage,m,k,n,view", [
+    ("rank-in", 3, 4064, 200, None), ("rank-in", 8, 8192, 300, 256),
+    ("rank-out", 9, 224, 1000, None), ("rank-out", 1, 448, 2500, None)])
+def test_packed_matmul_vs_plain(dev, dt, stage, m, k, n, view):
+    """Both stages of the two-call chain: stage 1 (long K into a rank,
+    several K-split blocks per tile, one view of the leading columns of
+    a wider matrix read in place) and stage 2 (a rank into a wide
+    output); M, N and K off the tile multiples."""
+    rng = np.random.default_rng(k + n)
+    x = torch.from_numpy(rng.standard_normal((m, k), np.float32)).to(dev, dt)
+    w = _words(rng, k // 32, n).to(dev)
+    if view is not None:
+        w = w[:, :view]
+        assert not w.is_contiguous()
+    n_out = w.shape[1]
+    sk = torch.from_numpy(rng.standard_normal(k, np.float32) / k ** 0.5
+                          ).to(dev)
+    sn = torch.from_numpy(rng.standard_normal(n_out, np.float32)).to(dev)
+    n0 = binary_matmul.packed_matmul.launches
+    for out_dt in (dt, torch.float32):
+        got = binary_matmul.packed_matmul(x, w, sk, sn, out_dtype=out_dt)
+        torch.cuda.synchronize()
+        want = binary_matmul.packed_matmul_ref(x, w, sk, sn, out_dtype=out_dt)
+        assert got.dtype == out_dt
+        _close(want, got, TOL[dt], f"packed_matmul {stage} -> {out_dt}")
+    got = binary_matmul.packed_matmul(x, w)              # no scales
+    _close(binary_matmul.packed_matmul_ref(x, w), got, TOL[dt],
+           f"packed_matmul {stage} unscaled")
+    assert binary_matmul.packed_matmul.launches == n0 + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("window", [0, 20])
 def test_paged_attention_vs_plain(dev, dt, window):
     args = _paged(np.random.default_rng(7), dev, dt)
@@ -156,12 +189,17 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         binary_matmul.fused_lowrank_matmul_grouped(
             x, _words(rng, 1, 2, 32).to(dev), _words(rng, 1, 1, 16).to(dev),
             torch.ones((1, 16), device=dev), torch.ones((1, 64), device=dev))
+    with pytest.raises(TypeError):                   # unsupported dtype
+        binary_matmul.packed_matmul(x[0], _words(rng, 2, 16).to(dev))
+    with pytest.raises(TypeError):                   # words on the host
+        binary_matmul.packed_matmul(x[0].float(), _words(rng, 2, 16))
 
 
 @pytest.mark.cuda
 def test_engine_kernels_match_plain_engine(dev):
     """The smoke-size engine on the card through the kernels (megakernel
-    on and off) emits the plain-oracle engine's greedy tokens (f32)."""
+    on and off, and the two-call chain with ``fused=False``) emits the
+    plain-oracle engine's greedy tokens (f32)."""
     cfg = dataclasses.replace(get_smoke("llama3.2-1b"), dtype="float32")
     tree = random_packed_params(abstract_quantized_params(cfg, 1.0,
                                                           min_dim=16), 0)
@@ -179,10 +217,13 @@ def test_engine_kernels_match_plain_engine(dev):
     want = serve(KernelPolicy(mode="ref"))
     counters = (binary_matmul.fused_lowrank_matmul_grouped,
                 paged_attention.paged_decode_attention,
-                megakernel.decode_step_megakernel_raw)
+                megakernel.decode_step_megakernel_raw,
+                binary_matmul.packed_matmul)
     before = [c.launches for c in counters]
-    for mk in (True, False):
-        got = serve(KernelPolicy(mode="cuda"), mk)
+    for pol, mk in ((KernelPolicy(mode="cuda"), True),
+                    (KernelPolicy(mode="cuda"), False),
+                    (KernelPolicy(mode="cuda", fused=False), None)):
+        got = serve(pol, mk)
         for u in want:
             np.testing.assert_array_equal(want[u], got[u])
     assert all(c.launches > b for c, b in zip(counters, before))
