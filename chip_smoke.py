@@ -15,7 +15,11 @@ Phases, each printing its own line(s); any failure exits non-zero:
    f32 and bf16, with the reference harness's tolerances (relative
    max-abs 1e-5 f32, 3e-2 bf16); device times (CUDA events, median of
    21) of the kernel, its plain version and one PyTorch call computing
-   the same function (a yardstick, never used by the port);
+   the same function (a yardstick, never used by the port); for #1 and
+   #4 also the instruction their ±1 products run on, the launch plan and
+   the achieved share of the bound (operations counted at the 989 TFLOP/s
+   bf16 tensor rate the exact ±1 factors allow, in both dtypes; #2 and
+   #3 at the 67 TFLOP/s f32 rate of the CUDA cores they compute on);
 4. llama3.2-1b engine — full-width, full-depth llama3.2-1b at 1.0 bpw
    with packed weights drawn from a seed, served by the
    continuous-batching engine (8 slots, max_len 256, 8 requests of
@@ -57,6 +61,8 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out")
 SEED = 0
 HBM_BYTES_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_S = 67e12            # H100 SXM f32 outside the tensor cores
+BF16_TC_FLOPS_S = 989e12       # H100 SXM bf16 tensor cores, dense: the rate
+# the exact ±1 bf16 factors of kernels #1 and #4 allow, in both dtypes
 TOL = {"f32": 1e-5, "bf16": 3e-2}
 LOGITS_TOL = 1e-4
 SLEEP_CYCLES = 20_000_000     # ~10 ms: holds the card while one timed call queues
@@ -155,7 +161,9 @@ def main():
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "shape": {k: rec[k] for k in rec if k in
                       ("model", "group", "stage", "G", "M", "K", "R", "N",
-                       "B", "pages", "dtype")}})
+                       "B", "pages", "dtype")},
+            **{k: rec[k] for k in ("instruction", "plan", "bound_share")
+               if k in rec}})
     report["kernels"] = kernels
     report["script_s"] = time.perf_counter() - t_start
     log(f"script: {report['script_s']:.1f} s on {smi}")
@@ -278,8 +286,10 @@ def compare(what, want, got, tol):
     return abs_err, rel
 
 
-def bound(bytes_moved, flops):
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_S, flops / F32_FLOPS_S
+def bound(bytes_moved, flops, flops_s=F32_FLOPS_S):
+    """Least device time (ms) of a function that must move `bytes_moved`
+    and do `flops` at `flops_s`, and which of the two bounds it."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_S, flops / flops_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -392,13 +402,19 @@ def check_fused(lp, names, ms, gen, model_name):
                               "rel_err": rel}, kern, plain, library)
                 w_bytes, flops = lowrank_cost(KW * 32, dims, m)
                 io = nbytes(x) + sum(m * n for _, n in dims) * x.element_size()
-                rec["bound_ms"], rec["bound_by"] = bound(w_bytes + io, flops)
+                rec["bound_ms"], rec["bound_by"] = bound(w_bytes + io, flops,
+                                                         BF16_TC_FLOPS_S)
+                _tensor_core_row(
+                    rec, binary_matmul.fused_lowrank_matmul_grouped.plan)
                 rows.append(rec)
                 log(f"kernel fused_lowrank {model_name} {name:8s} M={m:<4d} "
                     f"{dt:4s} rel_err={rel:.2e} ms={rec['ms']:.4f} "
                     f"plain_ms={rec['plain_ms']:.4f} "
                     f"library_ms={rec['library_ms']:.4f} "
-                    f"bound_ms={rec['bound_ms']:.5f}")
+                    f"bound_ms={rec['bound_ms']:.5f} "
+                    f"({100 * rec['bound_share']:.1f}% of it) "
+                    f"slices={rec['plan']['slices']} "
+                    f"grid={rec['plan']['grid']}")
             del V, U
     return rows
 
@@ -472,12 +488,24 @@ def _check_packed(stage, w, sk, sn, m, dt, tdt, gen):
     scale_bytes = 4 * (K if sk is not None else 0) + 4 * (N if sn is not None
                                                           else 0)
     io = nbytes(x) + m * N * x.element_size() + scale_bytes
-    rec["bound_ms"], rec["bound_by"] = bound(4 * KW * N + io, 2.0 * m * K * N)
+    rec["bound_ms"], rec["bound_by"] = bound(4 * KW * N + io, 2.0 * m * K * N,
+                                             BF16_TC_FLOPS_S)
+    _tensor_core_row(rec, binary_matmul.packed_matmul.plan)
     log(f"kernel packed_matmul {stage:22s} M={m:<3d} {dt:4s} rel_err="
         f"{rel:.2e} ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
         f"library_ms={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.5f} "
-        f"({rec['bound_by']})")
+        f"({rec['bound_by']}; {100 * rec['bound_share']:.1f}% of it) "
+        f"ks={rec['plan']['ks']}")
     return rec
+
+
+def _tensor_core_row(rec, plan):
+    """What a row of kernel #1 or #4 adds: the instruction its ±1 products
+    run on, the launch plan of the timed call and the achieved share of
+    the bound."""
+    from repro_torch.kernels import binary_matmul
+    rec.update(instruction=binary_matmul.INSTRUCTION, plan=dict(plan),
+               bound_share=rec["bound_ms"] / rec["ms"])
 
 
 def _dims(lp, name):

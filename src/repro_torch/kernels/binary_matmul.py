@@ -1,14 +1,24 @@
 """Packed binary matmuls: two CUDA kernels, their wrappers and their
 plain versions.
 
+Both kernels do their ±1 products on the tensor cores through one tile
+routine (``csrc/binary_mma.cuh``): the packed factor is expanded from its
+words into exact bf16 ±1 operands in registers, and an f32 operand is
+split into bf16 terms (:func:`split_bf16`, three for an f32 result, two
+for a bf16 one) whose products are summed in f32.
+
 - :func:`fused_lowrank_matmul_grouped` — ``csrc/binary_matmul.cu``,
   replacing the TPU kernel
   ``repro/kernels/binary_matmul.py::fused_lowrank_matmul_grouped``. For G
   groups in one launch:
   ``y_g = s1_g ⊙ ((((x ⊙ s2_g) @ V±1_g) ⊙ rmask_g) @ U±1ᵀ_g)`` with the
-  rank-r intermediate in f32, never written to device memory. x is shared
-  by the groups (merged QKV / gate-up) or given per group. ``eff_rank``
-  reads only the leading R' rank columns of the full packed operands.
+  rank-r intermediate in f32. One cooperative launch of co-resident
+  blocks computes stage 1 once per (group, M-tile, rank tile, K slice),
+  writes the f32 partial sums to a workspace in device memory (L2-sized
+  at decode), and after a grid barrier sums them in slice order for
+  stage 2 (:func:`_plan_fused`). x is shared by the groups (merged QKV /
+  gate-up) or given per group. ``eff_rank`` reads only the leading R'
+  rank columns of the full packed operands.
 - :func:`packed_matmul` — ``csrc/packed_matmul.cu``, replacing the TPU
   kernel ``repro/kernels/binary_matmul.py::packed_matmul``:
   ``y = ((x ⊙ s_k) @ W±1) ⊙ s_n`` for one packed matrix. Two launches of
@@ -29,11 +39,103 @@ from repro_torch.kernels import build, ref
 # the JAX package; read at call time, so tests can lower it
 MAX_FUSED_RANK = 4096
 _SMS = 132                  # H100 SXM streaming multiprocessors
-_CLUSTER = 8                # blocks per cluster (CL / MAX_KS in the kernels)
-_COLS_PER_BLOCK = 128       # stage-2 columns a block covers at the least
-_PM_COLS = 256              # packed_matmul: output columns per block (BN)
-_PM_CHUNK_WORDS = 8         # packed_matmul: words per K chunk (KC / 32)
+_CLUSTER = 8                # packed_matmul: K-split blocks per cluster (MAX_KS)
+_TILE_COLS = 128            # output columns per block tile (BN in binary_mma.cuh)
+_TILE_ROWS = (8, 16, 32, 64)  # activation rows per block tile (8 * MT)
+_MIN_SLICE_WORDS = 8        # fused stage 1: packed words per K slice at the least
 _GRID_YZ_MAX = 65535
+INSTRUCTION = "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"
+
+
+def split_bf16(v, terms: int):
+    """f32 ``v`` as ``terms`` bf16 tensors (hi, mid, lo) whose f32 sum
+    rebuilds it: each term rounds what the earlier ones left. Three terms
+    carry all 24 bits of an f32 mantissa, so they rebuild a normal value
+    exactly; the kernels split their f32 operands this way."""
+    out, rest = [], v.float()
+    for _ in range(terms):
+        t = rest.to(torch.bfloat16)
+        out.append(t)
+        rest = rest - t.float()
+    return out
+
+
+def _chunk_words(bm: int) -> int:
+    """Packed words per staged K chunk for a row tile of bm rows
+    (chunk_words in binary_mma.cuh)."""
+    return max(2, 128 // bm)
+
+
+def _tile_rows(M: int) -> int:
+    """Rows per block tile: the smallest of 8, 16, 32, 64 that covers M,
+    64 past it (an n8 tile of the mma is the least a decode row takes)."""
+    return next(b for b in _TILE_ROWS if M <= b or b == _TILE_ROWS[-1])
+
+
+def _terms(x_dtype, out_dtype) -> int:
+    """bf16 terms per activation value: 3 for an f32 operand into an f32
+    result, 2 into a bf16 one, 1 for a bf16 operand (exact)."""
+    if x_dtype == torch.bfloat16:
+        return 1
+    return 3 if out_dtype == torch.float32 else 2
+
+
+def _plan_fused(G: int, M: int, K: int, r_eff: int, N: int, blocks: int, *,
+                terms: int = 3) -> dict:
+    """The fused kernel's launch plan. ``blocks``: how many blocks fit on
+    the card at once (the occupancy query times the SMs); the grid is
+    never larger, so its grid-wide barriers cannot deadlock.
+
+    Stage 1 items are (group, M-tile, rank tile, K slice), each computed
+    once; K slices (at least _MIN_SLICE_WORDS words each, none empty)
+    are added while the items fall short of ``blocks``, which happens at
+    decode. Stage 2 items are (group, M-tile, output tile). The workspace
+    holds x ⊙ s2 as bf16 terms, the f32 partial sums of every slice and
+    the split intermediate, in bytes."""
+    bm = _tile_rows(M)
+    kw = K // 32
+    m_tiles = -(-M // bm)
+    r_tiles = -(-r_eff // _TILE_COLS)
+    n_tiles = -(-N // _TILE_COLS)
+    base = G * m_tiles * r_tiles
+    want = max(1, min(blocks // base, kw // _MIN_SLICE_WORDS))
+    kw_per_slice = -(-kw // want)
+    slices = -(-kw // kw_per_slice)
+    stage1, stage2 = base * slices, G * m_tiles * n_tiles
+    partial_bytes = 4 * G * slices * M * r_eff
+    return {"blocks": blocks, "bm": bm, "m_tiles": m_tiles,
+            "r_tiles": r_tiles, "n_tiles": n_tiles, "slices": slices,
+            "kw_per_slice": kw_per_slice, "stage1_items": stage1,
+            "stage2_items": stage2, "terms": terms,
+            "grid": max(1, min(blocks, max(stage1, stage2))),
+            "partial_bytes": partial_bytes,
+            "workspace_bytes": 2 * G * terms * M * (K + r_eff)
+            + partial_bytes}
+
+
+_blocks_cache: dict = {}
+
+
+def _coresident_blocks(lib, bm: int, rows: int, code: int) -> int:
+    """Blocks of the fused kernel at row tile bm, ``rows`` = min(bm, M)
+    rows and dtype code that fit on the current card at once (the
+    occupancy query times the SMs), cached."""
+    key = (bm, rows, code)
+    if key not in _blocks_cache:
+        n = ctypes.c_int(0)
+        fn = lib.nq_fused_lowrank_blocks
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        build.check_launch("fused_lowrank_matmul_grouped occupancy",
+                           fn(bm, rows, code, ctypes.byref(n)))
+        _blocks_cache[key] = n.value
+    return _blocks_cache[key]
+
+
+def _aligned(t):
+    """t itself when its data is 16-byte aligned (the kernels copy it in
+    16-byte pieces), else an aligned copy."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def fused_lowrank_matmul_grouped_ref(xg, qv_g, qu_g, s1_g, s2_g,
@@ -45,16 +147,6 @@ def fused_lowrank_matmul_grouped_ref(xg, qv_g, qu_g, s1_g, s2_g,
             xg[0 if x_shared else g], qv_g[g], qu_g[g], s1_g[g], s2_g[g],
             None if rmask_g is None else rmask_g[g], eff_rank=eff_rank)
         for g in range(qv_g.shape[0])])
-
-
-def _n_split(G: int, m_tiles: int, N: int) -> int:
-    """N-slices per (group, M-tile), a multiple of the cluster size: one
-    cluster, or more (each recomputing stage 1) while the grid is short
-    of two waves over the SMs and every slice keeps at least
-    _COLS_PER_BLOCK columns."""
-    want = math.ceil(2 * _SMS / (G * m_tiles * _CLUSTER))
-    cap = math.ceil(N / (_CLUSTER * _COLS_PER_BLOCK))
-    return _CLUSTER * max(1, min(want, cap))
 
 
 def fused_lowrank_matmul_grouped(xg, qv_g, qu_g, s1_g, s2_g, rmask_g=None,
@@ -102,22 +194,31 @@ def fused_lowrank_matmul_grouped(xg, qv_g, qu_g, s1_g, s2_g, rmask_g=None,
     out = torch.empty((G, M, N), dtype=xg.dtype, device=xg.device)
     if M == 0:
         return out
-    m_tiles = -(-M // 8)
     lib = build.library("binary_matmul")
+    bm = _tile_rows(M)
+    plan = _plan_fused(G, M, K, r_eff, N,
+                       _coresident_blocks(lib, bm, min(bm, M), code),
+                       terms=_terms(torch.float32, xg.dtype))
+    ws = torch.empty(plan["workspace_bytes"], dtype=torch.uint8,
+                     device=xg.device)
     fn = lib.nq_fused_lowrank
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 6
-                   + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 7
+                   + [ctypes.c_int] * 11 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    err = fn(build.ptr(xg), 0 if x_shared else M * K, build.ptr(qv_g),
-             build.ptr(qu_g), build.ptr(s1_g), build.ptr(s2_g),
-             build.ptr(rmask_g), build.ptr(out), G, M, K, R, r_eff, N,
-             _n_split(G, m_tiles, N), code, build.current_stream(xg.device))
+    err = fn(build.ptr(xg), 0 if x_shared else M * K,
+             build.ptr(qv_g), build.ptr(qu_g), build.ptr(s1_g),
+             build.ptr(s2_g), build.ptr(rmask_g), build.ptr(out),
+             build.ptr(ws), G, M, K, R, r_eff, N, plan["bm"],
+             plan["slices"], plan["kw_per_slice"], plan["grid"], code,
+             build.current_stream(xg.device))
     build.check_launch(name, err)
     fused_lowrank_matmul_grouped.launches += 1
+    fused_lowrank_matmul_grouped.plan = plan
     return out
 
 
 fused_lowrank_matmul_grouped.launches = 0
+fused_lowrank_matmul_grouped.plan = None     # the last launch's plan
 
 
 def fused_lowrank_matmul(x, qv, qu_t, s1, s2, *,
@@ -139,20 +240,22 @@ def fused_lowrank_matmul(x, qv, qu_t, s1, s2, *,
 packed_matmul_ref = ref.packed_matmul_ref
 
 
-def _rows_per_block(M: int) -> int:
-    """Activation rows per block (BM in the kernel): the smallest of 1,
-    2, 4, 8 that covers a decode batch, 8 from 5 rows on."""
-    return next(b for b in (1, 2, 4, 8) if M <= b or b == 8)
-
-
-def _k_split(tiles: int, kw: int) -> int:
-    """K-split blocks per output tile, one cluster of at most _CLUSTER:
-    enough for about two blocks per SM when the output tiles alone fall
-    short, each split keeping at least one K chunk and none empty."""
-    want = -(-2 * _SMS // tiles)
-    ks = max(1, min(_CLUSTER, want, kw // _PM_CHUNK_WORDS))
-    per = -(-kw // ks)
-    return -(-kw // per)
+def _plan_packed(M: int, K: int, N: int, terms: int = 3) -> dict:
+    """packed_matmul's launch plan: the row tile (bm), the output tiles,
+    and ks, the K-split blocks per output tile (one cluster of at most
+    _CLUSTER): enough for about four blocks per SM when the output tiles
+    alone fall short, each split keeping at least one staged chunk and
+    none empty. (Planning one wave of co-resident blocks instead was
+    measured slower on the H100: more, shorter blocks hide more latency.)"""
+    bm = _tile_rows(M)
+    kw = K // 32
+    m_tiles, n_tiles = -(-M // bm), -(-N // _TILE_COLS)
+    want = -(-4 * _SMS // (m_tiles * n_tiles))
+    ks = max(1, min(_CLUSTER, want, kw // _chunk_words(bm)))
+    ks = -(-kw // max(1, -(-kw // ks)))      # none of the splits empty
+    return {"bm": bm, "m_tiles": m_tiles, "n_tiles": n_tiles, "ks": ks,
+            "kw_per_split": -(-kw // ks), "chunk_words": _chunk_words(bm),
+            "terms": terms}
 
 
 def packed_matmul(x, packed_w, s_k=None, s_n=None, *, out_dtype=None):
@@ -195,29 +298,29 @@ def packed_matmul(x, packed_w, s_k=None, s_n=None, *, out_dtype=None):
     in_code, out_code = build.dtype_code(x), build.dtype_code(out)
     if M == 0 or N == 0:
         return out
-    bm = _rows_per_block(M)
-    m_tiles, n_tiles = -(-M // bm), -(-N // _PM_COLS)
-    if max(m_tiles, n_tiles) > _GRID_YZ_MAX:
+    plan = _plan_packed(M, K, N, _terms(x.dtype, out_dtype))
+    if max(plan["m_tiles"], plan["n_tiles"]) > _GRID_YZ_MAX:
         raise ValueError(f"{name}: ({M}, {N}) needs more than "
                          f"{_GRID_YZ_MAX} tiles along a grid axis")
-    ks = _k_split(m_tiles * n_tiles, KW)
     fn = build.library("packed_matmul").nq_packed_matmul
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     none = ctypes.c_void_p(None)
-    err = fn(build.ptr(x), build.ptr(packed_w), packed_w.stride(0),
-             none if s_k is None else build.ptr(s_k),
+    err = fn(build.ptr(_aligned(x)), build.ptr(packed_w), packed_w.stride(0),
+             none if s_k is None else build.ptr(_aligned(s_k)),
              none if s_n is None else build.ptr(s_n), build.ptr(out),
-             M, K, N, ks, bm, in_code, out_code,
+             M, K, N, plan["ks"], plan["bm"], in_code, out_code,
              build.current_stream(x.device))
     build.check_launch(name, err)
     packed_matmul.launches += 1
+    packed_matmul.plan = plan
     return out
 
 
 packed_matmul.launches = 0
+packed_matmul.plan = None                    # the last launch's plan
 
 
 def lowrank_binary_matmul_twocall(x, qv, qu_t, s1, s2):

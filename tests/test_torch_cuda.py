@@ -130,6 +130,100 @@ def test_packed_matmul_vs_plain(dev, dt, stage, m, k, n, view):
     assert binary_matmul.packed_matmul.launches == n0 + 3
 
 
+def _grouped_args(rng, dev, dt, G, m, K, R, N, shared, ranks):
+    x = torch.from_numpy(rng.standard_normal(
+        (1 if shared else G, m, K), np.float32)).to(dev, dt)
+    rmask = torch.stack([(torch.arange(R) < r).float() for r in ranks])
+    return (x, _words(rng, G, K // 32, R).to(dev),
+            _words(rng, G, R // 32, N).to(dev),
+            torch.from_numpy(rng.standard_normal((G, N), np.float32)
+                             / R ** 0.5).to(dev),
+            torch.from_numpy(rng.standard_normal((G, K), np.float32)
+                             / K ** 0.5).to(dev), rmask.to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("m", [1, 7, 9, 64])
+@pytest.mark.parametrize("shared,eff", [(True, None), (False, None),
+                                        (True, 96)])
+def test_grouped_matmul_edges(dev, dt, m, shared, eff):
+    """#1 at edge shapes: row counts on both sides of the 8-row decode
+    tile and a full prefill tile; N = 203, a multiple of neither 16 nor
+    4 (one-word copies); a merged group whose padded rank columns rmask
+    zeroes; an eff_rank view; per-group x. K is long enough for stage 1
+    to be split into K slices at decode."""
+    rng = np.random.default_rng(100 + m)
+    args = _grouped_args(rng, dev, dt, 3, m, 1024, 160, 203, shared,
+                         (160, 96, 64))
+    got = binary_matmul.fused_lowrank_matmul_grouped(*args, x_shared=shared,
+                                                     eff_rank=eff)
+    torch.cuda.synchronize()
+    want = binary_matmul.fused_lowrank_matmul_grouped_ref(
+        *args, x_shared=shared, eff_rank=eff)
+    _close(want, got, TOL[dt], f"grouped matmul M={m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+def test_grouped_matmul_is_deterministic(dev, dt):
+    """The K-slice partial sums are added in slice order, never by
+    atomics: two launches give bit-identical results."""
+    rng = np.random.default_rng(5)
+    args = _grouped_args(rng, dev, dt, 3, 4, 8192, 1024, 512, True,
+                         (1024, 864, 864))
+    a = binary_matmul.fused_lowrank_matmul_grouped(*args, x_shared=True)
+    assert binary_matmul.fused_lowrank_matmul_grouped.plan["slices"] > 1
+    b = binary_matmul.fused_lowrank_matmul_grouped(*args, x_shared=True)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_grouped_matmul_raises_when_cooperative_launch_refused(
+        dev, monkeypatch):
+    """A grid larger than the card holds at once is refused by the
+    cooperative launch; the wrapper raises and counts no launch."""
+    monkeypatch.setattr(binary_matmul, "_coresident_blocks",
+                        lambda *a: 1 << 20)
+    rng = np.random.default_rng(6)
+    args = _grouped_args(rng, dev, torch.float32, 3, 512, 256, 128, 8192,
+                         True, (128, 128, 128))
+    n0 = binary_matmul.fused_lowrank_matmul_grouped.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        binary_matmul.fused_lowrank_matmul_grouped(*args, x_shared=True)
+    assert binary_matmul.fused_lowrank_matmul_grouped.launches == n0
+    monkeypatch.undo()
+    got = binary_matmul.fused_lowrank_matmul_grouped(*args, x_shared=True)
+    _close(binary_matmul.fused_lowrank_matmul_grouped_ref(*args,
+                                                          x_shared=True),
+           got, TOL[torch.float32], "grouped matmul after a refused launch")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("m", [1, 7, 9, 64])
+def test_packed_matmul_edges(dev, dt, m):
+    """#4 at row counts on both sides of the decode tile, N = 203 (one-word
+    copies of the packed words), every result type it serves: x's, f32,
+    and bf16 from f32 x (the merged route's stage 2)."""
+    rng = np.random.default_rng(200 + m)
+    k, n = 2048, 203
+    x = torch.from_numpy(rng.standard_normal((m, k), np.float32)).to(dev, dt)
+    w = _words(rng, k // 32, n).to(dev)
+    sk = torch.from_numpy(rng.standard_normal(k, np.float32) / k ** 0.5
+                          ).to(dev)
+    sn = torch.from_numpy(rng.standard_normal(n, np.float32)).to(dev)
+    outs = [dt, torch.float32] + ([torch.bfloat16] if dt == torch.float32
+                                  else [])
+    for out_dt in outs:
+        got = binary_matmul.packed_matmul(x, w, sk, sn, out_dtype=out_dt)
+        torch.cuda.synchronize()
+        want = binary_matmul.packed_matmul_ref(x, w, sk, sn, out_dtype=out_dt)
+        assert got.dtype == out_dt
+        _close(want, got, TOL[out_dt], f"packed_matmul M={m} -> {out_dt}")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("window", [0, 20])
