@@ -15,11 +15,17 @@ Phases, each printing its own line(s); any failure exits non-zero:
    f32 and bf16, with the reference harness's tolerances (relative
    max-abs 1e-5 f32, 3e-2 bf16); device times (CUDA events, median of
    21) of the kernel, its plain version and one PyTorch call computing
-   the same function (a yardstick, never used by the port); for #1 and
-   #4 also the instruction their ±1 products run on, the launch plan and
-   the achieved share of the bound (operations counted at the 989 TFLOP/s
-   bf16 tensor rate the exact ±1 factors allow, in both dtypes; #2 and
-   #3 at the 67 TFLOP/s f32 rate of the CUDA cores they compute on);
+   the same function (a yardstick, never used by the port); the launch
+   plan and the achieved share of the bound: ±1 products (#1, #4 and
+   #3's projections) counted at the 989 TFLOP/s bf16 tensor rate the
+   exact ±1 factors allow, in both dtypes, attention arithmetic (#2 and
+   #3's walk) at the rate of the unit it runs on (bf16: the tensor cores;
+   f32: the 67 TFLOP/s of the CUDA cores);
+   for #1 and #4 also the instruction their ±1 products run on. #2 and
+   #3 again at 32 table entries per slot (2048 rows, data from their own
+   generator); #3 also with L2 flushed before each call (the engine
+   finds its weights cold) and beside the unfused chain it replaces at
+   the same inputs (#1 qkv, RoPE, #2, #1 wo; ``chain_ms``, a yardstick);
 4. llama3.2-1b engine — full-width, full-depth llama3.2-1b at 1.0 bpw
    with packed weights drawn from a seed, served by the
    continuous-batching engine (8 slots, max_len 256, 8 requests of
@@ -66,6 +72,8 @@ BF16_TC_FLOPS_S = 989e12       # H100 SXM bf16 tensor cores, dense: the rate
 TOL = {"f32": 1e-5, "bf16": 3e-2}
 LOGITS_TOL = 1e-4
 SLEEP_CYCLES = 20_000_000     # ~10 ms: holds the card while one timed call queues
+L2_FLUSH_BYTES = 64 << 20     # past the H100's 50 MB L2
+LONG_PAGES = 32               # table entries per slot of the long-context rows
 
 # (name, source, TPU kernel it replaces); the order of the kernels line
 KERNELS = (
@@ -162,7 +170,8 @@ def main():
             "shape": {k: rec[k] for k in rec if k in
                       ("model", "group", "stage", "G", "M", "K", "R", "N",
                        "B", "pages", "dtype")},
-            **{k: rec[k] for k in ("instruction", "plan", "bound_share")
+            **{k: rec[k] for k in ("instruction", "plan", "bound_share",
+                                   "chain_ms", "cold_l2_ms", "long_context")
                if k in rec}})
     report["kernels"] = kernels
     report["script_s"] = time.perf_counter() - t_start
@@ -236,14 +245,15 @@ def free():
     torch.cuda.empty_cache()
 
 
-def time_ms(fn, reps=21, warmup=3):
+def time_ms(fn, reps=21, warmup=3, flush=None):
     """Median device time of one fn() call over `reps` calls, in ms. Before
     each call the card is held busy (``torch.cuda._sleep``) until the host
     has enqueued the call and its pair of events, so the events bracket
     device work only and not the host's launch overhead. A sample whose
     enqueueing outlasted the sleep is retaken with a sleep twice as long.
     One call at a time: a longer queue fills the card's launch queue and
-    blocks the host."""
+    blocks the host. ``flush`` (a tensor) is overwritten on the card after
+    the sleep and before the first event, so each call finds L2 cold."""
     import torch
     for _ in range(warmup):
         fn()
@@ -254,6 +264,8 @@ def time_ms(fn, reps=21, warmup=3):
         start.record()
         torch.cuda._sleep(cycles)
         t0 = time.perf_counter()
+        if flush is not None:
+            flush.zero_()
         a.record()
         fn()
         b.record()
@@ -286,10 +298,12 @@ def compare(what, want, got, tol):
     return abs_err, rel
 
 
-def bound(bytes_moved, flops, flops_s=F32_FLOPS_S):
+def bound(bytes_moved, *work):
     """Least device time (ms) of a function that must move `bytes_moved`
-    and do `flops` at `flops_s`, and which of the two bounds it."""
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_S, flops / flops_s
+    and do the operations of `work`, (flops, the peak rate of the unit
+    they run on) pairs, and which of the two bounds it."""
+    t_bytes = bytes_moved / HBM_BYTES_S
+    t_ops = sum(flops / rate for flops, rate in work)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -354,6 +368,21 @@ def check_llama_kernels(model, report):
         rows.append(rec)
         if dt == "f32":
             line[MEGA] = rec
+    # long context: 32 entries per slot, from generators of their own so
+    # that the rows above see the same data as before these rows existed
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    for dt, tdt in _dtypes():
+        case = _paged_case(cfg, tdt, gen, B=8, pages=LONG_PAGES,
+                           seed=SEED + 4, min_mapped=LONG_PAGES // 2)
+        for i, rec in ((PAGED, _check_paged(case, cfg, dt, "llama3.2-1b")),
+                       (MEGA, _check_mega(case, lp, cfg, dt))):
+            rows.append(rec)
+            if dt == "f32":
+                line[i]["long_context"] = {
+                    k: rec[k] for k in rec if k in (
+                        "pages", "dtype", "ms", "plain_ms", "library_ms",
+                        "chain_ms", "cold_l2_ms", "bound_ms", "bound_by",
+                        "bound_share", "max_abs_err")}
     report["kernel_checks"] = rows
     return line
 
@@ -402,8 +431,8 @@ def check_fused(lp, names, ms, gen, model_name):
                               "rel_err": rel}, kern, plain, library)
                 w_bytes, flops = lowrank_cost(KW * 32, dims, m)
                 io = nbytes(x) + sum(m * n for _, n in dims) * x.element_size()
-                rec["bound_ms"], rec["bound_by"] = bound(w_bytes + io, flops,
-                                                         BF16_TC_FLOPS_S)
+                rec["bound_ms"], rec["bound_by"] = bound(
+                    w_bytes + io, (flops, BF16_TC_FLOPS_S))
                 _tensor_core_row(
                     rec, binary_matmul.fused_lowrank_matmul_grouped.plan)
                 rows.append(rec)
@@ -452,6 +481,12 @@ def check_qwen_kernels(model, report):
         rows.append(_check_paged(_paged_case(model.cfg, tdt, gen, B=4,
                                              pages=2),
                                  model.cfg, dt, "qwen1.5-110b"))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    for dt, tdt in _dtypes():               # long context, own generators
+        rows.append(_check_paged(
+            _paged_case(model.cfg, tdt, gen, B=4, pages=LONG_PAGES,
+                        seed=SEED + 5, min_mapped=LONG_PAGES // 2),
+            model.cfg, dt, "qwen1.5-110b"))
     report["qwen_kernel_checks"] = rows
     del lp
     free()
@@ -488,8 +523,8 @@ def _check_packed(stage, w, sk, sn, m, dt, tdt, gen):
     scale_bytes = 4 * (K if sk is not None else 0) + 4 * (N if sn is not None
                                                           else 0)
     io = nbytes(x) + m * N * x.element_size() + scale_bytes
-    rec["bound_ms"], rec["bound_by"] = bound(4 * KW * N + io, 2.0 * m * K * N,
-                                             BF16_TC_FLOPS_S)
+    rec["bound_ms"], rec["bound_by"] = bound(
+        4 * KW * N + io, (2.0 * m * K * N, BF16_TC_FLOPS_S))
     _tensor_core_row(rec, binary_matmul.packed_matmul.plan)
     log(f"kernel packed_matmul {stage:22s} M={m:<3d} {dt:4s} rel_err="
         f"{rel:.2e} ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
@@ -521,12 +556,15 @@ def _group(p):
             "rmask": torch.ones((1, p["qv"].shape[-1]), device="cuda")}
 
 
-def _paged_case(cfg, tdt, gen, B, pages):
+def _paged_case(cfg, tdt, gen, B, pages, seed=SEED + 1, min_mapped=1):
     """B slots over a pool of 64-row pages, `pages` per slot: ragged
-    tables (1..pages mapped), null-page padding, the last slot all-null."""
+    tables (min_mapped..pages mapped), null-page padding, the last slot
+    all-null. A case of another seed than the default draws its queries
+    and activations from `gen` too; the default's come from torch's
+    global generator, as they always have."""
     import numpy as np
     import torch
-    rng = np.random.default_rng(SEED + 1)
+    rng = np.random.default_rng(seed)
     PS = 64
     n_pages = B * pages + 1
     hkv, hd = cfg.n_kv_heads, cfg.head_dim
@@ -539,14 +577,28 @@ def _paged_case(cfg, tdt, gen, B, pages):
     pos = np.zeros(B, np.int32)
     used = 0
     for b in range(B - 1):
-        k = int(rng.integers(1, pages + 1))
+        k = int(rng.integers(min_mapped, pages + 1))
         bt[b, :k] = perm[used:used + k]
         used += k
         pos[b] = int(rng.integers((k - 1) * PS, k * PS))
     return {"k_pool": kp, "v_pool": vp,
             "block_table": torch.from_numpy(bt).cuda(),
             "pos": torch.from_numpy(pos).cuda(), "valid_rows": int(
-                (pos + 1).sum()), "B": B, "pages": pages}
+                (pos + 1).sum()), "B": B, "pages": pages,
+            "gen": None if seed == SEED + 1 else gen}
+
+
+def _walk_rate(dt):
+    """The peak rate of the unit the page walk's arithmetic runs on: the
+    tensor cores for a bf16 pool (at every shape these rows use: D 64 or
+    128, 4 or 8 query heads per kv head, 64-row pages), the CUDA cores in
+    f32."""
+    return BF16_TC_FLOPS_S if dt == "bf16" else F32_FLOPS_S
+
+
+def _randn(case, shape, dtype):
+    import torch
+    return torch.randn(shape, generator=case["gen"], device="cuda").to(dtype)
 
 
 def _check_paged(case, cfg, dt, model_name):
@@ -555,7 +607,7 @@ def _check_paged(case, cfg, dt, model_name):
     from repro_torch.kernels import paged_attention, ref
     B, hq, hkv, hd = case["B"], cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     kp, vp = case["k_pool"], case["v_pool"]
-    q = torch.randn((B, 1, hq, hd), device="cuda").to(kp.dtype)
+    q = _randn(case, (B, 1, hq, hd), kp.dtype)
     bt, pos = case["block_table"], case["pos"]
     scale = 1.0 / math.sqrt(hd)
     args = (q, kp, vp, bt, pos, pos)
@@ -585,20 +637,25 @@ def _check_paged(case, cfg, dt, model_name):
     kv_bytes = case["valid_rows"] * hkv * hd * 2 * kp.element_size()
     b = kv_bytes + 2 * nbytes(q) + nbytes(bt) + 2 * nbytes(pos)
     rec["bound_ms"], rec["bound_by"] = bound(
-        b, 4.0 * hq * hd * case["valid_rows"])
-    log(f"kernel paged_attention {model_name} B={B} D={hd} G={hq // hkv} "
-        f"{dt:4s} rel_err={rel:.2e} ms={rec['ms']:.4f} "
+        b, (4.0 * hq * hd * case["valid_rows"], _walk_rate(dt)))
+    rec.update(plan=dict(paged_attention.paged_decode_attention.plan),
+               bound_share=rec["bound_ms"] / rec["ms"])
+    log(f"kernel paged_attention {model_name} B={B} pages={bt.shape[1]} "
+        f"D={hd} G={hq // hkv} {dt:4s} rel_err={rel:.2e} ms={rec['ms']:.4f} "
         f"plain_ms={rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} "
-        f"bound_ms={rec['bound_ms']:.5f}")
+        f"bound_ms={rec['bound_ms']:.5f} ({100 * rec['bound_share']:.1f}% of "
+        f"it) splits={rec['plan']['splits']}")
     return rec
 
 
 def _check_mega(case, lp, cfg, dt):
     import torch
     from repro_torch.kernels import megakernel, ref
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import layers
     B, hd = case["B"], cfg.head_dim
     kp, vp = case["k_pool"], case["v_pool"]
-    x = torch.randn((B, cfg.d_model), device="cuda").to(kp.dtype)
+    x = _randn(case, (B, cfg.d_model), kp.dtype)
     mqkv, wo = lp["attn"]["wqkv"], lp["attn"]["wo"]
     bt, pos = case["block_table"], case["pos"]
     nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
@@ -611,14 +668,32 @@ def _check_mega(case, lp, cfg, dt):
 
     def plain():
         return ref.decode_step_ref(*args, **kw)
+
+    def chain():
+        """The unfused chain the kernel replaces, at the same inputs (the
+        engine's pool writes of the fresh k/v left out, as they are from
+        the kernel): #1 qkv, RoPE, #2, #1 wo."""
+        q, k, _ = layers.dense_merged(mqkv, x[:, None], (nq, nkv, nkv))
+        q = layers.apply_rope(q.reshape(B, 1, cfg.n_heads, hd), pos[:, None],
+                              cfg.rope_theta)
+        layers.apply_rope(k.reshape(B, 1, cfg.n_kv_heads, hd), pos[:, None],
+                          cfg.rope_theta)
+        o = kops.paged_attention(q, kp, vp, bt, pos, pos, scale=kw["scale"])
+        return layers.dense(wo, o.reshape(B, 1, nq))
     got, want = kern(), plain()
-    errs = [compare(f"megakernel {nm} {dt}", w, g, TOL[dt])
+    errs = [compare(f"megakernel pages={bt.shape[1]} {nm} {dt}", w, g,
+                    TOL[dt])
             for nm, w, g in zip(("y", "k_new", "v_new"), want, got)]
     abs_err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
     rec = _timed({"kernel": "decode_step_megakernel_raw",
                   "model": "llama3.2-1b", "B": B, "pages": bt.shape[1],
                   "dtype": dt, "max_abs_err": abs_err, "rel_err": rel},
                  kern, plain, None)
+    rec["plan"] = dict(megakernel.decode_step_megakernel_raw.plan)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    rec["cold_l2_ms"] = time_ms(kern, flush=flush)
+    rec["chain_ms"] = time_ms(chain)
+    del flush
     K, Ko = mqkv["qv"].shape[1] * 32, wo["qv"].shape[0] * 32
     qkv_bytes, qkv_flops = lowrank_cost(
         K, [_dims(lp, nm) for nm in ("wq", "wk", "wv")], B)
@@ -626,12 +701,17 @@ def _check_mega(case, lp, cfg, dt):
     kv_bytes = case["valid_rows"] * nkv * 2 * kp.element_size()
     io = (nbytes(x, bt, pos) + B * cfg.d_model * x.element_size()
           + B * 2 * nkv * kp.element_size())
-    flops = qkv_flops + wo_flops + 4.0 * cfg.n_heads * hd * case["valid_rows"]
     rec["bound_ms"], rec["bound_by"] = bound(
-        qkv_bytes + wo_bytes + kv_bytes + io, flops)
-    log(f"kernel megakernel B={B} {dt:4s} rel_err={rel:.2e} "
-        f"ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
-        f"bound_ms={rec['bound_ms']:.5f}")
+        qkv_bytes + wo_bytes + kv_bytes + io,
+        (qkv_flops + wo_flops, BF16_TC_FLOPS_S),
+        (4.0 * cfg.n_heads * hd * case["valid_rows"], _walk_rate(dt)))
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    log(f"kernel megakernel B={B} pages={bt.shape[1]} {dt:4s} rel_err="
+        f"{rel:.2e} ms={rec['ms']:.4f} cold_l2_ms={rec['cold_l2_ms']:.4f} "
+        f"chain_ms={rec['chain_ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+        f"bound_ms={rec['bound_ms']:.5f} ({rec['bound_by']}; "
+        f"{100 * rec['bound_share']:.1f}% of it) grid={rec['plan']['grid']} "
+        f"walk splits={rec['plan']['walk']['splits']}")
     return rec
 
 

@@ -30,13 +30,6 @@ __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
 }
 
-// x * (+1 if bit b of word is set else -1), exactly: a ±1 factor only
-// flips the sign bit, so the packed words never need unpacking to floats.
-__device__ __forceinline__ float signed_by(float x, uint32_t word, int b) {
-  const uint32_t flip = ((~word >> b) & 1u) << 31;
-  return __uint_as_float(__float_as_uint(x) ^ flip);
-}
-
 // Python's / jnp's floor-mod: C's % is negative for negative a.
 __device__ __forceinline__ int floor_mod(int a, int n) {
   const int r = a % n;

@@ -6,162 +6,177 @@
 // (n_pages, page_size, Hkv, D) K/V pools with an f32 online softmax. A
 // virtual row r of the slot's gathered pages last held absolute position
 // q_pos - floor_mod(cache_pos - r, rows); negative (never written) and,
-// with a window, out-of-window rows are masked with -1e30 (not -inf, so a
-// fully masked page gives exp(m_prev - m_new) = 0, never NaN). The null
-// page 0 that unmapped table entries point at masks out the same way.
+// with a window, out-of-window rows are masked, and so is the null page 0
+// that unmapped table entries point at.
 //
-// What bounds it on the H100: the bytes of the mapped K/V pages (and the
-// block table); the arithmetic is 4*G*D flops per row read, far below the
-// card's ridge. The TPU kernel DMA'd whole pages off a scalar-prefetched
-// block table; here a block loads its own table entries and stages one
-// (page_size x D) K and V tile per page in shared memory, rows padded to
-// D+1 floats so the per-row dot products are free of bank conflicts.
+// What bounds it on the H100: the bytes of the mapped K/V pages; the
+// arithmetic is 4*G*D flops per row read, far below the card's ridge. At
+// decode the pages of one slot are few, so the kernel is mostly latency:
+// the design spreads the walk and keeps copies in flight.
 //
-// Design: grid (Hkv, B), 256 threads: one block per (slot, kv head) holds
-// the G query heads of that kv head; scores for all (g, row) pairs of a
-// page, a warp per query head for the online-softmax update, and the
-// (G x D) accumulator in shared memory.
-#include "common.cuh"
+// Design: a thin kernel over the split page walk of paged_walk.cuh. One
+// block of 256 threads per work item (slot, kv head, split); the split
+// count comes from kernels/paged_attention.py::_plan_paged, so a decode
+// batch's items fill the card. Pages with no valid row are never loaded;
+// the others arrive by 16-byte cp.async through a two-page ring. A bf16
+// pool takes QK^T and PV on the tensor cores, f32 the CUDA cores. The
+// splits of a (slot, head), at most 8, are one thread block cluster: they
+// merge in split order through distributed shared memory, in the same
+// launch, with no round trip through device memory.
+#include <cooperative_groups.h>
+
+#include "paged_walk.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int THREADS = 256;
+using nq::walk::Smem;
+using nq::walk::Walk;
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
-                       const T* __restrict__ vpool,
-                       const int* __restrict__ block_table,
-                       const int* __restrict__ q_pos,
-                       const int* __restrict__ cache_pos, T* __restrict__ out,
-                       int pages, int PS, int Hkv, int G, int D, int window,
-                       float scale) {
-  extern __shared__ float smem[];
-  const int DP = D + 1;
-  float* qs = smem;                 // [G][D]
-  float* ks = qs + G * D;           // [PS][D+1]
-  float* vs = ks + PS * DP;         // [PS][D+1]
-  float* ss = vs + PS * DP;         // [G][PS] scores, then probabilities
-  float* ms = ss + G * PS;          // [G][PS] 1 = valid row
-  float* acc = ms + G * PS;         // [G][D]
-  float* m_run = acc + G * D;       // [G]
-  float* l_run = m_run + G;         // [G]
-  float* alpha = l_run + G;         // [G]
+constexpr int MAX_CLUSTER = 8;  // splits per (slot, head): the portable cluster
 
-  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5, n_warps = THREADS / 32;
-  const int Hq = Hkv * G;
-  const int rows = pages * PS;
-  const int qp = q_pos[b], cp = cache_pos[b];
-  const T* qb = q + ((size_t)b * Hq + (size_t)h * G) * D;
-
-  for (int i = tid; i < G * D; i += THREADS) {
-    qs[i] = nq::to_f32(qb[i]);
-    acc[i] = 0.f;
+template <typename T, bool TC>
+__global__ void __launch_bounds__(nq::walk::THREADS)
+paged_attention_kernel(const T* __restrict__ q, T* __restrict__ out, Walk w) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Smem sm(smem, w.G, w.D, w.PS, w.pages, sizeof(T));
+  const int split = blockIdx.x % w.splits, bh = blockIdx.x / w.splits;
+  const int b = bh / w.Hkv, h = bh % w.Hkv;
+  const int G = w.G, D = w.D, GD = G * D, S = w.splits, tid = threadIdx.x;
+  nq::walk::walk_begin<T>(w, sm, b, h, split);
+  const T* qb = q + (size_t)bh * GD;  // the G query heads of kv head h
+  for (int i = tid; i < GD; i += blockDim.x) sm.q[i] = nq::to_f32(qb[i]);
+  nq::walk::walk_run<T, TC>(w, sm, b, h);
+  T* ob = out + (size_t)bh * GD;
+  if (S == 1) {
+    for (int i = tid; i < GD; i += blockDim.x)
+      ob[i] = nq::from_f32<T>(sm.acc[i] / fmaxf(sm.l[i / D], 1e-30f));
+    return;
   }
-  for (int g = tid; g < G; g += THREADS) {
-    m_run[g] = -INFINITY;
-    l_run[g] = 0.f;
-  }
-
-  for (int p = 0; p < pages; ++p) {
-    const int page = block_table[(size_t)b * pages + p];
-    __syncthreads();  // previous page fully consumed
-    for (int i = tid; i < PS * D; i += THREADS) {
-      const int row = i / D, d = i % D;
-      const size_t src = (((size_t)page * PS + row) * Hkv + h) * D + d;
-      ks[row * DP + d] = nq::to_f32(kpool[src]);
-      vs[row * DP + d] = nq::to_f32(vpool[src]);
+  // the S splits of (b, h) are one cluster (rank = split): each block
+  // reads every split's (m, l) and writes its share of the output from
+  // every split's acc, all in split order
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  float* wt = sm.red;     // [S][G] the splits' weights
+  float* lt = sm.alpha;   // [G] the merged l
+  for (int g = tid; g < G; g += blockDim.x) {
+    float mt = -INFINITY;
+    for (int s = 0; s < S; ++s)
+      mt = fmaxf(mt, cluster.map_shared_rank(sm.m, s)[g]);
+    float l = 0.f;
+    for (int s = 0; s < S; ++s) {
+      const float ms = cluster.map_shared_rank(sm.m, s)[g];
+      const float wgt = ms == -INFINITY ? 0.f : expf(ms - mt);
+      wt[s * G + g] = wgt;
+      l += cluster.map_shared_rank(sm.l, s)[g] * wgt;
     }
-    __syncthreads();
-    for (int i = tid; i < G * PS; i += THREADS) {
-      const int g = i / PS, row = i % PS;
-      const int r = p * PS + row;
-      const int abs_pos = qp - nq::floor_mod(cp - r, rows);
-      const bool valid = abs_pos >= 0 && (window == 0 || abs_pos > qp - window);
-      float s = -1e30f;
-      if (valid) {
-        float dot = 0.f;
-        for (int d = 0; d < D; ++d) dot += qs[g * D + d] * ks[row * DP + d];
-        s = dot * scale;
-      }
-      ss[i] = s;
-      ms[i] = valid ? 1.f : 0.f;
-    }
-    __syncthreads();
-    for (int g = warp; g < G; g += n_warps) {
-      float mx = -INFINITY;
-      for (int row = lane; row < PS; row += 32) mx = fmaxf(mx, ss[g * PS + row]);
-      mx = nq::warp_max(mx);
-      const float m_prev = m_run[g];
-      const float m_new = fmaxf(m_prev, mx);
-      float psum = 0.f;
-      for (int row = lane; row < PS; row += 32) {
-        const int i = g * PS + row;
-        const float pe = ms[i] != 0.f ? expf(ss[i] - m_new) : 0.f;
-        ss[i] = pe;
-        psum += pe;
-      }
-      psum = nq::warp_sum(psum);
-      if (lane == 0) {
-        const float a = expf(m_prev - m_new);
-        alpha[g] = a;
-        l_run[g] = l_run[g] * a + psum;
-        m_run[g] = m_new;
-      }
-    }
-    __syncthreads();
-    for (int i = tid; i < G * D; i += THREADS) {
-      const int g = i / D, d = i % D;
-      float a = acc[i] * alpha[g];
-      for (int row = 0; row < PS; ++row) a += ss[g * PS + row] * vs[row * DP + d];
-      acc[i] = a;
-    }
+    lt[g] = l;
   }
   __syncthreads();
-  T* ob = out + ((size_t)b * Hq + (size_t)h * G) * D;
-  for (int i = tid; i < G * D; i += THREADS)
-    ob[i] = nq::from_f32<T>(acc[i] / fmaxf(l_run[i / D], 1e-30f));
+  for (int i = split * blockDim.x + tid; i < GD; i += S * blockDim.x) {
+    const int g = i / D;
+    float v = 0.f;
+    for (int s = 0; s < S; ++s)
+      v += wt[s * G + g] * cluster.map_shared_rank(sm.acc, s)[i];
+    ob[i] = nq::from_f32<T>(v / fmaxf(lt[g], 1e-30f));
+  }
+  cluster.sync();  // no block leaves while another still reads its memory
 }
 
-template <typename T>
-int launch(const void* q, const void* kpool, const void* vpool,
-           const void* block_table, const void* q_pos, const void* cache_pos,
-           void* out, int B, int pages, int PS, int Hkv, int G, int D,
-           int window, float scale, cudaStream_t stream) {
-  const size_t smem =
-      (size_t)(2 * G * D + 2 * PS * (D + 1) + 2 * G * PS + 3 * G) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(Hkv, B);
-  paged_attention_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kpool),
-      static_cast<const T*>(vpool), static_cast<const int*>(block_table),
-      static_cast<const int*>(q_pos), static_cast<const int*>(cache_pos),
-      static_cast<T*>(out), pages, PS, Hkv, G, D, window, scale);
+template <typename T, bool TC>
+int launch(const void* q, void* out, const Walk& w, int B,
+           cudaStream_t stream) {
+  const size_t smem = Smem(nullptr, w.G, w.D, w.PS, w.pages, sizeof(T)).bytes;
+  auto kernel = paged_attention_kernel<T, TC>;
+  static size_t sized = 0;  // the attribute covers every size up to this
+  if (smem > sized) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    sized = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((long long)B * w.Hkv * w.splits), 1, 1);
+  cfg.blockDim = dim3(nq::walk::THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = w.splits;  // a (slot, head)'s splits
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(q),
+                                       static_cast<T*>(out), w);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // a refused launch leaves no sticky error behind
+    return (int)err;
+  }
   return (int)cudaGetLastError();
+}
+
+template <typename T, bool TC>
+int clusters(const Walk& w, int* out) {
+  const size_t smem = Smem(nullptr, w.G, w.D, w.PS, w.pages, sizeof(T)).bytes;
+  auto kernel = paged_attention_kernel<T, TC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(w.splits * 1024, 1, 1);
+  cfg.blockDim = dim3(nq::walk::THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = w.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
 }
 
 }  // namespace
 
+// Clusters of `splits` blocks of the kernel for these shapes and dtype that
+// fit on the current device at once, into *out.
+extern "C" int nq_paged_attention_clusters(int G, int D, int PS, int pages,
+                                           int splits, int dtype, int* out) {
+  Walk w{};
+  w.G = G, w.D = D, w.PS = PS, w.pages = pages, w.splits = splits;
+  if (dtype == nq::kFloat32) return clusters<float, false>(w, out);
+  return nq::walk::tensor_walk(G, D, PS) ? clusters<__nv_bfloat16, true>(w, out)
+                                         : clusters<__nv_bfloat16, false>(w, out);
+}
+
 // q: (B, 1, Hkv*G, D); pools: (n_pages, PS, Hkv, D); block_table: (B, pages)
 // int32; q_pos, cache_pos: (B,) int32; out: (B, 1, Hkv*G, D). q, pools and
-// out share one dtype. Returns the cudaError_t of the launch.
+// out share one dtype (pools 16-byte aligned, D a multiple of 8). eps,
+// splits (at most 8): the plan (_plan_paged). Returns the cudaError_t of
+// the launch.
 extern "C" int nq_paged_attention(const void* q, const void* kpool,
                                   const void* vpool, const void* block_table,
                                   const void* q_pos, const void* cache_pos,
-                                  void* out, int B, int pages, int PS, int Hkv,
-                                  int G, int D, int window, float scale,
-                                  int dtype, void* stream) {
+                                  void* out, int B, int pages, int PS,
+                                  int Hkv, int G, int D, int window,
+                                  float scale, int eps, int splits, int dtype,
+                                  void* stream) {
+  Walk w{kpool, vpool, static_cast<const int*>(block_table),
+         static_cast<const int*>(q_pos), static_cast<const int*>(cache_pos),
+         nullptr, nullptr, pages, PS, Hkv, G, D, window, scale, eps, splits,
+         0};
+  if (D % 8 || G * D > 4 * nq::walk::MAX_ITEMS * nq::walk::THREADS ||
+      splits * G > 4 * nq::walk::THREADS || splits < 1 ||
+      splits > MAX_CLUSTER || eps < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == nq::kFloat32)
-    return launch<float>(q, kpool, vpool, block_table, q_pos, cache_pos, out,
-                         B, pages, PS, Hkv, G, D, window, scale, st);
+  if (dtype == nq::kFloat32) return launch<float, false>(q, out, w, B, st);
   if (dtype == nq::kBFloat16)
-    return launch<__nv_bfloat16>(q, kpool, vpool, block_table, q_pos,
-                                 cache_pos, out, B, pages, PS, Hkv, G, D,
-                                 window, scale, st);
+    return nq::walk::tensor_walk(G, D, PS)
+               ? launch<__nv_bfloat16, true>(q, out, w, B, st)
+               : launch<__nv_bfloat16, false>(q, out, w, B, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -84,16 +84,40 @@ def build_all(names: Sequence[str] = SOURCES) -> float:
     return time.perf_counter() - t0
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel source `name`, built on first use."""
+def library(name: str, signatures: Optional[Dict[str, list]] = None
+            ) -> ctypes.CDLL:
+    """The loaded library of kernel source `name`, built on first use.
+    ``signatures`` maps C function names to their ctypes ``argtypes``
+    (each returns a C int); they are set once, when the library loads."""
     lib = _loaded.get(name)
     if lib is None:
         path = library_path(name)
         if not path.exists():
             build_all((name,))
         lib = ctypes.CDLL(str(path))
+        for fn, argtypes in (signatures or {}).items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
         _loaded[name] = lib
     return lib
+
+
+_tickets: Dict[tuple, object] = {}
+
+
+def tickets(kernel: str, device, n: int):
+    """A zeroed int32 buffer of at least `n` counters for `kernel` on
+    `device`, kept across launches: a kernel that counts arrivals on a
+    ticket resets it to 0 before it ends, and a flag holds the number of
+    the launch that set it, so one zeroing serves every launch on the
+    device's stream. Grown (zeroed anew) when too small."""
+    import torch
+    key = (kernel, str(device))
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _tickets[key] = buf
+    return buf
 
 
 # ---------------------------------------------------------------------------

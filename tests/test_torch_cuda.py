@@ -227,21 +227,41 @@ def test_packed_matmul_edges(dev, dt, m):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", DTYPES)
 @pytest.mark.parametrize("window", [0, 20])
-def test_paged_attention_vs_plain(dev, dt, window):
-    args = _paged(np.random.default_rng(7), dev, dt)
+@pytest.mark.parametrize("B,pages", [(1, 1), (6, 4), (8, 4), (3, 32),
+                                     (8, 32)])
+def test_paged_attention_vs_plain(dev, dt, window, B, pages):
+    """The split walk at tables of 1, 4 and 32 entries (1 to 4 splits of
+    each (slot, head)), ragged, null-padded, the last slot all-null."""
+    args = _paged(np.random.default_rng(7 + pages), dev, dt, B=B,
+                  pages=pages)
+    n0 = paged_attention.paged_decode_attention.launches
     got = paged_attention.paged_decode_attention(*args, window=window,
                                                  scale=0.125)
+    torch.cuda.synchronize()
+    assert paged_attention.paged_decode_attention.launches == n0 + 1
     want = ref.paged_attention_ref(*args, window=window, scale=0.125)
     _close(want, got, TOL[dt], "paged attention")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", DTYPES)
-@pytest.mark.parametrize("ko_pad", [0, 32])
-def test_megakernel_vs_plain(dev, dt, ko_pad):
-    rng = np.random.default_rng(8 + ko_pad)
-    q, kp, vp, bt, pos, _ = _paged(rng, dev, dt, hq=8, hkv=2, D=32)
-    B, K, nq, nkv, R = q.shape[0], 256, 256, 64, 96
+def test_paged_attention_is_deterministic(dev, dt):
+    """The splits of a (slot, head), one thread block cluster, are merged
+    in split order, never by float atomics: three launches agree bit for
+    bit."""
+    args = _paged(np.random.default_rng(17), dev, dt, B=2, hq=32, hkv=8,
+                  PS=64, pages=32)
+    outs = [paged_attention.paged_decode_attention(*args, scale=0.125)
+            for _ in range(3)]
+    assert paged_attention.paged_decode_attention.plan["splits"] > 1
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
+def _mega_operands(rng, dev, dt, B, pages, ko_pad=0, D=32, PS=16):
+    q, kp, vp, bt, pos, _ = _paged(rng, dev, dt, B=B, hq=8, hkv=2, D=D,
+                                   PS=PS, pages=pages)
+    K, nq, nkv, R = 256, 8 * D, 2 * D, 96
     s1 = rng.standard_normal((3, nq), np.float32) / R ** 0.5
     s1[1:, nkv:] = 0.0
     mqkv = {"qv": _words(rng, 3, K // 32, R), "qu_t": _words(rng, 3, R // 32,
@@ -259,12 +279,67 @@ def test_megakernel_vs_plain(dev, dt, ko_pad):
     mqkv = {k: v.to(dev) for k, v in mqkv.items()}
     wo = {k: v.to(dev) for k, v in wo.items()}
     x = torch.from_numpy(rng.standard_normal((B, K), np.float32)).to(dev, dt)
-    kw = dict(head_dim=32, dims=(nq, nkv), theta=5e5, scale=32 ** -0.5)
-    args = (x, mqkv, wo, kp, vp, bt, pos, pos)
+    kw = dict(head_dim=D, dims=(nq, nkv), theta=5e5, scale=D ** -0.5)
+    return (x, mqkv, wo, kp, vp, bt, pos, pos), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("ko_pad", [0, 32])
+@pytest.mark.parametrize("B,pages,window", [(6, 4, 0), (1, 1, 0), (8, 4, 20),
+                                            (3, 32, 0), (8, 32, 40)])
+def test_megakernel_vs_plain(dev, dt, ko_pad, B, pages, window):
+    """#3 at tables of 1, 4 and 32 entries, with and without a window,
+    B from 1 to 8, the last slot all-null (its walk is empty once row
+    cache_pos is left out), and wo's K padded past nq."""
+    args, kw = _mega_operands(np.random.default_rng(8 + ko_pad + pages), dev,
+                              dt, B, pages, ko_pad)
+    n0 = megakernel.decode_step_megakernel_raw.launches
+    got = megakernel.decode_step_megakernel_raw(*args, window=window, **kw)
+    torch.cuda.synchronize()
+    assert megakernel.decode_step_megakernel_raw.launches == n0 + 1
+    want = ref.decode_step_ref(*args, window=window, **kw)
+    for nm, a, b in zip(("y", "k_new", "v_new"), want, got):
+        _close(a, b, TOL[dt], f"megakernel {nm}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+def test_megakernel_is_deterministic(dev, dt):
+    """K slices and walk splits are summed in order by the last to
+    arrive: two launches agree bit for bit, and a batch past 8 slots
+    runs 8 at a time."""
+    args, kw = _mega_operands(np.random.default_rng(18), dev, dt, 11, 32,
+                              D=64, PS=64)
+    n0 = megakernel.decode_step_megakernel_raw.launches
+    a = megakernel.decode_step_megakernel_raw(*args, **kw)
+    b = megakernel.decode_step_megakernel_raw(*args, **kw)
+    torch.cuda.synchronize()
+    assert megakernel.decode_step_megakernel_raw.launches == n0 + 4
+    assert megakernel.decode_step_megakernel_raw.plan["walk"]["splits"] > 1
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+    want = ref.decode_step_ref(*args, **kw)
+    for nm, u, v in zip(("y", "k_new", "v_new"), want, a):
+        _close(u, v, TOL[dt], f"megakernel B=11 {nm}")
+
+
+@pytest.mark.cuda
+def test_megakernel_raises_when_cooperative_launch_refused(dev, monkeypatch):
+    """A grid larger than the card holds at once is refused by the
+    cooperative launch; the wrapper raises and counts no launch."""
+    monkeypatch.setattr(megakernel, "_coresident_blocks", lambda *a: 1 << 20)
+    args, kw = _mega_operands(np.random.default_rng(19), dev, torch.float32,
+                              8, 64, D=64, PS=64)
+    n0 = megakernel.decode_step_megakernel_raw.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        megakernel.decode_step_megakernel_raw(*args, **kw)
+    assert megakernel.decode_step_megakernel_raw.launches == n0
+    monkeypatch.undo()
     got = megakernel.decode_step_megakernel_raw(*args, **kw)
     want = ref.decode_step_ref(*args, **kw)
     for nm, a, b in zip(("y", "k_new", "v_new"), want, got):
-        _close(a, b, TOL[dt], f"megakernel {nm}")
+        _close(a, b, TOL[torch.float32], f"megakernel after refusal {nm}")
 
 
 @pytest.mark.cuda
