@@ -26,30 +26,46 @@ Phases, each printing its own line(s); any failure exits non-zero:
    generator); #3 also with L2 flushed before each call (the engine
    finds its weights cold) and beside the unfused chain it replaces at
    the same inputs (#1 qkv, RoPE, #2, #1 wo; ``chain_ms``, a yardstick);
+   then the speculative path's shapes: #1's merged QKV at the verify's
+   M = 40, #3 on the draft view (eff_rank 480 of the QKV group's 992 and
+   of wo's 992), #2 as the verify reads it (5 queries per slot through
+   ``ops.paged_attention`` over a pool with stale rows past the
+   frontier);
 4. llama3.2-1b engine — full-width, full-depth llama3.2-1b at 1.0 bpw
    with packed weights drawn from a seed, served by the
    continuous-batching engine (8 slots, max_len 256, 8 requests of
-   17-200 prompt tokens and 32 new tokens, admitted mid-flight) on three
-   paths: ``megakernel``, ``unfused`` (megakernel off) and ``twocall``
+   17-200 prompt tokens and 32 new tokens, admitted mid-flight) on four
+   paths: ``megakernel``, ``unfused`` (megakernel off), ``twocall``
    (``KernelPolicy(fused=False)``: every packed linear through two
-   packed_matmul launches), each gated against the same engine on the
-   plain oracles (greedy tokens identical, or a divergence at a
-   plain-path top-2 logit margin below the logits tolerance); then a
-   bf16 run for tok/s and TTFT, and the same run under torch.profiler for
+   packed_matmul launches) and ``spec`` (self-speculative decoding, the
+   draft at half of every rank, k = 4, megakernel on), each gated against
+   the same engine on the plain oracles (``spec`` against ``megakernel``):
+   greedy tokens identical, or a divergence at a plain-path top-2 logit
+   margin below the logits tolerance; a speculative path must also have
+   rolled back drafted tokens and account for every one; then plain
+   against speculative decoding in bf16: plain, spec, plain, spec in this
+   process (the first plain run gives the ``bf16`` tok/s and TTFT), each
+   one's decode window under torch.profiler (device ms per committed
+   token by kernel), and the plain run once more under the profiler for
    the device's busy share;
 5. qwen1.5-110b kernels — kernel #4 (packed_matmul) at the four two-call
    stage shapes of the qwen1.5-110b MLP (rank 6976) at M in {1, 8, 64},
    plus an eff_rank view read in place; kernel #1 at its merged-QKV and
    wo shapes (rank 4064); kernel #2 at head_dim 128, 8 query heads per
-   kv head;
+   kv head; then the speculative path's shapes: #4's two launches of the
+   draft's gate (rank 3488 of 6976, read in place) at M = 4 and #1's
+   merged QKV at the verify's M = 20;
 6. qwen1.5-110b engine — full width and full depth (80 layers) at 1.0
    bpw, weights drawn on the card from the seed: 4 slots, max_len 128,
    4 requests of 16-64 prompt tokens and 16 new tokens, 2 admitted after
-   three steps. The f32 run is gated against the plain engine like the
-   llama paths; then a bf16 run (decode tok/s, TTFT, peak memory) and a
-   profile of its decode-only steps;
-7. the ``kernels`` JSON line (launches per serving path, each path's
-   counts set to 0 just before its f32 run), then the ``ok`` JSON line.
+   three steps, on the paths ``qwen1.5-110b`` and ``qwen1.5-110b-spec``.
+   The f32 runs are gated like the llama paths; then plain against
+   speculative decoding in bf16 as for llama (the first plain run gives
+   decode tok/s, TTFT and peak memory; the plain decode window's profile
+   is the ``bf16_decode_profile``);
+7. the seconds each phase took, the ``kernels`` JSON line (launches per
+   serving path, each path's counts set to 0 just before its f32 run),
+   then the ``ok`` JSON line.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -95,15 +111,29 @@ LLAMA = {"arch": "llama3.2-1b", "n": 8, "lens": (17, 201), "up_front": 5,
 QWEN = {"arch": "qwen1.5-110b", "n": 4, "lens": (16, 65), "up_front": 2,
         "after": 3, "new": 16, "max_batch": 4, "max_len": 128}
 
+# self-speculative decoding: the draft reads half of every packed rank
+SPEC = {"spec_rank_frac": 0.5, "spec_k": 4}
+
 # serving paths: (name, traffic, KernelPolicy fields, ServeConfig.megakernel,
-# kernels that must launch, kernels that must not)
+# speculative settings, the path whose tokens gate it (None: the engine on
+# the plain oracles), kernels that must launch, kernels that must not)
 PATHS = (
-    ("megakernel", LLAMA, {}, True, (FUSED, MEGA), ()),
-    ("unfused", LLAMA, {}, False, (FUSED, PAGED), ()),
-    ("twocall", LLAMA, {"fused": False}, None, (PACKED, PAGED),
+    ("megakernel", LLAMA, {}, True, None, None, (FUSED, MEGA), ()),
+    ("unfused", LLAMA, {}, False, None, None, (FUSED, PAGED), ()),
+    ("twocall", LLAMA, {"fused": False}, None, None, None, (PACKED, PAGED),
      (FUSED, MEGA)),
-    ("qwen1.5-110b", QWEN, {}, None, (FUSED, PAGED, PACKED), (MEGA,)),
+    ("spec", LLAMA, {}, True, SPEC, "megakernel", (FUSED, PAGED, MEGA), ()),
+    ("qwen1.5-110b", QWEN, {}, None, None, None, (FUSED, PAGED, PACKED),
+     (MEGA,)),
+    ("qwen1.5-110b-spec", QWEN, {}, None, SPEC, "qwen1.5-110b",
+     (FUSED, PAGED, PACKED), (MEGA,)),
 )
+
+# the kernels' names in a profiler trace, and the lm head's matmul
+TRACE_NAMES = ((FUSED, "fused_lowrank_kernel"),
+               (PAGED, "paged_attention_kernel"), (MEGA, "megakernel"),
+               (PACKED, "packed_matmul_kernel"))
+GEMM_NAMES = ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas")
 
 
 def log(msg):
@@ -127,33 +157,51 @@ def main():
     report = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda}
 
+    phases, t_phase = {}, [t_start]
+
+    def phase(name):                  # seconds of each phase, for the report
+        now = time.perf_counter()
+        phases[name] = now - t_phase[0]
+        t_phase[0] = now
+
     from repro_torch.kernels import build
     secs = build.build_all()
     log(f"build: {secs:.1f} s (nvcc, sm_90a, {len(build.SOURCES)} sources "
         f"in parallel)")
     report["build_s"] = secs
+    phase("build")
 
     launches = {}                     # path -> launches of each kernel
     llama = make_llama()
     lines = check_llama_kernels(llama, report)
-    report["llama3.2-1b"] = serve_paths(llama, LLAMA, PATHS[:3], launches)
+    phase("llama3.2-1b kernels")
+    report["llama3.2-1b"] = serve_paths(llama, LLAMA, launches)
+    phase("llama3.2-1b f32 engine paths")
     llama = cast(llama, torch.bfloat16)
-    report["llama3.2-1b"]["bf16"] = bf16_run(llama, LLAMA, report)
+    cmp = spec_compare(llama, LLAMA, report)
+    report["llama3.2-1b"]["spec_bf16"] = cmp
+    report["llama3.2-1b"]["bf16"] = cmp["runs"]["plain"][0]
     report["llama3.2-1b"]["bf16_profile"] = profile_engine(
         llama, LLAMA, report["llama3.2-1b"]["bf16"]["wall_s"])
     del llama
     free()
+    phase("llama3.2-1b bf16 runs and profiles")
 
     qwen = make_qwen()
     lines[PACKED] = check_qwen_kernels(qwen, report)
-    report["qwen1.5-110b"] = serve_paths(qwen, QWEN, PATHS[3:], launches)
+    phase("qwen1.5-110b kernels")
+    report["qwen1.5-110b"] = serve_paths(qwen, QWEN, launches)
+    phase("qwen1.5-110b f32 engine paths")
     qwen = cast(qwen, torch.bfloat16)
     free()
-    report["qwen1.5-110b"]["bf16"] = bf16_run(qwen, QWEN, report)
-    report["qwen1.5-110b"]["bf16_decode_profile"] = profile_decode(
-        qwen, QWEN, report["qwen1.5-110b"]["bf16"])
+    cmp = spec_compare(qwen, QWEN, report)
+    report["qwen1.5-110b"]["spec_bf16"] = cmp
+    report["qwen1.5-110b"]["bf16"] = cmp["runs"]["plain"][0]
+    report["qwen1.5-110b"]["bf16_decode_profile"] = cmp["decode_profile"][
+        "plain"]
     del qwen
     free()
+    phase("qwen1.5-110b bf16 runs and profiles")
 
     kernels = []
     for i, (name, source, replaces) in enumerate(KERNELS):
@@ -175,6 +223,8 @@ def main():
                if k in rec}})
     report["kernels"] = kernels
     report["script_s"] = time.perf_counter() - t_start
+    report["phase_s"] = phases
+    log("phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in phases.items()))
     log(f"script: {report['script_s']:.1f} s on {smi}")
 
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -384,7 +434,26 @@ def check_llama_kernels(model, report):
                         "chain_ms", "cold_l2_ms", "bound_ms", "bound_by",
                         "bound_share", "max_abs_err")}
     report["kernel_checks"] = rows
+    # the speculative path's shapes, from a generator of their own: #1's
+    # merged QKV at the verify's M = B·(k+1), #3 on the draft view, #2 as
+    # the verify reads it (k+1 queries over a pool with stale rows)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    s = SPEC["spec_k"] + 1
+    spec_rows = check_fused(lp, ("qkv",), (LLAMA["max_batch"] * s,), gen,
+                            "llama3.2-1b")
+    for dt, tdt in _dtypes():
+        case = _paged_case(cfg, tdt, gen, B=8, pages=4, seed=SEED + 6)
+        spec_rows.append(_check_mega(case, lp, cfg, dt, eff=(
+            _draft_rank(lp["attn"]["wqkv"]), _draft_rank(lp["attn"]["wo"]))))
+        spec_rows.append(_check_paged_verify(case, cfg, dt, s))
+    report["spec_kernel_checks"] = spec_rows
     return line
+
+
+def _draft_rank(p):
+    """The rank the draft reads of packed linear (or group) ``p``."""
+    from repro_torch.quant.surgery import truncated_rank
+    return truncated_rank(p["qv"].shape[-1], SPEC["spec_rank_frac"])
 
 
 def check_fused(lp, names, ms, gen, model_name):
@@ -488,6 +557,24 @@ def check_qwen_kernels(model, report):
                         seed=SEED + 5, min_mapped=LONG_PAGES // 2),
             model.cfg, dt, "qwen1.5-110b"))
     report["qwen_kernel_checks"] = rows
+    # the speculative path's shapes: #4's two launches of the draft's
+    # gate (rank 3488 of 6976, read in place) at M = B; #1's merged QKV at
+    # the verify's M = B·(k+1)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    p = lp["ffn"]["w_gate"]
+    rp = _draft_rank(p)
+    spec_rows = []
+    for stage, w, sk, sn in ((f"gate_up.1 eff_rank {rp}", p["qv"][:, :rp],
+                              p["s2"], None),
+                             (f"gate_up.2 eff_rank {rp}",
+                              p["qu_t"][:rp // 32], None, p["s1"])):
+        for dt, tdt in _dtypes():
+            spec_rows.append(_check_packed(stage, w, sk, sn,
+                                           QWEN["max_batch"], dt, tdt, gen))
+    spec_rows += check_fused(lp, ("qkv",),
+                             (QWEN["max_batch"] * (SPEC["spec_k"] + 1),), gen,
+                             "qwen1.5-110b")
+    report["spec_kernel_checks"] += spec_rows
     del lp
     free()
     return next(r for r in rows if r.get("stage") == "down.1"
@@ -543,10 +630,12 @@ def _tensor_core_row(rec, plan):
                bound_share=rec["bound_ms"] / rec["ms"])
 
 
-def _dims(lp, name):
-    """(rank, d_out) of layer ``lp``'s unmerged packed linear ``name``."""
+def _dims(lp, name, eff_rank=None):
+    """(rank, d_out) of layer ``lp``'s unmerged packed linear ``name``,
+    the rank capped at ``eff_rank`` when a view reads fewer columns."""
     p = (lp["attn"] if name in lp["attn"] else lp["ffn"])[name]
-    return int(p["qv"].shape[-1]), int(p["qu_t"].shape[-1])
+    r = int(p["qv"].shape[-1])
+    return min(r, eff_rank or r), int(p["qu_t"].shape[-1])
 
 
 def _group(p):
@@ -648,7 +737,68 @@ def _check_paged(case, cfg, dt, model_name):
     return rec
 
 
-def _check_mega(case, lp, cfg, dt):
+def _check_paged_verify(case, cfg, dt, S):
+    """#2 as the speculative verify reads it: S queries per slot through
+    ``ops.paged_attention`` (S launches at shifted positions) over the
+    case's pool, whose rows past each slot's frontier hold stale values;
+    each slot's first query is placed so that its S rows lie in its
+    mapped pages, and query j sees the rows of queries 0..j."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    B, hq, hkv, hd = case["B"], cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kp, vp, bt = case["k_pool"], case["v_pool"], case["block_table"]
+    PS = kp.shape[1]
+    room = ((bt != 0).sum(1) * PS - S).clamp(min=0)
+    pos = torch.minimum(case["pos"].long(), room).to(torch.int32)
+    q = _randn(case, (B, S, hq, hd), kp.dtype)
+    scale = 1.0 / math.sqrt(hd)
+    policy = kops.KernelPolicy(mode="cuda")
+
+    def kern():
+        return kops.paged_attention(q, kp, vp, bt, pos, pos, scale=scale,
+                                    policy=policy)
+
+    def plain():
+        return ref.paged_attention_ref(q, kp, vp, bt, pos, pos, scale=scale)
+    abs_err, rel = compare(f"paged_attention verify S={S} {dt}", plain(),
+                           kern(), TOL[dt])
+    # yardstick: SDPA over the pages gathered beforehand, each query's mask
+    rows = bt.shape[1] * PS
+    kg = kp[bt.long()].reshape(B, rows, hkv, hd).transpose(1, 2)
+    vg = vp[bt.long()].reshape(B, rows, hkv, hd).transpose(1, 2)
+    qpos = pos.long()[:, None] + torch.arange(S, device="cuda")
+    mask = (torch.arange(rows, device="cuda")[None, None, :]
+            <= qpos[:, :, None])[:, None]
+    qt = q.transpose(1, 2)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kg, vg, attn_mask=mask,
+                                              scale=scale, enable_gqa=True)
+    rec = _timed({"kernel": "paged_decode_attention", "model": "llama3.2-1b",
+                  "B": B, "S": S, "pages": bt.shape[1], "D": hd,
+                  "G": hq // hkv, "dtype": dt, "max_abs_err": abs_err,
+                  "rel_err": rel}, kern, plain, library)
+    p = pos.long().cpu()
+    read_rows = int((p + S).sum())                    # rows 0..pos+S-1
+    seen_rows = int(sum((p + j + 1).sum() for j in range(S)))
+    b = (read_rows * hkv * hd * 2 * kp.element_size() + 2 * nbytes(q)
+         + nbytes(bt) + 2 * nbytes(pos))
+    rec["bound_ms"], rec["bound_by"] = bound(
+        b, (4.0 * hq * hd * seen_rows, _walk_rate(dt)))
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    log(f"kernel paged_attention verify B={B} S={S} pages={bt.shape[1]} "
+        f"{dt:4s} rel_err={rel:.2e} ms={rec['ms']:.4f} plain_ms="
+        f"{rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} "
+        f"bound_ms={rec['bound_ms']:.5f} ({100 * rec['bound_share']:.1f}% "
+        f"of it; {S} launches)")
+    return rec
+
+
+def _check_mega(case, lp, cfg, dt, eff=None):
+    """#3 at the case's shape; ``eff`` = (eff_rank, eff_rank_o) reads the
+    draft view of the QKV group and of wo in place."""
     import torch
     from repro_torch.kernels import megakernel, ref
     from repro_torch.kernels import ops as kops
@@ -661,6 +811,9 @@ def _check_mega(case, lp, cfg, dt):
     nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
     kw = dict(dims=(nq, nkv), head_dim=hd, theta=cfg.rope_theta,
               scale=1.0 / math.sqrt(hd))
+    if eff is not None:
+        kw.update(eff_rank=eff[0], eff_rank_o=eff[1])
+        mqkv, wo = {**mqkv, "eff_rank": eff[0]}, {**wo, "eff_rank": eff[1]}
     args = (x, mqkv, wo, kp, vp, bt, pos, pos)
 
     def kern():
@@ -681,13 +834,14 @@ def _check_mega(case, lp, cfg, dt):
         o = kops.paged_attention(q, kp, vp, bt, pos, pos, scale=kw["scale"])
         return layers.dense(wo, o.reshape(B, 1, nq))
     got, want = kern(), plain()
-    errs = [compare(f"megakernel pages={bt.shape[1]} {nm} {dt}", w, g,
-                    TOL[dt])
+    errs = [compare(f"megakernel pages={bt.shape[1]} eff_rank={eff} {nm} "
+                    f"{dt}", w, g, TOL[dt])
             for nm, w, g in zip(("y", "k_new", "v_new"), want, got)]
     abs_err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
     rec = _timed({"kernel": "decode_step_megakernel_raw",
                   "model": "llama3.2-1b", "B": B, "pages": bt.shape[1],
-                  "dtype": dt, "max_abs_err": abs_err, "rel_err": rel},
+                  "dtype": dt, "max_abs_err": abs_err, "rel_err": rel,
+                  **({} if eff is None else {"eff_rank": list(eff)})},
                  kern, plain, None)
     rec["plan"] = dict(megakernel.decode_step_megakernel_raw.plan)
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
@@ -695,9 +849,10 @@ def _check_mega(case, lp, cfg, dt):
     rec["chain_ms"] = time_ms(chain)
     del flush
     K, Ko = mqkv["qv"].shape[1] * 32, wo["qv"].shape[0] * 32
+    e_qkv, e_o = eff if eff is not None else (None, None)
     qkv_bytes, qkv_flops = lowrank_cost(
-        K, [_dims(lp, nm) for nm in ("wq", "wk", "wv")], B)
-    wo_bytes, wo_flops = lowrank_cost(Ko, [_dims(lp, "wo")], B)
+        K, [_dims(lp, nm, e_qkv) for nm in ("wq", "wk", "wv")], B)
+    wo_bytes, wo_flops = lowrank_cost(Ko, [_dims(lp, "wo", e_o)], B)
     kv_bytes = case["valid_rows"] * nkv * 2 * kp.element_size()
     io = (nbytes(x, bt, pos) + B * cfg.d_model * x.element_size()
           + B * 2 * nkv * kp.element_size())
@@ -706,7 +861,8 @@ def _check_mega(case, lp, cfg, dt):
         (qkv_flops + wo_flops, BF16_TC_FLOPS_S),
         (4.0 * cfg.n_heads * hd * case["valid_rows"], _walk_rate(dt)))
     rec["bound_share"] = rec["bound_ms"] / rec["ms"]
-    log(f"kernel megakernel B={B} pages={bt.shape[1]} {dt:4s} rel_err="
+    log(f"kernel megakernel B={B} pages={bt.shape[1]} "
+        f"{'' if eff is None else f'eff_rank={eff} '}{dt:4s} rel_err="
         f"{rel:.2e} ms={rec['ms']:.4f} cold_l2_ms={rec['cold_l2_ms']:.4f} "
         f"chain_ms={rec['chain_ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
         f"bound_ms={rec['bound_ms']:.5f} ({rec['bound_by']}; "
@@ -728,12 +884,13 @@ def _requests(cfg, traffic):
             for n in lens]
 
 
-def _engine(model, traffic, policy, megakernel=None):
+def _engine(model, traffic, policy, megakernel=None, spec=None):
     from repro_torch.serve.engine import ServeConfig
     return model.engine(ServeConfig(greedy=True, page_size=64,
                                     megakernel=megakernel, debug=True),
                         max_batch=traffic["max_batch"],
-                        max_len=traffic["max_len"], policy=policy)
+                        max_len=traffic["max_len"], policy=policy,
+                        **(spec or {}))
 
 
 def _submit(eng, prompts, uids, traffic):
@@ -742,11 +899,11 @@ def _submit(eng, prompts, uids, traffic):
         eng.submit(Request(uid, prompts[uid], max_new_tokens=traffic["new"]))
 
 
-def serve(model, traffic, policy, megakernel=None):
+def serve(model, traffic, policy, megakernel=None, spec=None):
     """The traffic's requests: `up_front` submitted at once, the rest
-    after `after` engine steps (mid-flight admission). Returns (outputs,
-    engine, wall seconds)."""
-    eng = _engine(model, traffic, policy, megakernel)
+    after `after` engine steps (mid-flight admission); speculative with
+    `spec` (ServeConfig fields). Returns (outputs, engine, wall seconds)."""
+    eng = _engine(model, traffic, policy, megakernel, spec)
     prompts = _requests(model.cfg, traffic)
     n, k = traffic["n"], traffic["up_front"]
     t0 = time.perf_counter()
@@ -756,7 +913,8 @@ def serve(model, traffic, policy, megakernel=None):
     _submit(eng, prompts, range(k, n), traffic)
     done = eng.run()
     wall = time.perf_counter() - t0
-    if sorted(done) != list(range(n)) or eng.kv.used_pages != 0:
+    if sorted(done) != list(range(n)) or eng.kv.used_pages != 0 \
+            or eng.kv.tables["linear"].any():
         raise AssertionError("engine did not finish every request cleanly")
     for uid, r in done.items():
         if len(r.output) != traffic["new"]:
@@ -814,10 +972,11 @@ def _peak_gib():
     return torch.cuda.max_memory_allocated() / 2**30
 
 
-def serve_paths(model, traffic, paths, launches):
-    """The f32 engine on the plain oracles, then each serving path with
-    every launch count set to 0 just before its run; each path's tokens
-    are gated against the plain engine's and its launches checked."""
+def serve_paths(model, traffic, launches):
+    """The f32 engine on the plain oracles, then each serving path of the
+    traffic with every launch count set to 0 just before its run; each
+    path's tokens are gated against the plain engine's (a speculative
+    path's against its plain kernel path's) and its launches checked."""
     import torch
     from repro_torch.kernels.ops import KernelPolicy
     arch = traffic["arch"]
@@ -829,14 +988,18 @@ def serve_paths(model, traffic, paths, launches):
     log(f"engine {arch} f32 plain oracles: wall {ref_wall:.2f} s, peak "
         f"{res['ref_peak_gib']:.2f} GiB")
     counters = _counters()
-    for name, _, fields, mk, needed, forbidden in paths:
+    paths = [p for p in PATHS if p[1] is traffic]
+    outs = {}
+    for name, _, fields, mk, spec, versus, needed, forbidden in paths:
         torch.cuda.reset_peak_memory_stats()
         for c in counters:
             c.launches = 0
         got, eng, wall = serve(model, traffic,
-                               KernelPolicy(mode="cuda", **fields), mk)
+                               KernelPolicy(mode="cuda", **fields), mk, spec)
         launches[name] = [c.launches for c in counters]
+        outs[name] = got
         st = dict(eng.stats)
+        acceptance = eng.spec.acceptance_rate() if spec else None
         del eng
         free()
         log(f"engine path {name}: launches " + ", ".join(
@@ -848,27 +1011,45 @@ def serve_paths(model, traffic, paths, launches):
         stray = [KERNELS[i][0] for i in forbidden if launches[name][i]]
         if stray:
             raise AssertionError(f"engine path {name}: {stray} launched")
-        margin = gate(model, traffic, name, got, want)
+        margin = gate(model, traffic, name, got,
+                      want if versus is None else outs[versus])
         res[name] = {"wall_s": wall, "max_divergence_margin": margin,
                      "stats": st, "peak_gib": _peak_gib()}
-        log(f"engine {arch} f32 {name}: tokens match the plain path"
+        if spec:
+            # every drafted token is accepted or rolled back, and some
+            # are rolled back, so that trim ran on the card
+            if st["spec_draft_tokens"] != st["spec_accepted_tokens"] + \
+                    st["spec_rollback_tokens"] or \
+                    st["spec_rollback_tokens"] == 0:
+                raise AssertionError(f"engine path {name}: spec counters "
+                                     f"{st}")
+            res[name]["acceptance_rate"] = acceptance
+        log(f"engine {arch} f32 {name}: tokens match the "
+            + ("plain" if versus is None else versus) + " path"
             + ("" if margin is None else " up to near-ties")
             + f"; {st['tokens_emitted']} tokens, {st['decode_steps']} decode "
             f"steps, {st['preemptions']} preemptions, wall {wall:.2f} s, "
-            f"peak {res[name]['peak_gib']:.2f} GiB")
+            f"peak {res[name]['peak_gib']:.2f} GiB" + (
+                "" if not spec else
+                f"; acceptance {acceptance:.3f}, {st['spec_rollback_tokens']} "
+                f"tokens and {st['spec_rollback_pages']} pages rolled back"))
     res["launches_by_path"] = {p[0]: launches[p[0]] for p in paths}
     return res
 
 
-def bf16_run(model, traffic, report):
-    """The bf16 engine on the kernel path: decode tok/s (tokens emitted by
-    decode steps over their host wall time), TTFT and peak memory."""
+def bf16_run(model, traffic, report, spec=None):
+    """The bf16 engine on the kernel path (speculative with `spec`):
+    decode tok/s (tokens emitted by decode steps over their host wall
+    time), host ms per step (per cycle when speculative), TTFT and peak
+    memory; with `spec` also the acceptance rate and the tokens committed
+    per slot and cycle (a + 1 on average)."""
     import torch
     from repro_torch.kernels.ops import KernelPolicy
     torch.cuda.reset_peak_memory_stats()
-    _, eng, wall = serve(model, traffic, KernelPolicy(mode="cuda"))
+    _, eng, wall = serve(model, traffic, KernelPolicy(mode="cuda"), spec=spec)
     st = dict(eng.stats)
     ttft = sorted(h.ttft for h in eng.handles.values())
+    acceptance = eng.spec.acceptance_rate() if spec else None
     del eng
     free()
     decode_tokens = st["tokens_emitted"] - st["admissions"]
@@ -876,23 +1057,71 @@ def bf16_run(model, traffic, report):
            / st["decode_time_s"], "ttft_s": ttft, "stats": st,
            "peak_gib": _peak_gib(),
            "decode_step_ms": 1e3 * st["decode_time_s"] / st["decode_steps"]}
-    log(f"engine {traffic['arch']} bf16 on {report['device']}: decode "
-        f"{res['decode_tok_s']:.1f} tok/s ({res['decode_step_ms']:.1f} ms per "
-        f"step of {traffic['max_batch']} slots), TTFT median "
+    what = "step"
+    if spec:
+        slot_cycles = st["decode_steps"] * traffic["max_batch"] \
+            - st["wasted_slot_steps"]
+        res.update(acceptance_rate=acceptance,
+                   committed_per_slot_cycle=decode_tokens / slot_cycles)
+        what = (f"cycle; {res['committed_per_slot_cycle']:.2f} tokens "
+                f"committed per slot and cycle, acceptance {acceptance:.3f}")
+    log(f"engine {traffic['arch']} bf16{' spec' if spec else ''} on "
+        f"{report['device']}: decode {res['decode_tok_s']:.1f} tok/s "
+        f"({res['decode_step_ms']:.1f} ms per {what}; "
+        f"{traffic['max_batch']} slots), TTFT median "
         f"{ttft[len(ttft) // 2] * 1e3:.1f} ms (max {ttft[-1] * 1e3:.1f} ms), "
         f"peak {res['peak_gib']:.2f} GiB, wall {wall:.2f} s")
     return res
 
 
-def _device_kernels(prof):
+def spec_compare(model, traffic, report):
+    """bf16 plain decoding against speculative decoding on the kernel path,
+    in turns (plain, spec, plain, spec) in this one process, since host
+    time per step moves ±30% between processes; then the decode window of
+    each under the profiler: device ms per committed token by kernel."""
+    runs = {"plain": [], "spec": []}
+    for kind in ("plain", "spec", "plain", "spec"):
+        runs[kind].append(bf16_run(model, traffic, report,
+                                   SPEC if kind == "spec" else None))
+    prof = {kind: profile_decode(
+        model, traffic, [r["decode_step_ms"] for r in runs[kind]],
+        SPEC if kind == "spec" else None) for kind in runs}
+    return {"runs": runs, "decode_profile": prof}
+
+
+# The profiles record device activity only: every number read from them is
+# device time, and recording the host's ops as well made a profiled run of
+# small ops about 11x slower on the H100's host.
+
+
+def _device_events(prof):
     from torch.autograd import DeviceType
-    dev = sorted((e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA),
-                 key=lambda e: -e.self_device_time_total)
+    return sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)
+
+
+def _device_kernels(prof):
+    dev = _device_events(prof)
     busy_s = sum(e.self_device_time_total for e in dev) * 1e-6
     top = [{"kernel": e.key[:80], "calls": e.count,
             "device_ms": e.self_device_time_total * 1e-3} for e in dev[:10]]
     return busy_s, top
+
+
+def _by_kernel(prof):
+    """Device ms by kernel #1-#4, the lm head's matmul and every other
+    (small) PyTorch op."""
+    out = {KERNELS[i][0]: 0.0 for i in range(len(KERNELS))}
+    out.update({"lm_head": 0.0, "small_ops": 0.0})
+    for e in _device_events(prof):
+        name = next((KERNELS[i][0] for i, k in TRACE_NAMES if k in e.key),
+                    None)
+        if name is None:
+            name = "lm_head" if any(g in e.key.lower() for g in GEMM_NAMES) \
+                else "small_ops"
+        out[name] += e.self_device_time_total * 1e-3
+    return out
 
 
 def profile_engine(model, traffic, wall):
@@ -902,8 +1131,7 @@ def profile_engine(model, traffic, wall):
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.ops import KernelPolicy
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         serve(model, traffic, KernelPolicy(mode="cuda"))
         torch.cuda.synchronize()
     busy_s, top = _device_kernels(prof)
@@ -918,43 +1146,53 @@ def profile_engine(model, traffic, wall):
     return {"device_busy_s": busy_s, "wall_s": wall, "top": top}
 
 
-def profile_decode(model, traffic, bf16):
-    """The bf16 engine again, admitting every request unprofiled and then
-    profiling the decode-only steps that follow: device time per decode
-    step by kernel, against the unprofiled run's host time per step."""
+def profile_decode(model, traffic, host_ms, spec=None):
+    """The bf16 engine again (speculative with `spec`), admitting every
+    request unprofiled and then profiling the decode-only steps that
+    follow: device time per decode step (per cycle when speculative) and
+    per committed token, by kernel, beside ``host_ms``, the unprofiled
+    runs' host ms per step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.ops import KernelPolicy
-    eng = _engine(model, traffic, KernelPolicy(mode="cuda"))
+    eng = _engine(model, traffic, KernelPolicy(mode="cuda"), spec=spec)
     prompts = _requests(model.cfg, traffic)
     _submit(eng, prompts, range(traffic["n"]), traffic)
     while eng.scheduler.pending:
         eng.step()
     eng.step()                       # the first step with every slot filled
     torch.cuda.synchronize()
-    steps0 = eng.stats["decode_steps"]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
+    steps0, tokens0 = eng.stats["decode_steps"], eng.stats["tokens_emitted"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         while eng.in_flight:
             if eng.scheduler.pending:
                 raise AssertionError("an admission fell in the decode window")
             eng.step()
         torch.cuda.synchronize()
     steps = eng.stats["decode_steps"] - steps0
+    tokens = eng.stats["tokens_emitted"] - tokens0
+    acceptance = eng.spec.acceptance_rate() if spec else None
     del eng
     free()
     busy_s, top = _device_kernels(prof)
+    kind = "spec" if spec else "plain"
     if busy_s == 0 or steps == 0:
-        log("engine bf16 decode profile: device time not measured")
+        log(f"engine bf16 {kind} decode profile: device time not measured")
         return None
     per_step = 1e3 * busy_s / steps
-    log(f"engine {traffic['arch']} bf16 decode profile: {steps} steps, device "
-        f"busy {per_step:.2f} ms per step against {bf16['decode_step_ms']:.2f}"
-        f" ms of host time per step unprofiled; per step: " + "; ".join(
-            f"{t['kernel'][:40]} x{t['calls'] / steps:.0f} "
-            f"{t['device_ms'] / steps:.2f} ms" for t in top[:6]))
-    return {"decode_steps": steps, "device_ms_per_step": per_step,
-            "host_ms_per_step": bf16["decode_step_ms"],
+    by_kernel = {k: v / tokens for k, v in _by_kernel(prof).items()}
+    log(f"engine {traffic['arch']} bf16 {kind} decode profile: {steps} "
+        f"{'cycles' if spec else 'steps'}, {tokens} tokens committed, device "
+        f"busy {per_step:.2f} ms per {'cycle' if spec else 'step'} against "
+        f"{', '.join(f'{h:.2f}' for h in host_ms)} ms of host time "
+        f"unprofiled; {1e3 * busy_s / tokens:.3f} device ms per committed "
+        f"token: " + ", ".join(f"{k} {v:.3f}" for k, v in by_kernel.items()
+                               if v))
+    return {"decode_steps": steps, "committed_tokens": tokens,
+            "device_ms_per_step": per_step,
+            "device_ms_per_token": 1e3 * busy_s / tokens,
+            "by_kernel_ms_per_token": by_kernel, "host_ms_per_step": host_ms,
+            "acceptance_rate": acceptance,
             "top_per_step": [dict(t, calls=t["calls"] / steps,
                                   device_ms=t["device_ms"] / steps)
                              for t in top]}

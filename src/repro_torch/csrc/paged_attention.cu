@@ -85,18 +85,28 @@ paged_attention_kernel(const T* __restrict__ q, T* __restrict__ out, Walk w) {
   cluster.sync();  // no block leaves while another still reads its memory
 }
 
+// Raise the kernel's dynamic shared memory limit to at least `smem`. The
+// launch and the occupancy query share this one record, so that a query
+// for a smaller shape never lowers the limit under a larger shape's
+// launch.
+template <typename T, bool TC>
+cudaError_t size_smem(size_t smem) {
+  static size_t sized = 0;  // the attribute covers every size up to this
+  if (smem <= sized) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      paged_attention_kernel<T, TC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) sized = smem;
+  return err;
+}
+
 template <typename T, bool TC>
 int launch(const void* q, void* out, const Walk& w, int B,
            cudaStream_t stream) {
   const size_t smem = Smem(nullptr, w.G, w.D, w.PS, w.pages, sizeof(T)).bytes;
   auto kernel = paged_attention_kernel<T, TC>;
-  static size_t sized = 0;  // the attribute covers every size up to this
-  if (smem > sized) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    sized = smem;
-  }
+  cudaError_t err = size_smem<T, TC>(smem);
+  if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)((long long)B * w.Hkv * w.splits), 1, 1);
   cfg.blockDim = dim3(nq::walk::THREADS, 1, 1);
@@ -109,8 +119,8 @@ int launch(const void* q, void* out, const Walk& w, int B,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(q),
-                                       static_cast<T*>(out), w);
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(q),
+                           static_cast<T*>(out), w);
   if (err != cudaSuccess) {
     cudaGetLastError();  // a refused launch leaves no sticky error behind
     return (int)err;
@@ -122,8 +132,7 @@ template <typename T, bool TC>
 int clusters(const Walk& w, int* out) {
   const size_t smem = Smem(nullptr, w.G, w.D, w.PS, w.pages, sizeof(T)).bytes;
   auto kernel = paged_attention_kernel<T, TC>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = size_smem<T, TC>(smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(w.splits * 1024, 1, 1);

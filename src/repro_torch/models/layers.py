@@ -31,10 +31,12 @@ def silu(x):
 
 
 def dense(p: dict, x):
-    """FP or packed-binary linear. x: (..., d_in) -> (..., d_out)."""
+    """FP or packed-binary linear. x: (..., d_in) -> (..., d_out). A packed
+    dict of a draft view (``quant.surgery.rank_truncated_view``) carries
+    ``eff_rank``: the kernel then reads only the leading rank columns."""
     if "qu_t" in p:      # packed low-rank binary path (paper Eq. 1)
         y = kops.lowrank_binary_matmul(x, p["qv"], p["qu_t"], p["s1"],
-                                       p["s2"])
+                                       p["s2"], eff_rank=p.get("eff_rank"))
     else:
         y = x @ p["w"].to(x.dtype)
     if "b" in p:
@@ -47,7 +49,8 @@ def dense_merged(mp: dict, x, dims: Sequence[int]):
     ONE fused kernel launch instead of len(dims). `mp` is the merged group
     of ``quant.surgery.merge_projection_groups``; `dims` the true output
     widths. Per-projection biases behave as in :func:`dense`."""
-    ys = kops.lowrank_binary_matmul_merged(x, mp, dims)
+    ys = kops.lowrank_binary_matmul_merged(x, mp, dims,
+                                           eff_rank=mp.get("eff_rank"))
     if "b" in mp:
         ys = [y + mp["b"][i, :n].to(y.dtype)
               for i, (y, n) in enumerate(zip(ys, dims))]
@@ -155,7 +158,8 @@ def attention(p, cfg, x, positions, cache=None, cache_pos=None,
             block_table, positions[:, 0], cache_pos, head_dim=hd,
             dims=(cfg.n_heads * hd, cfg.n_kv_heads * hd),
             theta=cfg.rope_theta, scale=1.0 / math.sqrt(hd),
-            window=cfg.sliding_window)
+            window=cfg.sliding_window, eff_rank=p["wqkv"].get("eff_rank"),
+            eff_rank_o=p["wo"].get("eff_rank"))
         if mega is not None:
             y, k_new, v_new = mega
             paged_cache_write(cache["k"], k_new[:, None], block_table,

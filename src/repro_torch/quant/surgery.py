@@ -6,7 +6,9 @@
   a packed model of a published shape from a seed);
 - :func:`merge_projection_groups` — the merged QKV / gate-up operands
   the grouped kernel launches read (padded rank + ``rmask``, padded s1
-  columns set to 0).
+  columns set to 0);
+- :func:`rank_truncated_view` — the zero-copy rank-r' draft view that
+  self-speculative decoding reads (``serve.speculative``).
 
 The selection rule mirrors ``repro.core.layout.quantizable_linear``:
 every linear ``{"w": (d_in, d_out)}`` inside a transformer block whose
@@ -197,3 +199,47 @@ def merge_projection_groups(params):
         return out if changed else d
 
     return walk(params) if isinstance(params, dict) else params
+
+
+# ---------------------------------------------------------------------------
+# rank-truncated views (the self-speculative draft)
+# ---------------------------------------------------------------------------
+
+
+def truncated_rank(r: int, rank_frac: float, align: int = PACK_ALIGN) -> int:
+    """r' = frac·r rounded down to `align`, clamped to [align, r] (the
+    packed rank axis is consumed in 32-row bit-words, so r' must stay a
+    multiple of 32)."""
+    return min(int(r), max(align, int(int(r) * rank_frac) // align * align))
+
+
+def rank_truncated_view(params, rank_frac: float, align: int = PACK_ALIGN):
+    """Zero-copy draft view of a packed parameter tree: every packed
+    linear dict whose rank r gives r' = :func:`truncated_rank` < r is
+    copied shallowly and gains ``eff_rank = r'`` (a plain int); every
+    tensor in the view IS the tree's tensor. The layers pass ``eff_rank``
+    to the kernels, which read only the leading r' rank columns of qv and
+    the leading r'//32 packed rows of qu_t in place, so the truncated
+    forward is the full model with the trailing r − r' components zeroed.
+
+    Merged groups (``wqkv`` / ``wgu``) truncate their padded common rank,
+    so each member effectively keeps min(r_p, r'). Dicts and lists (the
+    engine's per-layer list) with nothing truncated below them are
+    returned as the same objects."""
+    if not (0.0 < rank_frac <= 1.0):
+        raise ValueError(f"rank_frac must be in (0, 1], got {rank_frac}")
+
+    def walk(node):
+        if isinstance(node, list):
+            out = [walk(v) for v in node]
+            return node if all(a is b for a, b in zip(out, node)) else out
+        if not isinstance(node, dict):
+            return node
+        if "qu_t" in node and "qv" in node:
+            r = int(node["qv"].shape[-1])
+            rp = truncated_rank(r, rank_frac, align)
+            return node if rp == r else {**node, "eff_rank": rp}
+        out = {k: walk(v) for k, v in node.items()}
+        return node if all(out[k] is v for k, v in node.items()) else out
+
+    return walk(params)

@@ -9,7 +9,8 @@ mid-flight: admission prefills the prompt alone, right-padded to a
 power-of-two bucket, and scatters its KV rows into the slot's pages. A
 pool that runs dry mid-decode preempts the cheapest slot, which is
 requeued and re-prefilled with prompt + emitted tokens (token-exact
-under greedy decoding).
+under greedy decoding). With ``ServeConfig(spec_rank_frac=...)`` the
+decode tick is a self-speculative cycle instead (``serve.speculative``).
 
     engine = InferenceEngine(params, cfg, ServeConfig(greedy=True))
     handle = engine.submit(Request(0, prompt), on_token=print)
@@ -29,7 +30,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.quant.surgery import merge_projection_groups
-from repro_torch.serve import paging
+from repro_torch.serve import paging, speculative
 from repro_torch.serve.scheduler import (Request, SlotScheduler,
                                          bucket_length,
                                          pick_preemption_victim)
@@ -37,11 +38,14 @@ from repro_torch.serve.scheduler import (Request, SlotScheduler,
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
-    """The JAX package's serving config, field for field. This slice of
-    the port serves the paged pool only (``paged=False`` raises);
-    ``prefix_cache=True`` serves unshared, which is token-identical by
-    construction; a non-None ``spec_rank_frac`` raises until speculative
-    decoding is ported."""
+    """The JAX package's serving config, field for field. The port serves
+    the paged pool only (``paged=False`` raises); ``prefix_cache=True``
+    serves unshared, which is token-identical by construction.
+    ``spec_rank_frac`` turns on self-speculative decoding
+    (``serve.speculative``): each tick drafts up to ``spec_k`` tokens
+    (no fewer than ``spec_k_min`` as the dynamic k shrinks) through the
+    rank-truncated view and verifies them in one full-rank step; it needs
+    ``greedy=True``."""
     temperature: float = 0.8
     top_k: int = 32
     max_new_tokens: int = 64
@@ -178,8 +182,7 @@ class InferenceEngine:
         self.device = resolve_device(device)
         self.scfg = scfg or ServeConfig()
         if self.scfg.spec_rank_frac is not None:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (spec_rank_frac)")
+            speculative.check_config(self.scfg)
         if not self.scfg.paged:
             raise NotImplementedError(
                 "the port decodes over the paged pool only (paged=True)")
@@ -214,6 +217,9 @@ class InferenceEngine:
         self.admission_step: Dict[int, int] = {}
         self.stats: Dict[str, Any] = {}
         self.reset_stats()
+        self.spec = None
+        if self.scfg.spec_rank_frac is not None:
+            self.spec = speculative.SpecDecodeController(self)
 
     # ---- submission -------------------------------------------------------
 
@@ -289,7 +295,10 @@ class InferenceEngine:
                                             int(self.active.sum()))
             if self.active.any():
                 t0 = time.monotonic()
-                self._decode_tick(finished)
+                if self.spec is not None:
+                    self.spec.tick(finished)
+                else:
+                    self._decode_tick(finished)
                 self.stats["decode_time_s"] += time.monotonic() - t0
         self.stats["steps"] += 1
         if self.scfg.debug:
@@ -324,10 +333,13 @@ class InferenceEngine:
     def reset_stats(self) -> None:
         for k in ("steps", "decode_steps", "wasted_slot_steps",
                   "tokens_emitted", "admissions", "preemptions",
-                  "page_waits", "peak_active", "preempt_recompute_tokens"):
+                  "page_waits", "peak_active", "preempt_recompute_tokens",
+                  "spec_cycles", "spec_draft_tokens", "spec_accepted_tokens",
+                  "spec_rollback_tokens", "spec_rollback_pages"):
             self.stats[k] = 0
-        # host wall-clock of the decode steps (tokens_emitted / this =
-        # decode tok/s; the step ends in a host read of the tokens)
+        # host wall-clock of the decode steps or speculative cycles
+        # (decode tok/s = decode-emitted tokens / this; each ends in a host
+        # read of the tokens); decode_steps counts a cycle as one step
         self.stats["decode_time_s"] = 0.0
 
     def _forget(self, uid: int) -> None:
@@ -412,9 +424,17 @@ class InferenceEngine:
         lone survivor progresses."""
         for slot in np.nonzero(self.active)[0]:
             slot = int(slot)
-            while self.active[slot] and not self.kv.ensure(
-                    slot, int(self.pos[slot])):
+            while self.active[slot] and not self._reserve_decode_rows(
+                    slot, int(self.pos[slot]) + 1):
                 self._preempt(self._select_victim())
+
+    def _reserve_decode_rows(self, slot: int, n_rows: int) -> bool:
+        """Make rows [0, n_rows) of `slot` writable: the plain tick
+        reserves pos + 1, the speculative cycle pos + k + 1. False => pool
+        dry; the caller preempts and retries (a retry is idempotent).
+        Pages are never shared here (the prefix cache serves unshared), so
+        no copy-on-write is needed."""
+        return self.kv.reserve_rows(slot, n_rows)
 
     def _select_victim(self) -> int:
         """The active slot whose resume re-prefills the fewest tokens

@@ -1,10 +1,11 @@
 """Paged KV cache: one pool of fixed-size KV pages plus per-slot block
-tables — the parts of ``repro.serve.paging`` the plain engine uses.
+tables — the parts of ``repro.serve.paging`` the engine uses.
 
 - :class:`PagedKVState` — host-side free-list allocator and block tables.
-  Pages are reserved at admission for the prompt (``admit``), lazily one
-  at a time as decode crosses a page boundary (``ensure``), and freed
-  when the slot completes or is preempted (``release``). Page 0 is the
+  Pages are reserved at admission for the prompt (``admit``), lazily as
+  decode crosses a page boundary (``ensure`` / ``reserve_rows``), given
+  back when a speculative cycle rejects drafted rows (``trim``), and
+  freed when the slot completes or is preempted (``release``). Page 0 is the
   *null page*: unmapped table entries point at it, so inactive slots'
   decode writes land in trash instead of in a neighbour's page.
 - :func:`init_paged_cache` — the device pool: the dense family's K/V
@@ -84,7 +85,8 @@ class PagedKVState:
     Pages [1, n_pages) are allocatable; page 0 is the null page. The
     default pool (``n_pages=None``) holds one worst-case slot footprint
     per slot (no overcommit). A smaller ``n_pages`` overcommits:
-    admission gates on free pages, decode reserves lazily (``ensure``)
+    admission gates on free pages, decode reserves lazily (``ensure``,
+    ``reserve_rows``)
     and the engine preempts a slot when the pool runs dry.
     """
 
@@ -157,7 +159,16 @@ class PagedKVState:
     def ensure(self, slot: int, row: int) -> bool:
         """Map the page that will hold cache row `row` (the next decode
         write). False => pool exhausted (the caller preempts)."""
-        need = row // self.page_size + 1
+        return self.reserve_rows(slot, row + 1)
+
+    def reserve_rows(self, slot: int, n_rows: int) -> bool:
+        """Map pages so rows ``[0, n_rows)`` of `slot` are writable; the
+        speculative cycle writes up to k+1 rows before the next host read,
+        so this may map several pages. False => pool exhausted with the
+        reservation partially applied: the caller preempts somebody and
+        retries (pages already mapped stay mapped, so a retry is
+        idempotent)."""
+        need = -(-n_rows // self.page_size)
         while self._mapped[slot] < need:
             if not self._free:
                 return False
@@ -168,12 +179,40 @@ class PagedKVState:
             self._device_tables = None
         return True
 
+    def trim(self, slot: int, n_rows: int) -> int:
+        """Rollback: unmap the pages past the one holding row
+        ``n_rows - 1`` (the last committed write), zero their table
+        entries and return them to the pool. Returns the count. The
+        rejected rows need no cleanup on the device: rows past the
+        committed frontier reconstruct to negative positions in the
+        decode mask and are never read (``kernels.ref.
+        paged_attention_ref``)."""
+        keep = -(-n_rows // self.page_size)
+        mapped = self._mapped[slot]
+        if keep >= mapped:
+            return 0
+        row = self.tables["linear"][slot]
+        dropped = [int(p) for p in row[keep:mapped]]
+        row[keep:mapped] = 0
+        for p in dropped:
+            self._slot_pages[slot].remove(p)
+        for p in reversed(dropped):
+            self._unref(p)
+        self._mapped[slot] = keep
+        self._device_tables = None
+        return len(dropped)
+
+    def _unref(self, page: int) -> None:
+        """Drop one mapping of `page`; the last one frees it."""
+        self.ref[page] -= 1
+        if self.ref[page] == 0:
+            self._free.append(page)
+
     def release(self, slot: int) -> None:
         """Return the slot's pages to the free list and zero its block
         table row (a later occupant can never read a stale mapping)."""
         for p in reversed(self._slot_pages[slot]):
-            self.ref[p] -= 1
-            self._free.append(p)
+            self._unref(p)
         self._slot_pages[slot] = []
         self._mapped[slot] = 0
         self.tables["linear"][slot] = 0

@@ -60,13 +60,14 @@ def jax_tree(tree):
             for k, v in tree.items()}
 
 
-def packed_model(cfg, seed: int, min_dim: int = 16):
-    """A packed dense model of `cfg`'s shape from a seed, as the numpy
-    tree both packages take (f32 FP leaves, uint32 words)."""
+def packed_model(cfg, seed: int, min_dim: int = 16, bpw: float = 1.0):
+    """A packed dense model of `cfg`'s shape at `bpw` bits per weight from
+    a seed, as the numpy tree both packages take (f32 FP leaves, uint32
+    words)."""
     from repro_torch.quant.surgery import abstract_quantized_params
     from repro_torch.testing import random_packed_params
     return random_packed_params(
-        abstract_quantized_params(cfg, 1.0, min_dim=min_dim), seed)
+        abstract_quantized_params(cfg, bpw, min_dim=min_dim), seed)
 
 
 def torch_params(tree):

@@ -258,6 +258,24 @@ def test_paged_attention_is_deterministic(dev, dt):
     assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+def test_paged_attention_after_a_smaller_shape(dev, dt):
+    """An occupancy query for a smaller shape, between two launches of a
+    larger one, must not lower the kernel's shared memory limit under the
+    larger launch (a launch then failed with an invalid-value error)."""
+    big = _paged(np.random.default_rng(50), dev, dt, B=2, hq=32, hkv=8,
+                 PS=64, pages=32)
+    small = _paged(np.random.default_rng(51), dev, dt, B=2, hq=4, hkv=2,
+                   D=16, PS=8, pages=3)
+    paged_attention._clusters_cache.clear()    # the small shape's query runs
+    for args in (big, small, big):
+        got = paged_attention.paged_decode_attention(*args, scale=0.125)
+        torch.cuda.synchronize()
+        _close(ref.paged_attention_ref(*args, scale=0.125), got, TOL[dt],
+               "paged attention after a smaller shape")
+
+
 def _mega_operands(rng, dev, dt, B, pages, ko_pad=0, D=32, PS=16):
     q, kp, vp, bt, pos, _ = _paged(rng, dev, dt, B=B, hq=8, hkv=2, D=D,
                                    PS=PS, pages=pages)
@@ -397,3 +415,82 @@ def test_engine_kernels_match_plain_engine(dev):
             np.testing.assert_array_equal(want[u], got[u])
     assert all(c.launches > b for c, b in zip(counters, before))
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("eff,eff_o", [(64, 32), (32, 64), (96, 64)])
+def test_megakernel_eff_rank_vs_plain(dev, dt, eff, eff_o):
+    """#3 on a draft view: the merged QKV read at its leading ``eff``
+    rank columns and wo at ``eff_o``, in place, against the oracle on the
+    same views."""
+    args, kw = _mega_operands(np.random.default_rng(30 + eff + eff_o), dev,
+                              dt, 8, 4)
+    n0 = megakernel.decode_step_megakernel_raw.launches
+    got = megakernel.decode_step_megakernel_raw(*args, eff_rank=eff,
+                                                eff_rank_o=eff_o, **kw)
+    torch.cuda.synchronize()
+    assert megakernel.decode_step_megakernel_raw.launches == n0 + 1
+    want = ref.decode_step_ref(*args, eff_rank=eff, eff_rank_o=eff_o, **kw)
+    for nm, a, b in zip(("y", "k_new", "v_new"), want, got):
+        _close(a, b, TOL[dt], f"megakernel eff_rank {nm}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("S", [3, 5])
+def test_multitoken_paged_read_vs_plain(dev, dt, S):
+    """The verify's read: S queries through ``ops.paged_attention`` (S
+    launches of #2 at shifted positions) over a pool whose rows past each
+    slot's frontier hold stale values, the S rows of the call written
+    first, so every query but the last sees rows a later query wrote."""
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(40 + S)
+    q, kp, vp, bt, pos, _ = _paged(rng, dev, dt, B=6, PS=16, pages=4)
+    q = torch.from_numpy(rng.standard_normal((6, S, 8, 64), np.float32)
+                         ).to(dev, dt)
+    # room for S rows in every mapped slot: first query at most rows - S
+    mapped = (bt != 0).sum(1).cpu().numpy()
+    p = np.minimum(pos.cpu().numpy(), np.maximum(mapped * 16 - S, 0))
+    p = torch.from_numpy(p.astype(np.int32)).to(dev)
+    n0 = paged_attention.paged_decode_attention.launches
+    got = ops.paged_attention(q, kp, vp, bt, p, p, scale=0.125,
+                              policy=KernelPolicy(mode="cuda"))
+    torch.cuda.synchronize()
+    assert paged_attention.paged_decode_attention.launches == n0 + S
+    want = ref.paged_attention_ref(q, kp, vp, bt, p, p, scale=0.125)
+    _close(want, got, TOL[dt], f"paged attention S={S}")
+
+
+@pytest.mark.cuda
+def test_spec_engine_matches_plain_engine(dev):
+    """The speculative engine on the card (draft through #3 at a reduced
+    rank, the S = 5 verify through #1 and #2's S launches, rollback)
+    emits the plain engine's greedy tokens (f32). Packed at 6 bits per
+    weight so that the smoke ranks leave room to truncate."""
+    cfg = dataclasses.replace(get_smoke("llama3.2-1b"), dtype="float32")
+    tree = random_packed_params(abstract_quantized_params(cfg, 6.0,
+                                                          min_dim=16), 0)
+    m = NanoQuantModel.from_numpy(tree, cfg, device=dev)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (5, 19, 9)]
+
+    def serve(frac):
+        eng = m.engine(ServeConfig(greedy=True, page_size=8), max_batch=2,
+                       max_len=48, spec_rank_frac=frac, spec_k=4,
+                       policy=KernelPolicy(mode="cuda"))
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid, p, max_new_tokens=12))
+        return {u: r.output for u, r in eng.run().items()}, eng.stats
+
+    want, _ = serve(None)
+    for frac in (0.5, 0.9, 1.0):
+        before = (megakernel.decode_step_megakernel_raw.launches,
+                  paged_attention.paged_decode_attention.launches)
+        got, st = serve(frac)
+        for u in want:
+            np.testing.assert_array_equal(want[u], got[u])
+        assert st["spec_cycles"] > 0 and st["spec_draft_tokens"] == \
+            st["spec_accepted_tokens"] + st["spec_rollback_tokens"]
+        assert megakernel.decode_step_megakernel_raw.launches > before[0]
+        assert paged_attention.paged_decode_attention.launches > before[1]

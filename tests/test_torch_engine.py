@@ -151,7 +151,10 @@ def test_submit_validation_and_unported_options(model):
     eng.submit(Request(0, np.ones(3, np.int32), max_new_tokens=2))
     with pytest.raises(ValueError, match="duplicate"):
         eng.submit(Request(0, np.ones(3, np.int32)))
-    with pytest.raises(NotImplementedError):
+    spec = InferenceEngine(tparams, cfg, ServeConfig(
+        greedy=True, spec_rank_frac=0.5), device="cpu")
+    assert spec.spec is not None and spec.spec.k == spec.scfg.spec_k
+    with pytest.raises(ValueError, match="greedy"):
         InferenceEngine(tparams, cfg, ServeConfig(spec_rank_frac=0.5),
                         device="cpu")
     with pytest.raises(NotImplementedError):
