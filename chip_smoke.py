@@ -47,7 +47,26 @@ Phases, each printing its own line(s); any failure exits non-zero:
    process (the first plain run gives the ``bf16`` tok/s and TTFT), each
    one's decode window under torch.profiler (device ms per committed
    token by kernel), and the plain run once more under the profiler for
-   the device's busy share;
+   the device's busy share. Then the prefix cache: the ``prefix`` path
+   (megakernel on) serves the ``PREFIX`` traffic (8 requests sharing a
+   128-token system prompt, two of them full covers, tails of 63 and 65
+   tokens among the others) and is gated against the plain-oracle engine
+   serving it without sharing (every path's oracle serves without
+   sharing); it must launch #1 (every linear), #2 (each hit's suffix
+   prefill, S single-query launches per layer) and #3 (decode and the
+   one-token re-prefill of a full cover), hit, copy on write at least
+   twice and share pages. ``prefix-pressure`` serves the same requests on
+   an overcommitted pool of 12 pages and must also evict cached pages and
+   preempt. In bf16 the cache is on, off, on, off in this process (TTFT,
+   host ms per admission, hit rate, copies on write, peak pages in use),
+   then the admissions alone under the profiler, once per setting (device
+   ms by kernel): over ``PREFIX``, and over ``GSP``, SGLang's
+   generated-shared-prefix mix cut to one group (16 requests of a
+   2048-token system prompt and a 128-token question, 32 new tokens);
+   then ``GSP`` on a pool of 64 pages with the cache on and off (slots
+   active at the peak, decode tok/s, TTFT). After every run the pool must
+   be drained: no page mapped, only the index's pages in use, all tables
+   zero, and nothing in use once the index is cleared;
 5. qwen1.5-110b kernels — kernel #4 (packed_matmul) at the four two-call
    stage shapes of the qwen1.5-110b MLP (rank 6976) at M in {1, 8, 64},
    plus an eff_rank view read in place; kernel #1 at its merged-QKV and
@@ -110,6 +129,32 @@ LLAMA = {"arch": "llama3.2-1b", "n": 8, "lens": (17, 201), "up_front": 5,
          "after": 8, "new": 32, "max_batch": 8, "max_len": 256}
 QWEN = {"arch": "qwen1.5-110b", "n": 4, "lens": (16, 65), "up_front": 2,
         "after": 3, "new": 16, "max_batch": 4, "max_len": 128}
+# prefix-cache traffic, made to drive the index's edge cases (no published
+# mix): one `system`-token prompt (2 pages) shared by all requests.
+# Request 0 is it plus 64 tokens (page-aligned), request 6 an exact copy of
+# request 0 (a full cover: its last page copied on write, one token
+# re-prefilled), request 7 the system prompt alone (a full cover of 2
+# pages); the other tails, 63 and 65 tokens among them (page off-by-ones),
+# come from a generator of their own, at most 96 tokens so that each
+# request has room for its 32 new tokens.
+PREFIX = {"arch": "llama3.2-1b", "n": 8, "system": 128, "up_front": 5,
+          "after": 8, "new": 32, "max_batch": 8, "max_len": 256,
+          "tails": (64, 63, 65), "tail_lens": (1, 97)}
+# the same requests on an overcommitted pool of 12 pages (31 in use at the
+# peak without sharing, 18 with it): admissions evict the index's unmapped
+# pages and decode preempts slots
+PREFIX_PRESSURE = dict(PREFIX, kv_pool_pages=12)
+# a published shared-prefix mix: the `generated-shared-prefix` dataset of
+# SGLang's python/sglang/bench_serving.py at its defaults (per group one
+# 2048-token system prompt, 16 prompts of it plus a 128-token question,
+# 256 output tokens; 64 groups), cut to one group and 32 output tokens:
+# 16 requests over 8 slots, max_len 2240 (35 pages). bf16 runs only.
+GSP = {"arch": "llama3.2-1b", "n": 16, "system": 2048, "question": 128,
+       "up_front": 8, "after": 8, "new": 32, "max_batch": 8,
+       "max_len": 2240}
+# GSP on a pool of 64 pages: one slot's 35 without sharing, all eight
+# slots' 56 with it
+GSP_TIGHT = dict(GSP, kv_pool_pages=64)
 
 # self-speculative decoding: the draft reads half of every packed rank
 SPEC = {"spec_rank_frac": 0.5, "spec_k": 4}
@@ -123,6 +168,10 @@ PATHS = (
     ("twocall", LLAMA, {"fused": False}, None, None, None, (PACKED, PAGED),
      (FUSED, MEGA)),
     ("spec", LLAMA, {}, True, SPEC, "megakernel", (FUSED, PAGED, MEGA), ()),
+    ("prefix", PREFIX, {}, True, None, None, (FUSED, PAGED, MEGA),
+     (PACKED,)),
+    ("prefix-pressure", PREFIX_PRESSURE, {}, True, None, None,
+     (FUSED, PAGED, MEGA), (PACKED,)),
     ("qwen1.5-110b", QWEN, {}, None, None, None, (FUSED, PAGED, PACKED),
      (MEGA,)),
     ("qwen1.5-110b-spec", QWEN, {}, None, SPEC, "qwen1.5-110b",
@@ -176,6 +225,9 @@ def main():
     lines = check_llama_kernels(llama, report)
     phase("llama3.2-1b kernels")
     report["llama3.2-1b"] = serve_paths(llama, LLAMA, launches)
+    report["llama3.2-1b-prefix"] = serve_paths(llama, PREFIX, launches)
+    report["llama3.2-1b-prefix-pressure"] = serve_paths(
+        llama, PREFIX_PRESSURE, launches)
     phase("llama3.2-1b f32 engine paths")
     llama = cast(llama, torch.bfloat16)
     cmp = spec_compare(llama, LLAMA, report)
@@ -183,9 +235,18 @@ def main():
     report["llama3.2-1b"]["bf16"] = cmp["runs"]["plain"][0]
     report["llama3.2-1b"]["bf16_profile"] = profile_engine(
         llama, LLAMA, report["llama3.2-1b"]["bf16"]["wall_s"])
+    phase("llama3.2-1b bf16 runs and profiles")
+    report["llama3.2-1b-prefix"]["bf16"] = prefix_compare(llama, PREFIX,
+                                                          report)
+    phase("llama3.2-1b bf16 prefix runs and profiles")
+    report["llama3.2-1b-gsp"] = {
+        "bf16": prefix_compare(llama, GSP, report),
+        "bf16_tight": {kind: prefix_run(llama, GSP_TIGHT, report,
+                                        kind == "on")
+                       for kind in ("on", "off")}}
     del llama
     free()
-    phase("llama3.2-1b bf16 runs and profiles")
+    phase("llama3.2-1b bf16 shared-prefix (SGLang mix) runs and profiles")
 
     qwen = make_qwen()
     lines[PACKED] = check_qwen_kernels(qwen, report)
@@ -878,16 +939,49 @@ def _check_mega(case, lp, cfg, dt, eff=None):
 
 def _requests(cfg, traffic):
     import numpy as np
+    if "question" in traffic:
+        return _gsp_requests(cfg, traffic)
+    if "system" in traffic:
+        return _prefix_requests(cfg, traffic)
     rng = np.random.default_rng(SEED + 2)
     lens = rng.integers(*traffic["lens"], size=traffic["n"])
     return [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int64)
             for n in lens]
 
 
-def _engine(model, traffic, policy, megakernel=None, spec=None):
+def _prefix_requests(cfg, traffic):
+    """The system prompt plus each request's tail (see ``PREFIX``)."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 8)
+    system = rng.integers(0, cfg.vocab_size, size=traffic["system"])
+    n_drawn = traffic["n"] - len(traffic["tails"]) - 2
+    tails = [rng.integers(0, cfg.vocab_size, size=int(n)) for n in
+             list(traffic["tails"])
+             + list(rng.integers(*traffic["tail_lens"], size=n_drawn))]
+    prompts = [np.concatenate([system, t]) for t in tails]
+    prompts += [prompts[0].copy(), system.copy()]
+    return [p.astype(np.int64) for p in prompts]
+
+
+def _gsp_requests(cfg, traffic):
+    """The system prompt plus a question of its own for each request (see
+    ``GSP``)."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 9)
+    system = rng.integers(0, cfg.vocab_size, size=traffic["system"])
+    return [np.concatenate([system, rng.integers(
+        0, cfg.vocab_size, size=traffic["question"])]).astype(np.int64)
+        for _ in range(traffic["n"])]
+
+
+def _engine(model, traffic, policy, megakernel=None, spec=None,
+            prefix_cache=True):
     from repro_torch.serve.engine import ServeConfig
     return model.engine(ServeConfig(greedy=True, page_size=64,
-                                    megakernel=megakernel, debug=True),
+                                    megakernel=megakernel, debug=True,
+                                    prefix_cache=prefix_cache,
+                                    kv_pool_pages=traffic.get(
+                                        "kv_pool_pages")),
                         max_batch=traffic["max_batch"],
                         max_len=traffic["max_len"], policy=policy,
                         **(spec or {}))
@@ -899,11 +993,18 @@ def _submit(eng, prompts, uids, traffic):
         eng.submit(Request(uid, prompts[uid], max_new_tokens=traffic["new"]))
 
 
-def serve(model, traffic, policy, megakernel=None, spec=None):
+def serve(model, traffic, policy, megakernel=None, spec=None,
+          prefix_cache=True, on_engine=None):
     """The traffic's requests: `up_front` submitted at once, the rest
     after `after` engine steps (mid-flight admission); speculative with
-    `spec` (ServeConfig fields). Returns (outputs, engine, wall seconds)."""
-    eng = _engine(model, traffic, policy, megakernel, spec)
+    `spec` (ServeConfig fields); `on_engine(eng)` runs before the first
+    submission. Checks the drained pool: no slot maps a page, only the
+    prefix index holds pages, every table row is zero, and clearing the
+    index empties the pool. Returns (outputs, engine, wall seconds, the
+    engine's stats before the clearing, with ``peak_used_pages``)."""
+    eng = _engine(model, traffic, policy, megakernel, spec, prefix_cache)
+    if on_engine is not None:
+        on_engine(eng)
     prompts = _requests(model.cfg, traffic)
     n, k = traffic["n"], traffic["up_front"]
     t0 = time.perf_counter()
@@ -913,13 +1014,21 @@ def serve(model, traffic, policy, megakernel=None, spec=None):
     _submit(eng, prompts, range(k, n), traffic)
     done = eng.run()
     wall = time.perf_counter() - t0
-    if sorted(done) != list(range(n)) or eng.kv.used_pages != 0 \
-            or eng.kv.tables["linear"].any():
+    kv = eng.kv
+    if sorted(done) != list(range(n)) or kv.ref.any() \
+            or kv.used_pages != kv.cached_page_count \
+            or kv.tables["linear"].any():
         raise AssertionError("engine did not finish every request cleanly")
     for uid, r in done.items():
         if len(r.output) != traffic["new"]:
             raise AssertionError(f"request {uid}: {len(r.output)} tokens")
-    return {u: r.output for u, r in done.items()}, eng, wall
+    st = dict(eng.stats, peak_used_pages=kv.peak_used_pages)
+    if eng.prefix is not None:
+        eng.prefix.clear()
+    if kv.used_pages:
+        raise AssertionError(f"{kv.used_pages} pages held after the prefix "
+                             f"index was cleared")
+    return {u: r.output for u, r in done.items()}, eng, wall, st
 
 
 def _margin(model, prompt, prefix):
@@ -973,20 +1082,22 @@ def _peak_gib():
 
 
 def serve_paths(model, traffic, launches):
-    """The f32 engine on the plain oracles, then each serving path of the
-    traffic with every launch count set to 0 just before its run; each
-    path's tokens are gated against the plain engine's (a speculative
-    path's against its plain kernel path's) and its launches checked."""
+    """The f32 engine on the plain oracles without prefix sharing, then
+    each serving path of the traffic with every launch count set to 0 just
+    before its run; each path's tokens are gated against the plain
+    engine's (a speculative path's against its plain kernel path's) and
+    its launches checked."""
     import torch
     from repro_torch.kernels.ops import KernelPolicy
     arch = traffic["arch"]
     torch.cuda.reset_peak_memory_stats()
-    want, eng, ref_wall = serve(model, traffic, KernelPolicy(mode="ref"))
+    want, eng, ref_wall, _ = serve(model, traffic, KernelPolicy(mode="ref"),
+                                   prefix_cache=False)
     del eng
     free()
     res = {"ref_wall_s": ref_wall, "ref_peak_gib": _peak_gib()}
-    log(f"engine {arch} f32 plain oracles: wall {ref_wall:.2f} s, peak "
-        f"{res['ref_peak_gib']:.2f} GiB")
+    log(f"engine {arch} f32 plain oracles, unshared: wall {ref_wall:.2f} "
+        f"s, peak {res['ref_peak_gib']:.2f} GiB")
     counters = _counters()
     paths = [p for p in PATHS if p[1] is traffic]
     outs = {}
@@ -994,11 +1105,11 @@ def serve_paths(model, traffic, launches):
         torch.cuda.reset_peak_memory_stats()
         for c in counters:
             c.launches = 0
-        got, eng, wall = serve(model, traffic,
-                               KernelPolicy(mode="cuda", **fields), mk, spec)
+        got, eng, wall, st = serve(model, traffic,
+                                   KernelPolicy(mode="cuda", **fields), mk,
+                                   spec)
         launches[name] = [c.launches for c in counters]
         outs[name] = got
-        st = dict(eng.stats)
         acceptance = eng.spec.acceptance_rate() if spec else None
         del eng
         free()
@@ -1024,6 +1135,16 @@ def serve_paths(model, traffic, launches):
                 raise AssertionError(f"engine path {name}: spec counters "
                                      f"{st}")
             res[name]["acceptance_rate"] = acceptance
+        if "system" in traffic and not (
+                st["prefix_hit_tokens"] > 0 and st["cow_copies"] >= 2
+                and st["shared_pages"] > 0):
+            raise AssertionError(f"engine path {name}: prefix counters "
+                                 f"{st}")
+        if "kv_pool_pages" in traffic and not (
+                st["evicted_pages"] > 0 and st["preemptions"] > 0):
+            raise AssertionError(f"engine path {name}: no eviction or no "
+                                 f"preemption on the overcommitted pool "
+                                 f"{st}")
         log(f"engine {arch} f32 {name}: tokens match the "
             + ("plain" if versus is None else versus) + " path"
             + ("" if margin is None else " up to near-ties")
@@ -1032,7 +1153,13 @@ def serve_paths(model, traffic, launches):
             f"peak {res[name]['peak_gib']:.2f} GiB" + (
                 "" if not spec else
                 f"; acceptance {acceptance:.3f}, {st['spec_rollback_tokens']} "
-                f"tokens and {st['spec_rollback_pages']} pages rolled back"))
+                f"tokens and {st['spec_rollback_pages']} pages rolled back")
+            + ("" if "system" not in traffic else
+               f"; {st['prefix_hit_tokens']} of "
+               f"{st['prefix_lookup_tokens']} prompt tokens hit, "
+               f"{st['cow_copies']} copies on write, "
+               f"{st['shared_pages']} pages shared at the peak, "
+               f"{st['evicted_pages']} evicted"))
     res["launches_by_path"] = {p[0]: launches[p[0]] for p in paths}
     return res
 
@@ -1046,8 +1173,8 @@ def bf16_run(model, traffic, report, spec=None):
     import torch
     from repro_torch.kernels.ops import KernelPolicy
     torch.cuda.reset_peak_memory_stats()
-    _, eng, wall = serve(model, traffic, KernelPolicy(mode="cuda"), spec=spec)
-    st = dict(eng.stats)
+    _, eng, wall, st = serve(model, traffic, KernelPolicy(mode="cuda"),
+                             spec=spec)
     ttft = sorted(h.ttft for h in eng.handles.values())
     acceptance = eng.spec.acceptance_rate() if spec else None
     del eng
@@ -1087,6 +1214,121 @@ def spec_compare(model, traffic, report):
         model, traffic, [r["decode_step_ms"] for r in runs[kind]],
         SPEC if kind == "spec" else None) for kind in runs}
     return {"runs": runs, "decode_profile": prof}
+
+
+def _time_admissions(eng, times):
+    """Record the host ms of each of `eng`'s admissions in `times`. An
+    admission ends in a host read of its first token, so this is its wall
+    time, device work included."""
+    admit = eng._admit
+
+    def timed(slot, item):
+        t0 = time.perf_counter()
+        try:
+            return admit(slot, item)
+        finally:
+            times.append(1e3 * (time.perf_counter() - t0))
+    eng._admit = timed
+
+
+def prefix_run(model, traffic, report, prefix_cache):
+    """The bf16 engine on the kernel path over a prefix traffic, with the
+    prefix cache on or off: TTFT, host ms per admission, the hit rate, the
+    copies on write, the pool's peak of pages in use, the most slots
+    active at once, evictions, preemptions and decode tok/s."""
+    import torch
+    from repro_torch.kernels.ops import KernelPolicy
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    _, eng, wall, st = serve(model, traffic, KernelPolicy(mode="cuda"),
+                             megakernel=True, prefix_cache=prefix_cache,
+                             on_engine=lambda e: _time_admissions(e, times))
+    ttft = sorted(h.ttft for h in eng.handles.values())
+    del eng
+    free()
+    hit = st["prefix_hit_tokens"] / st["prefix_lookup_tokens"] \
+        if st["prefix_lookup_tokens"] else 0.0
+    res = {"wall_s": wall, "ttft_s": ttft,
+           "ttft_median_ms": 1e3 * ttft[len(ttft) // 2],
+           "ttft_max_ms": 1e3 * ttft[-1], "admission_ms": times,
+           "admission_ms_mean": sum(times) / len(times), "hit_rate": hit,
+           "cow_copies": st["cow_copies"],
+           "shared_pages": st["shared_pages"],
+           "peak_used_pages": st["peak_used_pages"],
+           "peak_active": st["peak_active"],
+           "evicted_pages": st["evicted_pages"],
+           "preemptions": st["preemptions"],
+           "decode_tok_s": (st["tokens_emitted"] - st["admissions"])
+           / st["decode_time_s"], "stats": st, "peak_gib": _peak_gib()}
+    pool = traffic.get("kv_pool_pages")
+    log(f"engine {traffic['arch']} bf16 prefix cache "
+        f"{'on' if prefix_cache else 'off'}, {traffic['n']} requests of "
+        f"{traffic['system']}-token system prompt"
+        + ("" if pool is None else f", pool of {pool} pages")
+        + f" on {report['device']}: TTFT "
+        f"median {res['ttft_median_ms']:.1f} ms (max "
+        f"{res['ttft_max_ms']:.1f} ms), {res['admission_ms_mean']:.2f} ms "
+        f"per admission "
+        f"({', '.join(f'{t:.1f}' for t in times)}), hit rate {hit:.3f}, "
+        f"{st['cow_copies']} copies on write, {st['shared_pages']} pages "
+        f"shared at the peak, peak {st['peak_used_pages']} pages in use, "
+        f"{st['peak_active']} slots active at the peak, "
+        f"{st['evicted_pages']} pages evicted, {st['preemptions']} "
+        f"preemptions, decode {res['decode_tok_s']:.1f} tok/s, wall "
+        f"{wall:.2f} s")
+    return res
+
+
+def profile_admissions(model, traffic, prefix_cache):
+    """The traffic's admissions alone, under the profiler: every request
+    asks for one new token, so it finishes at its admission and no decode
+    step runs, while the prefix index sees the same prompts in the same
+    order. Device ms by kernel, the launches of #1-#3 and the host ms of
+    each admission."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.ops import KernelPolicy
+    counters = _counters()
+    before = [c.launches for c in counters]
+    times = []
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, eng, _, st = serve(model, dict(traffic, new=1),
+                              KernelPolicy(mode="cuda"), megakernel=True,
+                              prefix_cache=prefix_cache,
+                              on_engine=lambda e: _time_admissions(e,
+                                                                   times))
+        torch.cuda.synchronize()
+    del eng
+    free()
+    n_launch = {KERNELS[i][0]: c.launches - b
+                for i, (c, b) in enumerate(zip(counters, before))}
+    busy_s, _ = _device_kernels(prof)
+    if busy_s == 0:
+        log("engine bf16 admission profile: device time not measured")
+        return None
+    by_kernel = _by_kernel(prof)
+    log(f"engine {traffic['arch']} bf16 admissions, prefix cache "
+        f"{'on' if prefix_cache else 'off'}: {1e3 * busy_s:.2f} device ms "
+        f"for {len(times)} admissions ({sum(times):.1f} host ms), "
+        f"{st['prefix_hit_tokens']} tokens hit; by kernel: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in by_kernel.items() if v)
+        + "; launches: " + ", ".join(f"{k} {v}" for k, v in n_launch.items()
+                                     if v))
+    return {"device_ms": 1e3 * busy_s, "by_kernel_ms": by_kernel,
+            "launches": n_launch, "host_ms": times,
+            "prefix_hit_tokens": st["prefix_hit_tokens"]}
+
+
+def prefix_compare(model, traffic, report):
+    """bf16 serving with the prefix cache on and off, in turns (on, off,
+    on, off) in this one process, then one profiled window of the
+    admissions alone per setting."""
+    runs = {"on": [], "off": []}
+    for kind in ("on", "off", "on", "off"):
+        runs[kind].append(prefix_run(model, traffic, report, kind == "on"))
+    prof = {kind: profile_admissions(model, traffic, kind == "on")
+            for kind in runs}
+    return {"runs": runs, "admission_profile": prof}
 
 
 # The profiles record device activity only: every number read from them is

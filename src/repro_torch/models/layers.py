@@ -143,8 +143,9 @@ def attention(p, cfg, x, positions, cache=None, cache_pos=None,
     cache dict(k=(B, Smax, Hkv, D), v=...) and S > 1: prompt prefill at
     position 0 — the cache rows [0, S) are written and the prompt attends
     to itself. With ``block_table`` (B, pages): the cache is a paged pool
-    (k/v: (n_pages, page_size, Hkv, D)) and this is a decode at per-slot
-    rows ``cache_pos`` (B,), positions (B, S)."""
+    (k/v: (n_pages, page_size, Hkv, D)) and the S tokens (a decode, the
+    speculative verify or a prefix hit's suffix prefill) write and read
+    it at per-slot rows ``cache_pos`` (B,), positions (B, S)."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     if (cache is not None and block_table is not None and S == 1

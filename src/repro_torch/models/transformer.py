@@ -94,9 +94,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
 
 
 def _cached_forward(params, cfg, tokens, cache, pos, block_tables=None):
-    """Prefill (rectangular cache, pos 0) or paged decode (per-slot (B,)
-    pos and ``block_tables={"linear": (B, pages)}``). Writes the cache
-    in place; returns (hidden, cache)."""
+    """Prefill (rectangular cache, pos 0), or a paged decode, verify or
+    suffix prefill (per-slot (B,) pos and ``block_tables={"linear": (B,
+    pages)}``). Writes the cache in place; returns (hidden, cache)."""
     _check_family(cfg)
     x = embed_tokens(params, cfg, tokens)
     S = x.shape[1]
@@ -113,12 +113,38 @@ def _cached_forward(params, cfg, tokens, cache, pos, block_tables=None):
     return L.rms_norm(x, params["ln_f"], cfg.norm_eps), cache
 
 
-def prefill(params, cfg, tokens, cache, last_idx: Optional[int] = None):
-    """Process the prompt into a rectangular cache; returns (last-token
-    logits, cache). `last_idx`: the final real prompt token when
-    `tokens` is right-padded to a bucket (causality makes its logits
-    and the cache rows up to it identical to an unpadded prefill)."""
-    h, cache = _cached_forward(params, cfg, tokens, cache, 0)
+def _paged_forward(params, cfg, tokens, cache, pos, block_tables):
+    """The paged forward of a decode step, a verify and a suffix prefill:
+    every row goes through the slot's block table."""
+    if not block_tables:
+        raise ValueError("a paged forward (decode, verify, suffix "
+                         "prefill) runs over the pool: pass block_tables")
+    return _cached_forward(params, cfg, tokens, cache, pos,
+                           block_tables=block_tables)
+
+
+def prefill(params, cfg, tokens, cache, last_idx: Optional[int] = None,
+            start_pos=None, block_tables=None):
+    """Process the prompt; returns (logits at `last_idx`, cache).
+
+    Without `start_pos`: a full prefill into a rectangular cache at
+    position 0. `last_idx`: the final real prompt token when `tokens` is
+    right-padded to a bucket (causality makes its logits and the cache
+    rows up to it identical to an unpadded prefill); default the last.
+
+    With `start_pos` (B,) and ``block_tables={"linear": (B, pages)}``: the
+    **suffix prefill** of a prefix-cache hit. `cache` is the paged pool,
+    rows ``[0, start_pos)`` of each slot already hold the shared prefix's
+    KV, and `tokens` is only the uncached suffix: token j writes row
+    ``start_pos + j`` through the slot's table and attends to every
+    earlier row, the paged S > 1 route of the speculative verify. Rows
+    wrap modulo the table's rectangle, so `tokens` must end inside it: a
+    pad row past it would overwrite the shared prefix."""
+    if start_pos is None:
+        h, cache = _cached_forward(params, cfg, tokens, cache, 0)
+    else:
+        h, cache = _paged_forward(params, cfg, tokens, cache, start_pos,
+                                  block_tables)
     h = h[:, -1:] if last_idx is None else h[:, last_idx:last_idx + 1]
     return logits_fn(params, cfg, h), cache
 
@@ -127,9 +153,5 @@ def decode_step(params, cfg, token, cache, pos, block_tables=None):
     """One decode step over a paged pool: token (B, S) (S == 1 normally),
     pos (B,) per-slot positions, block_tables {"linear": (B, pages)}.
     Returns (logits (B, S, V), cache)."""
-    if not block_tables:
-        raise NotImplementedError("decode runs over the paged pool: pass "
-                                  "block_tables")
-    h, cache = _cached_forward(params, cfg, token, cache, pos,
-                               block_tables=block_tables)
+    h, cache = _paged_forward(params, cfg, token, cache, pos, block_tables)
     return logits_fn(params, cfg, h), cache

@@ -6,11 +6,15 @@ over one paged KV pool. Each slot carries its own position, budget and
 EOS state; one batched decode step advances every slot (inactive slots
 write to the null page and are ignored). Freed slots are refilled
 mid-flight: admission prefills the prompt alone, right-padded to a
-power-of-two bucket, and scatters its KV rows into the slot's pages. A
-pool that runs dry mid-decode preempts the cheapest slot, which is
-requeued and re-prefilled with prompt + emitted tokens (token-exact
-under greedy decoding). With ``ServeConfig(spec_rank_frac=...)`` the
-decode tick is a self-speculative cycle instead (``serve.speculative``).
+power-of-two bucket, and scatters its KV rows into the slot's pages. With
+the prefix cache (``serve.prefix``, on by default) an admission first maps
+the longest indexed prompt prefix's pages read-only and prefills only the
+suffix, straight into the pool; a write into a shared page copies it
+first. A pool that runs dry mid-decode evicts unmapped cached pages, then
+preempts the cheapest slot, which is requeued and re-prefilled with
+prompt + emitted tokens (token-exact under greedy decoding). With
+``ServeConfig(spec_rank_frac=...)`` the decode tick is a self-speculative
+cycle instead (``serve.speculative``).
 
     engine = InferenceEngine(params, cfg, ServeConfig(greedy=True))
     handle = engine.submit(Request(0, prompt), on_token=print)
@@ -31,6 +35,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.quant.surgery import merge_projection_groups
 from repro_torch.serve import paging, speculative
+from repro_torch.serve.prefix import PrefixCache
 from repro_torch.serve.scheduler import (Request, SlotScheduler,
                                          bucket_length,
                                          pick_preemption_victim)
@@ -39,8 +44,12 @@ from repro_torch.serve.scheduler import (Request, SlotScheduler,
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """The JAX package's serving config, field for field. The port serves
-    the paged pool only (``paged=False`` raises); ``prefix_cache=True``
-    serves unshared, which is token-identical by construction.
+    the paged pool only (``paged=False`` raises). ``prefix_cache=True``
+    shares prompt-prefix KV pages across requests (``serve.prefix``):
+    admission maps the longest cached prefix read-only and prefills only
+    the suffix, writes into shared pages copy on write, and cached pages
+    are evicted LRU at refcount zero under pool pressure; greedy outputs
+    stay token-identical to ``prefix_cache=False``.
     ``spec_rank_frac`` turns on self-speculative decoding
     (``serve.speculative``): each tick drafts up to ``spec_k`` tokens
     (no fewer than ``spec_k_min`` as the dynamic k shrinks) through the
@@ -217,6 +226,10 @@ class InferenceEngine:
         self.admission_step: Dict[int, int] = {}
         self.stats: Dict[str, Any] = {}
         self.reset_stats()
+        # the port serves the dense family, whose tables are linear only
+        # and whose KV is a function of the tokens: it always shares
+        self.prefix = (PrefixCache(self.kv, self.stats)
+                       if self.scfg.prefix_cache else None)
         self.spec = None
         if self.scfg.spec_rank_frac is not None:
             self.spec = speculative.SpecDecodeController(self)
@@ -275,7 +288,18 @@ class InferenceEngine:
         promised = [0]     # pages owed to earlier admissions of this batch
 
         def gate(item):
-            need = self.kv.pages_for_prompt(self._item_prompt(item).shape[0])
+            prompt = self._item_prompt(item)
+            n = prompt.shape[0]
+            need = self.kv.pages_for_prompt(n)
+            if self.prefix is not None:
+                # shared pages only bump refcounts; a full cover still pays
+                # one page, as its last row is copied on write. The chain is
+                # pinned before the check, so available_pages does not count
+                # it as evictable and a later admission of this batch
+                # cannot evict it before kv.admit refs it.
+                p, pages, keys = self.prefix.match(prompt)
+                need += (1 if p == n else 0) - len(pages)
+                self.prefix.protect(keys)
             # a preempted resume was admitted once; the watermark holds
             # back slack for fresh work only
             wm = 0 if isinstance(item, _Resume) else self.kv.watermark
@@ -291,6 +315,8 @@ class InferenceEngine:
                 fin = self._admit(slot, item)
                 if fin is not None:
                     finished.append(fin)
+            if self.prefix is not None:
+                self.prefix.unprotect_all()
             self.stats["peak_active"] = max(self.stats["peak_active"],
                                             int(self.active.sum()))
             if self.active.any():
@@ -315,9 +341,12 @@ class InferenceEngine:
         return dict(self.done)
 
     def check_invariants(self) -> None:
-        """Audit the page pool and the slot/task alignment; raises
-        ``paging.PageAccountingError`` on the first violation."""
+        """Audit the page pool, the prefix index and the slot/task
+        alignment; raises ``paging.PageAccountingError`` on the first
+        violation."""
         self.kv.check_invariants()
+        if self.prefix is not None:
+            self.prefix.check_invariants()
         for slot in range(self.max_batch):
             task = self._tasks[slot]
             if bool(self.active[slot]) != (task is not None):
@@ -335,7 +364,13 @@ class InferenceEngine:
                   "tokens_emitted", "admissions", "preemptions",
                   "page_waits", "peak_active", "preempt_recompute_tokens",
                   "spec_cycles", "spec_draft_tokens", "spec_accepted_tokens",
-                  "spec_rollback_tokens", "spec_rollback_pages"):
+                  "spec_rollback_tokens", "spec_rollback_pages",
+                  # prefix cache: hit / lookup tokens give the hit rate;
+                  # shared_pages is the peak of pages mapped by more than
+                  # one slot, cow_copies the copies on write, evicted_pages
+                  # the index's LRU evictions
+                  "prefix_hit_tokens", "prefix_lookup_tokens",
+                  "shared_pages", "cow_copies", "evicted_pages"):
             self.stats[k] = 0
         # host wall-clock of the decode steps or speculative cycles
         # (decode tok/s = decode-emitted tokens / this; each ends in a host
@@ -355,9 +390,11 @@ class InferenceEngine:
         return np.asarray(item.request.prompt, np.int64)
 
     def _admit(self, slot: int, item) -> Optional[Request]:
-        """Prefill `item`'s prompt alone (bucketed), scatter its KV rows
-        into `slot`'s fresh pages and emit its first token. Returns the
-        request if it finished at once."""
+        """Prefill `item`'s prompt into `slot` and emit its first token:
+        on a prefix hit only the suffix, straight into the pool
+        (:meth:`_admit_shared`); otherwise the whole prompt alone
+        (bucketed), its KV rows scattered into the slot's fresh pages.
+        Returns the request if it finished at once."""
         if isinstance(item, _Resume):
             handle, budget_cap, prior = item.handle, item.budget, item.emitted
             self.stats["preempt_recompute_tokens"] += int(item.prompt.shape[0])
@@ -366,17 +403,36 @@ class InferenceEngine:
             budget_cap = handle.request.max_new_tokens
         prompt = self._item_prompt(item)
         n = prompt.shape[0]
-        bucket = bucket_length(n, self.max_len)
-        padded = np.zeros((1, bucket), np.int64)
-        padded[0, :n] = prompt
-        single = T.init_cache(self.cfg, 1, self.max_len, self.device)
-        logits, single = T.prefill(
-            self.params, self.cfg, torch.from_numpy(padded).to(self.device),
-            single, last_idx=n - 1)
-        ids = self.kv.admit(slot, n)           # gated by admit_batch
-        paging.paged_insert_slot(
-            self.cache, single,
-            {k: torch.from_numpy(v).to(self.device) for k, v in ids.items()})
+        p, pages = 0, []
+        if self.prefix is not None:
+            # match afresh: an earlier admission of this batch may have
+            # registered chunks this prompt can share. The gate's chain is
+            # protected, so this covers at least what the gate counted.
+            p, pages, _ = self.prefix.match(prompt)
+            self.stats["prefix_lookup_tokens"] += int(n)
+            self.stats["prefix_hit_tokens"] += int(p)
+        if p > 0:
+            logits = self._admit_shared(slot, prompt, n, p, pages)
+        else:
+            bucket = bucket_length(n, self.max_len)
+            padded = np.zeros((1, bucket), np.int64)
+            padded[0, :n] = prompt
+            single = T.init_cache(self.cfg, 1, self.max_len, self.device)
+            logits, single = T.prefill(
+                self.params, self.cfg,
+                torch.from_numpy(padded).to(self.device), single,
+                last_idx=n - 1)
+            ids = self.kv.admit(slot, n)           # gated by admit_batch
+            paging.paged_insert_slot(
+                self.cache, single,
+                {k: torch.from_numpy(v).to(self.device)
+                 for k, v in ids.items()})
+        if self.prefix is not None and bool(torch.isfinite(logits).all()):
+            # non-finite logits mean suspect KV: a registered chunk would
+            # reach every later sharer of its page
+            self.prefix.register(prompt, n, self.kv.tables["linear"][slot])
+            self.stats["shared_pages"] = max(self.stats["shared_pages"],
+                                             self.kv.shared_page_count)
         tok = int(sample_token(logits, self.generator, self.scfg)[0, 0])
         task = _SlotTask(handle, budget=min(budget_cap, self.max_len - n),
                          toks=list(prior))
@@ -390,6 +446,28 @@ class InferenceEngine:
             self.active[slot] = True
             self.tokens[slot, 0] = tok
         return fin
+
+    def _admit_shared(self, slot: int, prompt: np.ndarray, n: int, p: int,
+                      pages: List[int]):
+        """Prefix-hit admission: map the `p` matched tokens' `pages`
+        read-only into `slot` and prefill only the suffix, at its exact
+        length, straight into the pool. A full cover (p == n) re-emits
+        from the last prompt token: its page is copied on write first and
+        one token is re-prefilled. Returns the next-token logits."""
+        self.kv.admit(slot, n, shared=pages)
+        start = n - 1 if p == n else p
+        if not self._cow_rows(slot, start, n):
+            raise paging.PageAccountingError(
+                "admission copy-on-write starved: the gate promised the page")
+        dev = self.device
+        suffix = torch.from_numpy(np.ascontiguousarray(prompt[start:])).to(dev)
+        table = torch.from_numpy(
+            self.kv.tables["linear"][slot:slot + 1].copy()).to(dev)
+        logits, self.cache = T.prefill(
+            self.params, self.cfg, suffix[None], self.cache,
+            start_pos=torch.tensor([start], device=dev),
+            block_tables={"linear": table})
+        return logits
 
     def _decode_tick(self, finished: List[Request]) -> None:
         """Reserve the next cache row of every active slot (preempting
@@ -429,20 +507,41 @@ class InferenceEngine:
                 self._preempt(self._select_victim())
 
     def _reserve_decode_rows(self, slot: int, n_rows: int) -> bool:
-        """Make rows [0, n_rows) of `slot` writable: the plain tick
-        reserves pos + 1, the speculative cycle pos + k + 1. False => pool
-        dry; the caller preempts and retries (a retry is idempotent).
-        Pages are never shared here (the prefix cache serves unshared), so
-        no copy-on-write is needed."""
-        return self.kv.reserve_rows(slot, n_rows)
+        """Make rows [pos, n_rows) of `slot` privately writable: map their
+        pages, then copy on write any the slot shares (with the index or
+        another slot). The plain tick reserves pos + 1, the speculative
+        cycle pos + k + 1. False => pool dry even after LRU eviction; the
+        caller preempts and retries (both steps are idempotent)."""
+        if not self.kv.reserve_rows(slot, n_rows):
+            return False
+        return self._cow_rows(slot, int(self.pos[slot]), n_rows)
+
+    def _cow_rows(self, slot: int, row0: int, row1: int) -> bool:
+        """Copy on write every shared page covering the coming writes to
+        rows [row0, row1) of `slot`. False => pool dry."""
+        while True:
+            idx = self.kv.next_shared_write_page(slot, row0, row1)
+            if idx is None:
+                return True
+            pair = self.kv.cow(slot, idx)
+            if pair is None:
+                return False
+            paging.copy_page(self.cache, *pair)
+            self.stats["cow_copies"] += 1
 
     def _select_victim(self) -> int:
-        """The active slot whose resume re-prefills the fewest tokens
-        (prompt + emitted); ties break youngest-first."""
+        """The active slot whose resume re-prefills the fewest tokens that
+        the prefix index does not already cover (prompt + emitted, less the
+        indexed prefix); ties break youngest-first."""
         cands = []
         for s in np.nonzero(self.active)[0]:
             task = self._tasks[int(s)]
-            cost = len(task.handle.request.prompt) + len(task.toks)
+            resume = np.concatenate(
+                [np.asarray(task.handle.request.prompt, np.int64),
+                 np.asarray(task.toks, np.int64)])
+            cost = resume.shape[0]
+            if self.prefix is not None:
+                cost -= self.prefix.match_len(resume)
             cands.append((int(s), cost,
                           self.admission_step.get(task.handle.uid, -1)))
         return pick_preemption_victim(cands)

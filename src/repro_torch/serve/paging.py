@@ -7,11 +7,14 @@ tables — the parts of ``repro.serve.paging`` the engine uses.
   back when a speculative cycle rejects drafted rows (``trim``), and
   freed when the slot completes or is preempted (``release``). Page 0 is the
   *null page*: unmapped table entries point at it, so inactive slots'
-  decode writes land in trash instead of in a neighbour's page.
+  decode writes land in trash instead of in a neighbour's page. Pages are
+  refcounted, so the prefix cache (``serve.prefix``) can map one page
+  into several slots and copy it on write (``cow``).
 - :func:`init_paged_cache` — the device pool: the dense family's K/V
   leaves become ``(n_layers, n_pages, page_size, Hkv, D)``.
 - :func:`paged_insert_slot` / :func:`paged_select_active` — the paged
-  twins of the scheduler's slot cache ops.
+  twins of the scheduler's slot cache ops; :func:`copy_page` — the
+  device side of a copy-on-write.
 
 Block tables are ordered by logical page, so a slot's gathered pages form
 a virtual rectangle whose row index equals the cache position — the
@@ -19,7 +22,7 @@ decode read is the rectangular decode mask over the gather.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +67,15 @@ def paged_insert_slot(cache, single, tables: Dict[str, torch.Tensor]):
     return cache
 
 
+def copy_page(cache, src: int, dst: int):
+    """Copy-on-write on the device: duplicate page `src` into page `dst`
+    across every layer of the k and v pools, in place. Returns `cache`."""
+    for name in _POOL_LEAVES:
+        pool = cache["layers"][name]
+        pool[:, dst] = pool[:, src]
+    return cache
+
+
 def paged_select_active(new, old, active):
     """Per-slot active select for a paged cache: pool leaves pass through
     (paged decode writes are slot-isolated by construction — inactive
@@ -85,9 +97,20 @@ class PagedKVState:
     Pages [1, n_pages) are allocatable; page 0 is the null page. The
     default pool (``n_pages=None``) holds one worst-case slot footprint
     per slot (no overcommit). A smaller ``n_pages`` overcommits:
-    admission gates on free pages, decode reserves lazily (``ensure``,
-    ``reserve_rows``)
-    and the engine preempts a slot when the pool runs dry.
+    admission gates on available pages, decode reserves lazily
+    (``ensure``, ``reserve_rows``) and the engine preempts a slot when
+    the pool runs dry.
+
+    Pages are **refcounted** (the prefix cache, ``serve.prefix``): ``ref``
+    counts slot block-table mappings and ``cached`` marks pages the prefix
+    index holds. ``admit`` can map already-filled shared pages
+    (``shared=``) read-only into a new slot, and a page returns to the
+    free list only when its last mapping drops *and* the index no longer
+    holds it: ``release`` and ``trim`` only ever decrement, so a page with
+    live sharers is never reused. Writes into a shared page go through
+    :meth:`cow` first (a fresh private copy, the table rewired). When the
+    free list runs short, ``reclaim_cb`` (the index's LRU eviction) runs
+    before an allocation fails.
     """
 
     def __init__(self, max_batch: int, max_len: int, page_size: int,
@@ -109,7 +132,16 @@ class PagedKVState:
         self._free = list(range(self.n_pages - 1, 0, -1))  # pop() ascending
         self._slot_pages: List[List[int]] = [[] for _ in range(max_batch)]
         self._mapped = [0] * max_batch        # linear pages mapped per slot
+        # ref = live slot mappings, cached = the prefix index holds the
+        # page; free <=> ref == 0 and not cached. The null page is neither.
         self.ref = np.zeros(self.n_pages, np.int32)
+        self.cached = np.zeros(self.n_pages, bool)
+        # wired by the prefix index: reclaim_cb(k) evicts up to k
+        # refcount-zero cached pages (LRU) to the free list; evictable_cb()
+        # counts how many it could (admission headroom)
+        self.reclaim_cb: Optional[Callable[[int], int]] = None
+        self.evictable_cb: Optional[Callable[[], int]] = None
+        self.peak_used_pages = 0
         self._device_tables: Optional[Dict[str, torch.Tensor]] = None
 
     # ---- accounting -------------------------------------------------------
@@ -124,31 +156,77 @@ class PagedKVState:
 
     @property
     def available_pages(self) -> int:
-        return len(self._free)
+        """Pages obtainable now: the free list plus the cached pages the
+        prefix index could evict on demand (refcount zero)."""
+        ev = self.evictable_cb() if self.evictable_cb is not None else 0
+        return len(self._free) + ev
+
+    @property
+    def shared_page_count(self) -> int:
+        """Pages mapped by more than one slot."""
+        return int((self.ref > 1).sum())
+
+    @property
+    def cached_page_count(self) -> int:
+        """Pages the prefix index holds."""
+        return int(self.cached.sum())
 
     def pages_for_prompt(self, n: int) -> int:
         return -(-n // self.page_size)
 
     # ---- lifecycle --------------------------------------------------------
 
+    def _ensure_free(self, k: int) -> bool:
+        """Grow the free list to >= k pages, evicting refcount-zero cached
+        pages through ``reclaim_cb`` if needed. False => the pool is dry
+        (every page is mapped or held by a live sharer)."""
+        if len(self._free) < k and self.reclaim_cb is not None:
+            self.reclaim_cb(k - len(self._free))
+        return len(self._free) >= k
+
     def _alloc(self, k: int) -> List[int]:
-        if len(self._free) < k:
+        if not self._ensure_free(k):
             raise PageAccountingError(
                 f"allocating {k} pages with {len(self._free)} free")
         out = [self._free.pop() for _ in range(k)]
         for p in out:
+            if self.ref[p] or self.cached[p]:
+                raise PageAccountingError(
+                    f"page {p} on the free list with live sharers")
             self.ref[p] = 1
+        self.peak_used_pages = max(self.peak_used_pages, self.used_pages)
         return out
 
-    def admit(self, slot: int, n: int) -> Dict[str, np.ndarray]:
+    def _unref(self, page: int) -> bool:
+        """Drop one mapping of `page`; True when that freed it (its last
+        mapping, and the index does not hold it)."""
+        self.ref[page] -= 1
+        if self.ref[page] < 0:
+            raise PageAccountingError(f"page {page} refcount underflow")
+        if self.ref[page] == 0 and not self.cached[page]:
+            self._free.append(page)
+            return True
+        return False
+
+    def admit(self, slot: int, n: int,
+              shared: Sequence[int] = ()) -> Dict[str, np.ndarray]:
         """Reserve pages for an `n`-token prompt entering `slot`; returns
         the slot's fresh block-table row per kind (for
-        :func:`paged_insert_slot`)."""
+        :func:`paged_insert_slot`).
+
+        shared: already-filled page ids (a prefix-index match) mapped
+        read-only as the slot's leading pages; only the suffix pages are
+        allocated. The refs are taken before any allocation, so a reclaim
+        that the allocation triggers cannot evict the pages being shared."""
         if self._slot_pages[slot]:
             raise PageAccountingError(f"slot {slot} pages leaked")
         self._device_tables = None
         k = self.pages_for_prompt(n)
-        pages = self._alloc(k)
+        if len(shared) > k:
+            raise ValueError("shared prefix longer than the prompt")
+        for p in shared:
+            self.ref[p] += 1
+        pages = list(shared) + self._alloc(k - len(shared))
         self._slot_pages[slot].extend(pages)
         self._mapped[slot] = k
         row = self.tables["linear"][slot]
@@ -162,15 +240,16 @@ class PagedKVState:
         return self.reserve_rows(slot, row + 1)
 
     def reserve_rows(self, slot: int, n_rows: int) -> bool:
-        """Map pages so rows ``[0, n_rows)`` of `slot` are writable; the
+        """Map pages so rows ``[0, n_rows)`` of `slot` are mapped; the
         speculative cycle writes up to k+1 rows before the next host read,
-        so this may map several pages. False => pool exhausted with the
-        reservation partially applied: the caller preempts somebody and
-        retries (pages already mapped stay mapped, so a retry is
-        idempotent)."""
+        so this may map several pages. False => pool exhausted even after
+        reclaim, with the reservation partially applied: the caller
+        preempts somebody and retries (pages already mapped stay mapped,
+        so a retry is idempotent). A mapped page may still be shared:
+        the engine copies it on write (:meth:`cow`)."""
         need = -(-n_rows // self.page_size)
         while self._mapped[slot] < need:
-            if not self._free:
+            if not self._ensure_free(1):
                 return False
             page = self._alloc(1)[0]
             self._slot_pages[slot].append(page)
@@ -181,12 +260,13 @@ class PagedKVState:
 
     def trim(self, slot: int, n_rows: int) -> int:
         """Rollback: unmap the pages past the one holding row
-        ``n_rows - 1`` (the last committed write), zero their table
-        entries and return them to the pool. Returns the count. The
-        rejected rows need no cleanup on the device: rows past the
-        committed frontier reconstruct to negative positions in the
-        decode mask and are never read (``kernels.ref.
-        paged_attention_ref``)."""
+        ``n_rows - 1`` (the last committed write) and zero their table
+        entries. Returns the count unmapped. Refcount-aware: a page
+        reaches the free list only if this slot held its last mapping and
+        the index does not hold it. The rejected rows need no cleanup on
+        the device: rows past the committed frontier reconstruct to
+        negative positions in the decode mask and are never read
+        (``kernels.ref.paged_attention_ref``)."""
         keep = -(-n_rows // self.page_size)
         mapped = self._mapped[slot]
         if keep >= mapped:
@@ -202,15 +282,10 @@ class PagedKVState:
         self._device_tables = None
         return len(dropped)
 
-    def _unref(self, page: int) -> None:
-        """Drop one mapping of `page`; the last one frees it."""
-        self.ref[page] -= 1
-        if self.ref[page] == 0:
-            self._free.append(page)
-
     def release(self, slot: int) -> None:
-        """Return the slot's pages to the free list and zero its block
-        table row (a later occupant can never read a stale mapping)."""
+        """Drop the slot's mappings and zero its block table row (a later
+        occupant can never read a stale mapping). Pages with other sharers
+        or held by the index survive; the others return to the free list."""
         for p in reversed(self._slot_pages[slot]):
             self._unref(p)
         self._slot_pages[slot] = []
@@ -219,20 +294,25 @@ class PagedKVState:
         self._device_tables = None
 
     def check_invariants(self) -> None:
-        """Audit the pool; raise :class:`PageAccountingError` on the
-        first violation: the free list holds distinct pages with no
-        mapping, every other page is mapped by exactly one slot, and each
-        slot's table row is a dense prefix of the pages it owns."""
+        """Audit the pool; raise :class:`PageAccountingError` on the first
+        violation. Checked: free <=> (ref == 0 and not cached); each ref
+        equals the number of slots mapping the page; table rows map only
+        pages their slot owns, each once, as a dense prefix of exactly
+        ``_mapped`` pages; no page is leaked."""
         def fail(msg: str):
             raise PageAccountingError(f"page accounting violated: {msg}")
 
         free = set(self._free)
         if len(free) != len(self._free):
             fail("duplicate pages on the free list")
-        if 0 in free or self.ref[0] != 0:
-            fail("null page on the free list or mapped")
+        if 0 in free:
+            fail("null page on the free list")
+        if self.ref[0] != 0 or self.cached[0]:
+            fail("null page acquired a reference")
         counts = np.zeros(self.n_pages, np.int64)
         for slot, pages in enumerate(self._slot_pages):
+            if len(set(pages)) != len(pages):
+                fail(f"slot {slot} maps a page twice")
             for p in pages:
                 if not 0 < p < self.n_pages:
                     fail(f"slot {slot} owns out-of-range page {p}")
@@ -240,19 +320,86 @@ class PagedKVState:
         for p in range(1, self.n_pages):
             if counts[p] != self.ref[p]:
                 fail(f"page {p}: ref={int(self.ref[p])} but "
-                     f"{int(counts[p])} mappings")
-            if counts[p] > 1:
-                fail(f"page {p} mapped by {int(counts[p])} slots")
-            if (p in free) == bool(counts[p]):
-                fail(f"page {p} is {'free and mapped' if counts[p] else 'leaked'}")
+                     f"{int(counts[p])} live mappings")
+            if p in free and (self.ref[p] != 0 or self.cached[p]):
+                fail(f"page {p} free with live sharers "
+                     f"(ref={int(self.ref[p])}, "
+                     f"cached={bool(self.cached[p])})")
+            if p not in free and self.ref[p] == 0 and not self.cached[p]:
+                fail(f"page {p} leaked (unreferenced, uncached, not on "
+                     f"the free list)")
         tab = self.tables["linear"]
         for slot in range(tab.shape[0]):
-            m = self._mapped[slot]
+            own = set(self._slot_pages[slot])
             row = tab[slot]
+            m = self._mapped[slot]
+            mapped = [int(p) for p in row if p != 0]
+            for p in mapped:
+                if p not in own:
+                    fail(f"slot {slot} table maps page {p} it does not own"
+                         + (" (freed)" if p in free else ""))
+            if len(set(mapped)) != len(mapped):
+                fail(f"slot {slot} table maps a page twice")
             if (row[:m] == 0).any() or (row[m:] != 0).any():
-                fail(f"slot {slot} linear row not a dense prefix of {m} pages")
-            if sorted(int(p) for p in row[:m]) != sorted(self._slot_pages[slot]):
-                fail(f"slot {slot} table maps pages it does not own")
+                fail(f"slot {slot} linear row not a dense prefix of {m} "
+                     f"pages")
+            if len(self._slot_pages[slot]) != m:
+                fail(f"slot {slot} owns {len(self._slot_pages[slot])} pages "
+                     f"but maps {m}")
+
+    # ---- prefix-cache sharing (serve.prefix) ------------------------------
+
+    def mark_cached(self, page: int) -> None:
+        """The prefix index now holds `page`: it stays off the free list
+        even at refcount zero, until :meth:`uncache`."""
+        if page == 0 or self.ref[page] <= 0:
+            raise PageAccountingError(
+                f"page {page} must be live when the index adopts it")
+        self.cached[page] = True
+
+    def uncache(self, page: int) -> bool:
+        """The index drops `page`; True when that freed it (refcount was
+        already zero)."""
+        if not self.cached[page]:
+            raise PageAccountingError(f"page {page} not index-held")
+        self.cached[page] = False
+        if self.ref[page] == 0:
+            self._free.append(page)
+            return True
+        return False
+
+    def next_shared_write_page(self, slot: int, row0: int,
+                               row1: int) -> Optional[int]:
+        """First logical page covering rows [row0, row1) that `slot`
+        cannot write privately (shared with another slot or held by the
+        index); None when the whole range is private."""
+        if row0 >= row1:
+            return None
+        row = self.tables["linear"][slot]
+        for i in range(row0 // self.page_size, -(-row1 // self.page_size)):
+            p = int(row[i])
+            if p and (self.ref[p] > 1 or self.cached[p]):
+                return i
+        return None
+
+    def cow(self, slot: int, page_idx: int) -> Optional[Tuple[int, int]]:
+        """Copy-on-write logical page `page_idx` of `slot`: map a fresh
+        private page in its place and return ``(src, dst)`` for the device
+        copy (:func:`copy_page`). The source keeps its other references.
+        None => pool dry even after reclaim (the caller preempts and
+        retries)."""
+        if not self._ensure_free(1):
+            return None
+        src = int(self.tables["linear"][slot, page_idx])
+        if src == 0:
+            raise PageAccountingError(f"slot {slot} page {page_idx} unmapped")
+        dst = self._alloc(1)[0]
+        self.tables["linear"][slot, page_idx] = dst
+        self._slot_pages[slot].remove(src)
+        self._slot_pages[slot].append(dst)
+        self._unref(src)
+        self._device_tables = None
+        return src, dst
 
     def device_tables(self, device) -> Dict[str, torch.Tensor]:
         """Block tables as device tensors; reused until a table changes,

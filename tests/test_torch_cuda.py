@@ -494,3 +494,46 @@ def test_spec_engine_matches_plain_engine(dev):
             st["spec_accepted_tokens"] + st["spec_rollback_tokens"]
         assert megakernel.decode_step_megakernel_raw.launches > before[0]
         assert paged_attention.paged_decode_attention.launches > before[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+def test_suffix_prefill_matches_full_prefill(dev, dt):
+    """A prefix-cache hit on the card: the smoke model prefills a 2-page
+    prefix into the pool, then the 5-token suffix straight into the pool
+    over it (#1 at M = 5, #2 as 5 launches per layer). Its logits are the
+    full prefill's of the same prompt; ``copy_page`` copies exactly."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import paging
+    cfg = dataclasses.replace(get_smoke("llama3.2-1b"),
+                              dtype=str(dt).removeprefix("torch."))
+    tree = random_packed_params(abstract_quantized_params(cfg, 1.0,
+                                                          min_dim=16), 0)
+    params = NanoQuantModel.from_numpy(tree, cfg, device=dev, dtype=dt).params
+    PS, n, start = 8, 21, 16
+    prompt = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, size=(1, n))).to(dev)
+    with ops.kernel_policy(KernelPolicy(mode="cuda")), torch.inference_mode():
+        want, _ = T.prefill(params, cfg, prompt,
+                            T.init_cache(cfg, 1, 32, dev))
+        cache = paging.init_paged_cache(cfg, 6, PS, dev)
+        table = torch.tensor([[4, 2, 5, 0]], dtype=torch.int32, device=dev)
+        _, single = T.prefill(params, cfg, prompt[:, :start],
+                              T.init_cache(cfg, 1, 32, dev))
+        paging.paged_insert_slot(cache, single, {"linear": table[0]})
+        n0 = paged_attention.paged_decode_attention.launches
+        got, cache = T.prefill(params, cfg, prompt[:, start:], cache,
+                               start_pos=torch.tensor([start], device=dev),
+                               block_tables={"linear": table})
+        torch.cuda.synchronize()
+    assert paged_attention.paged_decode_attention.launches == \
+        n0 + (n - start) * cfg.n_layers
+    _close(want, got, TOL[dt], "suffix prefill logits")
+    before = {k: v.clone() for k, v in cache["layers"].items()}
+    with torch.inference_mode():
+        paging.copy_page(cache, 5, 3)
+    for k, pool in cache["layers"].items():
+        assert torch.equal(pool[:, 3], before[k][:, 5])
+        assert torch.equal(pool[:, [0, 1, 2, 4, 5]],
+                           before[k][:, [0, 1, 2, 4, 5]])

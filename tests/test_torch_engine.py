@@ -93,7 +93,9 @@ def test_midflight_admission_matches_jax_engine(model, jax_midflight, mode,
         np.testing.assert_array_equal(want[u], got[u])
     assert eng.stats["admissions"] == len(LENS)
     assert eng.admission_step[2] > 0           # admitted mid-flight
-    assert eng.kv.used_pages == 0
+    # drained: no slot maps a page; only the prefix index holds pages
+    assert not eng.kv.ref.any()
+    assert eng.kv.used_pages == eng.kv.cached_page_count
     if mode == "ref":
         assert not calls
     else:

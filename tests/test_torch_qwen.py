@@ -137,7 +137,8 @@ def test_engine_matches_jax_engine(model, jax_tokens, monkeypatch, route):
     assert sorted(got) == sorted(want)
     for u in want:
         np.testing.assert_array_equal(want[u], got[u])
-    assert eng.admission_step[2] > 0 and eng.kv.used_pages == 0
+    assert eng.admission_step[2] > 0 and not eng.kv.ref.any()
+    assert eng.kv.used_pages == eng.kv.cached_page_count
     assert calls["packed_matmul"] > 0 and calls["paged_decode_attention"] > 0
     assert "decode_step_megakernel_raw" not in calls
     assert ("fused_lowrank_matmul_grouped" in calls) == (route ==
