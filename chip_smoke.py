@@ -66,7 +66,27 @@ Phases, each printing its own line(s); any failure exits non-zero:
    then ``GSP`` on a pool of 64 pages with the cache on and off (slots
    active at the peak, decode tok/s, TTFT). After every run the pool must
    be drained: no page mapped, only the index's pages in use, all tables
-   zero, and nothing in use once the index is cleared;
+   zero, and nothing in use once the index is cleared. Then the request
+   lifecycle (f32, before the bf16 runs): the ``chaos`` path serves the
+   ``CHAOS`` traffic (the JAX package's chaos benchmark at llama3.2-1b's
+   serving size: 24 requests arriving over engine steps, full-rank
+   speculative decoding, prefix cache, megakernel, a pool of half the
+   slots' rectangle, audited after every tick) in legs: the plain oracles;
+   ``baseline`` (gated against them); ``chaos`` and ``chaos-repeat`` under
+   the reference's 11-fault plan (every kind must fire, 3 expired, at
+   least 2 cancelled, 2 failed with structured errors, 1 device fault;
+   the survivors gated against the baseline; the repeat equal bit for
+   bit); ``crash-restore`` (a snapshot of the live engine after 3 steps,
+   the engine dropped, a fresh one restored) and ``drain-restore`` (the
+   same after ``drain(timeout=0)``), both gated against the baseline for
+   all 24 requests; every pool audited; #1-#3 must launch and #4 not.
+   It times each leg's host ms per tick, the injected device error's
+   recovery (and its device ms by kernel, profiled in the repeat) and
+   each restore's re-prefill. The ``restart`` path writes the model with
+   the port's ``save`` and serves it with ``python -m
+   repro_torch.launch.serve --supervise``, crashing once: exit 7 once, a
+   restart, resumed requests, exit 0, the snapshot removed; it times the
+   recovery from the output's lines (``chiprun_out/restart.log``);
 5. qwen1.5-110b kernels — kernel #4 (packed_matmul) at the four two-call
    stage shapes of the qwen1.5-110b MLP (rank 6976) at M in {1, 8, 64},
    plus an eff_rank view read in place; kernel #1 at its merged-QKV and
@@ -83,8 +103,9 @@ Phases, each printing its own line(s); any failure exits non-zero:
    decode tok/s, TTFT and peak memory; the plain decode window's profile
    is the ``bf16_decode_profile``);
 7. the seconds each phase took, the ``kernels`` JSON line (launches per
-   serving path, each path's counts set to 0 just before its f32 run),
-   then the ``ok`` JSON line.
+   serving path, each path's counts set to 0 just before its f32 run;
+   ``chaos`` counts its kernel legs; ``restart`` launches in its child
+   processes and is not counted), then the ``ok`` JSON line.
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -159,6 +180,27 @@ GSP_TIGHT = dict(GSP, kv_pool_pages=64)
 # self-speculative decoding: the draft reads half of every packed rank
 SPEC = {"spec_rank_frac": 0.5, "spec_k": 4}
 
+# the JAX package's chaos benchmark (benchmarks/serve_bench.py run_chaos and
+# build_trace, through repro_torch.testing) at llama3.2-1b's serving size:
+# 24 requests from SEED + 44 (its chaos_seed offset), Poisson(0.6) arrival
+# gaps in engine steps, prompts of 4-128 tokens (up to half of max_len, the
+# reference's ratio), budgets of 2-32 new tokens, submitted by arrival step;
+# 8 slots of max_len 256 over a pool of half their rectangle (64 pages of
+# 16 rows); full-rank speculative decoding at a pinned k = 4, the prefix
+# cache and the megakernel on, the pool audited after every tick. The plan
+# is the reference's 11 faults (every kind), its dry-pool borrow a quarter
+# of the pool as the reference's 3 of 12.
+CHAOS = {"arch": "llama3.2-1b", "n": 24, "max_prompt": 128, "new": 32,
+         "max_batch": 8, "max_len": 256, "page_size": 16,
+         "kv_pool_pages": 64, "dry_pages": 16}
+# process-level crash recovery: the llama3.2-1b artifact served by
+# ``python -m repro_torch.launch.serve`` under its supervisor, crashing once
+RESTART = ["--requests", "8", "--prompt-len", "64", "--max-new", "32",
+           "--max-batch", "8", "--snapshot-every", "4",
+           "--heartbeat-every", "1", "--crash-at-step", "6", "--supervise",
+           "--hang-timeout", "120"]
+RESTART_TIMEOUT_S = 600
+
 # serving paths: (name, traffic, KernelPolicy fields, ServeConfig.megakernel,
 # speculative settings, the path whose tokens gate it (None: the engine on
 # the plain oracles), kernels that must launch, kernels that must not)
@@ -229,6 +271,10 @@ def main():
     report["llama3.2-1b-prefix-pressure"] = serve_paths(
         llama, PREFIX_PRESSURE, launches)
     phase("llama3.2-1b f32 engine paths")
+    report["llama3.2-1b-chaos"] = chaos_path(llama, launches)
+    phase("llama3.2-1b f32 chaos path")
+    report["llama3.2-1b-restart"] = restart_path(llama)
+    phase("llama3.2-1b restart path")
     llama = cast(llama, torch.bfloat16)
     cmp = spec_compare(llama, LLAMA, report)
     report["llama3.2-1b"]["spec_bf16"] = cmp
@@ -313,7 +359,8 @@ def make_llama():
     cfg = dataclasses.replace(get_config("llama3.2-1b"), dtype="float32")
     tree = random_packed_params(abstract_quantized_params(cfg, 1.0), SEED)
     return NanoQuantModel.from_numpy(tree, cfg, device="cuda",
-                                     dtype=torch.float32)
+                                     dtype=torch.float32,
+                                     quant={"target_bpw": 1.0, "min_dim": 48})
 
 
 def make_qwen():
@@ -939,6 +986,8 @@ def _check_mega(case, lp, cfg, dt, eff=None):
 
 def _requests(cfg, traffic):
     import numpy as np
+    if "max_prompt" in traffic:
+        return [t[2] for t in _chaos_trace(cfg, traffic)]
     if "question" in traffic:
         return _gsp_requests(cfg, traffic)
     if "system" in traffic:
@@ -1164,17 +1213,382 @@ def serve_paths(model, traffic, launches):
     return res
 
 
+# ---------------------------------------------------------------------------
+# the request-lifecycle layer: chaos and restart
+# ---------------------------------------------------------------------------
+
+
+def _chaos_trace(cfg, traffic):
+    import numpy as np
+    from repro_torch.testing import chaos_trace
+    return chaos_trace(np.random.default_rng(SEED + 44), traffic["n"],
+                       cfg.vocab_size, max_prompt=traffic["max_prompt"],
+                       max_new=traffic["new"])
+
+
+def _chaos_engine(model, policy, faults=None):
+    from repro_torch.serve.engine import ServeConfig
+    return model.engine(ServeConfig(
+        greedy=True, page_size=CHAOS["page_size"],
+        kv_pool_pages=CHAOS["kv_pool_pages"], prefix_cache=True,
+        spec_rank_frac=1.0, spec_k=4, spec_k_min=4, debug=True,
+        megakernel=True), max_batch=CHAOS["max_batch"],
+        max_len=CHAOS["max_len"], policy=policy, faults=faults)
+
+
+def _audit(eng, leg):
+    """The quiesced pool: audit, only the index's pages in use, nothing
+    borrowed, and an empty pool once the index is cleared."""
+    eng.check_invariants()
+    kv = eng.kv
+    if kv.used_pages != kv.cached_page_count or kv.external:
+        raise AssertionError(f"chaos {leg}: {kv.used_pages} pages in use, "
+                             f"{kv.cached_page_count} cached, "
+                             f"{len(kv.external)} borrowed")
+    eng.prefix.clear()
+    if kv.used_pages:
+        raise AssertionError(f"chaos {leg}: {kv.used_pages} pages leaked")
+
+
+class _RecoveryWindow:
+    """The injected device error's recovery in one chaos leg: from the
+    fault to the end of the re-admission of the last slot it preempted
+    (each ends in a host read of its first token), in host ms; with
+    `profile`, the device ms of that window by kernel."""
+
+    def __init__(self, eng, profile=False):
+        import torch
+        from torch.profiler import ProfilerActivity
+        self.t0 = self.t1 = None
+        self.waiting, self.resumed, self.prof = set(), 0, None
+        on_fault, admit = eng._on_device_fault, eng._admit
+
+        def fault(err):
+            if profile:
+                self.prof = torch.profiler.profile(
+                    activities=[ProfilerActivity.CUDA])
+                self.prof.start()
+            self.t0 = time.perf_counter()
+            live = {t.handle.uid for t in eng._tasks if t is not None}
+            on_fault(err)
+            self.waiting = {u for u in live if not eng.handles[u].finished}
+            self.resumed = len(self.waiting)
+
+        def timed_admit(slot, item):
+            out = admit(slot, item)
+            if self.waiting:
+                self.waiting = {u for u in self.waiting if u not in
+                                eng.slot_of and not eng.handles[u].finished}
+                if not self.waiting:
+                    self.t1 = time.perf_counter()
+                    if self.prof is not None:
+                        torch.cuda.synchronize()
+                        self.prof.stop()
+            return out
+        eng._on_device_fault, eng._admit = fault, timed_admit
+
+    def result(self):
+        if self.t1 is None:
+            return None
+        out = {"ms": 1e3 * (self.t1 - self.t0), "resumed": self.resumed}
+        if self.prof is not None:
+            out["device_ms_by_kernel"] = _by_kernel(self.prof)
+        return out
+
+
+def _chaos_leg(model, trace, policy, plan=None, window=None):
+    """One chaos leg driven by arrival step; returns its record, the
+    handles and the engine's stats. `window`: None, "time" or "profile"
+    for the device error's recovery."""
+    from repro_torch.serve.scheduler import Request
+    from repro_torch.testing import drive_chaos
+    eng = _chaos_engine(model, policy, plan)
+    rec = None if window is None else _RecoveryWindow(eng, window == "profile")
+    t0 = time.perf_counter()
+    handles = drive_chaos(eng, trace, Request, plan)
+    wall = time.perf_counter() - t0
+    st = dict(eng.stats)
+    leg = {"wall_s": wall, "steps": st["steps"],
+           "host_ms_per_tick": 1e3 * wall / st["steps"],
+           "statuses": {u: h.status for u, h in handles.items()},
+           "tokens": {u: list(h.tokens) for u, h in handles.items()},
+           "stats": st, "fired": list(plan.fired) if plan else None,
+           "recovery": None if rec is None else rec.result()}
+    for h in handles.values():
+        if not h.finished or (h.status != "done" and not (
+                h.error is not None and h.error.uid == h.uid
+                and h.error.status == h.status and h.error.reason)):
+            raise AssertionError(f"chaos: request {h.uid} is {h.status} "
+                                 f"without a structured RequestError")
+    _audit(eng, "leg")
+    del eng, handles
+    free()
+    return leg
+
+
+def _restore_leg(model, trace, drain, path):
+    """Three steps of the kernel engine with every request submitted, a
+    snapshot (after ``drain(timeout=0)`` with `drain`; of the live engine
+    without), the engine dropped, a fresh engine restored from the file
+    and run. Returns every request's tokens and the restored engine's
+    re-prefill: host ms of the resumes' admissions, and from restore()
+    to the last of them."""
+    from repro_torch.kernels.ops import KernelPolicy
+    from repro_torch.serve import recovery
+    from repro_torch.serve.scheduler import Request
+    eng = _chaos_engine(model, KernelPolicy(mode="cuda"))
+    for _, uid, prompt, budget in trace:
+        eng.submit(Request(uid, prompt, max_new_tokens=budget))
+    for _ in range(3):
+        eng.step()
+    if drain:
+        eng.drain(timeout=0)
+        eng.check_invariants()
+        if eng.kv.used_pages != eng.kv.cached_page_count:
+            raise AssertionError("drain left pages mapped")
+    before = {u: [int(t) for t in r.output] for u, r in eng.done.items()}
+    recovery.save_snapshot(eng, path)
+    del eng
+    free()
+    eng = _chaos_engine(model, KernelPolicy(mode="cuda"))
+    t0 = time.perf_counter()
+    handles = recovery.restore(eng, recovery.load_snapshot(path))
+    os.unlink(path)
+    resumes = sum(1 for h in handles.values() if h.tokens)
+    times, last = [], [None]
+    _time_resumes(eng, resumes, times, last)
+    after = {u: [int(t) for t in r.output] for u, r in eng.run().items()}
+    _audit(eng, "restore")
+    if set(before) | set(after) != {t[1] for t in trace}:
+        raise AssertionError("a restore leg lost a request")
+    out = {"tokens": {**before, **after}, "done_before": len(before),
+           "restored": len(handles), "resumes": resumes,
+           "reprefill_ms": times,
+           "restore_to_last_resume_ms": None if last[0] is None
+           else 1e3 * (last[0] - t0)}
+    del eng, handles               # the handles refer to the engine too
+    free()
+    return out
+
+
+def _time_resumes(eng, n, times, last):
+    """Record the host ms of each of `eng`'s resume admissions in `times`,
+    and in ``last[0]`` the moment the `n`-th ended."""
+    from repro_torch.serve.engine import _Resume
+    admit = eng._admit
+
+    def timed(slot, item):
+        t = time.perf_counter()
+        out = admit(slot, item)
+        if isinstance(item, _Resume):
+            times.append(1e3 * (time.perf_counter() - t))
+            if len(times) == n:
+                last[0] = time.perf_counter()
+        return out
+    eng._admit = timed
+
+
+def chaos_path(model, launches):
+    """The ``chaos`` path: the chaos benchmark on full-width llama3.2-1b
+    through kernels #1-#3. Legs: the plain oracles, ``baseline`` (gated
+    against them), ``chaos`` and ``chaos-repeat`` under one plan source,
+    ``crash-restore`` and ``drain-restore``. Launch counts are set to 0
+    just before the baseline leg and read after the last leg."""
+    import tempfile
+    from repro_torch.kernels.ops import KernelPolicy
+    from repro_torch.serve.faults import FaultPlan
+    from repro_torch.testing import chaos_plan
+    cfg = model.cfg
+    trace = _chaos_trace(cfg, CHAOS)
+    src = chaos_plan(trace, dry_pages=CHAOS["dry_pages"])
+    res = {"oracle": _chaos_leg(model, trace, KernelPolicy(mode="ref"))}
+    want = res["oracle"]["tokens"]
+    counters = _counters()
+    for c in counters:
+        c.launches = 0
+    kern = KernelPolicy(mode="cuda")
+    res["baseline"] = _chaos_leg(model, trace, kern)
+    base = res["baseline"]["tokens"]
+    if set(res["baseline"]["statuses"].values()) != {"done"}:
+        raise AssertionError("chaos baseline: a request did not finish")
+    res["baseline"]["max_divergence_margin"] = gate(
+        model, CHAOS, "chaos baseline", base, want)
+    for leg, window in (("chaos", "time"), ("chaos-repeat", "profile")):
+        res[leg] = _chaos_leg(model, trace, kern,
+                              FaultPlan(src, seed=SEED + 44), window)
+    a, b = res["chaos"], res["chaos-repeat"]
+    if (a["fired"], a["statuses"], a["tokens"]) != \
+            (b["fired"], b["statuses"], b["tokens"]):
+        raise AssertionError("chaos-repeat is not chaos bit for bit")
+    st = a["stats"]
+    kinds = {k for _, k, _ in a["fired"]}
+    if kinds != {f.kind for f in src} or st["expired"] != 3 \
+            or st["cancelled"] < 2 or st["failed"] != 2 \
+            or st["device_faults"] != 1:
+        raise AssertionError(f"chaos: fired {sorted(kinds)}, terminals "
+                             + str({k: st[k] for k in (
+                                 "cancelled", "expired", "failed",
+                                 "device_faults")}))
+    survivors = sorted(u for u, s in a["statuses"].items() if s == "done")
+    if not survivors:
+        raise AssertionError("chaos: no survivor")
+    res["chaos"]["max_divergence_margin"] = gate(
+        model, CHAOS, "chaos survivors", a["tokens"],
+        {u: base[u] for u in survivors})
+    d = tempfile.mkdtemp(prefix="chaos-")
+    for leg, drain in (("crash-restore", False), ("drain-restore", True)):
+        res[leg] = _restore_leg(model, trace, drain,
+                                os.path.join(d, f"{leg}.json"))
+        res[leg]["max_divergence_margin"] = gate(
+            model, CHAOS, f"chaos {leg}", res[leg]["tokens"], base)
+    os.rmdir(d)
+    launches["chaos"] = [c.launches for c in counters]
+    log("engine path chaos: launches " + ", ".join(
+        f"{k[0]}={n}" for k, n in zip(KERNELS, launches["chaos"])))
+    missing = [KERNELS[i][0] for i in (FUSED, PAGED, MEGA)
+               if launches["chaos"][i] == 0]
+    if missing or launches["chaos"][PACKED]:
+        raise AssertionError(f"chaos: launches {launches['chaos']}")
+    res["launches"] = launches["chaos"]
+    rec, prof = a["recovery"], b["recovery"]
+    log(f"engine llama3.2-1b f32 chaos: {len(survivors)} of {CHAOS['n']} "
+        f"survivors match the baseline"
+        + ("" if res["chaos"]["max_divergence_margin"] is None
+           else " up to near-ties")
+        + f"; terminals cancelled {st['cancelled']} expired {st['expired']} "
+        f"failed {st['failed']}, device faults {st['device_faults']}, "
+        f"{st['preemptions']} preemptions; fired {a['fired']}; chaos-repeat "
+        f"bit for bit; host ms per tick (debug audit) baseline "
+        f"{res['baseline']['host_ms_per_tick']:.2f}, chaos "
+        f"{a['host_ms_per_tick']:.2f}, repeat {b['host_ms_per_tick']:.2f}; "
+        f"device error to every survivor decoding again: "
+        + ("not measured" if rec is None else
+           f"{rec['ms']:.2f} ms for {rec['resumed']} resumed slots")
+        + ("" if prof is None or "device_ms_by_kernel" not in prof else
+           "; its device ms by kernel (repeat): " + ", ".join(
+               f"{k} {v:.3f}" for k, v in prof["device_ms_by_kernel"].items()
+               if v))
+        + "; re-prefill host ms: " + "; ".join(
+            f"{leg} {sum(res[leg]['reprefill_ms']):.1f} over "
+            f"{res[leg]['resumes']} resumes (restore to last "
+            + ("not measured" if res[leg]["restore_to_last_resume_ms"]
+               is None else f"{res[leg]['restore_to_last_resume_ms']:.1f}")
+            + ")" for leg in ("crash-restore", "drain-restore")))
+    return res
+
+
+def restart_path(model):
+    """The ``restart`` path: the llama3.2-1b artifact written by the port's
+    ``save``, served by ``python -m repro_torch.launch.serve --supervise``
+    with a crash at step 6. The child must exit 7 once, the supervisor
+    restart it, and the new child resume the in-flight requests from the
+    snapshot and exit 0, removing the snapshot. Times each line of the
+    output as it arrives: time to recover is crash line → first heartbeat
+    after the resume (process start, CUDA init, artifact load, kernel
+    libraries loaded from build/, restore and the re-prefill step), less
+    the supervisor's backoff, which is reported apart."""
+    import re
+    import shutil
+    import signal
+    import tempfile
+    import threading
+    d = tempfile.mkdtemp(prefix="restart-")
+    art, snap = os.path.join(d, "artifact"), os.path.join(d, "snap.json")
+    t0 = time.perf_counter()
+    model.save(art)
+    save_s = time.perf_counter() - t0
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve",
+           "--quantized-ckpt", art, "--snapshot", snap, *RESTART]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               PYTHONUNBUFFERED="1")
+    lines = []
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env,
+                            cwd=ROOT, start_new_session=True)
+
+    def pump():
+        for line in proc.stdout:
+            lines.append((time.perf_counter() - t0, line.rstrip("\n")))
+    reader = threading.Thread(target=pump, daemon=True)
+    reader.start()
+    try:
+        rc = proc.wait(timeout=RESTART_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        raise AssertionError(f"restart: no exit within {RESTART_TIMEOUT_S} "
+                             f"s:\n" + "\n".join(t for _, t in lines[-20:]))
+    end = time.perf_counter() - t0
+    reader.join(timeout=10)
+    text = "\n".join(t for _, t in lines)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "restart.log"), "w") as f:
+        f.write("\n".join(f"{t:9.3f} {x}" for t, x in lines) + "\n")
+
+    def at(pattern, after=0.0):
+        return next(((t, m) for t, x in lines if t >= after
+                     for m in [re.search(pattern, x)] if m), (None, None))
+    t_crash, _ = at(r"\[serve\] injected crash at step")
+    t_resume, m = at(r"\[serve\] resumed (\d+) in-flight requests")
+    _, mb = at(r"child exited rc=7; restart 1/\d+ in (\d+)s")
+    t_launch2, _ = at(r"\[supervisor\] launching \(attempt 2\)")
+    t_loaded2, _ = at(r"\[serve\] loaded artifact", after=t_launch2 or end)
+    t_beat, _ = at(r"\[serve\] heartbeat step=1 ", after=t_resume or end)
+    resumed = int(m.group(1)) if m else 0
+    if rc != 0 or text.count("[serve] injected crash at step") != 1 \
+            or text.count("child exited rc=7") != 1 \
+            or text.count("[supervisor] launching") != 2 or resumed < 1 \
+            or "[supervisor] child finished cleanly" not in text \
+            or os.path.exists(snap) or None in (t_crash, t_beat, mb):
+        raise AssertionError(f"restart: rc {rc}, resumed {resumed}, "
+                             f"snapshot left {os.path.exists(snap)}:\n"
+                             + text[-3000:])
+    shutil.rmtree(d)
+    backoff = float(mb.group(1))
+    res = {"artifact_save_s": save_s, "rc": rc, "resumed": resumed,
+           "backoff_s": backoff, "crash_to_resume_line_s": t_resume - t_crash,
+           "crash_to_first_heartbeat_s": t_beat - t_crash,
+           "time_to_recover_s": t_beat - t_crash - backoff,
+           "launch_to_loaded_s": t_loaded2 - t_launch2,
+           "loaded_to_resume_line_s": t_resume - t_loaded2,
+           "resume_line_to_first_heartbeat_s": t_beat - t_resume,
+           "resume_line_to_end_s": end - t_resume, "wall_s": end}
+    log(f"restart llama3.2-1b: artifact saved in {save_s:.2f} s; child "
+        f"exited 7 once, restarted, resumed {resumed} requests, exit 0; "
+        f"crash to resume line {res['crash_to_resume_line_s']:.2f} s "
+        f"(backoff {backoff:.0f} s; launch to artifact loaded "
+        f"{res['launch_to_loaded_s']:.2f} s, loaded to resume line "
+        f"{res['loaded_to_resume_line_s']:.2f} s), resume line to first "
+        f"heartbeat (re-prefill step) "
+        f"{res['resume_line_to_first_heartbeat_s']:.2f} s, time to recover "
+        f"less backoff {res['time_to_recover_s']:.2f} s, resume line to end "
+        f"{res['resume_line_to_end_s']:.2f} s, wall {end:.2f} s")
+    return res
+
+
 def bf16_run(model, traffic, report, spec=None):
     """The bf16 engine on the kernel path (speculative with `spec`):
     decode tok/s (tokens emitted by decode steps over their host wall
     time), host ms per step (per cycle when speculative), TTFT and peak
-    memory; with `spec` also the acceptance rate and the tokens committed
-    per slot and cycle (a + 1 on average)."""
+    memory, and the host µs per step of the engine's tick-boundary reaping
+    (``_reap``, run with no fault plan); with `spec` also the acceptance
+    rate and the tokens committed per slot and cycle (a + 1 on average)."""
     import torch
     from repro_torch.kernels.ops import KernelPolicy
     torch.cuda.reset_peak_memory_stats()
+    reap_s = [0.0]
+
+    def time_reap(eng):
+        reap = eng._reap
+
+        def timed():
+            t0 = time.perf_counter()
+            reap()
+            reap_s[0] += time.perf_counter() - t0
+        eng._reap = timed
     _, eng, wall, st = serve(model, traffic, KernelPolicy(mode="cuda"),
-                             spec=spec)
+                             spec=spec, on_engine=time_reap)
     ttft = sorted(h.ttft for h in eng.handles.values())
     acceptance = eng.spec.acceptance_rate() if spec else None
     del eng
@@ -1183,7 +1597,8 @@ def bf16_run(model, traffic, report, spec=None):
     res = {"wall_s": wall, "decode_tok_s": decode_tokens
            / st["decode_time_s"], "ttft_s": ttft, "stats": st,
            "peak_gib": _peak_gib(),
-           "decode_step_ms": 1e3 * st["decode_time_s"] / st["decode_steps"]}
+           "decode_step_ms": 1e3 * st["decode_time_s"] / st["decode_steps"],
+           "reap_us_per_step": 1e6 * reap_s[0] / st["steps"]}
     what = "step"
     if spec:
         slot_cycles = st["decode_steps"] * traffic["max_batch"] \
@@ -1195,7 +1610,8 @@ def bf16_run(model, traffic, report, spec=None):
     log(f"engine {traffic['arch']} bf16{' spec' if spec else ''} on "
         f"{report['device']}: decode {res['decode_tok_s']:.1f} tok/s "
         f"({res['decode_step_ms']:.1f} ms per {what}; "
-        f"{traffic['max_batch']} slots), TTFT median "
+        f"{traffic['max_batch']} slots; reaping "
+        f"{res['reap_us_per_step']:.1f} µs per step), TTFT median "
         f"{ttft[len(ttft) // 2] * 1e3:.1f} ms (max {ttft[-1] * 1e3:.1f} ms), "
         f"peak {res['peak_gib']:.2f} GiB, wall {wall:.2f} s")
     return res

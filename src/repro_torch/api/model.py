@@ -1,9 +1,10 @@
-"""The NanoQuant model artifact, serving side: the port of ``load`` /
-``engine`` / ``generate`` of ``repro.api.model.NanoQuantModel``.
+"""The NanoQuant model artifact, serving side: the port of ``save`` /
+``load`` / ``engine`` / ``generate`` of ``repro.api.model.NanoQuantModel``.
 
     model = NanoQuantModel.load("/ckpt/nq")          # on the card
     outs = model.generate(prompts, max_new_tokens=32)
     eng = model.engine(ServeConfig(greedy=True), max_batch=8)
+    model.save("/ckpt/copy")                         # JAX's load reads it
 
 A saved artifact is a checkpoint (``step_*/`` npz shards + meta.json)
 plus a versioned ``nanoquant.json`` manifest carrying the model and quant
@@ -96,17 +97,45 @@ class NanoQuantModel:
         report["ranks"] = manifest.get("ranks", {})
         return cls(params_from_numpy(tree, device, dtype), cfg, quant, report)
 
+    def save(self, directory: str, step: int = 0) -> str:
+        """Write the packed params and the versioned manifest in the JAX
+        package's artifact format (which its ``NanoQuantModel.load`` and
+        :meth:`load` read); returns `directory`."""
+        os.makedirs(directory, exist_ok=True)
+        CheckpointManager(directory).save(
+            step, self.params, _param_template(self.cfg, self.quant))
+        manifest = {
+            "format": "nanoquant-model",
+            "version": MANIFEST_VERSION,
+            "arch": self.cfg.name,
+            "family": self.cfg.family,
+            "quantized": self.quantized,
+            "target_bpw": (self.quant.get("target_bpw", 1.0)
+                           if self.quantized else 16.0),
+            "model_config": dataclasses.asdict(self.cfg),
+            "quant_config": dict(self.quant) if self.quantized else None,
+            "ranks": self.report.get("ranks", {}),
+            "report": _json_safe(
+                {k: v for k, v in self.report.items() if k != "ranks"}),
+        }
+        with open(os.path.join(directory, MANIFEST_NAME), "w") as f:
+            json.dump(manifest, f, indent=1)
+        return directory
+
     def engine(self, scfg: Optional[ServeConfig] = None, max_batch: int = 8,
                max_len: int = 512, seed: int = 0,
                admission: str = "continuous",
                spec_rank_frac: Optional[float] = None,
                spec_k: Optional[int] = None,
                prefix_cache: Optional[bool] = None,
-               policy: Optional[KernelPolicy] = None) -> InferenceEngine:
+               policy: Optional[KernelPolicy] = None, faults=None,
+               clock=None) -> InferenceEngine:
         """The serving entry point: a slot-scheduled, continuously
         batched :class:`InferenceEngine` over this model on its device.
         `spec_rank_frac` / `spec_k` / `prefix_cache` override the
-        matching ServeConfig fields, as in the JAX package."""
+        matching ServeConfig fields, as in the JAX package. `faults` (a
+        ``serve.faults.FaultPlan``) injects a fault schedule and `clock`
+        replaces the deadline clock (both for chaos testing)."""
         scfg = scfg or ServeConfig()
         if spec_rank_frac is not None:
             scfg = dataclasses.replace(scfg, spec_rank_frac=spec_rank_frac)
@@ -117,7 +146,8 @@ class NanoQuantModel:
         return InferenceEngine(self.params, self.cfg, scfg,
                                max_batch=max_batch, max_len=max_len,
                                seed=seed, admission=admission,
-                               device=self.device, policy=policy)
+                               device=self.device, policy=policy,
+                               faults=faults, clock=clock)
 
     def generate(self, prompts: Sequence[np.ndarray],
                  max_new_tokens: Optional[int] = None,
@@ -146,3 +176,13 @@ def _param_template(cfg: ModelConfig, quant: Optional[Dict[str, Any]]):
     return abstract_quantized_params(
         cfg, quant.get("target_bpw", 1.0), quant.get("min_dim", 48),
         quant.get("rank_align", 32), quant.get("pack_k_align", 32))
+
+
+def _json_safe(obj):
+    if isinstance(obj, dict):
+        return {k: _json_safe(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_json_safe(v) for v in obj]
+    if isinstance(obj, (np.floating, np.integer)):
+        return obj.item()
+    return obj

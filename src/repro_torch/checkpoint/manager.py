@@ -1,4 +1,5 @@
-"""Checkpoint restore, the restore half of ``repro.checkpoint.manager``.
+"""Checkpoints in the JAX package's layout: the port of the save and
+restore of ``repro.checkpoint.manager`` for parameter trees.
 
 Layout written by the JAX package: ``<dir>/step_00000123/{arrays-<k>.npz,
 meta.json}``. Leaves are stored in the order JAX flattens the parameter
@@ -7,18 +8,23 @@ dict (keys sorted at every level), striped across numbered npz shards as
 and crc32. Extended floats (bfloat16) are stored as same-width unsigned
 bit views. A restore verifies every leaf against ``meta.json`` and names
 the bad leaf on a missing shard or leaf, a shape mismatch or a checksum
-mismatch. numpy reads the shards; leaves come back as CPU tensors.
+mismatch. numpy reads and writes the shards; leaves come back as CPU
+tensors. A save is written into ``<dir>/.tmp-<step>-<pid>`` and renamed
+into place, so a reader never sees a partial step.
 """
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import zlib
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.convert import tensor_from_numpy
+from repro_torch.convert import numpy_from_tensor, tensor_from_numpy
+
+SHARD_BYTES = 512 << 20        # leaves striped into npz shards of ~this size
 
 
 def _flatten(tree, prefix=()) -> List[Tuple[Tuple[str, ...], Any]]:
@@ -65,6 +71,52 @@ class CheckpointManager:
     def meta(self, step: int) -> dict:
         with open(os.path.join(self._step_dir(step), "meta.json")) as f:
             return json.load(f)
+
+    def save(self, step: int, tree: Any, template: Any) -> str:
+        """Write nested dict `tree` of tensors as step `step`, in the
+        layout and leaf order the JAX package writes and reads; a leaf
+        whose `template` spec says ``uint32`` (packed words, int32 in the
+        port) is stored as uint32. Atomic: written beside the step and
+        renamed into place. Returns the step directory."""
+        flat, specs = _flatten(tree), _flatten(template)
+        if [p for p, _ in flat] != [p for p, _ in specs]:
+            raise ValueError("tree and template differ in structure")
+        os.makedirs(self.dir, exist_ok=True)
+        tmp = os.path.join(self.dir, f".tmp-{step}-{os.getpid()}")
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        shards, cur, cur_bytes = [], {}, 0
+        shapes, dtypes, checksums = [], [], []
+        for i, ((_, leaf), (_, spec)) in enumerate(zip(flat, specs)):
+            arr, name = numpy_from_tensor(
+                leaf, "uint32" if str(spec.dtype) == "uint32" else None)
+            shapes.append(list(arr.shape))
+            dtypes.append(name)
+            checksums.append(zlib.crc32(np.ascontiguousarray(arr).tobytes()))
+            cur[f"leaf_{i:06d}"] = arr
+            cur_bytes += arr.nbytes
+            if cur_bytes >= SHARD_BYTES:
+                shards.append(cur)
+                cur, cur_bytes = {}, 0
+        if cur:
+            shards.append(cur)
+        for k, shard in enumerate(shards):
+            with open(os.path.join(tmp, f"arrays-{k}.npz"), "wb") as f:
+                np.savez(f, **shard)
+                f.flush()
+                os.fsync(f.fileno())
+        with open(os.path.join(tmp, "meta.json"), "w") as f:
+            json.dump({"step": step, "n_leaves": len(flat),
+                       "n_shards": len(shards), "shapes": shapes,
+                       "dtypes": dtypes, "checksums": checksums}, f)
+            f.flush()
+            os.fsync(f.fileno())
+        final = self._step_dir(step)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+        return final
 
     def restore(self, step: int, template: Any) -> Dict:
         """Load `step` into the structure of `template` (a nested dict

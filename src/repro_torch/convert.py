@@ -5,11 +5,12 @@ each leaf, or what an artifact's npz shards hold), becomes a nested dict
 of torch tensors. Packed ``uint32`` words become ``int32`` tensors with
 the same bits (see :mod:`repro_torch.kernels.ref`); ``bfloat16`` leaves
 (numpy carries them through ``ml_dtypes`` or as raw 16-bit words) become
-``torch.bfloat16`` with the same bits.
+``torch.bfloat16`` with the same bits. :func:`numpy_from_tensor` is the
+inverse, for writing an artifact.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +32,22 @@ def tensor_from_numpy(arr: np.ndarray,
     if name == "uint32":
         return torch.from_numpy(arr.view(np.int32).copy())
     return torch.from_numpy(arr.astype(np.dtype(name), copy=True))
+
+
+def numpy_from_tensor(t: torch.Tensor, dtype_name: Optional[str] = None
+                      ) -> Tuple[np.ndarray, str]:
+    """One leaf back to numpy, bit-exact, as the checkpoint stores it:
+    (array, true dtype name). ``bfloat16`` comes back as its raw 16-bit
+    words; an int32 leaf named ``"uint32"`` (packed words) as uint32 with
+    the same bits."""
+    t = t.detach().contiguous().cpu()
+    name = dtype_name or str(t.dtype).removeprefix("torch.")
+    if t.dtype in _EXTENDED.values():
+        return t.view(torch.int16).numpy().view(np.uint16), name
+    arr = t.numpy()
+    if name == "uint32" and arr.dtype == np.int32:
+        return arr.view(np.uint32), name
+    return arr, name
 
 
 def params_from_numpy(tree: Any, device, dtype: Optional[torch.dtype] = None):

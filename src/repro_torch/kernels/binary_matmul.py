@@ -34,6 +34,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.build import KernelError
 
 # ranks above this run the two-call path (packed_matmul twice), as in
 # the JAX package; read at call time, so tests can lower it
@@ -165,20 +166,21 @@ def fused_lowrank_matmul_grouped(xg, qv_g, qu_g, s1_g, s2_g, rmask_g=None,
     G, KW, R = qv_g.shape
     N = qu_g.shape[2]
     if KW * 32 != K or qu_g.shape[:2] != (G, R // 32) or R % 32:
-        raise ValueError(f"packed operands {tuple(qv_g.shape)} / "
-                         f"{tuple(qu_g.shape)} do not match x {tuple(xg.shape)}")
+        raise KernelError(f"packed operands {tuple(qv_g.shape)} / "
+                          f"{tuple(qu_g.shape)} do not match x "
+                          f"{tuple(xg.shape)}")
     if Gx != (1 if x_shared else G):
-        raise ValueError(f"x has {Gx} groups, expected "
-                         f"{1 if x_shared else G} (x_shared={x_shared})")
+        raise KernelError(f"x has {Gx} groups, expected "
+                          f"{1 if x_shared else G} (x_shared={x_shared})")
     if tuple(s1_g.shape) != (G, N) or tuple(s2_g.shape) != (G, K):
-        raise ValueError(f"scales {tuple(s1_g.shape)} / {tuple(s2_g.shape)} "
-                         f"do not match (G, N) = {(G, N)}, (G, K) = {(G, K)}")
+        raise KernelError(f"scales {tuple(s1_g.shape)} / {tuple(s2_g.shape)} "
+                          f"do not match (G, N) = {(G, N)}, (G, K) = {(G, K)}")
     if rmask_g is not None and tuple(rmask_g.shape) != (G, R):
-        raise ValueError(f"rmask {tuple(rmask_g.shape)} != {(G, R)}")
+        raise KernelError(f"rmask {tuple(rmask_g.shape)} != {(G, R)}")
     r_eff = R if eff_rank is None else int(eff_rank)
     if not (0 < r_eff <= R and r_eff % 32 == 0):
-        raise ValueError(f"eff_rank must be a multiple of 32 in (0, {R}], "
-                         f"got {eff_rank}")
+        raise KernelError(f"eff_rank must be a multiple of 32 in (0, {R}], "
+                          f"got {eff_rank}")
     if xg.device.type == "cpu":
         return fused_lowrank_matmul_grouped_ref(
             xg, qv_g, qu_g, s1_g, s2_g, rmask_g, x_shared=x_shared,
@@ -269,17 +271,17 @@ def packed_matmul(x, packed_w, s_k=None, s_n=None, *, out_dtype=None):
     version; CUDA tensors launch the kernel (and raise on anything it
     does not take)."""
     if x.dim() != 2 or packed_w.dim() != 2:
-        raise ValueError(f"packed_matmul takes x (M, K) and words (K//32, "
-                         f"N), got {tuple(x.shape)} / "
-                         f"{tuple(packed_w.shape)}")
+        raise KernelError(f"packed_matmul takes x (M, K) and words (K//32, "
+                          f"N), got {tuple(x.shape)} / "
+                          f"{tuple(packed_w.shape)}")
     M, K = x.shape
     KW, N = packed_w.shape
     if KW * 32 != K:
-        raise ValueError(f"packed operand {tuple(packed_w.shape)} does not "
-                         f"match x {tuple(x.shape)}")
+        raise KernelError(f"packed operand {tuple(packed_w.shape)} does not "
+                          f"match x {tuple(x.shape)}")
     for nm, s, n in (("s_k", s_k, K), ("s_n", s_n, N)):
         if s is not None and tuple(s.shape) != (n,):
-            raise ValueError(f"{nm} {tuple(s.shape)} != ({n},)")
+            raise KernelError(f"{nm} {tuple(s.shape)} != ({n},)")
     out_dtype = x.dtype if out_dtype is None else out_dtype
     if x.device.type == "cpu":
         return packed_matmul_ref(x, packed_w, s_k, s_n, out_dtype=out_dtype)
@@ -289,19 +291,19 @@ def packed_matmul(x, packed_w, s_k=None, s_n=None, *, out_dtype=None):
     build.check_cuda(name, x=x, **scales)
     build.check_cuda(name, torch.float32, **scales)
     if packed_w.device != x.device or packed_w.dtype != torch.int32:
-        raise TypeError(f"{name}: packed_w must be int32 on {x.device}, got "
-                        f"{packed_w.dtype} on {packed_w.device}")
+        raise KernelError(f"{name}: packed_w must be int32 on {x.device}, got "
+                          f"{packed_w.dtype} on {packed_w.device}")
     if N > 1 and packed_w.stride(1) != 1 or KW > 1 and packed_w.stride(0) < N:
-        raise ValueError(f"{name}: packed_w needs unit column stride and a "
-                         f"row stride >= N, got {packed_w.stride()}")
+        raise KernelError(f"{name}: packed_w needs unit column stride and a "
+                          f"row stride >= N, got {packed_w.stride()}")
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     in_code, out_code = build.dtype_code(x), build.dtype_code(out)
     if M == 0 or N == 0:
         return out
     plan = _plan_packed(M, K, N, _terms(x.dtype, out_dtype))
     if max(plan["m_tiles"], plan["n_tiles"]) > _GRID_YZ_MAX:
-        raise ValueError(f"{name}: ({M}, {N}) needs more than "
-                         f"{_GRID_YZ_MAX} tiles along a grid axis")
+        raise KernelError(f"{name}: ({M}, {N}) needs more than "
+                          f"{_GRID_YZ_MAX} tiles along a grid axis")
     fn = build.library("packed_matmul").nq_packed_matmul
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7

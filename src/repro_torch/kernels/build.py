@@ -31,6 +31,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
+class KernelError(RuntimeError, ValueError, TypeError):
+    """An error of the kernel layer: a build that failed, a launch the
+    card refused, or operands a kernel does not take. It subclasses each
+    builtin these checks raised before it existed. The serving engine
+    never turns it into one failed request: it propagates."""
+
+
 def _nvcc() -> str:
     path = shutil.which("nvcc")
     if path is None:
@@ -38,8 +45,8 @@ def _nvcc() -> str:
         if cand.exists():
             path = str(cand)
     if path is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels build only on "
-                           "a machine with the CUDA toolkit")
+        raise KernelError("nvcc not found: the CUDA kernels build only on "
+                          "a machine with the CUDA toolkit")
     return path
 
 
@@ -80,7 +87,7 @@ def build_all(names: Sequence[str] = SOURCES) -> float:
         else:
             os.replace(tmp, out)
     if failed:
-        raise RuntimeError("nvcc failed\n" + "\n".join(failed))
+        raise KernelError("nvcc failed\n" + "\n".join(failed))
     return time.perf_counter() - t0
 
 
@@ -131,8 +138,8 @@ def dtype_code(t) -> int:
     """The C interface's dtype code for an activation tensor."""
     name = str(t.dtype).removeprefix("torch.")
     if name not in _DTYPE_CODES:
-        raise TypeError(f"the CUDA kernels take float32 or bfloat16 "
-                        f"activations, got {t.dtype}")
+        raise KernelError(f"the CUDA kernels take float32 or bfloat16 "
+                          f"activations, got {t.dtype}")
     return _DTYPE_CODES[name]
 
 
@@ -142,17 +149,17 @@ def check_cuda(kernel: str, dtype=None, **tensors) -> None:
     dev = None
     for name, t in tensors.items():
         if t.device.type != "cuda":
-            raise ValueError(f"{kernel}: {name} is on {t.device}, not CUDA")
+            raise KernelError(f"{kernel}: {name} is on {t.device}, not CUDA")
         if dev is None:
             dev = t.device
         elif t.device != dev:
-            raise ValueError(f"{kernel}: {name} is on {t.device}, "
-                             f"expected {dev}")
+            raise KernelError(f"{kernel}: {name} is on {t.device}, "
+                              f"expected {dev}")
         if not t.is_contiguous():
-            raise ValueError(f"{kernel}: {name} must be contiguous")
+            raise KernelError(f"{kernel}: {name} must be contiguous")
         if dtype is not None and t.dtype != dtype:
-            raise TypeError(f"{kernel}: {name} must be {dtype}, "
-                            f"got {t.dtype}")
+            raise KernelError(f"{kernel}: {name} must be {dtype}, "
+                              f"got {t.dtype}")
 
 
 def ptr(t) -> ctypes.c_void_p:
@@ -168,4 +175,4 @@ def check_launch(kernel: str, err: int) -> None:
     """Raise if the C function reported a CUDA error (a refused launch
     never runs, and synchronising would not report it)."""
     if err != 0:
-        raise RuntimeError(f"{kernel}: CUDA error {err} at launch")
+        raise KernelError(f"{kernel}: CUDA error {err} at launch")

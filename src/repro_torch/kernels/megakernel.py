@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import binary_matmul, build, paged_attention, ref
+from repro_torch.kernels.build import KernelError
 from repro_torch.kernels.binary_matmul import _aligned
 
 _SLOTS = 8                  # slots per launch: the rows of one n8 tile
@@ -130,25 +131,26 @@ def decode_step_megakernel_raw(x, mqkv, wo, k_pool, v_pool, block_table,
     hkv = nkv // head_dim
     NP, PS, Hkv_p, D_p = k_pool.shape
     if (Hkv_p, D_p) != (hkv, head_dim) or nq % nkv:
-        raise ValueError(f"pools {tuple(k_pool.shape)} do not match dims "
-                         f"{tuple(dims)} / head_dim {head_dim}")
+        raise KernelError(f"pools {tuple(k_pool.shape)} do not match dims "
+                          f"{tuple(dims)} / head_dim {head_dim}")
     qv3, qu3 = mqkv["qv"], mqkv["qu_t"]
     R, Nmax = qv3.shape[-1], qu3.shape[-1]
     if qv3.shape != (3, K // 32, R) or K % 32 or qu3.shape != (3, R // 32, Nmax) \
             or Nmax < nq or Nmax < nkv:
-        raise ValueError(f"merged QKV {tuple(qv3.shape)} / {tuple(qu3.shape)} "
-                         f"does not match x {tuple(x.shape)}")
+        raise KernelError(f"merged QKV {tuple(qv3.shape)} / "
+                          f"{tuple(qu3.shape)} does not match x "
+                          f"{tuple(x.shape)}")
     Ko, Ro = wo["qv"].shape[0] * 32, wo["qv"].shape[1]
     No = wo["qu_t"].shape[1]
     if Ko < nq or wo["qu_t"].shape[0] * 32 != Ro:
-        raise ValueError(f"wo {tuple(wo['qv'].shape)} / "
-                         f"{tuple(wo['qu_t'].shape)} does not match dims")
+        raise KernelError(f"wo {tuple(wo['qv'].shape)} / "
+                          f"{tuple(wo['qu_t'].shape)} does not match dims")
     r_eff = R if eff_rank is None else int(eff_rank)
     ro_eff = Ro if eff_rank_o is None else int(eff_rank_o)
     if not (0 < r_eff <= R and r_eff % 32 == 0
             and 0 < ro_eff <= Ro and ro_eff % 32 == 0):
-        raise ValueError(f"eff_rank {eff_rank} / eff_rank_o {eff_rank_o} "
-                         f"must be multiples of 32 within ({R}, {Ro})")
+        raise KernelError(f"eff_rank {eff_rank} / eff_rank_o {eff_rank_o} "
+                          f"must be multiples of 32 within ({R}, {Ro})")
     if x.device.type == "cpu":
         return ref.decode_step_ref(
             x, mqkv, wo, k_pool, v_pool, block_table, q_pos, cache_pos,
@@ -167,7 +169,7 @@ def decode_step_megakernel_raw(x, mqkv, wo, k_pool, v_pool, block_table,
     build.check_cuda(name, x=x, qv3=qv3, s1o=wo["s1"])
     if tuple(block_table.shape[:1]) != (B,) or tuple(q_pos.shape) != (B,) \
             or tuple(cache_pos.shape) != (B,):
-        raise ValueError("block_table / positions do not match the batch")
+        raise KernelError("block_table / positions do not match the batch")
     G = nq // nkv
     pages = block_table.shape[1]
     paged_attention.check_walk_shapes(name, k_pool, v_pool, G, pages)

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import binary_matmul, megakernel, ref
+from repro_torch.kernels.build import KernelError
 from repro_torch.kernels import paged_attention as paged_kernel
 
 _MODES = ("auto", "ref", "cuda")
@@ -93,7 +94,7 @@ def _match_packed_k(x, qv):
     if kw == d:
         return x
     if kw < d:
-        raise ValueError(f"packed K {kw} is narrower than x's {d}")
+        raise KernelError(f"packed K {kw} is narrower than x's {d}")
     return F.pad(x, (0, kw - d))
 
 
@@ -102,8 +103,8 @@ def _slice_rank(qv, qu_t, eff_rank: int):
     leading ``eff_rank // 32`` packed rows of Uᵀ (views, no repack)."""
     r = qv.shape[-1]
     if not (0 < eff_rank <= r and eff_rank % 32 == 0):
-        raise ValueError(f"eff_rank must be a multiple of 32 in (0, {r}], "
-                         f"got {eff_rank}")
+        raise KernelError(f"eff_rank must be a multiple of 32 in (0, {r}], "
+                          f"got {eff_rank}")
     return qv[..., :eff_rank], qu_t[..., :eff_rank // 32, :]
 
 

@@ -24,6 +24,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.build import KernelError
 
 _SMS = 132                  # H100 SXM streaming multiprocessors
 _ITEMS_TARGET = 2 * _SMS    # work items the plan aims for: two per SM
@@ -48,8 +49,8 @@ def _plan_paged(B: int, Hkv: int, pages: int, sms: int = _SMS,
     the card or the table has one entry. At most ``max_splits`` splits
     (kernel #2: a cluster's 8; the megakernel: _MAX_SPLITS)."""
     if min(B, Hkv, pages, sms) < 1:
-        raise ValueError(f"cannot plan a walk of B={B}, Hkv={Hkv}, "
-                         f"pages={pages} on {sms} blocks")
+        raise KernelError(f"cannot plan a walk of B={B}, Hkv={Hkv}, "
+                          f"pages={pages} on {sms} blocks")
     base = B * Hkv
     want = max(1, min(pages, max_splits, -(-sms // base)))
     eps = -(-pages // want)
@@ -173,14 +174,14 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, q_pos, cache_pos,
     B, S, Hq, D = q.shape
     NP, PS, Hkv, Dk = k_pool.shape
     if S != 1:
-        raise ValueError("paged_decode_attention reads one token per slot")
+        raise KernelError("paged_decode_attention reads one token per slot")
     if Dk != D or Hq % Hkv or tuple(v_pool.shape) != tuple(k_pool.shape):
-        raise ValueError(f"q {tuple(q.shape)} does not match pools "
-                         f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)}")
+        raise KernelError(f"q {tuple(q.shape)} does not match pools "
+                          f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)}")
     if block_table.dim() != 2 or block_table.shape[0] != B \
             or tuple(q_pos.shape) != (B,) or tuple(cache_pos.shape) != (B,):
-        raise ValueError(f"block_table {tuple(block_table.shape)} / "
-                         f"positions do not match batch {B}")
+        raise KernelError(f"block_table {tuple(block_table.shape)} / "
+                          f"positions do not match batch {B}")
     if q.device.type == "cpu":
         return ref.paged_attention_ref(q, k_pool, v_pool, block_table, q_pos,
                                        cache_pos, window=window, scale=scale)
@@ -217,12 +218,12 @@ def check_walk_shapes(name: str, k_pool, v_pool, G: int, pages: int) -> None:
     _MAX_HEAD_ELEMS query values per kv head; at least one table entry."""
     D = k_pool.shape[-1]
     if D % 8 or G * D > _MAX_HEAD_ELEMS or G > 16 or pages < 1:
-        raise ValueError(f"{name}: head_dim {D} (a multiple of 8), "
-                         f"{G} query heads per kv head and {pages} table "
-                         f"entries are outside what the kernel takes")
+        raise KernelError(f"{name}: head_dim {D} (a multiple of 8), "
+                          f"{G} query heads per kv head and {pages} table "
+                          f"entries are outside what the kernel takes")
     for nm, t in (("k_pool", k_pool), ("v_pool", v_pool)):
         if t.data_ptr() % 16:
-            raise ValueError(f"{name}: {nm} must be 16-byte aligned")
+            raise KernelError(f"{name}: {nm} must be 16-byte aligned")
 
 
 paged_decode_attention.launches = 0

@@ -1,0 +1,230 @@
+"""Serving driver: batched generation from a packed model artifact, the
+port of ``repro.launch.serve`` on the paged pool.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --quantized-ckpt /ckpt/nq --requests 16 --max-new 32
+
+A ``--quantized-ckpt`` directory (a ``NanoQuantModel`` artifact, written
+by either package's ``save``) is self-describing: its manifest carries
+the model config. Without one, the driver serves llama3.2-1b's smoke
+config with packed words drawn from seed 0 (the port cannot quantize).
+The engine runs on ``--device`` (``cuda`` by default; nothing falls back
+to the CPU).
+
+Crash-restart serving: ``--supervise`` re-execs this driver under
+``launch/supervisor.py`` with hang detection keyed to the per-tick
+``[serve] heartbeat`` lines (printed by the serving loop itself, so a
+wedged device call stops them and the process is killed and restarted),
+and ``--snapshot PATH`` persists the host-side resume state every
+``--snapshot-every`` ticks: a restarted process resumes the interrupted
+requests (token-identically under greedy decoding). On a CUDA card this
+is the recovery from a real device fault, which leaves the process's
+CUDA context unusable. ``--crash-at-step N`` snapshots and exits with
+code 7 at tick N, to exercise the loop.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import sys
+import time
+
+import numpy as np
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--quantized-ckpt", default="",
+                    help="NanoQuantModel artifact; if empty, serves "
+                         "llama3.2-1b's smoke config packed from a seed")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default) or cpu")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=24)
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--page-size", type=int, default=64,
+                    help="KV rows per page of the paged pool")
+    ap.add_argument("--kv-pool-pages", type=int, default=0,
+                    help="total pool pages; 0 = full capacity, smaller "
+                         "overcommits (admission queues on free pages)")
+    ap.add_argument("--spec-rank-frac", type=float, default=0.0,
+                    help="self-speculative decoding: draft through a "
+                         "rank-truncated view at this rank fraction, "
+                         "verify at full rank (forces greedy sampling)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="max draft tokens per speculative cycle")
+    ap.add_argument("--no-prefix", action="store_true",
+                    help="disable the prefix cache (shared prompt-prefix "
+                         "KV pages; on by default)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="prepend this many shared system-prompt tokens "
+                         "to every request (prefix-cache page sharing)")
+    ap.add_argument("--deadline", type=float, default=0.0,
+                    help="per-request deadline in seconds (0 = none); "
+                         "requests past it finish 'expired'")
+    ap.add_argument("--snapshot", default="",
+                    help="resume-state file: loaded on start if it exists "
+                         "(crash recovery), refreshed every "
+                         "--snapshot-every ticks, removed on a clean "
+                         "finish")
+    ap.add_argument("--snapshot-every", type=int, default=32,
+                    help="ticks between snapshot refreshes")
+    ap.add_argument("--heartbeat-every", type=int, default=16,
+                    help="ticks between '[serve] heartbeat' lines (what "
+                         "--supervise hang detection watches; 0 disables)")
+    ap.add_argument("--crash-at-step", type=int, default=0,
+                    help="testing: snapshot then exit(7) at this tick "
+                         "(fresh runs only: a resumed process runs to "
+                         "completion)")
+    ap.add_argument("--supervise", action="store_true",
+                    help="run under launch/supervisor.py: restart on "
+                         "crash, kill and restart on missing heartbeats, "
+                         "resume from --snapshot")
+    ap.add_argument("--hang-timeout", type=float, default=60.0,
+                    help="--supervise: seconds without a heartbeat before "
+                         "the child is declared hung")
+    ap.add_argument("--max-restarts", type=int, default=3,
+                    help="--supervise: restart budget")
+    args = ap.parse_args()
+
+    if args.supervise:
+        from repro_torch.launch import supervisor
+        if not args.snapshot:
+            ap.error("--supervise needs --snapshot to resume across "
+                     "restarts")
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve"] \
+            + [a for a in sys.argv[1:] if a != "--supervise"]
+        raise SystemExit(supervisor.supervise(
+            cmd, max_restarts=args.max_restarts,
+            hang_timeout=args.hang_timeout,
+            heartbeat_pattern=r"\[serve\] heartbeat"))
+
+    from repro_torch.api import NanoQuantModel
+    from repro_torch.serve import recovery
+    from repro_torch.serve.engine import ServeConfig
+    from repro_torch.serve.scheduler import Request
+
+    if args.quantized_ckpt:
+        model = NanoQuantModel.load(args.quantized_ckpt, device=args.device)
+        bpw = model.quant.get("target_bpw", 1.0) if model.quantized else 16
+        print(f"[serve] loaded artifact {args.quantized_ckpt} "
+              f"(arch={model.cfg.name}, bpw={bpw})", flush=True)
+    else:
+        from repro_torch.configs import get_smoke
+        from repro_torch.quant.surgery import abstract_quantized_params
+        from repro_torch.testing import random_packed_params
+        cfg = dataclasses.replace(get_smoke("llama3.2-1b"), dtype="float32")
+        tree = random_packed_params(
+            abstract_quantized_params(cfg, 1.0, min_dim=16), 0)
+        model = NanoQuantModel.from_numpy(tree, cfg, device=args.device)
+        print(f"[serve] {cfg.name} packed from seed 0 at 1.0 bpw (demo)",
+              flush=True)
+
+    cfg = model.cfg
+    spec = args.spec_rank_frac or None
+    scfg = ServeConfig(max_new_tokens=args.max_new,
+                       page_size=args.page_size,
+                       kv_pool_pages=args.kv_pool_pages or None,
+                       greedy=bool(spec), spec_rank_frac=spec,
+                       spec_k=args.spec_k, prefix_cache=not args.no_prefix)
+    if spec:
+        print(f"[serve] speculative decode: rank_frac={spec} "
+              f"k<={args.spec_k} (greedy sampling forced)")
+    eng = model.engine(scfg, max_batch=args.max_batch,
+                       max_len=(args.shared_prefix + args.prompt_len
+                                + args.max_new))
+    rng = np.random.default_rng(0)
+    sys_prompt = None
+    if args.shared_prefix:
+        sys_prompt = rng.integers(0, cfg.vocab_size,
+                                  size=args.shared_prefix).astype(np.int64)
+    t0 = time.time()
+    resumed = args.snapshot and os.path.exists(args.snapshot)
+    if resumed:
+        snap = recovery.load_snapshot(args.snapshot)
+        handles = list(recovery.restore(eng, snap).values())
+        print(f"[serve] resumed {len(handles)} in-flight requests from "
+              f"{args.snapshot}", flush=True)
+    else:
+        handles = []
+        for uid in range(args.requests):
+            prompt = rng.integers(0, cfg.vocab_size,
+                                  size=args.prompt_len).astype(np.int64)
+            if sys_prompt is not None:
+                prompt = np.concatenate([sys_prompt, prompt])
+            handles.append(eng.submit(Request(
+                uid, prompt, max_new_tokens=args.max_new,
+                deadline_s=args.deadline or None)))
+    # a manual step loop, not eng.run(): the heartbeat must come from
+    # inside the serving loop (a thread would keep beating while a device
+    # call is wedged, the hang the supervisor exists to catch)
+    while eng.in_flight:
+        eng.step()
+        tick = eng.stats["steps"]
+        if args.heartbeat_every and tick % args.heartbeat_every == 0:
+            print(f"[serve] heartbeat step={tick} "
+                  f"active={int(eng.active.sum())} "
+                  f"queued={len(eng.scheduler.pending)}", flush=True)
+        if args.snapshot and args.snapshot_every \
+                and tick % args.snapshot_every == 0 and eng.in_flight:
+            recovery.save_snapshot(eng, args.snapshot)
+        if args.crash_at_step and not resumed \
+                and tick >= args.crash_at_step:
+            if args.snapshot:
+                recovery.save_snapshot(eng, args.snapshot)
+            print(f"[serve] injected crash at step {tick}", flush=True)
+            sys.exit(7)
+    done = dict(eng.done)
+    if args.snapshot and os.path.exists(args.snapshot):
+        os.unlink(args.snapshot)           # clean finish: nothing to resume
+    dt = time.time() - t0
+    n_tok = sum(len(r.output) for r in done.values())
+    n_term = {s: eng.stats[s] for s in ("cancelled", "expired", "failed")
+              if eng.stats[s]}
+    print(f"[serve] engine=continuous on {eng.device}: {len(done)} "
+          f"requests, {n_tok} tokens in {dt:.2f}s ({n_tok / dt:.1f} tok/s)"
+          + (f", non-done terminals {n_term}" if n_term else ""))
+    lats = np.asarray(sorted(h.latency for h in handles if h.done))
+    if lats.size:
+        print(f"[serve] request latency: mean {lats.mean():.2f}s  "
+              f"p50 {np.percentile(lats, 50):.2f}s  "
+              f"p95 {np.percentile(lats, 95):.2f}s")
+    print(f"[serve] decode steps {eng.stats['decode_steps']}, wasted "
+          f"slot-steps {eng.stats['wasted_slot_steps']}")
+    _print_pool_stats(eng)
+    if eng.spec is not None:
+        st = eng.stats
+        print(f"[serve] speculative: {st['spec_cycles']} cycles, "
+              f"acceptance {eng.spec.acceptance_rate():.2f} "
+              f"({st['spec_accepted_tokens']}/{st['spec_draft_tokens']} "
+              f"draft tokens), {st['spec_rollback_tokens']} rolled "
+              f"back ({st['spec_rollback_pages']} pages trimmed), "
+              f"final k={eng.spec.k}")
+    if done:
+        first = min(done)
+        print(f"[serve] sample output for request {first}: "
+              f"{done[first].output[:16]}", flush=True)
+
+
+def _print_pool_stats(eng) -> None:
+    print(f"[serve] paged KV pool: {eng.kv.n_pages} pages x "
+          f"{eng.kv.page_size} rows ({eng.kv_cache_bytes() / 2**20:.2f} "
+          f"MiB), peak {eng.kv.peak_used_pages} pages in use, "
+          f"{eng.stats['page_waits']} page waits, "
+          f"{eng.stats['preemptions']} preemptions")
+    if eng.prefix is not None:
+        st = eng.stats
+        rate = (st["prefix_hit_tokens"] / st["prefix_lookup_tokens"]
+                if st["prefix_lookup_tokens"] else 0.0)
+        print(f"[serve] prefix cache: hit rate {rate:.2f} "
+              f"({st['prefix_hit_tokens']}/{st['prefix_lookup_tokens']} "
+              f"prompt tokens served from shared pages), peak "
+              f"{st['shared_pages']} shared pages, "
+              f"{st['cow_copies']} COW copies, "
+              f"{st['evicted_pages']} cached pages evicted")
+
+
+if __name__ == "__main__":
+    main()

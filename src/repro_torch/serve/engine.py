@@ -16,6 +16,20 @@ prompt + emitted tokens (token-exact under greedy decoding). With
 ``ServeConfig(spec_rank_frac=...)`` the decode tick is a self-speculative
 cycle instead (``serve.speculative``).
 
+Request lifecycle: a handle moves "pending" → "running" → one of
+:data:`TERMINAL_STATUSES`. ``handle.cancel()`` and ``Request.deadline_s``
+are honoured at tick boundaries (queued requests are dropped, active
+slots torn down page-exactly); a request whose own prefill fails (a
+poison prompt: non-finite logits) ends "failed" while the other slots
+keep decoding; ``drain()`` closes admission and checkpoints the live
+slots as resumable items, which ``serve.recovery`` snapshots and
+restores. A ``serve.faults.FaultPlan`` injects faults at the engine's
+seams. Errors of the kernel layer (``kernels.build.KernelError``) and of
+the CUDA runtime are never isolated to one request: they propagate out
+of ``step()``. A real CUDA fault is sticky (the context is unusable), so
+in-process recovery covers only the injected class; the supervisor and a
+snapshot (``launch.supervisor``, ``launch.serve``) recover a real one.
+
     engine = InferenceEngine(params, cfg, ServeConfig(greedy=True))
     handle = engine.submit(Request(0, prompt), on_token=print)
     done = engine.run()
@@ -31,10 +45,12 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.build import KernelError
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.quant.surgery import merge_projection_groups
 from repro_torch.serve import paging, speculative
+from repro_torch.serve.faults import InjectedDeviceError
 from repro_torch.serve.prefix import PrefixCache
 from repro_torch.serve.scheduler import (Request, SlotScheduler,
                                          bucket_length,
@@ -88,12 +104,47 @@ def sample_token(logits, generator: Optional[torch.Generator],
                              generator=generator)
 
 
+#: Terminal request statuses. "done" is the only successful one; the
+#: other three carry a :class:`RequestError` on the handle.
+TERMINAL_STATUSES = ("done", "cancelled", "expired", "failed")
+
+# torch's own errors of the CUDA runtime (the classes this torch build has)
+_CUDA_ERRORS = tuple(c for c in (getattr(torch, "AcceleratorError", None),
+                                 getattr(torch.cuda, "OutOfMemoryError", None),
+                                 getattr(torch.cuda, "CudaError", None))
+                     if c is not None)
+
+
+def _device_side(err: BaseException) -> bool:
+    """Whether `err` came from the kernel layer or the CUDA runtime. Such
+    an error belongs to the engine, not to the request whose admission
+    raised it: it propagates instead of failing one handle."""
+    return isinstance(err, (KernelError,) + _CUDA_ERRORS) or (
+        isinstance(err, RuntimeError) and "cuda" in str(err).lower())
+
+
+class RequestError(RuntimeError):
+    """Structured terminal error of one request: it ended "cancelled",
+    "expired" or "failed" while the engine kept serving the others.
+    ``RequestHandle.result()`` and handle iteration raise it; it is also
+    stored on ``handle.error``."""
+
+    def __init__(self, uid: int, status: str, reason: str):
+        super().__init__(f"request {uid} {status}: {reason}")
+        self.uid = uid
+        self.status = status
+        self.reason = reason
+
+
 class RequestHandle:
     """Streaming view of one submitted request: ``tokens`` grows as the
     engine emits; iterate to stream (pumping ``engine.step()``), or call
-    ``result()`` to block until done. ``status`` moves "pending" →
-    "running" (first admission; preemption does not move it back) →
-    "done"."""
+    ``result()`` to block until terminal. ``status`` moves "pending" →
+    "running" (first admission; preemption does not move it back) → one
+    of :data:`TERMINAL_STATUSES`. A non-"done" terminal carries a
+    :class:`RequestError` on ``error``: ``result()`` raises it, and
+    iteration yields the tokens emitted before the terminal, then raises
+    it. ``cancel()`` takes effect at the engine's next tick boundary."""
 
     def __init__(self, engine: "InferenceEngine", request: Request,
                  on_token: Optional[Callable] = None):
@@ -103,13 +154,39 @@ class RequestHandle:
         self.on_token = on_token
         self.tokens: List[int] = []
         self.status = "pending"
+        self.error: Optional[RequestError] = None
+        self.cancel_requested = False
+        self.cancel_reason = "cancelled by client"
+        self.deadline_at: Optional[float] = None   # engine clock, absolute
         self.submit_t = time.monotonic()
         self.first_token_t: Optional[float] = None
         self.finish_t: Optional[float] = None
 
     @property
+    def finished(self) -> bool:
+        """True once the request reached any terminal status."""
+        return self.status in TERMINAL_STATUSES
+
+    @property
     def done(self) -> bool:
+        """True only for the successful terminal status."""
         return self.status == "done"
+
+    def cancel(self, reason: str = "cancelled by client") -> None:
+        """Request cancellation, honoured at the engine's next tick
+        boundary: a queued request is dropped, an active slot torn down
+        with its pages freed exactly. No-op once terminal."""
+        if not self.finished:
+            self.cancel_requested = True
+            self.cancel_reason = reason
+
+    def _finalize(self, status: str,
+                  error: Optional[RequestError] = None) -> None:
+        if status not in TERMINAL_STATUSES:
+            raise ValueError(f"{status!r} is not a terminal status")
+        self.status = status
+        self.error = error
+        self.finish_t = time.monotonic()
 
     def _append(self, token: int) -> None:
         if self.first_token_t is None:
@@ -117,20 +194,28 @@ class RequestHandle:
         self.tokens.append(token)
 
     def result(self) -> np.ndarray:
-        while not self.done:
+        """Pump the engine until terminal; the full output, or raise this
+        request's :class:`RequestError`."""
+        while not self.finished:
             if not self._engine.in_flight:
                 raise RuntimeError(
                     f"request {self.uid} unfinished but engine is idle")
             self._engine.step()
+        if self.error is not None:
+            raise self.error
         return self.request.output
 
     def __iter__(self):
+        # a fresh iterator per call from token 0: re-iterating a finished
+        # handle replays its tokens
         i = 0
         while True:
             if i < len(self.tokens):
                 yield self.tokens[i]
                 i += 1
-            elif self.done:
+            elif self.finished:
+                if self.error is not None:
+                    raise self.error
                 return
             else:
                 if not self._engine.in_flight:
@@ -148,6 +233,16 @@ class RequestHandle:
         if self.first_token_t is None:
             return None
         return self.first_token_t - self.submit_t
+
+
+class _AbortAdmission(Exception):
+    """A cancel or expiry noticed between a prefill and the slot's
+    activation: unwind the admission to this terminal."""
+
+    def __init__(self, status: str, reason: str):
+        super().__init__(f"{status}: {reason}")
+        self.status = status
+        self.reason = reason
 
 
 @dataclasses.dataclass
@@ -180,14 +275,18 @@ class InferenceEngine:
     ``"cuda"`` by default (raises without a card) or ``"cpu"``; policy:
     the kernel policy for this engine's steps (default: the ambient
     one). With a policy on the kernel path the engine adds merged QKV /
-    gate-up operands to its own copy of the params.
+    gate-up operands to its own copy of the params. faults: a
+    ``serve.faults.FaultPlan`` whose hooks fire at the engine's seams
+    (None in production); clock: the deadline clock, monotonic seconds
+    (injectable so that tests expire requests deterministically).
     """
 
     def __init__(self, params, cfg: ModelConfig,
                  scfg: Optional[ServeConfig] = None, max_batch: int = 8,
                  max_len: int = 512, seed: int = 0,
                  admission: str = "continuous", device="cuda",
-                 policy: Optional[kops.KernelPolicy] = None):
+                 policy: Optional[kops.KernelPolicy] = None, faults=None,
+                 clock: Optional[Callable[[], float]] = None):
         self.device = resolve_device(device)
         self.scfg = scfg or ServeConfig()
         if self.scfg.spec_rank_frac is not None:
@@ -210,6 +309,10 @@ class InferenceEngine:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.scheduler = SlotScheduler(max_batch, admission)
+        self.clock: Callable[[], float] = clock or time.monotonic
+        self.faults = faults
+        # drain(): no fresh admissions (preempted resumes still re-admit)
+        self.draining = False
         self.kv = paging.PagedKVState(max_batch, max_len,
                                       self.scfg.page_size,
                                       self.scfg.kv_pool_pages,
@@ -223,7 +326,11 @@ class InferenceEngine:
         self._callbacks: List[Tuple[Callable, int, Any]] = []
         self.handles: Dict[int, RequestHandle] = {}
         self.done: Dict[int, Request] = {}
+        # per uid: the slot it holds, the steps of its admission and of
+        # its terminal status
+        self.slot_of: Dict[int, int] = {}
         self.admission_step: Dict[int, int] = {}
+        self.completion_step: Dict[int, int] = {}
         self.stats: Dict[str, Any] = {}
         self.reset_stats()
         # the port serves the dense family, whose tables are linear only
@@ -255,7 +362,11 @@ class InferenceEngine:
                 f"{self.max_len} leaves no room to generate")
         if prompt.min() < 0 or prompt.max() >= self.cfg.vocab_size:
             raise ValueError(f"request {req.uid}: prompt token ids outside "
-                             f"[0, {self.cfg.vocab_size})")
+                             f"[0, {self.cfg.vocab_size}): refusing to embed "
+                             f"out-of-vocabulary ids")
+        if req.deadline_s is not None and req.deadline_s < 0:
+            raise ValueError(f"request {req.uid}: deadline_s must be "
+                             f">= 0, got {req.deadline_s}")
         need = self.kv.pages_for_prompt(n)
         if need + self.kv.watermark > self.kv.n_pages - 1:
             raise ValueError(
@@ -264,11 +375,13 @@ class InferenceEngine:
                 f"{self.kv.watermark}) — it could never be admitted")
         old = self.handles.get(req.uid)
         if old is not None:
-            if not old.done:
+            if not old.finished:
                 raise ValueError(f"duplicate request uid {req.uid} still "
                                  f"pending or decoding")
-            self._forget(req.uid)
+            self._forget(req.uid)          # uid reuse after a terminal
         handle = RequestHandle(self, req, on_token)
+        if req.deadline_s is not None:
+            handle.deadline_at = self.clock() + req.deadline_s
         self.handles[req.uid] = handle
         self.scheduler.submit(handle)
         return handle
@@ -280,14 +393,16 @@ class InferenceEngine:
         return bool(self.scheduler.pending) or bool(self.active.any())
 
     def step(self) -> List[Request]:
-        """One scheduler tick: admit into free slots, then one batched
-        decode step across the pool. Returns the requests finished now.
-        `on_token` callbacks fire after the tick's state is committed."""
+        """One scheduler tick: fault hooks and reaping at the boundary,
+        admission into free slots, then one batched decode step across the
+        pool. Returns the requests finished now. `on_token` callbacks fire
+        after the tick's state is committed; each is delivered even if an
+        earlier one raises, and then the first error is raised."""
         finished: List[Request] = []
         self._callbacks = []
         promised = [0]     # pages owed to earlier admissions of this batch
 
-        def gate(item):
+        def page_gate(item):
             prompt = self._item_prompt(item)
             n = prompt.shape[0]
             need = self.kv.pages_for_prompt(n)
@@ -310,7 +425,19 @@ class InferenceEngine:
                 self.stats["page_waits"] += 1
             return ok
 
+        def gate(item):
+            if self.draining and not isinstance(item, _Resume):
+                return False               # drain: no fresh admissions
+            if self.faults is not None:
+                # e.g. evict cached pages between earlier items' match
+                # and their kv.admit: the protection must hold them
+                self.faults.on_gate(self)
+            return page_gate(item)
+
         with kops.kernel_policy(self.policy), torch.inference_mode():
+            if self.faults is not None:
+                self.faults.on_step(self)
+            self._reap()
             for slot, item in self.scheduler.admit_batch(gate):
                 fin = self._admit(slot, item)
                 if fin is not None:
@@ -321,17 +448,26 @@ class InferenceEngine:
                                             int(self.active.sum()))
             if self.active.any():
                 t0 = time.monotonic()
-                if self.spec is not None:
-                    self.spec.tick(finished)
-                else:
-                    self._decode_tick(finished)
+                try:
+                    if self.spec is not None:
+                        self.spec.tick(finished)
+                    else:
+                        self._decode_tick(finished)
+                except InjectedDeviceError as e:
+                    self._on_device_fault(e)
                 self.stats["decode_time_s"] += time.monotonic() - t0
         self.stats["steps"] += 1
         if self.scfg.debug:
             self.check_invariants()
         callbacks, self._callbacks = self._callbacks, []
+        err = None
         for cb, uid, token in callbacks:
-            cb(uid, token)
+            try:
+                cb(uid, token)
+            except BaseException as e:     # deliver to every consumer,
+                err = err or e             # then raise the first error
+        if err is not None:
+            raise err
         return finished
 
     def run(self) -> Dict[int, Request]:
@@ -340,10 +476,115 @@ class InferenceEngine:
             self.step()
         return dict(self.done)
 
+    # ---- request lifecycle: cancellation, deadlines, drain ----------------
+
+    def _verdict(self, handle: RequestHandle) -> Optional[Tuple[str, str]]:
+        """(terminal status, reason) if `handle` is to be reaped now
+        (cancelled, or past its deadline), else None."""
+        if handle.cancel_requested:
+            return "cancelled", handle.cancel_reason
+        if handle.deadline_at is not None \
+                and self.clock() >= handle.deadline_at:
+            return "expired", (f"deadline "
+                               f"{handle.request.deadline_s}s exceeded")
+        return None
+
+    @staticmethod
+    def _item_handle(item) -> RequestHandle:
+        return item.handle if isinstance(item, _Resume) else item
+
+    def _reap(self) -> None:
+        """Tick-boundary reaping: drop cancelled or expired requests from
+        the queue and tear down cancelled or expired slots, their pages
+        and prefix references freed exactly (the preemption teardown
+        without the requeue)."""
+        if not (self.scheduler.pending or self.active.any()):
+            return
+        for item in self.scheduler.reap(
+                lambda it: self._verdict(self._item_handle(it)) is not None):
+            handle = self._item_handle(item)
+            status, reason = self._verdict(handle)
+            toks = item.emitted if isinstance(item, _Resume) else []
+            self._finalize_aborted(handle, status, reason, toks)
+        for slot in np.nonzero(self.active)[0]:
+            v = self._verdict(self._tasks[int(slot)].handle)
+            if v is not None:
+                self._abort_slot(int(slot), *v)
+
+    def _release_slot(self, slot: int, handle: RequestHandle) -> None:
+        """Empty `slot`: its pages and prefix references freed exactly
+        (release tolerates a partial admission), its scheduler seat
+        given back."""
+        self.active[slot] = False
+        self._tasks[slot] = None
+        self.slot_of.pop(handle.uid, None)
+        self.kv.release(slot)
+        self.scheduler.release(slot)
+
+    def _abort_slot(self, slot: int, status: str, reason: str) -> None:
+        """Tear down an active slot to a non-successful terminal."""
+        task = self._tasks[slot]
+        self._release_slot(slot, task.handle)
+        self._finalize_aborted(task.handle, status, reason, task.toks)
+        if status == "failed":             # every fault audits the pool
+            self.check_invariants()
+
+    def _finalize_aborted(self, handle: RequestHandle, status: str,
+                          reason: str, toks: List[int]) -> None:
+        """Move `handle` to a non-successful terminal. The tokens emitted
+        before it stay readable on ``request.output`` and
+        ``handle.tokens``; ``result()`` raises."""
+        req = handle.request
+        req.output = np.asarray(toks, np.int32) if toks \
+            else np.zeros((0,), np.int32)
+        handle._finalize(status, RequestError(req.uid, status, reason))
+        self.completion_step[req.uid] = self.stats["steps"]
+        self.stats[status] += 1
+
+    def _on_device_fault(self, err: InjectedDeviceError) -> None:
+        """Recover from an injected device error in the decode step. It is
+        raised before the step enqueues any kernel, so the pool is intact:
+        fail the attributed slot with a RequestError (the youngest active
+        slot when the target holds none), preempt every other active slot
+        (each resumes token-exactly by re-prefill) and audit the pool. A
+        real CUDA fault is sticky and never reaches this path."""
+        slot = self.slot_of.get(err.uid)
+        if slot is None and self.active.any():
+            slot = int(np.nonzero(self.active)[0][-1])
+        self.stats["device_faults"] += 1
+        if slot is not None:
+            self._abort_slot(slot, "failed",
+                             f"device error in decode step: {err}")
+        for s in np.nonzero(self.active)[0]:
+            self._preempt(int(s))
+        self.check_invariants()
+
+    def drain(self, timeout: Optional[float] = None) -> Dict[int, Request]:
+        """Graceful drain: stop admitting fresh requests and keep stepping
+        until every active slot finishes (or `timeout` seconds of the
+        engine clock pass), then checkpoint what is still active as
+        requeued resumes, which ``serve.recovery.snapshot`` persists.
+        Returns the requests completed so far. Admission stays closed
+        until :meth:`resume_admission`."""
+        self.draining = True
+        t0 = self.clock()
+        while self.active.any():
+            if timeout is not None and self.clock() - t0 >= timeout:
+                break
+            self.step()
+        for slot in np.nonzero(self.active)[0]:
+            self._preempt(int(slot))
+        return dict(self.done)
+
+    def resume_admission(self) -> None:
+        """Reopen admission after :meth:`drain`."""
+        self.draining = False
+
     def check_invariants(self) -> None:
-        """Audit the page pool, the prefix index and the slot/task
+        """Audit the page pool, the prefix index and the slot/task/owner
         alignment; raises ``paging.PageAccountingError`` on the first
-        violation."""
+        violation. Runs on every fault and, with ``ServeConfig(debug=
+        True)``, at the end of every tick."""
         self.kv.check_invariants()
         if self.prefix is not None:
             self.prefix.check_invariants()
@@ -353,8 +594,14 @@ class InferenceEngine:
                 raise paging.PageAccountingError(
                     f"slot {slot}: active={bool(self.active[slot])} but "
                     f"task={'set' if task is not None else 'none'}")
-            if task is not None and \
-                    self.kv._mapped[slot] * self.kv.page_size < self.pos[slot]:
+            if task is None:
+                continue
+            uid = task.handle.uid
+            if self.scheduler.slots[slot] != uid:
+                raise paging.PageAccountingError(
+                    f"slot {slot}: scheduler owner "
+                    f"{self.scheduler.slots[slot]} != task uid {uid}")
+            if self.kv._mapped[slot] * self.kv.page_size < self.pos[slot]:
                 raise paging.PageAccountingError(
                     f"slot {slot}: pos {int(self.pos[slot])} beyond its "
                     f"mapped rows")
@@ -370,16 +617,29 @@ class InferenceEngine:
                   # one slot, cow_copies the copies on write, evicted_pages
                   # the index's LRU evictions
                   "prefix_hit_tokens", "prefix_lookup_tokens",
-                  "shared_pages", "cow_copies", "evicted_pages"):
+                  "shared_pages", "cow_copies", "evicted_pages",
+                  # terminal statuses, and injected device errors recovered
+                  "cancelled", "expired", "failed", "device_faults"):
             self.stats[k] = 0
         # host wall-clock of the decode steps or speculative cycles
         # (decode tok/s = decode-emitted tokens / this; each ends in a host
         # read of the tokens); decode_steps counts a cycle as one step
         self.stats["decode_time_s"] = 0.0
 
+    def kv_cache_bytes(self) -> int:
+        """Bytes of the paged pool's k and v leaves."""
+        return paging.kv_cache_bytes(self.cache)
+
     def _forget(self, uid: int) -> None:
-        for d in (self.handles, self.done, self.admission_step):
+        for d in (self.handles, self.done, self.slot_of,
+                  self.admission_step, self.completion_step):
             d.pop(uid, None)
+
+    def clear_finished(self) -> None:
+        """Drop the engine's bookkeeping of completed requests (handles,
+        outputs, step logs); callers keep their handles."""
+        for uid in list(self.done):
+            self._forget(uid)
 
     # ---- internals --------------------------------------------------------
 
@@ -390,11 +650,43 @@ class InferenceEngine:
         return np.asarray(item.request.prompt, np.int64)
 
     def _admit(self, slot: int, item) -> Optional[Request]:
+        """Failure-isolated admission: when a request's own prefill fails
+        (non-finite logits, or any error outside the kernel layer and the
+        CUDA runtime), that handle ends "failed" with a RequestError, its
+        partial slot state is torn down page-exactly and the other slots
+        keep decoding. Page-accounting violations, errors of the kernel
+        layer (``KernelError``) and the CUDA runtime's errors stay
+        engine-fatal: they propagate out of ``step()``."""
+        try:
+            return self._admit_impl(slot, item)
+        except paging.PageAccountingError:
+            raise
+        except _AbortAdmission as e:       # cancel or expiry mid-prefill
+            self._teardown_admission(slot, item, e.status, e.reason)
+        except Exception as e:
+            if _device_side(e):
+                raise
+            self._teardown_admission(slot, item, "failed",
+                                     f"{type(e).__name__}: {e}")
+            self.check_invariants()        # every fault audits the pool
+        return None
+
+    def _teardown_admission(self, slot: int, item, status: str,
+                            reason: str) -> None:
+        """Unwind a partly admitted slot and finalize its handle."""
+        handle = self._item_handle(item)
+        self._release_slot(slot, handle)
+        toks = item.emitted if isinstance(item, _Resume) else []
+        self._finalize_aborted(handle, status, reason, toks)
+
+    def _admit_impl(self, slot: int, item) -> Optional[Request]:
         """Prefill `item`'s prompt into `slot` and emit its first token:
         on a prefix hit only the suffix, straight into the pool
         (:meth:`_admit_shared`); otherwise the whole prompt alone
         (bucketed), its KV rows scattered into the slot's fresh pages.
-        Returns the request if it finished at once."""
+        The logits are checked, and a cancel or expiry that landed
+        meanwhile honoured, before any chunk is registered with the
+        prefix index. Returns the request if it finished at once."""
         if isinstance(item, _Resume):
             handle, budget_cap, prior = item.handle, item.budget, item.emitted
             self.stats["preempt_recompute_tokens"] += int(item.prompt.shape[0])
@@ -427,18 +719,29 @@ class InferenceEngine:
                 self.cache, single,
                 {k: torch.from_numpy(v).to(self.device)
                  for k, v in ids.items()})
-        if self.prefix is not None and bool(torch.isfinite(logits).all()):
-            # non-finite logits mean suspect KV: a registered chunk would
-            # reach every later sharer of its page
+        if self.faults is not None \
+                and self.faults.poison_prefill(self, handle.uid):
+            logits = torch.full_like(logits, float("nan"))
+        if not bool(torch.isfinite(logits).all()):
+            # before register: non-finite logits mean suspect KV, and a
+            # registered chunk would reach every later sharer of its page
+            raise ValueError("non-finite prefill logits (poison request)")
+        if self.faults is not None:
+            self.faults.on_prefill(self, handle)
+        v = self._verdict(handle)
+        if v is not None:                  # cancel or expiry mid-prefill
+            raise _AbortAdmission(*v)
+        if self.prefix is not None:
             self.prefix.register(prompt, n, self.kv.tables["linear"][slot])
             self.stats["shared_pages"] = max(self.stats["shared_pages"],
                                              self.kv.shared_page_count)
         tok = int(sample_token(logits, self.generator, self.scfg)[0, 0])
         task = _SlotTask(handle, budget=min(budget_cap, self.max_len - n),
                          toks=list(prior))
-        handle.status = "running"
+        handle.status = "running"          # sticky across preemption
         self._tasks[slot] = task
         self.pos[slot] = n
+        self.slot_of[handle.uid] = slot
         self.admission_step[handle.uid] = self.stats["steps"]
         self.stats["admissions"] += 1
         fin = self._emit(slot, tok)
@@ -476,6 +779,10 @@ class InferenceEngine:
         self._ensure_decode_pages()
         if not self.active.any():          # everything self-preempted
             return
+        if self.faults is not None:
+            # raises before any kernel of the step is enqueued, so the
+            # pool is intact for the recovery
+            self.faults.before_decode(self)
         dev = self.device
         tables = self.kv.device_tables(dev)
         logits, self.cache = T.decode_step(
@@ -554,10 +861,7 @@ class InferenceEngine:
         prompt = np.concatenate(
             [np.asarray(task.handle.request.prompt, np.int64),
              np.asarray(task.toks, np.int64)])
-        self.active[slot] = False
-        self._tasks[slot] = None
-        self.kv.release(slot)
-        self.scheduler.release(slot)
+        self._release_slot(slot, task.handle)   # queued, not placed
         self.scheduler.requeue(_Resume(task.handle, prompt, task.budget,
                                        list(task.toks)))
         self.stats["preemptions"] += 1
@@ -583,10 +887,7 @@ class InferenceEngine:
         req = task.handle.request
         req.output = np.asarray(task.toks, np.int32)
         self.done[req.uid] = req
-        task.handle.status = "done"
-        task.handle.finish_t = time.monotonic()
-        self.active[slot] = False
-        self._tasks[slot] = None
-        self.kv.release(slot)
-        self.scheduler.release(slot)
+        self.completion_step[req.uid] = self.stats["steps"]
+        task.handle._finalize("done")
+        self._release_slot(slot, task.handle)
         return req

@@ -5,7 +5,9 @@ tables — the parts of ``repro.serve.paging`` the engine uses.
   Pages are reserved at admission for the prompt (``admit``), lazily as
   decode crosses a page boundary (``ensure`` / ``reserve_rows``), given
   back when a speculative cycle rejects drafted rows (``trim``), and
-  freed when the slot completes or is preempted (``release``). Page 0 is the
+  freed when the slot completes or is preempted (``release``); an external
+  holder can borrow pages and give them back (``borrow_pages`` /
+  ``return_pages``, the dry-pool fault seam). Page 0 is the
   *null page*: unmapped table entries point at it, so inactive slots'
   decode writes land in trash instead of in a neighbour's page. Pages are
   refcounted, so the prefix cache (``serve.prefix``) can map one page
@@ -22,7 +24,7 @@ decode read is the rectangular decode mask over the gather.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
@@ -74,6 +76,12 @@ def copy_page(cache, src: int, dst: int):
         pool = cache["layers"][name]
         pool[:, dst] = pool[:, src]
     return cache
+
+
+def kv_cache_bytes(cache) -> int:
+    """Bytes held by the attention cache's k and v leaves."""
+    return sum(t.numel() * t.element_size()
+               for t in cache["layers"].values())
 
 
 def paged_select_active(new, old, active):
@@ -136,6 +144,9 @@ class PagedKVState:
         # page; free <=> ref == 0 and not cached. The null page is neither.
         self.ref = np.zeros(self.n_pages, np.int32)
         self.cached = np.zeros(self.n_pages, bool)
+        # pages borrowed by an external holder (fault injection): each
+        # holds one reference, which check_invariants accounts for
+        self.external: Set[int] = set()
         # wired by the prefix index: reclaim_cb(k) evicts up to k
         # refcount-zero cached pages (LRU) to the free list; evictable_cb()
         # counts how many it could (admission headroom)
@@ -293,12 +304,34 @@ class PagedKVState:
         self.tables["linear"][slot] = 0
         self._device_tables = None
 
+    def borrow_pages(self, k: int) -> List[int]:
+        """Take up to `k` pages out of the pool for an external holder
+        (reclaiming cached pages if needed) and return their ids. Each
+        holds one reference, so accounting stays exact while they are out;
+        no block table maps them. Give them back with
+        :meth:`return_pages`."""
+        out: List[int] = []
+        while len(out) < k and self._ensure_free(1):
+            page = self._alloc(1)[0]
+            self.external.add(page)
+            out.append(page)
+        return out
+
+    def return_pages(self, pages: Sequence[int]) -> None:
+        """Give borrowed pages back to the pool."""
+        for p in pages:
+            if p not in self.external:
+                raise PageAccountingError(f"page {p} was not borrowed")
+            self.external.discard(p)
+            self._unref(p)
+
     def check_invariants(self) -> None:
         """Audit the pool; raise :class:`PageAccountingError` on the first
         violation. Checked: free <=> (ref == 0 and not cached); each ref
-        equals the number of slots mapping the page; table rows map only
-        pages their slot owns, each once, as a dense prefix of exactly
-        ``_mapped`` pages; no page is leaked."""
+        equals the number of slots mapping the page plus one if it is
+        borrowed; table rows map only pages their slot owns (never a
+        borrowed one), each once, as a dense prefix of exactly ``_mapped``
+        pages; no page is leaked."""
         def fail(msg: str):
             raise PageAccountingError(f"page accounting violated: {msg}")
 
@@ -317,6 +350,10 @@ class PagedKVState:
                 if not 0 < p < self.n_pages:
                     fail(f"slot {slot} owns out-of-range page {p}")
                 counts[p] += 1
+        for p in self.external:
+            if not 0 < p < self.n_pages:
+                fail(f"out-of-range page {p} borrowed")
+            counts[p] += 1
         for p in range(1, self.n_pages):
             if counts[p] != self.ref[p]:
                 fail(f"page {p}: ref={int(self.ref[p])} but "
@@ -337,7 +374,8 @@ class PagedKVState:
             for p in mapped:
                 if p not in own:
                     fail(f"slot {slot} table maps page {p} it does not own"
-                         + (" (freed)" if p in free else ""))
+                         + (" (freed)" if p in free else "")
+                         + (" (borrowed)" if p in self.external else ""))
             if len(set(mapped)) != len(mapped):
                 fail(f"slot {slot} table maps a page twice")
             if (row[:m] == 0).any() or (row[m:] != 0).any():

@@ -25,6 +25,10 @@ class Request:
     max_new_tokens: int = 32
     eos_id: Optional[int] = None
     output: Optional[np.ndarray] = None
+    # seconds from submit(); None = no deadline. The engine expires the
+    # request (terminal status "expired") at the first tick boundary past
+    # it, queued or mid-decode.
+    deadline_s: Optional[float] = None
 
 
 def bucket_length(n: int, max_len: int, floor: int = 8) -> int:
@@ -87,6 +91,10 @@ class SlotScheduler:
     def free_slots(self) -> List[int]:
         return [i for i, s in enumerate(self.slots) if s is None]
 
+    @property
+    def n_active(self) -> int:
+        return self.n_slots - len(self.free_slots())
+
     def admit_batch(self, gate=None) -> List[Tuple[int, object]]:
         """Pair pending requests with free slots per the admission
         policy, marking those slots occupied. `gate(item) -> bool` is a
@@ -107,6 +115,17 @@ class SlotScheduler:
             self.slots[slot] = getattr(item, "uid", -1)
             out.append((slot, item))
         return out
+
+    def reap(self, should_drop) -> List[object]:
+        """Remove the queued items for which ``should_drop(item)`` is true
+        (cancelled or past their deadline) and return them; the survivors
+        keep their order. Queued items own no pages, so the engine only
+        finalizes the dropped handles."""
+        dropped = [it for it in self.pending if should_drop(it)]
+        if dropped:
+            self.pending = deque(it for it in self.pending
+                                 if not should_drop(it))
+        return dropped
 
     def release(self, slot: int) -> None:
         self.slots[slot] = None

@@ -157,12 +157,22 @@ class SpecDecodeController:
         if not eng.active.any():
             return
         slots = np.nonzero(eng.active)[0]
+        if eng.faults is not None:
+            # raises before the cycle enqueues its first kernel: the pool
+            # is intact, and the engine fails the target and resumes the
+            # other slots
+            eng.faults.before_decode(eng)
         dev = eng.device
         out = self._cycle(k, torch.from_numpy(eng.tokens).to(dev),
                           torch.from_numpy(eng.pos).to(dev),
                           eng.kv.device_tables(dev))
         out = out.cpu().numpy()                 # the cycle's one host read
         exact, acc = out[:, :-1], out[:, -1]
+        if eng.faults is not None:
+            # a cancel inside the cycle: the commit and trim below still
+            # run (it is honoured at the next tick boundary), so rollback
+            # accounting must stay exact for a doomed slot
+            eng.faults.on_spec_cycle(eng)
         eng.stats["decode_steps"] += 1
         eng.stats["spec_cycles"] += 1
         eng.stats["wasted_slot_steps"] += int(eng.max_batch - len(slots))

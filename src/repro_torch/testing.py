@@ -1,7 +1,9 @@
-"""Packed parameter trees drawn from a seed, for the tests and
-``chip_smoke.py``: the repo holds no weights, so a model of a published
-shape is built from :func:`repro_torch.quant.surgery.abstract_quantized_params`
-filled with random words and scales. No serving path uses this module.
+"""Packed parameter trees drawn from a seed, and the chaos traffic and
+fault schedule, for the tests and ``chip_smoke.py``: the repo holds no
+weights, so a model of a published shape is built from
+:func:`repro_torch.quant.surgery.abstract_quantized_params` filled with
+random words and scales. The engine never uses this module;
+``launch.serve`` draws its demo model from it when given no artifact.
 
 Both fillers draw from the same distributions, scaled so activations
 stay O(1) through any depth: packed words uniform; s2 ≈ 1/√K and s1 ≈
@@ -10,7 +12,10 @@ weights N(0, 1/d_in); biases N(0, 0.02). :func:`random_packed_params`
 draws on the host with numpy (the CPU parity tests hand its arrays to
 both packages); :func:`random_packed_params_device` draws on the card, one
 leaf at a time, for full-size models whose host draw would take tens of
-GB and minutes. The two give different numbers from one seed."""
+GB and minutes. The two give different numbers from one seed.
+:func:`chaos_trace`, :func:`chaos_plan` and :func:`drive_chaos` are the
+JAX package's chaos benchmark (``benchmarks/serve_bench.py``) for either
+package's engine."""
 import numpy as np
 import torch
 
@@ -76,3 +81,61 @@ def random_packed_params_device(template, seed: int, device="cuda"):
                            ).mul_(float(std)).add_(float(mean))
 
     return _walk(template, fill)
+
+
+def chaos_trace(rng, n_req: int, vocab: int, max_prompt: int = 24,
+                max_new: int = 16):
+    """The JAX package's chaos traffic (``benchmarks/serve_bench.py``
+    ``build_trace``): requests of 4..`max_prompt` prompt tokens and
+    2..`max_new` new tokens with Poisson(0.6) arrival gaps in engine
+    steps, drawn from `rng` in its order. Returns [(arrival step, uid,
+    prompt int64, budget)]."""
+    trace, step = [], 0
+    for uid in range(n_req):
+        step += int(rng.poisson(0.6))
+        prompt = rng.integers(0, vocab,
+                              size=(int(rng.integers(4, max_prompt + 1)),)
+                              ).astype(np.int64)
+        budget = int(rng.integers(2, max_new + 1))
+        trace.append((step, uid, prompt, budget))
+    return trace
+
+
+def chaos_plan(trace, dry_pages: int = 3):
+    """The JAX package's chaos schedule (``benchmarks/serve_bench.py``
+    ``build_chaos_plan``) over `trace`: 11 faults covering every kind,
+    each targeted so that it fires. Mid-flight kinds hit the requests of
+    the largest budgets; queue-side kinds arm at step 0 and fire at the
+    first tick after their target's arrival. `dry_pages` is the size of
+    the dry-pool borrow (3 of the reference's 12-page pool)."""
+    from repro_torch.serve.faults import Fault
+    u = [t[1] for t in sorted(trace, key=lambda t: (-t[3], t[1]))[:8]]
+    return [
+        Fault(step=0, kind="cancel_spec", uid=u[0]),
+        Fault(step=4, kind="device_error", uid=u[1]),
+        Fault(step=0, kind="cancel_prefill", uid=u[2]),
+        Fault(step=0, kind="poison_prefill", uid=u[3]),
+        Fault(step=0, kind="expire", uid=u[4]),
+        Fault(step=0, kind="expire", uid=u[5]),
+        Fault(step=0, kind="expire", uid=u[6]),
+        Fault(step=0, kind="cancel", uid=u[7]),
+        Fault(step=2, kind="dry_pool", pages=dry_pages, hold=2),
+        Fault(step=3, kind="evict_prefix", pages=2),
+        Fault(step=3, kind="preempt", pages=2),
+    ]
+
+
+def drive_chaos(eng, trace, request, faults=None):
+    """Submit `trace` by arrival step to `eng` (either package's engine,
+    with its `request` type) and step it to quiescence, past the plan's
+    dry-pool borrows; returns {uid: handle}."""
+    handles, i = {}, 0
+    while i < len(trace) or eng.in_flight \
+            or (faults is not None and faults.borrowed_pages):
+        while i < len(trace) and trace[i][0] <= eng.stats["steps"]:
+            _, uid, prompt, budget = trace[i]
+            handles[uid] = eng.submit(request(uid, prompt,
+                                              max_new_tokens=budget))
+            i += 1
+        eng.step()
+    return handles

@@ -537,3 +537,101 @@ def test_suffix_prefill_matches_full_prefill(dev, dt):
         assert torch.equal(pool[:, 3], before[k][:, 5])
         assert torch.equal(pool[:, [0, 1, 2, 4, 5]],
                            before[k][:, [0, 1, 2, 4, 5]])
+
+
+def _smoke_model(dev, bpw=1.0):
+    cfg = dataclasses.replace(get_smoke("llama3.2-1b"), dtype="float32")
+    tree = random_packed_params(abstract_quantized_params(cfg, bpw,
+                                                          min_dim=16), 0)
+    return NanoQuantModel.from_numpy(tree, cfg, device=dev)
+
+
+@pytest.mark.cuda
+def test_chaos_on_the_kernel_path(dev):
+    """The chaos benchmark at smoke size on the card, through #1, #2 and
+    #3 (speculative at full rank, pinned k = 4, prefix cache on, a pool of
+    half the slots' rectangle): every kind fires, the survivors emit the
+    undisturbed engine's tokens, the replay is bit for bit (fired log,
+    statuses, every token) and no page leaks."""
+    from repro_torch.serve.faults import FaultPlan
+    from repro_torch.testing import chaos_plan, chaos_trace, drive_chaos
+    m = _smoke_model(dev)
+    trace = chaos_trace(np.random.default_rng(7 + 44), 12,
+                        m.cfg.vocab_size)
+    scfg = ServeConfig(greedy=True, page_size=4, kv_pool_pages=24,
+                       spec_rank_frac=1.0, spec_k=4, spec_k_min=4,
+                       debug=True)
+
+    def run(faults=None):
+        eng = m.engine(scfg, max_batch=4, max_len=48,
+                       policy=KernelPolicy(mode="cuda"), faults=faults)
+        hs = drive_chaos(eng, trace, Request, faults)
+        eng.check_invariants()
+        assert eng.kv.used_pages == eng.kv.cached_page_count
+        eng.prefix.clear()
+        assert eng.kv.used_pages == 0
+        return ({u: h.status for u, h in hs.items()},
+                {u: list(h.tokens) for u, h in hs.items()}, eng.stats)
+
+    counters = (binary_matmul.fused_lowrank_matmul_grouped,
+                paged_attention.paged_decode_attention,
+                megakernel.decode_step_megakernel_raw)
+    before = [c.launches for c in counters]
+    base_status, base, _ = run()
+    assert set(base_status.values()) == {"done"}
+    runs = []
+    for _ in range(2):
+        plan = FaultPlan(chaos_plan(trace), seed=51)
+        runs.append((plan.fired,) + run(plan)[:2])
+    assert runs[0] == runs[1]
+    fired, statuses, tokens = runs[0]
+    assert {k for _, k, _ in fired} == {f.kind for f in chaos_plan(trace)}
+    survivors = [u for u, s in statuses.items() if s == "done"]
+    assert survivors and all(tokens[u] == base[u] for u in survivors)
+    assert sorted(statuses.values()).count("failed") == 2
+    assert all(c.launches > b for c, b in zip(counters, before))
+
+
+class _RefusedLaunch:
+    """A kernel library whose `name` function reports a CUDA error (700,
+    an illegal address) instead of launching."""
+
+    def __init__(self, lib, name):
+        self._lib, self._name = lib, name
+
+    def __getattr__(self, attr):
+        if attr != self._name:
+            return getattr(self._lib, attr)
+
+        class Refused:
+            argtypes = restype = None
+
+            def __call__(self, *args):
+                return 700
+        return Refused()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("when", ["admission", "decode"])
+def test_launch_error_propagates_from_the_engine(dev, monkeypatch, when):
+    """A launch error of kernel #1 (its C function's error code patched)
+    during an admission or a decode step propagates out of ``step()``; no
+    request is failed and no injected device error is counted."""
+    from repro_torch.kernels import build
+    m = _smoke_model(dev)
+    eng = m.engine(ServeConfig(greedy=True, page_size=8), max_batch=2,
+                   max_len=40, policy=KernelPolicy(mode="cuda"))
+    rng = np.random.default_rng(6)
+    hs = [eng.submit(Request(u, rng.integers(0, m.cfg.vocab_size, size=n),
+                             max_new_tokens=8))
+          for u, n in enumerate((5, 9))]
+    if when == "decode":
+        eng.step()
+    real = build.library
+    monkeypatch.setattr(build, "library", lambda name, sig=None: (
+        _RefusedLaunch(real(name, sig), "nq_fused_lowrank")
+        if name == "binary_matmul" else real(name, sig)))
+    with pytest.raises(build.KernelError, match="CUDA error 700"):
+        eng.step()
+    assert not any(h.status == "failed" for h in hs)
+    assert eng.stats["failed"] == eng.stats["device_faults"] == 0
