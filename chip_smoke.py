@@ -102,7 +102,26 @@ Phases, each printing its own line(s); any failure exits non-zero:
    speculative decoding in bf16 as for llama (the first plain run gives
    decode tok/s, TTFT and peak memory; the plain decode window's profile
    is the ``bf16_decode_profile``);
-7. the seconds each phase took, the ``kernels`` JSON line (launches per
+7. qwen3-4b — full width and depth (36 layers, per-head qk_norm, which
+   rules out #3) at 1.0 bpw, weights drawn on the card, under the llama
+   traffic on the path ``qwen3-4b`` (#1 and #2 only), gated like the
+   llama paths; then one bf16 run (decode tok/s, TTFT, peak memory);
+8. qwen3-moe-235b-a22b — kernel #1 at its expert grid (G = 128 experts,
+   x per group, rank 1088; gate/up K 4096 -> N 1536 and down K 1536 -> N
+   4096; M 8, the capacity of a decode step and of a prefill of up to 64
+   tokens, and M 40, a 256-token prefill's; f32 and bf16) against its
+   plain version, timed beside the batched library call over unpacked
+   bf16 factors; then the model at full width and full depth (94
+   layers, 128 experts, top-8) at 1.0 bpw, weights and routers drawn on
+   the card, under the qwen1.5-110b traffic on the path
+   ``qwen3-moe-235b-a22b`` (#1 and #2 only, #1 launched at the expert
+   grid three times per MoE layer and forward). Its f32 gate also reads
+   the router: a request's first expert choice that differs from the
+   plain engine's must be at a plain-path router near-tie, and its
+   tokens must be identical up to it or diverge at a plain-path logit
+   near-tie (``moe_gate``). Then one bf16 run and its decode window
+   under the profiler (device ms per step by kernel);
+9. the seconds each phase took, the ``kernels`` JSON line (launches per
    serving path, each path's counts set to 0 just before its f32 run;
    ``chaos`` counts its kernel legs; ``restart`` launches in its child
    processes and is not counted), then the ``ok`` JSON line.
@@ -177,6 +196,12 @@ GSP = {"arch": "llama3.2-1b", "n": 16, "system": 2048, "question": 128,
 # slots' 56 with it
 GSP_TIGHT = dict(GSP, kv_pool_pages=64)
 
+# qwen3-4b (dense, per-head qk_norm, which rules out the megakernel) under
+# the llama traffic; qwen3-moe-235b-a22b (128 experts, top-8) under the
+# qwen1.5-110b traffic
+QWEN3 = dict(LLAMA, arch="qwen3-4b")
+QWEN3_MOE = dict(QWEN, arch="qwen3-moe-235b-a22b")
+
 # self-speculative decoding: the draft reads half of every packed rank
 SPEC = {"spec_rank_frac": 0.5, "spec_k": 4}
 
@@ -218,6 +243,9 @@ PATHS = (
      (MEGA,)),
     ("qwen1.5-110b-spec", QWEN, {}, None, SPEC, "qwen1.5-110b",
      (FUSED, PAGED, PACKED), (MEGA,)),
+    ("qwen3-4b", QWEN3, {}, None, None, None, (FUSED, PAGED), (MEGA, PACKED)),
+    ("qwen3-moe-235b-a22b", QWEN3_MOE, {}, None, None, None, (FUSED, PAGED),
+     (MEGA, PACKED)),
 )
 
 # the kernels' names in a profiler trace, and the lm head's matmul
@@ -294,7 +322,7 @@ def main():
     free()
     phase("llama3.2-1b bf16 shared-prefix (SGLang mix) runs and profiles")
 
-    qwen = make_qwen()
+    qwen = make_on_card("qwen1.5-110b")
     lines[PACKED] = check_qwen_kernels(qwen, report)
     phase("qwen1.5-110b kernels")
     report["qwen1.5-110b"] = serve_paths(qwen, QWEN, launches)
@@ -309,6 +337,36 @@ def main():
     del qwen
     free()
     phase("qwen1.5-110b bf16 runs and profiles")
+
+    qwen3 = make_on_card("qwen3-4b")
+    report["qwen3-4b"] = serve_paths(qwen3, QWEN3, launches)
+    phase("qwen3-4b f32 engine path")
+    qwen3 = cast(qwen3, torch.bfloat16)
+    free()
+    report["qwen3-4b"]["bf16"] = bf16_run(qwen3, QWEN3, report)
+    del qwen3
+    free()
+    phase("qwen3-4b bf16 run")
+
+    moe = make_on_card("qwen3-moe-235b-a22b")
+    line = check_expert_grid(moe, report)
+    lines[FUSED]["expert_grid"] = [
+        {k: r[k] for k in r if k in (
+            "group", "G", "M", "K", "R", "N", "dtype", "ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "bound_share",
+            "max_abs_err", "workspace_mib")} for r in line]
+    phase("qwen3-moe-235b-a22b kernels")
+    res = report["qwen3-moe-235b-a22b"] = serve_paths(moe, QWEN3_MOE,
+                                                       launches)
+    phase("qwen3-moe-235b-a22b f32 engine path")
+    moe = cast(moe, torch.bfloat16)
+    free()
+    res["bf16"] = bf16_run(moe, QWEN3_MOE, report)
+    res["bf16_decode_profile"] = profile_decode(
+        moe, QWEN3_MOE, [res["bf16"]["decode_step_ms"]])
+    del moe
+    free()
+    phase("qwen3-moe-235b-a22b bf16 run and profile")
 
     kernels = []
     for i, (name, source, replaces) in enumerate(KERNELS):
@@ -363,22 +421,23 @@ def make_llama():
                                      quant={"target_bpw": 1.0, "min_dim": 48})
 
 
-def make_qwen():
-    """qwen1.5-110b at 1.0 bpw in f32, full width and depth, every leaf
-    drawn on the card from the seed (13.5 GB of packed words, 10 GB of
-    f32 embedding and lm head)."""
+def make_on_card(arch):
+    """`arch` at full width and depth, 1.0 bpw, in f32, every leaf drawn on
+    the card from the seed (qwen1.5-110b: 13.5 GB of packed words and 10 GB
+    of f32 embedding and lm head; qwen3-moe-235b-a22b: 26.5 GiB of packed
+    words, its routers f32)."""
     import torch
     from repro_torch.api import NanoQuantModel
     from repro_torch.configs import get_config
     from repro_torch.quant.surgery import abstract_quantized_params
     from repro_torch.testing import random_packed_params_device
-    cfg = dataclasses.replace(get_config("qwen1.5-110b"), dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     tree = random_packed_params_device(abstract_quantized_params(cfg, 1.0),
                                        SEED, "cuda")
     torch.cuda.synchronize()
-    log(f"qwen1.5-110b f32 weights drawn on the card: "
+    log(f"{arch} f32 weights drawn on the card: "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB in "
         f"{time.perf_counter() - t0:.3f} s")
     return NanoQuantModel(tree, cfg)
@@ -687,6 +746,82 @@ def check_qwen_kernels(model, report):
     free()
     return next(r for r in rows if r.get("stage") == "down.1"
                 and (r["M"], r["dtype"]) == (8, "f32"))
+
+
+# kernel #1 at qwen3-moe-235b-a22b's expert grid: (row name, expert linear)
+# at M = 8, the capacity of a decode step of 4 slots and of a prefill of up
+# to 64 tokens (ceil(T·8/128·1.25) rounded up to 8, at least 8), and M = 40,
+# a 256-token prefill's; w_up has w_gate's shape
+EXPERT_ROWS = (("gate_up", "w_gate"), ("down", "w_down"))
+EXPERT_MS = (8, 40)
+
+
+def check_expert_grid(model, report):
+    """#1 with the expert axis as its group axis (G = 128, x per group) at
+    layer 0's expert stacks, f32 and bf16, against its plain version; the
+    yardstick is the batched form of the merged rows' library call over
+    unpacked bf16 factors. Returns the f32 M = 8 rows for the kernels
+    line."""
+    import torch
+    from repro_torch.kernels import binary_matmul, ref
+    from repro_torch.models.transformer import split_layers
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    moe = split_layers(model.params)["layers"][0]["moe"]
+    rows = []
+    for group, lin in EXPERT_ROWS:
+        p = moe[lin]
+        G, KW, R = p["qv"].shape
+        K, N = KW * 32, p["qu_t"].shape[-1]
+        args = (p["qv"], p["qu_t"], p["s1"], p["s2"])
+        for dt, tdt in _dtypes():
+            V = ref.unpack_signs(p["qv"], tdt)               # (G, K, R)
+            U = ref.unpack_signs(p["qu_t"], tdt)             # (G, R, N)
+            s2, s1 = p["s2"][:, None].to(tdt), p["s1"][:, None].to(tdt)
+            for m in EXPERT_MS:
+                x = torch.randn((G, m, K), generator=gen, device="cuda"
+                                ).to(tdt)
+
+                def kern():
+                    return binary_matmul.fused_lowrank_matmul_grouped(
+                        x, *args, x_shared=False)
+
+                def plain():
+                    return binary_matmul.fused_lowrank_matmul_grouped_ref(
+                        x, *args, x_shared=False)
+
+                def library():
+                    return torch.bmm(torch.bmm(x * s2, V), U) * s1
+                abs_err, rel = compare(f"fused_lowrank expert grid {group} "
+                                       f"M={m} {dt}", plain(), kern(),
+                                       TOL[dt])
+                rec = _timed({"kernel": "fused_lowrank_matmul_grouped",
+                              "model": "qwen3-moe-235b-a22b", "group": group,
+                              "G": G, "M": m, "K": K, "R": R, "N": N,
+                              "x_shared": False, "dtype": dt,
+                              "max_abs_err": abs_err, "rel_err": rel}, kern,
+                             plain, library)
+                w_bytes = nbytes(*args)
+                io = nbytes(x) + G * m * N * x.element_size()
+                rec["bound_ms"], rec["bound_by"] = bound(
+                    w_bytes + io,
+                    (2.0 * G * m * (K * R + R * N), BF16_TC_FLOPS_S))
+                _tensor_core_row(
+                    rec, binary_matmul.fused_lowrank_matmul_grouped.plan)
+                rec["workspace_mib"] = rec["plan"]["workspace_bytes"] / 2**20
+                rows.append(rec)
+                log(f"kernel fused_lowrank qwen3-moe expert grid {group:7s} "
+                    f"G={G} M={m:<3d} {dt:4s} rel_err={rel:.2e} "
+                    f"ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+                    f"library_ms={rec['library_ms']:.4f} "
+                    f"bound_ms={rec['bound_ms']:.5f} ({rec['bound_by']}; "
+                    f"{100 * rec['bound_share']:.1f}% of it) "
+                    f"slices={rec['plan']['slices']} "
+                    f"grid={rec['plan']['grid']} workspace "
+                    f"{rec['workspace_mib']:.1f} MiB")
+            del V, U
+            free()
+    report["moe_kernel_checks"] = rows
+    return [r for r in rows if (r["M"], r["dtype"]) == (8, "f32")]
 
 
 def _check_packed(stage, w, sk, sn, m, dt, tdt, gen):
@@ -1117,6 +1252,136 @@ def gate(model, traffic, name, got, want):
     return worst
 
 
+class _EngineLog:
+    """What the MoE gate reads from one engine run: every router call's
+    chosen experts, with, for each row, the request it serves and the index
+    of the token its forward emits (None for an inactive slot's row; every
+    row of an admission, its pad rows too, serves the admitted request:
+    they all take expert capacity), and the boundary gap of the router's
+    logits (k-th less (k+1)-th, over max(1, max|logit|)); with `margins`,
+    also each emitted token's top-2 logit margin and tolerance. Used as a
+    context (it wraps ``layers._route`` and ``engine.sample_token`` while
+    open), its ``attach`` given to ``serve(on_engine=)``."""
+
+    def __init__(self, margins=False):
+        self.calls, self.margins, self.want_margins = [], {}, margins
+        self.rows = None
+        self._last = None
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import layers
+        from repro_torch.serve import engine as E
+        self._saved = (layers._route, E.sample_token)
+        route, sample = self._saved
+
+        def logged_route(p, cfg, xf):
+            out = route(p, cfg, xf)
+            lg = layers._matmul_f32(xf.float(), p["router"]["w"].float())
+            top = torch.topk(lg, cfg.n_experts_per_tok + 1, dim=-1).values
+            gap = (top[:, -2] - top[:, -1]) / lg.abs().amax(-1).clamp_min(1)
+            rows = self.rows
+            owners = rows if isinstance(rows, list) else [rows] * xf.shape[0]
+            self.calls.append((owners, out[1].sort(-1).values.cpu(),
+                               gap.cpu()))
+            return out
+
+        def margin_sample(logits, generator, scfg):
+            lf = logits[:, -1].float()
+            top = torch.topk(lf, 2, dim=-1).values
+            self._last = ((top[:, 0] - top[:, 1]).cpu(), (
+                LOGITS_TOL * lf.abs().amax(-1).clamp_min(1.0)).cpu())
+            return sample(logits, generator, scfg)
+        layers._route = logged_route
+        if self.want_margins:
+            E.sample_token = margin_sample
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+        from repro_torch.serve import engine as E
+        layers._route, E.sample_token = self._saved
+
+    def attach(self, eng):
+        from repro_torch.serve.engine import _Resume
+        decode, admit, emit = eng._decode_tick, eng._admit_impl, eng._emit
+
+        def decode_tick(finished):
+            self.rows = [(t.handle.uid, len(t.toks))
+                         if t is not None and eng.active[s] else None
+                         for s, t in enumerate(eng._tasks)]
+            return decode(finished)
+
+        def admit_impl(slot, item):
+            prior = item.emitted if isinstance(item, _Resume) else []
+            self.rows = (eng._item_handle(item).uid, len(prior))
+            return admit(slot, item)
+
+        def logged_emit(slot, token):
+            if self.want_margins:
+                t = eng._tasks[slot]
+                m, tol = self._last
+                r = 0 if m.shape[0] == 1 else slot
+                self.margins[t.handle.uid, len(t.toks)] = (float(m[r]),
+                                                            float(tol[r]))
+            return emit(slot, token)
+        eng._decode_tick, eng._admit_impl = decode_tick, admit_impl
+        eng._emit = logged_emit
+
+
+def moe_gate(name, got, want, log_got, log_want):
+    """The MoE path's f32 gate. An MoE's experts are chosen by the top-k of
+    the router's logits, so a request's tokens may leave the plain path's
+    at a near-tie of those logits as well as of the lm head's. Per request:
+    the first router call whose chosen experts differ on one of its rows
+    must be one where the plain path's k-th and (k+1)-th router logits are
+    within the logits tolerance; tokens must be identical up to the token
+    that call's forward emits, or else diverge first at a plain-path top-2
+    logit margin below the logits tolerance. Router calls past a request's
+    first divergence are consequences and not gated. Returns the near-ties
+    that explained a divergence (None when nothing diverged)."""
+    import torch
+    if [c[0] for c in log_got.calls] != [c[0] for c in log_want.calls]:
+        raise AssertionError(f"engine {name}: the two runs' schedules differ")
+    first_tok = {}
+    for uid in want:
+        diff = [i for i, (a, b) in enumerate(zip(want[uid], got[uid]))
+                if a != b]
+        first_tok[uid] = diff[0] if diff else None
+    first_route = {}
+    for (owners, ti_g, _), (_, ti_w, gap) in zip(log_got.calls,
+                                                 log_want.calls):
+        for r in torch.nonzero((ti_g != ti_w).any(-1)).flatten().tolist():
+            if owners[r] is not None and owners[r][0] not in first_route:
+                first_route[owners[r][0]] = (owners[r][1], float(gap[r]))
+    ties = []
+    for uid in sorted(want):
+        i, rt = first_tok[uid], first_route.get(uid)
+        if rt is not None and (i is None or rt[0] <= i):
+            tok, gap = rt
+            log(f"engine {name}: request {uid} routes differently at the "
+                f"forward of token {tok}: plain-path router boundary gap "
+                f"{gap:.3e} (tolerance {LOGITS_TOL:.0e})"
+                + ("" if i is None else f"; tokens diverge at {i}"))
+            if gap >= LOGITS_TOL:
+                raise AssertionError(f"engine {name}: request {uid} routes "
+                                     f"differently past the tolerance")
+            ties.append({"uid": uid, "router_gap": gap, "token": tok,
+                         "diverges_at": i})
+        elif i is not None:
+            margin, tol = log_want.margins[uid, i]
+            log(f"engine {name}: request {uid} diverges at token {i}: "
+                f"plain-path top-2 margin {margin:.3e} (tolerance "
+                f"{tol:.3e})")
+            if margin >= tol:
+                raise AssertionError(f"engine {name}: request {uid} token {i}"
+                                     f" differs at a margin past the "
+                                     f"tolerance")
+            ties.append({"uid": uid, "logit_margin": margin,
+                         "diverges_at": i})
+    return ties or None
+
+
 def _counters():
     from repro_torch.kernels import binary_matmul, megakernel, paged_attention
     return (binary_matmul.fused_lowrank_matmul_grouped,
@@ -1136,12 +1401,19 @@ def serve_paths(model, traffic, launches):
     before its run; each path's tokens are gated against the plain
     engine's (a speculative path's against its plain kernel path's) and
     its launches checked."""
+    import contextlib
     import torch
+    from repro_torch.kernels import binary_matmul
     from repro_torch.kernels.ops import KernelPolicy
     arch = traffic["arch"]
+    cfg = model.cfg
+    moe = cfg.family == "moe"
+    oracle_log = _EngineLog(margins=True) if moe else None
     torch.cuda.reset_peak_memory_stats()
-    want, eng, ref_wall, _ = serve(model, traffic, KernelPolicy(mode="ref"),
-                                   prefix_cache=False)
+    with oracle_log or contextlib.nullcontext():
+        want, eng, ref_wall, _ = serve(
+            model, traffic, KernelPolicy(mode="ref"), prefix_cache=False,
+            on_engine=oracle_log and oracle_log.attach)
     del eng
     free()
     res = {"ref_wall_s": ref_wall, "ref_peak_gib": _peak_gib()}
@@ -1154,10 +1426,15 @@ def serve_paths(model, traffic, launches):
         torch.cuda.reset_peak_memory_stats()
         for c in counters:
             c.launches = 0
-        got, eng, wall, st = serve(model, traffic,
-                                   KernelPolicy(mode="cuda", **fields), mk,
-                                   spec)
+        grid = binary_matmul.fused_lowrank_matmul_grouped.grid_launches
+        grid.clear()
+        path_log = _EngineLog() if moe else None
+        with path_log or contextlib.nullcontext():
+            got, eng, wall, st = serve(
+                model, traffic, KernelPolicy(mode="cuda", **fields), mk,
+                spec, on_engine=path_log and path_log.attach)
         launches[name] = [c.launches for c in counters]
+        grid = dict(grid)
         outs[name] = got
         acceptance = eng.spec.acceptance_rate() if spec else None
         del eng
@@ -1171,10 +1448,33 @@ def serve_paths(model, traffic, launches):
         stray = [KERNELS[i][0] for i in forbidden if launches[name][i]]
         if stray:
             raise AssertionError(f"engine path {name}: {stray} launched")
-        margin = gate(model, traffic, name, got,
-                      want if versus is None else outs[versus])
+        if moe:
+            # every forward (an admission's prefill or a decode step) runs
+            # each MoE layer's three expert linears as one launch of #1
+            # over all the experts
+            n_grid = grid.get((cfg.n_experts, False), 0)
+            forwards = st["admissions"] + st["decode_steps"]
+            n_moe = cfg.n_layers - cfg.first_k_dense
+            if n_grid != 3 * n_moe * forwards:
+                raise AssertionError(
+                    f"engine path {name}: {n_grid} launches of #1 at the "
+                    f"expert grid (G = {cfg.n_experts}, x per group), "
+                    f"expected 3 x {n_moe} layers x {forwards} forwards")
+            near_ties = moe_gate(name, got, want, path_log, oracle_log)
+            margin = None if near_ties is None else max(
+                t.get("logit_margin", t.get("router_gap"))
+                for t in near_ties)
+        else:
+            margin = gate(model, traffic, name, got,
+                          want if versus is None else outs[versus])
         res[name] = {"wall_s": wall, "max_divergence_margin": margin,
-                     "stats": st, "peak_gib": _peak_gib()}
+                     "stats": st, "peak_gib": _peak_gib(),
+                     "grid_launches": {f"G={g} x_shared={x}": n
+                                       for (g, x), n in grid.items()}}
+        if moe:
+            res[name].update(near_ties=near_ties,
+                             expert_grid_launches=n_grid,
+                             router_calls=len(path_log.calls))
         if spec:
             # every drafted token is accepted or rolled back, and some
             # are rolled back, so that trim ran on the card
@@ -1199,7 +1499,11 @@ def serve_paths(model, traffic, launches):
             + ("" if margin is None else " up to near-ties")
             + f"; {st['tokens_emitted']} tokens, {st['decode_steps']} decode "
             f"steps, {st['preemptions']} preemptions, wall {wall:.2f} s, "
-            f"peak {res[name]['peak_gib']:.2f} GiB" + (
+            f"peak {res[name]['peak_gib']:.2f} GiB"
+            + ("" if not moe else
+               f"; #1 launched {n_grid} times at the expert grid (G = "
+               f"{cfg.n_experts}, x per group) over {forwards} forwards")
+            + (
                 "" if not spec else
                 f"; acceptance {acceptance:.3f}, {st['spec_rollback_tokens']} "
                 f"tokens and {st['spec_rollback_pages']} pages rolled back")

@@ -1,4 +1,4 @@
-"""Dense-family architecture configs the port serves (``get_config`` /
+"""Architecture configs the port serves (``get_config`` /
 ``get_smoke`` / ``list_archs``), copied from ``repro.configs``.
 
 Each ``<arch>.py`` module defines ``CONFIG`` (the published full-scale
@@ -8,11 +8,13 @@ from __future__ import annotations
 
 from typing import List
 
-from repro_torch.configs import llama3p2_1b, qwen1p5_0p5b, qwen1p5_110b, qwen3_4b
+from repro_torch.configs import (llama3p2_1b, qwen1p5_0p5b, qwen1p5_110b,
+                                 qwen3_4b, qwen3_moe_235b)
 from repro_torch.models.config import ModelConfig
 
 _ARCHS = {m.CONFIG.name: m for m in (llama3p2_1b, qwen1p5_0p5b,
-                                     qwen1p5_110b, qwen3_4b)}
+                                     qwen1p5_110b, qwen3_4b,
+                                     qwen3_moe_235b)}
 
 
 def list_archs() -> List[str]:

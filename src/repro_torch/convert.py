@@ -54,16 +54,17 @@ def params_from_numpy(tree: Any, device, dtype: Optional[torch.dtype] = None):
     """Map a nested dict of numpy arrays to tensors on `device`. `dtype`
     (optional) casts the model's floating FP leaves (embeddings, norms,
     FP linears); the leaves of a packed linear keep their stored dtype
-    (f32 scales, int32 words)."""
+    (f32 scales, int32 words), and so does the MoE router (f32)."""
     device = torch.device(device)
 
-    def conv(node, packed):
+    def conv(node, keep):
         if isinstance(node, dict):
-            inner = packed or "qu_t" in node
-            return {k: conv(v, inner) for k, v in node.items()}
+            # the router stays f32 in a bf16 model, as in the JAX package
+            return {k: conv(v, keep or "qu_t" in node or k == "router")
+                    for k, v in node.items()}
         t = node if isinstance(node, torch.Tensor) else \
             tensor_from_numpy(np.asarray(node))
-        if dtype is not None and not packed and t.is_floating_point():
+        if dtype is not None and not keep and t.is_floating_point():
             t = t.to(dtype)
         return t.to(device)
 

@@ -1,1 +1,2 @@
-"""Bit packing and bits-per-weight accounting shared by the port."""
+"""Bit packing, bits-per-weight accounting and the param-tree layout
+shared by the port."""

@@ -17,7 +17,8 @@ for a bf16 one) whose products are summed in f32.
   writes the f32 partial sums to a workspace in device memory (L2-sized
   at decode), and after a grid barrier sums them in slice order for
   stage 2 (:func:`_plan_fused`). x is shared by the groups (merged QKV /
-  gate-up) or given per group. ``eff_rank`` reads only the leading R'
+  gate-up) or given per group (the MoE expert grid: every expert of a
+  stacked linear in one launch). ``eff_rank`` reads only the leading R'
   rank columns of the full packed operands.
 - :func:`packed_matmul` — ``csrc/packed_matmul.cu``, replacing the TPU
   kernel ``repro/kernels/binary_matmul.py::packed_matmul``:
@@ -142,12 +143,12 @@ def _aligned(t):
 def fused_lowrank_matmul_grouped_ref(xg, qv_g, qu_g, s1_g, s2_g,
                                      rmask_g=None, *, x_shared=False,
                                      eff_rank: Optional[int] = None):
-    """Plain version: ``ref.lowrank_binary_matmul_fused_ref`` per group."""
-    return torch.stack([
-        ref.lowrank_binary_matmul_fused_ref(
-            xg[0 if x_shared else g], qv_g[g], qu_g[g], s1_g[g], s2_g[g],
-            None if rmask_g is None else rmask_g[g], eff_rank=eff_rank)
-        for g in range(qv_g.shape[0])])
+    """Plain version: ``ref.lowrank_binary_matmul_fused_ref`` of every
+    group at once (batched matmuls over the group axis; a shared x
+    broadcasts)."""
+    return ref.lowrank_binary_matmul_fused_ref(
+        xg, qv_g, qu_g, s1_g[:, None], s2_g[:, None],
+        None if rmask_g is None else rmask_g[:, None], eff_rank=eff_rank)
 
 
 def fused_lowrank_matmul_grouped(xg, qv_g, qu_g, s1_g, s2_g, rmask_g=None,
@@ -215,11 +216,15 @@ def fused_lowrank_matmul_grouped(xg, qv_g, qu_g, s1_g, s2_g, rmask_g=None,
              build.current_stream(xg.device))
     build.check_launch(name, err)
     fused_lowrank_matmul_grouped.launches += 1
+    grid = fused_lowrank_matmul_grouped.grid_launches
+    grid[G, x_shared] = grid.get((G, x_shared), 0) + 1
     fused_lowrank_matmul_grouped.plan = plan
     return out
 
 
 fused_lowrank_matmul_grouped.launches = 0
+# launches by (groups, x_shared): the MoE expert grid is (E, False)
+fused_lowrank_matmul_grouped.grid_launches = {}
 fused_lowrank_matmul_grouped.plan = None     # the last launch's plan
 
 

@@ -192,6 +192,35 @@ def _merged_twocall(x, mp, rmask, eff_rank: Optional[int]):
     return ys
 
 
+def lowrank_binary_matmul_expert(x, qv, qu_t, s1, s2,
+                                 policy: Optional[KernelPolicy] = None,
+                                 eff_rank: Optional[int] = None):
+    """Stacked-expert NanoQuant linear: x (E, C, d_in) with per-expert
+    packed operands (E, ...) -> (E, C, d_out). On the kernel path the
+    expert axis is the grid's group axis of the fused kernel: ONE launch
+    for all E experts, x given per group, f32 rank intermediate. Past
+    MAX_FUSED_RANK or with ``fused=False`` each expert runs the two-call
+    chain (the JAX package vmaps ``lowrank_binary_matmul_twocall``). The
+    ref path is the two-stage oracle for every expert, its intermediate
+    rounded to x's dtype. eff_rank truncates every expert to the leading
+    R' components (all experts share one packed rank)."""
+    p = policy if policy is not None else current_kernel_policy()
+    x = _match_packed_k(x, qv)
+    if p.use_kernels(x.device) and _fits_fused(p, qv.shape[-1]):
+        return binary_matmul.fused_lowrank_matmul_grouped(
+            x.contiguous(), qv, qu_t, s1.float(), s2.float(),
+            x_shared=False, eff_rank=eff_rank)
+    if eff_rank is not None:
+        qv, qu_t = _slice_rank(qv, qu_t, eff_rank)
+    if p.use_kernels(x.device):
+        return torch.stack([binary_matmul.lowrank_binary_matmul_twocall(
+            x[e].contiguous(), qv[e], qu_t[e], s1[e].float(), s2[e].float())
+            for e in range(qv.shape[0])])
+    # the two-stage oracle of every expert at once (batched matmuls)
+    return ref.lowrank_binary_matmul_ref(x, qv, qu_t, s1[:, None],
+                                         s2[:, None])
+
+
 def paged_attention(q, k_pool, v_pool, block_table, q_pos, cache_pos, *,
                     window: int = 0, scale: float = 1.0,
                     policy: Optional[KernelPolicy] = None):

@@ -30,12 +30,22 @@ def pack_signs(a: torch.Tensor) -> torch.Tensor:
     return words.to(torch.int32)
 
 
+# the bits of float32 -1.0 (0xBF800000) as an int32
+_NEG_ONE_BITS = -0x40800000
+
+
 def unpack_signs(packed: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
-    """(K//32, N) int32 words -> (K, N) in {-1, +1}."""
-    n32, N = packed.shape
+    """(..., K//32, N) int32 words -> (..., K, N) in {-1, +1}; leading
+    dims (stacked experts) unpack each matrix alike. Each sign is built
+    as float32 bits in place: bit b of a word moved to the sign position
+    and xor-ed into -1.0's bits, so a set bit gives +1.0 (three passes
+    over the output, then a cast for another dtype)."""
+    *lead, n32, N = packed.shape
     shifts = torch.arange(32, dtype=torch.int32, device=packed.device)
-    bits = (packed[:, None, :] >> shifts[None, :, None]) & 1
-    return (bits.to(dtype) * 2 - 1).reshape(n32 * 32, N)
+    bits = packed[..., :, None, :] >> shifts[:, None]
+    bits.bitwise_left_shift_(31).bitwise_xor_(_NEG_ONE_BITS)
+    signs = bits.view(torch.float32).reshape(*lead, n32 * 32, N)
+    return signs if dtype == torch.float32 else signs.to(dtype)
 
 
 def packed_matmul_ref(x, packed_w, s_k=None, s_n=None, *, out_dtype=None):
@@ -67,7 +77,8 @@ def lowrank_binary_matmul_fused_ref(x, qv, qu_t, s1, s2, rmask=None,
     """Oracle of the fused kernel: the whole chain runs with an f32
     intermediate. rmask: optional (r,) zeroing padded rank columns of a
     merged group; eff_rank: optional R' <= r (multiple of 32) — only the
-    leading R' rank columns take part (slices, no repack)."""
+    leading R' rank columns take part (slices, no repack). Leading dims
+    (groups) of the operands batch the chain, x broadcasting over them."""
     if eff_rank is not None:
         r_full = qv.shape[-1]
         if not (0 < eff_rank <= r_full and eff_rank % 32 == 0):

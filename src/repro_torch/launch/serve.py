@@ -6,8 +6,10 @@ port of ``repro.launch.serve`` on the paged pool.
 
 A ``--quantized-ckpt`` directory (a ``NanoQuantModel`` artifact, written
 by either package's ``save``) is self-describing: its manifest carries
-the model config. Without one, the driver serves llama3.2-1b's smoke
-config with packed words drawn from seed 0 (the port cannot quantize).
+the model config. Without one, the CLI serves ``--arch``'s smoke
+config (llama3.2-1b by default; any arch of ``repro_torch.configs``,
+qwen3-moe-235b-a22b's MoE among them) with packed words drawn from seed
+0 (the port cannot quantize).
 The engine runs on ``--device`` (``cuda`` by default; nothing falls back
 to the CPU).
 
@@ -37,7 +39,10 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--quantized-ckpt", default="",
                     help="NanoQuantModel artifact; if empty, serves "
-                         "llama3.2-1b's smoke config packed from a seed")
+                         "--arch's smoke config packed from a seed")
+    ap.add_argument("--arch", default="llama3.2-1b",
+                    help="without an artifact: the arch whose smoke config "
+                         "is served")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
     ap.add_argument("--requests", type=int, default=8)
@@ -115,7 +120,7 @@ def main():
         from repro_torch.configs import get_smoke
         from repro_torch.quant.surgery import abstract_quantized_params
         from repro_torch.testing import random_packed_params
-        cfg = dataclasses.replace(get_smoke("llama3.2-1b"), dtype="float32")
+        cfg = dataclasses.replace(get_smoke(args.arch), dtype="float32")
         tree = random_packed_params(
             abstract_quantized_params(cfg, 1.0, min_dim=16), 0)
         model = NanoQuantModel.from_numpy(tree, cfg, device=args.device)

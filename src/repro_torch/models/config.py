@@ -4,7 +4,7 @@ One frozen (hashable -> jit-static) dataclass covers the whole assigned
 pool: dense / MoE / MLA / SSM / hybrid / VLM / audio backbones. The
 port's copy of ``repro.models.config`` keeps every field, so a manifest
 written by the JAX package rebuilds the same config here; the port's
-model code serves the dense family.
+model code serves the dense and MoE families (:func:`check_family`).
 """
 from __future__ import annotations
 
@@ -109,6 +109,20 @@ class ModelConfig:
         if self.is_mla:
             return self.qk_nope_dim + self.qk_rope_dim
         return self.head_dim
+
+
+def check_family(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError, naming what is missing, unless the port
+    serves `cfg`: the dense family, and the MoE family with GQA attention
+    (MLA attention, as deepseek-v2's, is not ported yet)."""
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"the port serves the dense and moe families, not "
+            f"{cfg.family!r} ({cfg.name})")
+    if cfg.is_mla:
+        raise NotImplementedError(
+            f"the port does not serve MLA attention yet ({cfg.name}: "
+            f"kv_lora_rank={cfg.kv_lora_rank})")
 
 
 def scaled_down(cfg: ModelConfig, **overrides) -> ModelConfig:

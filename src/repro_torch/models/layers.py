@@ -1,4 +1,4 @@
-"""Dense-family layers, the port of ``repro.models.layers``.
+"""Dense- and MoE-family layers, the port of ``repro.models.layers``.
 
 Params are plain dicts of tensors, as in the JAX package. Linear layers go
 through :func:`dense`, which runs a full-precision matmul or a NanoQuant
@@ -55,6 +55,17 @@ def dense_merged(mp: dict, x, dims: Sequence[int]):
         ys = [y + mp["b"][i, :n].to(y.dtype)
               for i, (y, n) in enumerate(zip(ys, dims))]
     return ys
+
+
+def dense_expert(p: dict, x):
+    """Batched-expert linear: x (E, C, d_in) with stacked weights (E, ...)
+    -> (E, C, d_out). Packed experts are one launch of kernel #1 with the
+    expert axis as its group axis (``ops.lowrank_binary_matmul_expert``)."""
+    if "qu_t" in p:
+        return kops.lowrank_binary_matmul_expert(
+            x, p["qv"], p["qu_t"], p["s1"], p["s2"],
+            eff_rank=p.get("eff_rank"))
+    return torch.einsum("ecd,edf->ecf", x, p["w"].to(x.dtype))
 
 
 def _use_merged(p: dict, key: str, x) -> bool:
@@ -219,3 +230,113 @@ def ffn(p, x):
         g = dense(p["w_gate"], x)
         u = dense(p["w_up"], x)
     return dense(p["w_down"], silu(g) * u)
+
+
+# --------------------------------------------------------------------------
+# MoE — sort-based capacity dispatch (served) + dense oracle (tests)
+# --------------------------------------------------------------------------
+
+
+def _matmul_f32(a, b):
+    """a @ b in full f32: TF32 stays off for this product whatever the
+    process has set (the router's logits decide which experts run)."""
+    flags = torch.backends.cuda.matmul
+    if not (a.is_cuda and flags.allow_tf32):
+        return a @ b
+    flags.allow_tf32 = False
+    try:
+        return a @ b
+    finally:
+        flags.allow_tf32 = True
+
+
+def _route(p, cfg, xf):
+    """Router in f32: softmax over the experts, the top k weights
+    renormalised. Ties go to the lower expert index, as ``jax.lax.top_k``
+    breaks them (a stable descending sort). Returns (topw (T, k) f32,
+    topi (T, k) int64, probs (T, E))."""
+    logits = _matmul_f32(xf.float(), p["router"]["w"].float())   # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    topw, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.n_experts_per_tok
+    topw, topi = topw[:, :k], topi[:, :k]
+    topw = topw / topw.sum(-1, keepdim=True).clamp_min(1e-9)
+    return topw, topi, probs
+
+
+def _dispatch(xf, topw, topi, E: int, capacity: int):
+    """Sort-based capacity dispatch of t tokens. xf (t, d); topw/topi
+    (t, k). The (token, choice) pairs are sorted by expert (stable, so
+    earlier tokens first); pair j of expert e takes row j of its buffer
+    while j < capacity, else the trash row. Returns (buf (E, capacity,
+    d), dest, st, sw, keep)."""
+    t, d = xf.shape
+    k = topi.shape[-1]
+    dev = xf.device
+    flat_e = topi.reshape(-1)
+    flat_t = torch.arange(t, device=dev).repeat_interleave(k)
+    order = torch.argsort(flat_e, stable=True)
+    se, st, sw = flat_e[order], flat_t[order], topw.reshape(-1)[order]
+    starts = torch.searchsorted(se, torch.arange(E, device=dev))
+    rank = torch.arange(t * k, device=dev) - starts[se]
+    keep = rank < capacity
+    dest = torch.where(keep, se * capacity + rank,
+                       torch.full_like(se, E * capacity))   # overflow: trash
+    buf = xf.new_zeros((E * capacity + 1, d))
+    buf[dest] = xf[st] * keep[:, None].to(xf.dtype)
+    return buf[:E * capacity].reshape(E, capacity, d), dest, st, sw, keep
+
+
+def _combine(ob, dest, st, sw, keep, t: int):
+    """(E·capacity, d) expert outputs -> (t, d): each kept pair's row
+    times its routing weight, summed per token (dropped pairs add 0)."""
+    ob = torch.cat([ob, ob.new_zeros((1, ob.shape[-1]))])
+    contrib = ob[dest] * (sw * keep).to(ob.dtype)[:, None]
+    return ob.new_zeros((t, ob.shape[-1])).index_add_(0, st, contrib)
+
+
+def moe(p, cfg, x, capacity: Optional[int] = None):
+    """Capacity-bounded sort-based MoE over the B·S rows of the call, one
+    dispatch group (the JAX package groups by its data-parallel degree,
+    which is 1 on one card): route, dispatch into an (E, capacity, d)
+    buffer, the three expert linears (each one launch of kernel #1 over
+    all E experts), combine, plus the shared experts' FFN when present.
+    A token routed to an expert past its capacity loses that expert's
+    contribution."""
+    B, S, d = x.shape
+    T = B * S
+    E = cfg.n_experts
+    xf = x.reshape(T, d)
+    topw, topi, _ = _route(p, cfg, xf)
+    if capacity is None:
+        # rows per expert: ceil(T·k/E · capacity factor) rounded up to a
+        # multiple of 8, at least 8; T counts pad rows and idle slots too
+        capacity = int(math.ceil(T * cfg.n_experts_per_tok / E
+                                 * cfg.capacity_factor))
+        capacity = max(8, -(-capacity // 8) * 8)
+    eb, dest, st, sw, keep = _dispatch(xf, topw, topi, E, capacity)
+    h = silu(dense_expert(p["w_gate"], eb)) * dense_expert(p["w_up"], eb)
+    ob = dense_expert(p["w_down"], h)                    # (E, capacity, d)
+    y = _combine(ob.reshape(E * capacity, d), dest, st, sw, keep, T)
+    y = y.reshape(B, S, d).to(x.dtype)
+    if cfg.n_shared_experts:
+        y = y + ffn(p["shared"], x)
+    return y
+
+
+def moe_dense_oracle(p, cfg, x):
+    """Reference: every expert on every token, weighted by the router's
+    renormalised top-k (no capacity; tests only, FP experts)."""
+    B, S, d = x.shape
+    xf = x.reshape(-1, d)
+    topw, topi, _ = _route(p, cfg, xf)
+    w_full = torch.zeros((xf.shape[0], cfg.n_experts), dtype=torch.float32,
+                         device=x.device).scatter(1, topi, topw)
+    h = torch.einsum("td,edf->tef", xf, p["w_gate"]["w"].to(xf.dtype))
+    u = torch.einsum("td,edf->tef", xf, p["w_up"]["w"].to(xf.dtype))
+    o = torch.einsum("tef,efd->ted", silu(h) * u,
+                     p["w_down"]["w"].to(xf.dtype))
+    y = torch.einsum("ted,te->td", o, w_full.to(o.dtype)).reshape(B, S, d)
+    if cfg.n_shared_experts:
+        y = y + ffn(p["shared"], x)
+    return y

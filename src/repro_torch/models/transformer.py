@@ -1,11 +1,14 @@
-"""Dense-family model assembly: forward / prefill / decode, the port of
-the dense paths of ``repro.models.transformer``.
+"""Dense- and MoE-family model assembly: forward / prefill / decode, the
+port of the dense and MoE paths of ``repro.models.transformer``.
 
-The layer stack keeps the JAX package's stacked layout (every leaf of
-``params["layers"]`` has a leading ``n_layers`` axis); a Python loop
-takes the place of ``lax.scan`` and reads one layer's views per step.
-``params["layers"]`` may also be given pre-split as a list of per-layer
-dicts (:func:`split_layers`), which saves the slicing on every call.
+Each block stack keeps the JAX package's stacked layout (every leaf of
+``params["layers"]`` has a leading layer axis); a Python loop takes the
+place of ``lax.scan`` and reads one layer's views per step. The MoE
+family's blocks hold a ``moe`` dict instead of ``ffn``, and its first
+``first_k_dense`` blocks, when any, are a stack of their own,
+``params["dense_layers"]``, run before ``layers`` (with a cache of their
+own). A stack may also be given pre-split as a list of per-layer dicts
+(:func:`split_layers`), which saves the slicing on every call.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ from typing import Dict, List, Optional
 import torch
 
 from repro_torch.models import layers as L
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, check_family
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -24,10 +27,8 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"the port serves the dense family, not {cfg.family!r}")
+# the block stacks, in the order a forward runs them
+STACKS = ("dense_layers", "layers")
 
 
 def _index(tree, i):
@@ -37,16 +38,20 @@ def _index(tree, i):
 
 
 def split_layers(params) -> Dict:
-    """Same params with the layer stack as a list of per-layer views."""
-    stack = params["layers"]
-    if isinstance(stack, list):
-        return params
-    n = stack["ln1"].shape[0]
-    return {**params, "layers": [_index(stack, i) for i in range(n)]}
+    """Same params with each block stack as a list of per-layer views."""
+    out = dict(params)
+    for name in STACKS:
+        stack = params.get(name)
+        if isinstance(stack, dict):
+            n = stack["ln1"].shape[0]
+            out[name] = [_index(stack, i) for i in range(n)]
+    return out
 
 
-def _layers(params) -> List[Dict]:
-    return split_layers(params)["layers"]
+def _stacks(params) -> List:
+    """(stack name, per-layer views) of every block stack, in order."""
+    split = split_layers(params)
+    return [(name, split[name]) for name in STACKS if name in split]
 
 
 def _apply_attn_block(p, cfg, x, positions, cache=None, cache_pos=None,
@@ -56,6 +61,8 @@ def _apply_attn_block(p, cfg, x, positions, cache=None, cache_pos=None,
                        block_table)
     x = x + a
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    if "moe" in p:
+        return x + L.moe(p["moe"], cfg, h)
     return x + L.ffn(p["ffn"], h)
 
 
@@ -65,11 +72,12 @@ def embed_tokens(params, cfg, tokens):
 
 def backbone(params, cfg: ModelConfig, tokens):
     """Full-sequence forward to final hidden states (B, S, d)."""
-    _check_family(cfg)
+    check_family(cfg)
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
-    for lp in _layers(params):
-        x = _apply_attn_block(lp, cfg, x, positions)
+    for _, layers in _stacks(params):
+        for lp in layers:
+            x = _apply_attn_block(lp, cfg, x, positions)
     return L.rms_norm(x, params["ln_f"], cfg.norm_eps)
 
 
@@ -83,21 +91,31 @@ def forward(params, cfg, tokens):
     return logits_fn(params, cfg, backbone(params, cfg, tokens))
 
 
+def stack_depths(cfg: ModelConfig) -> Dict[str, int]:
+    """Layers of each block stack: {"layers": n} for the dense family;
+    the MoE family's ``first_k_dense`` leading blocks as "dense_layers"."""
+    check_family(cfg)
+    if cfg.family == "moe" and cfg.first_k_dense:
+        return {"dense_layers": cfg.first_k_dense,
+                "layers": cfg.n_layers - cfg.first_k_dense}
+    return {"layers": cfg.n_layers}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
-    """Rectangular KV cache {"layers": {"k", "v": (L, B, max_len, Hkv,
-    D)}} in the model dtype."""
-    _check_family(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    """Rectangular KV cache, one per block stack: {stack: {"k", "v": (L,
+    B, max_len, Hkv, D)}} in the model dtype."""
     dt = torch_dtype(cfg)
-    return {"layers": {"k": torch.zeros(shape, dtype=dt, device=device),
-                       "v": torch.zeros(shape, dtype=dt, device=device)}}
+    return {name: {leaf: torch.zeros(
+        (n, batch, max_len, cfg.n_kv_heads, cfg.head_dim), dtype=dt,
+        device=device) for leaf in ("k", "v")}
+        for name, n in stack_depths(cfg).items()}
 
 
 def _cached_forward(params, cfg, tokens, cache, pos, block_tables=None):
     """Prefill (rectangular cache, pos 0), or a paged decode, verify or
     suffix prefill (per-slot (B,) pos and ``block_tables={"linear": (B,
     pages)}``). Writes the cache in place; returns (hidden, cache)."""
-    _check_family(cfg)
+    check_family(cfg)
     x = embed_tokens(params, cfg, tokens)
     S = x.shape[1]
     steps = torch.arange(S, device=x.device)
@@ -106,10 +124,11 @@ def _cached_forward(params, cfg, tokens, cache, pos, block_tables=None):
     else:
         positions = int(pos) + steps                              # (S,)
     bt = block_tables.get("linear") if block_tables else None
-    ck, cv = cache["layers"]["k"], cache["layers"]["v"]
-    for i, lp in enumerate(_layers(params)):
-        x = _apply_attn_block(lp, cfg, x, positions,
-                              {"k": ck[i], "v": cv[i]}, pos, bt)
+    for name, layers in _stacks(params):
+        ck, cv = cache[name]["k"], cache[name]["v"]
+        for i, lp in enumerate(layers):
+            x = _apply_attn_block(lp, cfg, x, positions,
+                                  {"k": ck[i], "v": cv[i]}, pos, bt)
     return L.rms_norm(x, params["ln_f"], cfg.norm_eps), cache
 
 

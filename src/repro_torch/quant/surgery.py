@@ -2,17 +2,19 @@
 ``repro.quant.surgery``:
 
 - :func:`abstract_quantized_params` — the shape/dtype template of a
-  NanoQuant-packed dense model (for the artifact loader and for building
-  a packed model of a published shape from a seed);
+  NanoQuant-packed dense or MoE model (for the artifact loader and for
+  building a packed model of a published shape from a seed);
 - :func:`merge_projection_groups` — the merged QKV / gate-up operands
   the grouped kernel launches read (padded rank + ``rmask``, padded s1
   columns set to 0);
 - :func:`rank_truncated_view` — the zero-copy rank-r' draft view that
   self-speculative decoding reads (``serve.speculative``).
 
-The selection rule mirrors ``repro.core.layout.quantizable_linear``:
-every linear ``{"w": (d_in, d_out)}`` inside a transformer block whose
-min dim is >= ``min_dim`` and whose d_in packs into 32-bit words.
+The selection rule is ``core.layout.quantizable_linear``, the copy of
+the JAX package's: every linear ``{"w": (d_in, d_out)}`` (or stacked
+experts ``(E, d_in, d_out)``) inside a block stack whose min dim is >=
+``min_dim``, whose d_in packs into 32-bit words and whose name is not
+excluded (the MoE router stays FP32).
 """
 from __future__ import annotations
 
@@ -22,9 +24,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.bpw import rank_for_bpw
-from repro_torch.models.config import ModelConfig
-
-PACK_ALIGN = 32
+from repro_torch.core.layout import BLOCK_STACKS, PACK_ALIGN, \
+    quantizable_linear
+from repro_torch.models.config import ModelConfig, check_family
 
 
 class LeafSpec(NamedTuple):
@@ -33,45 +35,58 @@ class LeafSpec(NamedTuple):
     dtype: str
 
 
-def quantizable_linear(w_shape, min_dim: int) -> bool:
-    return (len(w_shape) >= 2
-            and min(w_shape[-2:]) >= min_dim
-            and w_shape[-2] % PACK_ALIGN == 0)
-
-
 def param_specs(cfg: ModelConfig) -> Dict:
-    """FP parameter template of a dense-family model — the tree
-    ``repro.models.transformer.init_params`` builds, with the layer
-    stack's leading axis of length ``n_layers``."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"the port serves the dense family, not {cfg.family!r}")
-    dt, d, hd, L = cfg.dtype, cfg.d_model, cfg.head_dim, cfg.n_layers
+    """FP parameter template of a dense- or MoE-family model — the tree
+    ``repro.models.transformer.init_params`` builds, each block stack with
+    a leading axis of its length. The MoE family's ``layers`` hold a
+    ``moe`` block (router, stacked experts, optional shared experts)
+    instead of ``ffn``; its first ``first_k_dense`` blocks, when any, form
+    the ``dense_layers`` stack with an FFN of ``dense_d_ff``. The router
+    is float32 whatever ``cfg.dtype`` is."""
+    check_family(cfg)
+    dt, d, hd = cfg.dtype, cfg.d_model, cfg.head_dim
 
-    def lin(d_in, d_out, bias=False):
-        p = {"w": LeafSpec((L, d_in, d_out), dt)}
+    def lin(lead, d_in, d_out, bias=False):
+        p = {"w": LeafSpec(lead + (d_in, d_out), dt)}
         if bias:
-            p["b"] = LeafSpec((L, d_out), dt)
+            p["b"] = LeafSpec(lead + (d_out,), dt)
         return p
 
-    attn = {"wq": lin(d, cfg.n_heads * hd, cfg.qkv_bias),
-            "wk": lin(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
-            "wv": lin(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
-            "wo": lin(cfg.n_heads * hd, d)}
-    if cfg.qk_norm:
-        attn["q_norm"] = LeafSpec((L, hd), dt)
-        attn["k_norm"] = LeafSpec((L, hd), dt)
-    tree = {
-        "ln_f": LeafSpec((d,), dt),
-        "embed": LeafSpec((cfg.vocab_size, d), dt),
-        "layers": {
-            "ln1": LeafSpec((L, d), dt),
-            "attn": attn,
-            "ln2": LeafSpec((L, d), dt),
-            "ffn": {"w_gate": lin(d, cfg.d_ff), "w_up": lin(d, cfg.d_ff),
-                    "w_down": lin(cfg.d_ff, d)},
-        },
-    }
+    def ffn(n, d_ff):
+        return {"w_gate": lin((n,), d, d_ff), "w_up": lin((n,), d, d_ff),
+                "w_down": lin((n,), d_ff, d)}
+
+    def block(n, d_ff=None):
+        attn = {"wq": lin((n,), d, cfg.n_heads * hd, cfg.qkv_bias),
+                "wk": lin((n,), d, cfg.n_kv_heads * hd, cfg.qkv_bias),
+                "wv": lin((n,), d, cfg.n_kv_heads * hd, cfg.qkv_bias),
+                "wo": lin((n,), cfg.n_heads * hd, d)}
+        if cfg.qk_norm:
+            attn["q_norm"] = LeafSpec((n, hd), dt)
+            attn["k_norm"] = LeafSpec((n, hd), dt)
+        p = {"ln1": LeafSpec((n, d), dt), "attn": attn,
+             "ln2": LeafSpec((n, d), dt)}
+        if d_ff is not None:
+            p["ffn"] = ffn(n, d_ff)
+            return p
+        E, f = cfg.n_experts, cfg.moe_d_ff
+        moe = {"router": {"w": LeafSpec((n, d, E), "float32")},
+               "w_gate": lin((n, E), d, f), "w_up": lin((n, E), d, f),
+               "w_down": lin((n, E), f, d)}
+        if cfg.n_shared_experts:
+            moe["shared"] = ffn(n, cfg.n_shared_experts * f)
+        p["moe"] = moe
+        return p
+
+    tree = {"ln_f": LeafSpec((d,), dt),
+            "embed": LeafSpec((cfg.vocab_size, d), dt)}
+    if cfg.family == "dense":
+        tree["layers"] = block(cfg.n_layers, cfg.d_ff)
+    else:
+        tree["layers"] = block(cfg.n_layers - cfg.first_k_dense)
+        if cfg.first_k_dense:
+            tree["dense_layers"] = block(cfg.first_k_dense,
+                                         cfg.dense_d_ff or cfg.d_ff)
     if not cfg.tie_embeddings:
         tree["lm_head"] = {"w": LeafSpec((d, cfg.vocab_size), dt)}
     return tree
@@ -99,12 +114,13 @@ def abstract_quantized_params(cfg: ModelConfig, target_bpw: float = 1.0,
                               min_dim: int = 48, rank_align: int = 32,
                               k_align: int = 32) -> Dict:
     """LeafSpec tree of the NanoQuant-packed model — the structure the
-    JAX package's quantizer emits, built without a single weight."""
+    JAX package's quantizer emits, built without a single weight: every
+    block stack's selected linears packed, everything else FP."""
     def q(tree):
         out = {}
         for k, v in tree.items():
             if isinstance(v, dict) and isinstance(v.get("w"), LeafSpec) \
-                    and quantizable_linear(v["w"].shape, min_dim):
+                    and quantizable_linear(k, v["w"].shape, min_dim):
                 struct, _ = _packed_struct(v["w"].shape, target_bpw,
                                            rank_align, k_align)
                 if "b" in v:
@@ -115,7 +131,9 @@ def abstract_quantized_params(cfg: ModelConfig, target_bpw: float = 1.0,
         return out
 
     new = dict(param_specs(cfg))
-    new["layers"] = q(new["layers"])
+    for stack in BLOCK_STACKS:
+        if stack in new:
+            new[stack] = q(new[stack])
     return new
 
 
@@ -188,6 +206,10 @@ def merge_projection_groups(params):
                 out[k] = v
         for names, merged_key in MERGE_GROUPS:
             if merged_key in out:
+                continue
+            if "router" in out:
+                # MoE expert stacks run through dense_expert (kernel #1's
+                # expert grid), not ffn(): a merged copy would never be read
                 continue
             subs = [out.get(nm) for nm in names]
             if not all(isinstance(s, dict) and "qu_t" in s for s in subs):

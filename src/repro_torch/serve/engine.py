@@ -65,7 +65,9 @@ class ServeConfig:
     admission maps the longest cached prefix read-only and prefills only
     the suffix, writes into shared pages copy on write, and cached pages
     are evicted LRU at refcount zero under pool pressure; greedy outputs
-    stay token-identical to ``prefix_cache=False``.
+    of the dense family stay token-identical to ``prefix_cache=False``
+    (the MoE family's follow the reference's prefix engine: an expert's
+    capacity depends on the rows of each call).
     ``spec_rank_frac`` turns on self-speculative decoding
     (``serve.speculative``): each tick drafts up to ``spec_k`` tokens
     (no fewer than ``spec_k_min`` as the dynamic k shrinks) through the
@@ -333,8 +335,8 @@ class InferenceEngine:
         self.completion_step: Dict[int, int] = {}
         self.stats: Dict[str, Any] = {}
         self.reset_stats()
-        # the port serves the dense family, whose tables are linear only
-        # and whose KV is a function of the tokens: it always shares
+        # the dense and MoE families have linear tables only: both share
+        # (an MoE hit's suffix runs at the reference's padded length)
         self.prefix = (PrefixCache(self.kv, self.stats)
                        if self.scfg.prefix_cache else None)
         self.spec = None
@@ -753,21 +755,34 @@ class InferenceEngine:
     def _admit_shared(self, slot: int, prompt: np.ndarray, n: int, p: int,
                       pages: List[int]):
         """Prefix-hit admission: map the `p` matched tokens' `pages`
-        read-only into `slot` and prefill only the suffix, at its exact
-        length, straight into the pool. A full cover (p == n) re-emits
-        from the last prompt token: its page is copied on write first and
-        one token is re-prefilled. Returns the next-token logits."""
+        read-only into `slot` and prefill only the suffix straight into
+        the pool, at its exact length (dense family) or right-padded as
+        the reference pads it (MoE family). A full cover (p == n)
+        re-emits from the last prompt token: its page is copied on write
+        first and one token is re-prefilled. Returns the next-token
+        logits."""
         self.kv.admit(slot, n, shared=pages)
         start = n - 1 if p == n else p
         if not self._cow_rows(slot, start, n):
             raise paging.PageAccountingError(
                 "admission copy-on-write starved: the gate promised the page")
         dev = self.device
-        suffix = torch.from_numpy(np.ascontiguousarray(prompt[start:])).to(dev)
+        m = n - start
+        rows = m
+        if self.cfg.family == "moe":
+            # the MoE's capacity depends on the call's rows, so the suffix
+            # runs at the reference's length: its compile bucket, clamped
+            # to the slot's rows (a pad row past them would wrap onto the
+            # shared prefix pages). The dense family keeps its exact length.
+            rows = min(bucket_length(m, self.max_len),
+                       self.kv.lin_pages * self.kv.page_size - start)
+        suffix = np.zeros((1, rows), np.int64)
+        suffix[0, :m] = prompt[start:]
         table = torch.from_numpy(
             self.kv.tables["linear"][slot:slot + 1].copy()).to(dev)
         logits, self.cache = T.prefill(
-            self.params, self.cfg, suffix[None], self.cache,
+            self.params, self.cfg, torch.from_numpy(suffix).to(dev),
+            self.cache, last_idx=m - 1,
             start_pos=torch.tensor([start], device=dev),
             block_tables={"linear": table})
         return logits

@@ -12,8 +12,10 @@ tables — the parts of ``repro.serve.paging`` the engine uses.
   decode writes land in trash instead of in a neighbour's page. Pages are
   refcounted, so the prefix cache (``serve.prefix``) can map one page
   into several slots and copy it on write (``cow``).
-- :func:`init_paged_cache` — the device pool: the dense family's K/V
-  leaves become ``(n_layers, n_pages, page_size, Hkv, D)``.
+- :func:`init_paged_cache` — the device pool: each block stack's K/V
+  leaves become ``(n_layers, n_pages, page_size, Hkv, D)`` (the MoE
+  family's ``dense_layers`` have a pool of their own, read through the
+  same block tables).
 - :func:`paged_insert_slot` / :func:`paged_select_active` — the paged
   twins of the scheduler's slot cache ops; :func:`copy_page` — the
   device side of a copy-on-write.
@@ -29,7 +31,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models.transformer import torch_dtype
+from repro_torch.models.transformer import stack_depths, torch_dtype
 
 # leaf names of the paged attention cache
 _POOL_LEAVES = ("k", "v")
@@ -41,25 +43,32 @@ class PageAccountingError(AssertionError):
 
 
 def init_paged_cache(cfg, n_pages: int, page_size: int, device="cuda"):
-    """Pool-shaped cache {"layers": {"k", "v": (L, n_pages, page_size,
-    Hkv, D)}} in the model dtype."""
-    shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    """Pool-shaped cache, one pool per block stack: {stack: {"k", "v": (L,
+    n_pages, page_size, Hkv, D)}} in the model dtype. Every stack's pool
+    is indexed by the same page ids."""
     dt = torch_dtype(cfg)
-    return {"layers": {k: torch.zeros(shape, dtype=dt, device=device)
-                       for k in _POOL_LEAVES}}
+    return {name: {k: torch.zeros(
+        (n, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim), dtype=dt,
+        device=device) for k in _POOL_LEAVES}
+        for name, n in stack_depths(cfg).items()}
+
+
+def _pools(cache):
+    """(stack name, leaf name, pool) of every pooled leaf."""
+    return [(st, name, leaves[name]) for st, leaves in cache.items()
+            for name in _POOL_LEAVES]
 
 
 def paged_insert_slot(cache, single, tables: Dict[str, torch.Tensor]):
     """Scatter a freshly prefilled batch-1 rectangular cache (``single``:
-    k/v (L, 1, rows, Hkv, D)) into the slot's pages, in place.
+    per stack, k/v (L, 1, rows, Hkv, D)) into the slot's pages, in place.
     ``tables["linear"]``: the slot's (pages,) page-id vector, unmapped
     tail entries 0 — rows in those pages land on the null page, which is
     trash by design. Returns `cache`."""
     ids = tables["linear"].long()
-    for name in _POOL_LEAVES:
-        pool = cache["layers"][name]
+    for stack, name, pool in _pools(cache):
         ps = pool.shape[2]
-        x = single["layers"][name][:, 0]                  # (L, rows, ...)
+        x = single[stack][name][:, 0]                     # (L, rows, ...)
         pad = ids.shape[0] * ps - x.shape[1]
         if pad > 0:
             x = torch.cat([x, x.new_zeros((x.shape[0], pad) + x.shape[2:])], 1)
@@ -71,17 +80,16 @@ def paged_insert_slot(cache, single, tables: Dict[str, torch.Tensor]):
 
 def copy_page(cache, src: int, dst: int):
     """Copy-on-write on the device: duplicate page `src` into page `dst`
-    across every layer of the k and v pools, in place. Returns `cache`."""
-    for name in _POOL_LEAVES:
-        pool = cache["layers"][name]
+    across every layer of every stack's k and v pools, in place. Returns
+    `cache`."""
+    for _, _, pool in _pools(cache):
         pool[:, dst] = pool[:, src]
     return cache
 
 
 def kv_cache_bytes(cache) -> int:
     """Bytes held by the attention cache's k and v leaves."""
-    return sum(t.numel() * t.element_size()
-               for t in cache["layers"].values())
+    return sum(t.numel() * t.element_size() for _, _, t in _pools(cache))
 
 
 def paged_select_active(new, old, active):
@@ -89,14 +97,15 @@ def paged_select_active(new, old, active):
     (paged decode writes are slot-isolated by construction — inactive
     slots map the null page); slot-indexed leaves (batch axis 1) keep
     their old entries for inactive slots."""
-    def sel(name, n):
+    def sel(stack, name, n):
         if name in _POOL_LEAVES:
             return n
         shape = [1] * n.dim()
         shape[1] = -1
-        return torch.where(active.reshape(shape), n, old["layers"][name])
+        return torch.where(active.reshape(shape), n, old[stack][name])
 
-    return {"layers": {k: sel(k, n) for k, n in new["layers"].items()}}
+    return {st: {k: sel(st, k, n) for k, n in leaves.items()}
+            for st, leaves in new.items()}
 
 
 class PagedKVState:

@@ -33,9 +33,13 @@ of bytes is salted per process, so keys mean something only inside the
 process that made them; the index lives in one engine, in one process, as
 in the reference, and is never saved or sent.
 
-The index holds token -> page mappings, never KV values. KV for a token
-sequence is a function of the tokens alone (the dense family), so serving
-through the index is token-identical to the engine without it.
+The index holds token -> page mappings, never KV values. In the dense
+family KV for a token sequence is a function of the tokens alone, so
+serving through the index is token-identical to the engine without it.
+In the MoE family it is not: an expert's capacity depends on the rows of
+the call, so a token's KV depends on what it was batched with, and a
+hit's suffix prefill (padded as the reference pads it) is held against
+the reference's prefix engine, not against the unshared engine.
 """
 from __future__ import annotations
 

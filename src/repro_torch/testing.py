@@ -7,8 +7,9 @@ random words and scales. The engine never uses this module;
 
 Both fillers draw from the same distributions, scaled so activations
 stay O(1) through any depth: packed words uniform; s2 ≈ 1/√K and s1 ≈
-1/√R times N(1, 0.1); the embedding N(0, 0.02); norms N(1, 0.1); FP
-weights N(0, 1/d_in); biases N(0, 0.02). :func:`random_packed_params`
+1/√R times N(1, 0.1) (per expert for stacked experts); the embedding
+N(0, 0.02); norms N(1, 0.1); FP weights, the MoE router (f32) among
+them, N(0, 1/d_in); biases N(0, 0.02). :func:`random_packed_params`
 draws on the host with numpy (the CPU parity tests hand its arrays to
 both packages); :func:`random_packed_params_device` draws on the card, one
 leaf at a time, for full-size models whose host draw would take tens of

@@ -76,3 +76,87 @@ def torch_params(tree):
 
 def f32(cfg):
     return dataclasses.replace(cfg, dtype="float32")
+
+
+# ---------------------------------------------------------------------------
+# whole-model parity: forward, prefill and paged decode against JAX
+# ---------------------------------------------------------------------------
+
+
+def tokens(cfg, shape, seed):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, size=shape).astype(np.int32)
+
+
+def check_forward(cfg, jparams, tparams, policy, tolerance, what):
+    """The full-sequence forward of both packages on one token batch."""
+    import jax
+    from repro.models import transformer as JT
+    from repro_torch.kernels.ops import kernel_policy
+    from repro_torch.models import transformer as TT
+    toks = tokens(cfg, (2, 11), 1)
+    want = jax.jit(lambda p, t: JT.forward(p, cfg, t))(jparams, toks)
+    with kernel_policy(policy):
+        got = TT.forward(tparams, cfg, torch.from_numpy(toks).long())
+    assert_close(want, got, tolerance, f"forward ({what})")
+
+
+def check_prefill(cfg, jparams, tparams, policy, tolerance, what):
+    """A bucket-padded prefill into a rectangular cache: the logits at the
+    last real token and every stack's cache rows."""
+    import jax
+    from repro.models import transformer as JT
+    from repro_torch.kernels.ops import kernel_policy
+    from repro_torch.models import transformer as TT
+    toks = tokens(cfg, (1, 16), 2)
+    n = 13                                  # right-padded to a bucket
+    want, jcache = jax.jit(lambda p, t: JT.prefill(
+        p, cfg, t, JT.init_cache(cfg, 1, 24), last_idx=n - 1))(jparams, toks)
+    with kernel_policy(policy):
+        got, tcache = TT.prefill(tparams, cfg, torch.from_numpy(toks).long(),
+                                 TT.init_cache(cfg, 1, 24, "cpu"),
+                                 last_idx=n - 1)
+    assert_close(want, got, tolerance, f"prefill logits ({what})")
+    assert sorted(jcache) == sorted(tcache)
+    for stack in jcache:
+        for leaf in ("k", "v"):
+            assert_close(jcache[stack][leaf], tcache[stack][leaf], tolerance,
+                         f"prefill cache {stack}/{leaf} ({what})")
+
+
+def check_paged_decode(cfg, jparams, tparams, policy, tolerance, what):
+    """One batched decode step over a paged pool (one per block stack)
+    with ragged tables and an inactive (all-null) slot."""
+    import jax
+    from repro.models import transformer as JT
+    from repro_torch.kernels.ops import kernel_policy
+    from repro_torch.models import transformer as TT
+    rng = np.random.default_rng(3)
+    PS, hkv, hd = 4, cfg.n_kv_heads, cfg.head_dim
+    pools = {name: rng.standard_normal((2, n, 10, PS, hkv, hd)
+                                       ).astype(np.float32)
+             for name, n in TT.stack_depths(cfg).items()}
+    bt = np.array([[1, 2, 3, 0], [4, 5, 0, 0], [0, 0, 0, 0]], np.int32)
+    pos = np.array([9, 5, 2], np.int32)
+    tok = tokens(cfg, (3, 1), 4)
+
+    def cache(lib):
+        conv = jnp.asarray if lib == "jax" else torch.from_numpy
+        return {name: {"k": conv(pool[0].copy()), "v": conv(pool[1].copy())}
+                for name, pool in pools.items()}
+
+    want, jc = jax.jit(lambda p, t, c, q, b: JT.decode_step(
+        p, cfg, t, c, q, block_tables={"linear": b}))(
+            jparams, tok, cache("jax"), pos, bt)
+    with kernel_policy(policy):
+        got, tc = TT.decode_step(
+            tparams, cfg, torch.from_numpy(tok).long(), cache("torch"),
+            torch.from_numpy(pos).long(),
+            block_tables={"linear": torch.from_numpy(bt)})
+    assert_close(want, got, tolerance, f"decode logits ({what})")
+    for name in pools:
+        for leaf in ("k", "v"):
+            # the inactive slot's write lands on the null page 0, whose
+            # content is trash by design: compare the real pages only
+            assert_close(jc[name][leaf][:, 1:], tc[name][leaf][:, 1:],
+                         tolerance, f"decode pool {name}/{leaf} ({what})")

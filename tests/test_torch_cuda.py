@@ -635,3 +635,83 @@ def test_launch_error_propagates_from_the_engine(dev, monkeypatch, when):
         eng.step()
     assert not any(h.status == "failed" for h in hs)
     assert eng.stats["failed"] == eng.stats["device_faults"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("linear,m,eff", [("gate", 8, None), ("down", 8, None),
+                                          ("gate", 40, None), ("down", 8, 512)])
+def test_expert_grid_matmul_vs_plain(dev, dt, linear, m, eff):
+    """Kernel #1 at qwen3-moe-235b-a22b's expert grid: G = 128 experts, x
+    per group (``x_shared=False``), rank 1088; gate/up K 4096 -> N 1536,
+    down K 1536 -> N 4096; M 8 (a decode step's and a 64-token prefill's
+    capacity) and 40 (a 256-token prefill's)."""
+    rng = np.random.default_rng(len(linear) + m)
+    G, R = 128, 1088
+    K, N = (4096, 1536) if linear == "gate" else (1536, 4096)
+    x = torch.from_numpy(rng.standard_normal((G, m, K), np.float32)
+                         ).to(dev, dt)
+    args = (x, _words(rng, G, K // 32, R).to(dev),
+            _words(rng, G, R // 32, N).to(dev),
+            torch.from_numpy(rng.standard_normal((G, N), np.float32)
+                             / R ** 0.5).to(dev),
+            torch.from_numpy(rng.standard_normal((G, K), np.float32)
+                             / K ** 0.5).to(dev))
+    grid = binary_matmul.fused_lowrank_matmul_grouped.grid_launches
+    n0 = grid.get((G, False), 0)
+    got = binary_matmul.fused_lowrank_matmul_grouped(*args, x_shared=False,
+                                                     eff_rank=eff)
+    torch.cuda.synchronize()
+    assert grid[G, False] == n0 + 1
+    assert binary_matmul.fused_lowrank_matmul_grouped.plan["slices"] >= 1
+    want = binary_matmul.fused_lowrank_matmul_grouped_ref(
+        *args, x_shared=False, eff_rank=eff)
+    assert got.dtype == dt
+    _close(want, got, TOL[dt], f"expert grid {linear} M={m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", [{}, {"n_shared_experts": 1,
+                                          "first_k_dense": 1,
+                                          "dense_d_ff": 160}])
+def test_moe_engine_kernels_match_plain_engine(dev, variant):
+    """The qwen3-moe smoke engine on the card (every expert linear one
+    launch of #1 over the 8 experts, attention through #1 and #2: qk_norm
+    rules out #3) emits the plain-oracle engine's greedy tokens (f32),
+    with and without the prefix cache; the variant adds a shared expert
+    and a leading dense block."""
+    cfg = dataclasses.replace(get_smoke("qwen3-moe-235b-a22b"),
+                              dtype="float32", **variant)
+    tree = random_packed_params(abstract_quantized_params(cfg, 1.0,
+                                                          min_dim=16), 0)
+    m = NanoQuantModel.from_numpy(tree, cfg, device=dev)
+    rng = np.random.default_rng(4)
+    system = rng.integers(0, cfg.vocab_size, size=16)
+    prompts = [np.concatenate([system, rng.integers(0, cfg.vocab_size,
+                                                    size=n)])
+               for n in (3, 11, 0)] + [rng.integers(0, cfg.vocab_size,
+                                                    size=7)]
+
+    def serve(policy, prefix):
+        eng = m.engine(ServeConfig(greedy=True, page_size=8, debug=True),
+                       max_batch=2, max_len=48, policy=policy,
+                       prefix_cache=prefix)
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid, p, max_new_tokens=6))
+        return {u: r.output for u, r in eng.run().items()}, eng.stats
+
+    grid = binary_matmul.fused_lowrank_matmul_grouped.grid_launches
+    for prefix in (False, True):
+        want, _ = serve(KernelPolicy(mode="ref"), prefix)
+        n0 = grid.get((cfg.n_experts, False), 0)
+        before = (megakernel.decode_step_megakernel_raw.launches,
+                  paged_attention.paged_decode_attention.launches)
+        got, st = serve(KernelPolicy(mode="cuda"), prefix)
+        for u in want:
+            np.testing.assert_array_equal(want[u], got[u])
+        forwards = st["admissions"] + st["decode_steps"]
+        n_moe = cfg.n_layers - cfg.first_k_dense
+        assert grid[cfg.n_experts, False] - n0 == 3 * n_moe * forwards
+        assert megakernel.decode_step_megakernel_raw.launches == before[0]
+        assert paged_attention.paged_decode_attention.launches > before[1]
+        assert (st["prefix_hit_tokens"] > 0) == prefix

@@ -1,5 +1,7 @@
 """Parity of the port's model, surgery, configs and artifact loader with
-the JAX reference, plus the port's import and device hygiene.
+the JAX reference, plus the port's import and device hygiene. The dense
+model runs on llama3.2-1b's smoke config and, for qwen3's per-head
+``qk_norm`` (which also rules out the decode megakernel), on qwen3-4b's.
 
 Logit comparisons are f32 with a relative max-abs tolerance of 1e-4:
 the two packages run the same math, but their sums (matmuls, RMSNorm,
@@ -18,7 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_common import (assert_close, f32, jax_tree, pair, packed_model,
+from _torch_common import (assert_close, check_forward, check_paged_decode,
+                           check_prefill, f32, jax_tree, pair, packed_model,
                            torch_params)
 from repro import api as japi
 from repro import configs as jconfigs
@@ -125,6 +128,18 @@ def test_merged_groups_match_jax(model):
                 a.view(np.int32) if a.dtype == np.uint32 else a, b.numpy())
 
 
+def _flat_templates(want, got):
+    """(path, shape, dtype) of every leaf of JAX's template and the
+    port's, in JAX's flattening order."""
+    flat_w = jax.tree_util.tree_flatten_with_path(want)[0]
+    flat_g = jax.tree_util.tree_flatten_with_path(
+        got, is_leaf=lambda x: isinstance(x, tsurgery.LeafSpec))[0]
+    return ([(jax.tree_util.keystr(k), tuple(v.shape), str(v.dtype))
+             for k, v in flat_w],
+            [(jax.tree_util.keystr(k), tuple(v.shape), v.dtype)
+             for k, v in flat_g])
+
+
 @pytest.mark.parametrize("arch", tconfigs.list_archs())
 def test_configs_and_templates_match_jax(arch):
     assert dataclasses.asdict(tconfigs.get_config(arch)) == \
@@ -135,13 +150,76 @@ def test_configs_and_templates_match_jax(arch):
     want = jsurgery.abstract_quantized_params(cfg_j, 1.0, min_dim=16)
     got = tsurgery.abstract_quantized_params(tconfigs.get_smoke(arch), 1.0,
                                              min_dim=16)
-    flat_w = jax.tree_util.tree_flatten_with_path(want)[0]
-    flat_g = jax.tree_util.tree_flatten_with_path(
-        got, is_leaf=lambda x: isinstance(x, tsurgery.LeafSpec))[0]
-    assert [(jax.tree_util.keystr(k), tuple(v.shape), str(v.dtype))
-            for k, v in flat_w] == \
-        [(jax.tree_util.keystr(k), tuple(v.shape), v.dtype)
-         for k, v in flat_g]
+    flat_w, flat_g = _flat_templates(want, got)
+    assert flat_w == flat_g
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_full_size_moe_template_matches_jax(dtype):
+    """qwen3-moe-235b-a22b at full size, shapes only (no weights): the
+    port's template equals JAX's leaf for leaf. Its routers (4096, 128)
+    are wide enough to pack by shape, but the selection rule excludes
+    them by name: they stay FP32 in a bf16 model."""
+    arch = "qwen3-moe-235b-a22b"
+    cfg_t = dataclasses.replace(tconfigs.get_config(arch), dtype=dtype)
+    cfg_j = dataclasses.replace(jconfigs.get_config(arch), dtype=dtype)
+    flat_w, flat_g = _flat_templates(
+        jsurgery.abstract_quantized_params(cfg_j),
+        tsurgery.abstract_quantized_params(cfg_t))
+    assert flat_w == flat_g
+    t = tsurgery.abstract_quantized_params(cfg_t)["layers"]
+    assert t["moe"]["router"] == {
+        "w": tsurgery.LeafSpec((94, 4096, 128), "float32")}
+    ranks = {k: t[blk][k]["qv"].shape[-1]
+             for blk, ks in (("attn", ("wq", "wk", "wv", "wo")),
+                             ("moe", ("w_gate", "w_up", "w_down")))
+             for k in ks}
+    assert ranks == {"wq": 2688, "wo": 2688, "wk": 416, "wv": 416,
+                     "w_gate": 1088, "w_up": 1088, "w_down": 1088}
+    assert t["moe"]["w_gate"]["qv"].shape == (94, 128, 128, 1088)
+    assert t["moe"]["w_down"]["qu_t"].shape == (94, 128, 34, 4096)
+    assert "dense_layers" not in tsurgery.abstract_quantized_params(cfg_t)
+
+
+# ---------------------------------------------------------------------------
+# qwen3's per-head qk_norm (qwen3-4b smoke config)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def qwen3():
+    cfg = f32(jconfigs.get_smoke("qwen3-4b"))
+    assert cfg.qk_norm
+    tree = packed_model(cfg, seed=1)
+    return cfg, tree, jax_tree(tree), torch_params(tree)
+
+
+@pytest.mark.parametrize("mode", ["ref", "kernels"])
+def test_qwen3_forward_matches_jax(qwen3, mode):
+    cfg, _, jparams, tparams = qwen3
+    check_forward(cfg, jparams, _tparams(tparams, mode), MODES[mode],
+                  LOGITS_TOL, f"qwen3-4b {mode}")
+
+
+def test_qwen3_prefill_matches_jax(qwen3):
+    cfg, _, jparams, tparams = qwen3
+    check_prefill(cfg, jparams, tparams, MODES["ref"], LOGITS_TOL,
+                  "qwen3-4b")
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_qwen3_paged_decode_step_matches_jax(qwen3, mode, monkeypatch):
+    """qk_norm's decode: the megakernel's gate refuses it (the kernel has
+    no per-head norm), so every kernel mode runs the unfused chain."""
+    from repro_torch.kernels import megakernel
+    cfg, _, jparams, tparams = qwen3
+    calls = []
+    real = megakernel.decode_step_megakernel_raw
+    monkeypatch.setattr(megakernel, "decode_step_megakernel_raw",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    check_paged_decode(cfg, jparams, _tparams(tparams, mode), MODES[mode],
+                       LOGITS_TOL, f"qwen3-4b {mode}")
+    assert not calls
 
 
 def test_full_size_ranks_match_issue_shapes():
