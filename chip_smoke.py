@@ -121,7 +121,26 @@ Phases, each printing its own line(s); any failure exits non-zero:
    tokens must be identical up to it or diverge at a plain-path logit
    near-tie (``moe_gate``). Then one bf16 run and its decode window
    under the profiler (device ms per step by kernel);
-9. the seconds each phase took, the ``kernels`` JSON line (launches per
+9. deepseek-v2-lite-16b — kernel #1 at the MLA attention's w_kr (N 64 at
+   rank 32, below one 128-column tile in both stages) and w_dkv (N 512 at
+   rank 384) at M 8, and at the 64-expert grid (x per group, rank 800;
+   gate/up K 2048 -> N 1408, down K 1408 -> N 2048) at M 8 and 32, f32 and
+   bf16, against its plain version beside its library call; then the
+   model at full width and full depth (27 layers: one dense, 26 MoE of 64
+   experts top-6 plus 2 shared; MLA attention over a paged pool of
+   compressed latents, kv_lora_rank 512 plus a 64-wide RoPE key per row)
+   at 1.0 bpw, weights and routers drawn on the card, under the llama
+   traffic on the path ``deepseek-v2-lite-16b``: #1 only, 240 launches
+   per forward (four per layer for wq, w_dkv, w_kr and wo, three at the
+   expert grid and two for the shared experts per MoE layer, two for the
+   dense block), 78 of them at the grid; #2, #3 and #4 never (MLA's read
+   is plain torch ops, as the reference keeps it plain XLA). Its f32 gate
+   is ``moe_gate``. Then one bf16 run (decode tok/s, TTFT, peak memory,
+   the pool's bytes per token) and its decode window under the profiler,
+   device ms per step split by op group (#1 at the grid, #1 elsewhere,
+   MLA's attention ops, the MoE's dispatch ops, the lm head, the rest;
+   ``deepseek_split``);
+10. the seconds each phase took, the ``kernels`` JSON line (launches per
    serving path, each path's counts set to 0 just before its f32 run;
    ``chaos`` counts its kernel legs; ``restart`` launches in its child
    processes and is not counted), then the ``ok`` JSON line.
@@ -201,6 +220,10 @@ GSP_TIGHT = dict(GSP, kv_pool_pages=64)
 # qwen1.5-110b traffic
 QWEN3 = dict(LLAMA, arch="qwen3-4b")
 QWEN3_MOE = dict(QWEN, arch="qwen3-moe-235b-a22b")
+# deepseek-v2-lite-16b (MLA, 64 experts top-6 plus 2 shared, the first
+# layer dense) under the llama traffic: up to 4 pages of 64 latent rows per
+# slot, prefills of up to 256 tokens (expert capacity 8 to 32)
+DEEPSEEK = dict(LLAMA, arch="deepseek-v2-lite-16b")
 
 # self-speculative decoding: the draft reads half of every packed rank
 SPEC = {"spec_rank_frac": 0.5, "spec_k": 4}
@@ -246,6 +269,8 @@ PATHS = (
     ("qwen3-4b", QWEN3, {}, None, None, None, (FUSED, PAGED), (MEGA, PACKED)),
     ("qwen3-moe-235b-a22b", QWEN3_MOE, {}, None, None, None, (FUSED, PAGED),
      (MEGA, PACKED)),
+    ("deepseek-v2-lite-16b", DEEPSEEK, {}, None, None, None, (FUSED,),
+     (PAGED, MEGA, PACKED)),
 )
 
 # the kernels' names in a profiler trace, and the lm head's matmul
@@ -367,6 +392,26 @@ def main():
     del moe
     free()
     phase("qwen3-moe-235b-a22b bf16 run and profile")
+
+    ds = make_on_card("deepseek-v2-lite-16b")
+    lines[FUSED]["deepseek"] = [
+        {k: r[k] for k in r if k in (
+            "group", "G", "M", "K", "R", "N", "dtype", "ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "bound_share",
+            "max_abs_err")}
+        for r in check_deepseek_kernels(ds, report) if r["dtype"] == "f32"]
+    phase("deepseek-v2-lite-16b kernels")
+    res = report["deepseek-v2-lite-16b"] = serve_paths(ds, DEEPSEEK, launches)
+    phase("deepseek-v2-lite-16b f32 engine path")
+    ds = cast(ds, torch.bfloat16)
+    free()
+    res["bf16"] = bf16_run(ds, DEEPSEEK, report)
+    res["bf16"]["pool_bytes_per_token"] = pool_bytes_per_token(ds, DEEPSEEK)
+    res["bf16_decode_profile"] = profile_decode(
+        ds, DEEPSEEK, [res["bf16"]["decode_step_ms"]], split=deepseek_split)
+    del ds
+    free()
+    phase("deepseek-v2-lite-16b bf16 run and profile")
 
     kernels = []
     for i, (name, source, replaces) in enumerate(KERNELS):
@@ -629,6 +674,8 @@ def check_fused(lp, names, ms, gen, model_name):
     from repro_torch.kernels import binary_matmul, ref
     members = {"qkv": ("attn", "wqkv", ("wq", "wk", "wv")),
                "wo": ("attn", "wo", ("wo",)),
+               "w_kr": ("attn", "w_kr", ("w_kr",)),
+               "w_dkv": ("attn", "w_dkv", ("w_dkv",)),
                "gate_up": ("ffn", "wgu", ("w_gate", "w_up")),
                "down": ("ffn", "w_down", ("w_down",))}
     rows = []
@@ -756,17 +803,19 @@ EXPERT_ROWS = (("gate_up", "w_gate"), ("down", "w_down"))
 EXPERT_MS = (8, 40)
 
 
-def check_expert_grid(model, report):
-    """#1 with the expert axis as its group axis (G = 128, x per group) at
-    layer 0's expert stacks, f32 and bf16, against its plain version; the
-    yardstick is the batched form of the merged rows' library call over
-    unpacked bf16 factors. Returns the f32 M = 8 rows for the kernels
-    line."""
+def check_expert_grid(model, report, ms=EXPERT_MS, seed=SEED + 10,
+                      key="moe_kernel_checks"):
+    """#1 with the expert axis as its group axis (G = n_experts, x per
+    group) at layer 0's expert stacks, at each M of `ms`, f32 and bf16,
+    against its plain version; the yardstick is the batched form of the
+    merged rows' library call over unpacked bf16 factors. The rows go to
+    ``report[key]``; returns the f32 M = 8 rows for the kernels line."""
     import torch
     from repro_torch.kernels import binary_matmul, ref
     from repro_torch.models.transformer import split_layers
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     moe = split_layers(model.params)["layers"][0]["moe"]
+    arch = model.cfg.name
     rows = []
     for group, lin in EXPERT_ROWS:
         p = moe[lin]
@@ -777,7 +826,7 @@ def check_expert_grid(model, report):
             V = ref.unpack_signs(p["qv"], tdt)               # (G, K, R)
             U = ref.unpack_signs(p["qu_t"], tdt)             # (G, R, N)
             s2, s1 = p["s2"][:, None].to(tdt), p["s1"][:, None].to(tdt)
-            for m in EXPERT_MS:
+            for m in ms:
                 x = torch.randn((G, m, K), generator=gen, device="cuda"
                                 ).to(tdt)
 
@@ -795,7 +844,7 @@ def check_expert_grid(model, report):
                                        f"M={m} {dt}", plain(), kern(),
                                        TOL[dt])
                 rec = _timed({"kernel": "fused_lowrank_matmul_grouped",
-                              "model": "qwen3-moe-235b-a22b", "group": group,
+                              "model": arch, "group": group,
                               "G": G, "M": m, "K": K, "R": R, "N": N,
                               "x_shared": False, "dtype": dt,
                               "max_abs_err": abs_err, "rel_err": rel}, kern,
@@ -809,7 +858,7 @@ def check_expert_grid(model, report):
                     rec, binary_matmul.fused_lowrank_matmul_grouped.plan)
                 rec["workspace_mib"] = rec["plan"]["workspace_bytes"] / 2**20
                 rows.append(rec)
-                log(f"kernel fused_lowrank qwen3-moe expert grid {group:7s} "
+                log(f"kernel fused_lowrank {arch} expert grid {group:7s} "
                     f"G={G} M={m:<3d} {dt:4s} rel_err={rel:.2e} "
                     f"ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
                     f"library_ms={rec['library_ms']:.4f} "
@@ -820,8 +869,27 @@ def check_expert_grid(model, report):
                     f"{rec['workspace_mib']:.1f} MiB")
             del V, U
             free()
-    report["moe_kernel_checks"] = rows
+    report[key] = rows
     return [r for r in rows if (r["M"], r["dtype"]) == (8, "f32")]
+
+
+def check_deepseek_kernels(model, report):
+    """#1 at deepseek-v2-lite-16b's shapes against its plain version, f32
+    and bf16: the attention's w_kr (N 64 at rank 32, below one 128-column
+    tile in both stages) and w_dkv (N 512 at rank 384) at M 8, timed
+    beside ``torch.matmul`` over the unpacked factors, and the expert grid
+    (G = 64, x per group, rank 800) at M 8, the capacity of a decode step
+    of 8 slots and of a prefill of up to 64 tokens, and M 32, a 256-token
+    prefill's. Returns every row."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    rows = check_fused(layer0(model), ("w_kr", "w_dkv"), (8,), gen,
+                       model.cfg.name)
+    key = "deepseek_kernel_checks"
+    check_expert_grid(model, report, ms=(8, 32), seed=SEED + 12, key=key)
+    report[key] = rows + report[key]
+    free()
+    return report[key]
 
 
 def _check_packed(stage, w, sk, sn, m, dt, tdt, gen):
@@ -1460,6 +1528,12 @@ def serve_paths(model, traffic, launches):
                     f"engine path {name}: {n_grid} launches of #1 at the "
                     f"expert grid (G = {cfg.n_experts}, x per group), "
                     f"expected 3 x {n_moe} layers x {forwards} forwards")
+            per_forward = len(_mla_positions(cfg)) if cfg.is_mla else None
+            n_fused = launches[name][FUSED]
+            if per_forward and n_fused != per_forward * forwards:
+                raise AssertionError(
+                    f"engine path {name}: {n_fused} launches of #1, "
+                    f"expected {per_forward} x {forwards} forwards")
             near_ties = moe_gate(name, got, want, path_log, oracle_log)
             margin = None if near_ties is None else max(
                 t.get("logit_margin", t.get("router_gap"))
@@ -1474,7 +1548,8 @@ def serve_paths(model, traffic, launches):
         if moe:
             res[name].update(near_ties=near_ties,
                              expert_grid_launches=n_grid,
-                             router_calls=len(path_log.calls))
+                             router_calls=len(path_log.calls),
+                             forwards=forwards)
         if spec:
             # every drafted token is accepted or rolled back, and some
             # are rolled back, so that trim ran on the card
@@ -2108,12 +2183,13 @@ def profile_engine(model, traffic, wall):
     return {"device_busy_s": busy_s, "wall_s": wall, "top": top}
 
 
-def profile_decode(model, traffic, host_ms, spec=None):
+def profile_decode(model, traffic, host_ms, spec=None, split=None):
     """The bf16 engine again (speculative with `spec`), admitting every
     request unprofiled and then profiling the decode-only steps that
     follow: device time per decode step (per cycle when speculative) and
     per committed token, by kernel, beside ``host_ms``, the unprofiled
-    runs' host ms per step."""
+    runs' host ms per step. ``split(prof, cfg, steps)``, when given, adds
+    its device ms per step by op group as ``by_group_ms_per_step``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.ops import KernelPolicy
@@ -2138,6 +2214,8 @@ def profile_decode(model, traffic, host_ms, spec=None):
     free()
     busy_s, top = _device_kernels(prof)
     kind = "spec" if spec else "plain"
+    groups = None if split is None or busy_s == 0 or steps == 0 else \
+        split(prof, model.cfg, steps)
     if busy_s == 0 or steps == 0:
         log(f"engine bf16 {kind} decode profile: device time not measured")
         return None
@@ -2150,14 +2228,111 @@ def profile_decode(model, traffic, host_ms, spec=None):
         f"unprofiled; {1e3 * busy_s / tokens:.3f} device ms per committed "
         f"token: " + ", ".join(f"{k} {v:.3f}" for k, v in by_kernel.items()
                                if v))
+    if groups is not None:
+        log(f"engine {traffic['arch']} bf16 {kind} decode profile: device ms "
+            f"per step by op group: " + ", ".join(
+                f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+                for k, v in groups.items()))
     return {"decode_steps": steps, "committed_tokens": tokens,
-            "device_ms_per_step": per_step,
+            "device_ms_per_step": per_step, "by_group_ms_per_step": groups,
             "device_ms_per_token": 1e3 * busy_s / tokens,
             "by_kernel_ms_per_token": by_kernel, "host_ms_per_step": host_ms,
             "acceptance_rate": acceptance,
             "top_per_step": [dict(t, calls=t["calls"] / steps,
                                   device_ms=t["device_ms"] / steps)
                              for t in top]}
+
+
+def pool_bytes_per_token(model, traffic):
+    """Bytes of the engine's paged pool (every layer's cache leaves) per
+    row it holds: ``kv_cache_bytes`` over n_pages x page_size."""
+    from repro_torch.kernels.ops import KernelPolicy
+    eng = _engine(model, traffic, KernelPolicy(mode="cuda"))
+    out = eng.kv_cache_bytes() / (eng.kv.n_pages * eng.kv.page_size)
+    log(f"engine {traffic['arch']} {model.cfg.dtype} pool: "
+        f"{eng.kv_cache_bytes()} bytes over {eng.kv.n_pages} pages of "
+        f"{eng.kv.page_size} rows: {out:.0f} bytes per token")
+    del eng
+    free()
+    return out
+
+
+def _mla_positions(cfg):
+    """What each launch of #1 in one forward of an MLA model with merged
+    groups computes, in launch order: four per layer (wq, w_dkv, w_kr, wo:
+    no group merges them), then per dense block its wgu and w_down, per
+    MoE layer three at the expert grid and, with shared experts, their wgu
+    and w_down (240 for deepseek-v2-lite-16b)."""
+    dense = ["attn.wq", "attn.w_dkv", "attn.w_kr", "attn.wo", "ffn.wgu",
+             "ffn.w_down"]
+    moe = ["attn.wq", "attn.w_dkv", "attn.w_kr", "attn.wo", "grid.w_gate",
+           "grid.w_up", "grid.w_down"]
+    if cfg.n_shared_experts:
+        moe += ["shared.wgu", "shared.w_down"]
+    return dense * cfg.first_k_dense \
+        + moe * (cfg.n_layers - cfg.first_k_dense)
+
+
+def deepseek_split(prof, cfg, steps):
+    """Device ms per decode step of an MLA MoE model by op group, from the
+    kernels' order on the one stream. The window is cut into steps at each
+    step's device-to-host copy of the sampled tokens; a step whose launches
+    of #1 are not one whole forward (the profiler may drop a record) is
+    left out and counted. Within a step, #1 goes to the expert grid or
+    elsewhere by its launch's place in the forward; every other kernel goes
+    to the group of the launch of #1 before it: after wq, w_dkv or w_kr it
+    is MLA's attention (RoPE, the latent norm, the page writes, the
+    gather, the absorbed einsums, the softmax); after an MoE layer's wo,
+    an expert linear or the shared wgu it is the MoE's (residual, norm,
+    router, dispatch, activations, combine); after the last launch of the
+    forward a matmul is the lm head; the rest (norms, residuals, the dense
+    block's activation, embedding, sampling, copies) is ``other``. Raises
+    when no step is whole."""
+    from torch.autograd import DeviceType
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    chunks = [[]]
+    for e in evs:
+        chunks[-1].append(e)
+        if "DtoH" in e.name or "Device -> P" in e.name:
+            chunks.append([])
+    order = _mla_positions(cfg)
+    first_moe = 6 * cfg.first_k_dense        # position of the first MoE wq
+    out = dict.fromkeys(("fused_expert_grid", "fused_elsewhere",
+                         "mla_attention_ops", "moe_dispatch_ops", "lm_head",
+                         "other"), 0.0)
+    used = 0
+    for chunk in chunks:
+        if sum("fused_lowrank_kernel" in e.name for e in chunk) != len(order):
+            continue
+        used += 1
+        pos = last = None
+        for e in chunk:
+            ms = e.time_range.elapsed_us() * 1e-3
+            if "fused_lowrank_kernel" in e.name:
+                pos = 0 if pos is None else pos + 1
+                last = order[pos]
+                group = "fused_expert_grid" if last.startswith("grid.") \
+                    else "fused_elsewhere"
+            elif last in ("attn.wq", "attn.w_dkv", "attn.w_kr"):
+                group = "mla_attention_ops"
+            elif last is not None and pos >= first_moe and last in (
+                    "attn.wo", "grid.w_gate", "grid.w_up", "grid.w_down",
+                    "shared.wgu"):
+                group = "moe_dispatch_ops"
+            elif pos == len(order) - 1 and \
+                    any(g in e.name.lower() for g in GEMM_NAMES):
+                group = "lm_head"
+            else:
+                group = "other"
+            out[group] += ms
+    if not used:
+        raise AssertionError(f"decode profile: none of {steps} steps holds "
+                             f"one whole forward of {len(order)} launches "
+                             f"of #1")
+    log(f"decode profile split: {used} of {steps} steps whole")
+    return dict({k: v / used for k, v in out.items()}, steps_used=used)
 
 
 if __name__ == "__main__":

@@ -8,12 +8,13 @@ from __future__ import annotations
 
 from typing import List
 
-from repro_torch.configs import (llama3p2_1b, qwen1p5_0p5b, qwen1p5_110b,
-                                 qwen3_4b, qwen3_moe_235b)
+from repro_torch.configs import (deepseek_v2_lite, llama3p2_1b,
+                                 qwen1p5_0p5b, qwen1p5_110b, qwen3_4b,
+                                 qwen3_moe_235b)
 from repro_torch.models.config import ModelConfig
 
-_ARCHS = {m.CONFIG.name: m for m in (llama3p2_1b, qwen1p5_0p5b,
-                                     qwen1p5_110b, qwen3_4b,
+_ARCHS = {m.CONFIG.name: m for m in (deepseek_v2_lite, llama3p2_1b,
+                                     qwen1p5_0p5b, qwen1p5_110b, qwen3_4b,
                                      qwen3_moe_235b)}
 
 

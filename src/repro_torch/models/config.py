@@ -4,7 +4,8 @@ One frozen (hashable -> jit-static) dataclass covers the whole assigned
 pool: dense / MoE / MLA / SSM / hybrid / VLM / audio backbones. The
 port's copy of ``repro.models.config`` keeps every field, so a manifest
 written by the JAX package rebuilds the same config here; the port's
-model code serves the dense and MoE families (:func:`check_family`).
+model code serves the dense and MoE families, MLA attention included
+(:func:`check_family`).
 """
 from __future__ import annotations
 
@@ -113,16 +114,12 @@ class ModelConfig:
 
 def check_family(cfg: ModelConfig) -> None:
     """Raise NotImplementedError, naming what is missing, unless the port
-    serves `cfg`: the dense family, and the MoE family with GQA attention
-    (MLA attention, as deepseek-v2's, is not ported yet)."""
+    serves `cfg`: the dense family, and the MoE family with GQA or MLA
+    attention (deepseek-v2's compressed-latent attention)."""
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"the port serves the dense and moe families, not "
             f"{cfg.family!r} ({cfg.name})")
-    if cfg.is_mla:
-        raise NotImplementedError(
-            f"the port does not serve MLA attention yet ({cfg.name}: "
-            f"kv_lora_rank={cfg.kv_lora_rank})")
 
 
 def scaled_down(cfg: ModelConfig, **overrides) -> ModelConfig:

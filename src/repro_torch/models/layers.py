@@ -1,4 +1,5 @@
-"""Dense- and MoE-family layers, the port of ``repro.models.layers``.
+"""Dense- and MoE-family layers (GQA or MLA attention), the port of
+``repro.models.layers``.
 
 Params are plain dicts of tensors, as in the JAX package. Linear layers go
 through :func:`dense`, which runs a full-precision matmul or a NanoQuant
@@ -146,6 +147,48 @@ def paged_cache_write(pool, new, block_table, row):
     return pool
 
 
+def gather_pages(pool, block_table):
+    """A slot's pages as its virtual rectangle: (n_pages, page_size, ...)
+    x (B, pages) -> (B, pages·page_size, ...). Row index == cache
+    position, so :func:`_decode_mask` applies; rows of unmapped (null
+    page) entries lie past every valid position and mask out."""
+    g = pool[block_table.long()]
+    return g.reshape(block_table.shape[0], -1, *pool.shape[2:])
+
+
+def _cache_valid(k_pos, cache_pos, S: int):
+    """Rows of a cache holding real entries: (Smax,) for a scalar
+    cache_pos, (B, 1, Smax) for a per-slot (B,) one."""
+    if isinstance(cache_pos, torch.Tensor) and cache_pos.dim():
+        return (k_pos[None, :] < cache_pos[:, None] + S)[:, None, :]
+    return k_pos < cache_pos + S
+
+
+def _decode_mask(q_pos, cache_pos, n_rows: int, window: int):
+    """Mask of S queries over a cache of ``n_rows`` rows that may be a
+    ring. Query j writes row ``cache_pos + j``; row r last held the key of
+    position ``(q + j) - ((cache_pos + j - r) mod n_rows)``, negative when
+    never written, so rows that later queries of the same call write
+    reconstruct as negative and causality is implicit. For a linear cache
+    (cache_pos == q_pos) it is the causal (+ window) mask. q_pos (S,) or
+    per-slot (B, S); cache_pos scalar or (B,). Returns (S, n_rows) or
+    (B, S, n_rows)."""
+    dev = q_pos.device
+    r = torch.arange(n_rows, device=dev)
+    j = torch.arange(q_pos.shape[-1], device=dev)
+    if isinstance(cache_pos, torch.Tensor) and cache_pos.dim():
+        cp = cache_pos.long()[:, None] + j[None, :]                 # (B, S)
+        delta = torch.remainder(cp[:, :, None] - r[None, None, :], n_rows)
+    else:
+        delta = torch.remainder((cache_pos + j)[:, None] - r[None, :],
+                                n_rows)                             # (S, rows)
+    abs_pos = q_pos.long()[..., :, None] - delta
+    m = abs_pos >= 0
+    if window:
+        m = m & (abs_pos > q_pos.long()[..., :, None] - window)
+    return m
+
+
 def attention(p, cfg, x, positions, cache=None, cache_pos=None,
               block_table=None):
     """GQA attention. Returns (out, cache).
@@ -215,6 +258,73 @@ def attention(p, cfg, x, positions, cache=None, cache_pos=None,
             cache["v"][:, :S] = v.to(cache["v"].dtype)
         o = sdpa(q, k, v, _mask(positions, positions, window), scale)
     return dense(p["wo"], o.reshape(B, S, -1)), cache
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek-V2) — compressed latent cache, absorbed read
+# --------------------------------------------------------------------------
+
+
+def mla_attention(p, cfg, x, positions, cache=None, cache_pos=None,
+                  block_table=None):
+    """Multi-head latent attention. Returns (out, cache). The cache holds
+    the compressed ``c_kv`` (kv_lora_rank wide) and the shared RoPE key
+    ``k_rope`` (qk_rope_dim) per row; the query is absorbed into the
+    latent space (``w_uk``) and the output leaves it through ``w_uv``, so
+    K and V are never materialised. The four packed projections go
+    through :func:`dense`; the read is plain torch ops, as the reference
+    keeps it in plain XLA (no paged-attention kernel serves MLA).
+
+    cache None: full-sequence forward. A rectangular cache dict(c_kv=(B,
+    Smax, dc), k_rope=(B, Smax, 1, dr)) with S > 1: prompt prefill at
+    position 0, rows [0, S) written and the prompt attending to itself
+    (the rows past S that the reference masks add exactly 0). With
+    ``block_table`` (B, pages): the cache is a paged pool (c_kv: (n_pages,
+    page_size, dc), k_rope: (n_pages, page_size, 1, dr)); the S tokens (a
+    decode, the speculative verify, a prefix hit's suffix prefill) write
+    rows ``cache_pos + j`` and read the slot's gathered pages under
+    :func:`_decode_mask`. Rounding points are the reference's: q, c_kv,
+    the RoPE'd q_rope / k_rope, q_lat, each score einsum, the
+    probabilities, o_lat and o in x's dtype; the score sum, scale, mask
+    and softmax in f32."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    dv, dc = cfg.v_head_dim, cfg.kv_lora_rank
+    q = dense(p["wq"], x).reshape(B, S, H, dn + dr)
+    q_nope = q[..., :dn]
+    q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    c_kv = rms_norm(dense(p["w_dkv"], x), p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(dense(p["w_kr"], x)[:, :, None, :], positions,
+                        cfg.rope_theta)                         # (B, S, 1, dr)
+    if block_table is not None:
+        paged_cache_write(cache["c_kv"], c_kv, block_table, cache_pos)
+        paged_cache_write(cache["k_rope"], k_rope, block_table, cache_pos)
+        c_kv = gather_pages(cache["c_kv"], block_table)       # (B, T, dc)
+        k_rope = gather_pages(cache["k_rope"], block_table)   # (B, T, 1, dr)
+        msk = _decode_mask(positions, cache_pos, c_kv.shape[1], 0)
+    else:
+        if cache is not None:
+            if S == 1 or cache_pos != 0:
+                raise NotImplementedError(
+                    "the rectangular cache serves the prompt prefill at "
+                    "position 0; decode runs over the paged pool")
+            cache["c_kv"][:, :S] = c_kv.to(cache["c_kv"].dtype)
+            cache["k_rope"][:, :S] = k_rope.to(cache["k_rope"].dtype)
+        msk = _mask(positions, positions, 0)
+    w_uk = p["w_uk"]["w"].to(x.dtype).reshape(dc, H, dn)
+    w_uv = p["w_uv"]["w"].to(x.dtype).reshape(dc, H, dv)
+    q_lat = torch.einsum("bshd,chd->bshc", q_nope, w_uk)        # (B, S, H, dc)
+    s = torch.einsum("bshc,btc->bhst", q_lat, c_kv).float()
+    s = s + torch.einsum("bshd,btxd->bhst", q_rope,
+                         k_rope.to(q_rope.dtype)).float()
+    s = s * (1.0 / math.sqrt(dn + dr))
+    m = msk[:, None] if msk.dim() == 3 else msk[None, None]
+    s = torch.where(m, s, torch.full_like(s, -1e30))
+    prob = torch.softmax(s, dim=-1).to(x.dtype)
+    o_lat = torch.einsum("bhst,btc->bshc", prob, c_kv)          # (B, S, H, dc)
+    o = torch.einsum("bshc,chd->bshd", o_lat, w_uv)
+    return dense(p["wo"], o.reshape(B, S, H * dv)), cache
 
 
 # --------------------------------------------------------------------------

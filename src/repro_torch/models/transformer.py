@@ -1,5 +1,6 @@
 """Dense- and MoE-family model assembly: forward / prefill / decode, the
-port of the dense and MoE paths of ``repro.models.transformer``.
+port of the dense and MoE paths of ``repro.models.transformer`` (GQA or
+MLA attention, by ``cfg.is_mla``).
 
 Each block stack keeps the JAX package's stacked layout (every leaf of
 ``params["layers"]`` has a leading layer axis); a Python loop takes the
@@ -12,7 +13,7 @@ own). A stack may also be given pre-split as a list of per-layer dicts
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -57,8 +58,8 @@ def _stacks(params) -> List:
 def _apply_attn_block(p, cfg, x, positions, cache=None, cache_pos=None,
                       block_table=None):
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    a, _ = L.attention(p["attn"], cfg, h, positions, cache, cache_pos,
-                       block_table)
+    attn = L.mla_attention if cfg.is_mla else L.attention
+    a, _ = attn(p["attn"], cfg, h, positions, cache, cache_pos, block_table)
     x = x + a
     h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
     if "moe" in p:
@@ -101,14 +102,23 @@ def stack_depths(cfg: ModelConfig) -> Dict[str, int]:
     return {"layers": cfg.n_layers}
 
 
+def cache_leaves(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """Each attention-cache leaf's shape per row: GQA's k and v (Hkv, D);
+    MLA's compressed latent c_kv (kv_lora_rank,) and shared RoPE key
+    k_rope (1, qk_rope_dim)."""
+    if cfg.is_mla:
+        return {"c_kv": (cfg.kv_lora_rank,), "k_rope": (1, cfg.qk_rope_dim)}
+    return {leaf: (cfg.n_kv_heads, cfg.head_dim) for leaf in ("k", "v")}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
-    """Rectangular KV cache, one per block stack: {stack: {"k", "v": (L,
-    B, max_len, Hkv, D)}} in the model dtype."""
+    """Rectangular cache, one per block stack: {stack: {leaf: (L, B,
+    max_len, *row)}} over :func:`cache_leaves`, in the model dtype."""
     dt = torch_dtype(cfg)
-    return {name: {leaf: torch.zeros(
-        (n, batch, max_len, cfg.n_kv_heads, cfg.head_dim), dtype=dt,
-        device=device) for leaf in ("k", "v")}
-        for name, n in stack_depths(cfg).items()}
+    return {name: {leaf: torch.zeros((n, batch, max_len) + row, dtype=dt,
+                                     device=device)
+                   for leaf, row in cache_leaves(cfg).items()}
+            for name, n in stack_depths(cfg).items()}
 
 
 def _cached_forward(params, cfg, tokens, cache, pos, block_tables=None):
@@ -125,10 +135,11 @@ def _cached_forward(params, cfg, tokens, cache, pos, block_tables=None):
         positions = int(pos) + steps                              # (S,)
     bt = block_tables.get("linear") if block_tables else None
     for name, layers in _stacks(params):
-        ck, cv = cache[name]["k"], cache[name]["v"]
+        leaves = cache[name]
         for i, lp in enumerate(layers):
             x = _apply_attn_block(lp, cfg, x, positions,
-                                  {"k": ck[i], "v": cv[i]}, pos, bt)
+                                  {k: v[i] for k, v in leaves.items()}, pos,
+                                  bt)
     return L.rms_norm(x, params["ln_f"], cfg.norm_eps), cache
 
 

@@ -2,8 +2,9 @@
 ``repro.quant.surgery``:
 
 - :func:`abstract_quantized_params` — the shape/dtype template of a
-  NanoQuant-packed dense or MoE model (for the artifact loader and for
-  building a packed model of a published shape from a seed);
+  NanoQuant-packed dense or MoE model with GQA or MLA attention (for the
+  artifact loader and for building a packed model of a published shape
+  from a seed);
 - :func:`merge_projection_groups` — the merged QKV / gate-up operands
   the grouped kernel launches read (padded rank + ``rmask``, padded s1
   columns set to 0);
@@ -42,7 +43,10 @@ def param_specs(cfg: ModelConfig) -> Dict:
     ``moe`` block (router, stacked experts, optional shared experts)
     instead of ``ffn``; its first ``first_k_dense`` blocks, when any, form
     the ``dense_layers`` stack with an FFN of ``dense_d_ff``. The router
-    is float32 whatever ``cfg.dtype`` is."""
+    is float32 whatever ``cfg.dtype`` is. An MLA config's attention is
+    ``repro.models.layers.init_mla``'s: the query, latent down, shared
+    RoPE key, latent-to-key and latent-to-value up projections, the output
+    and the latent's norm."""
     check_family(cfg)
     dt, d, hd = cfg.dtype, cfg.d_model, cfg.head_dim
 
@@ -56,7 +60,15 @@ def param_specs(cfg: ModelConfig) -> Dict:
         return {"w_gate": lin((n,), d, d_ff), "w_up": lin((n,), d, d_ff),
                 "w_down": lin((n,), d_ff, d)}
 
-    def block(n, d_ff=None):
+    def mla(n):
+        H, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+        dv, dc = cfg.v_head_dim, cfg.kv_lora_rank
+        return {"wq": lin((n,), d, H * (dn + dr)), "w_dkv": lin((n,), d, dc),
+                "w_kr": lin((n,), d, dr), "w_uk": lin((n,), dc, H * dn),
+                "w_uv": lin((n,), dc, H * dv), "wo": lin((n,), H * dv, d),
+                "kv_norm": LeafSpec((n, dc), dt)}
+
+    def gqa(n):
         attn = {"wq": lin((n,), d, cfg.n_heads * hd, cfg.qkv_bias),
                 "wk": lin((n,), d, cfg.n_kv_heads * hd, cfg.qkv_bias),
                 "wv": lin((n,), d, cfg.n_kv_heads * hd, cfg.qkv_bias),
@@ -64,6 +76,10 @@ def param_specs(cfg: ModelConfig) -> Dict:
         if cfg.qk_norm:
             attn["q_norm"] = LeafSpec((n, hd), dt)
             attn["k_norm"] = LeafSpec((n, hd), dt)
+        return attn
+
+    def block(n, d_ff=None):
+        attn = mla(n) if cfg.is_mla else gqa(n)
         p = {"ln1": LeafSpec((n, d), dt), "attn": attn,
              "ln2": LeafSpec((n, d), dt)}
         if d_ff is not None:

@@ -12,10 +12,11 @@ tables — the parts of ``repro.serve.paging`` the engine uses.
   decode writes land in trash instead of in a neighbour's page. Pages are
   refcounted, so the prefix cache (``serve.prefix``) can map one page
   into several slots and copy it on write (``cow``).
-- :func:`init_paged_cache` — the device pool: each block stack's K/V
-  leaves become ``(n_layers, n_pages, page_size, Hkv, D)`` (the MoE
-  family's ``dense_layers`` have a pool of their own, read through the
-  same block tables).
+- :func:`init_paged_cache` — the device pool: each block stack's cache
+  leaves become ``(n_layers, n_pages, page_size, *row)``, K/V rows of
+  ``(Hkv, D)`` or MLA's compressed latent ``c_kv`` ``(dc,)`` and shared
+  RoPE key ``k_rope`` ``(1, dr)`` (the MoE family's ``dense_layers`` have
+  a pool of their own, read through the same block tables).
 - :func:`paged_insert_slot` / :func:`paged_select_active` — the paged
   twins of the scheduler's slot cache ops; :func:`copy_page` — the
   device side of a copy-on-write.
@@ -31,10 +32,11 @@ from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models.transformer import stack_depths, torch_dtype
+from repro_torch.models.transformer import (cache_leaves, stack_depths,
+                                             torch_dtype)
 
-# leaf names of the paged attention cache
-_POOL_LEAVES = ("k", "v")
+# leaf names of the paged attention cache: GQA's k / v, MLA's c_kv / k_rope
+_POOL_LEAVES = ("k", "v", "c_kv", "k_rope")
 
 
 class PageAccountingError(AssertionError):
@@ -43,26 +45,27 @@ class PageAccountingError(AssertionError):
 
 
 def init_paged_cache(cfg, n_pages: int, page_size: int, device="cuda"):
-    """Pool-shaped cache, one pool per block stack: {stack: {"k", "v": (L,
-    n_pages, page_size, Hkv, D)}} in the model dtype. Every stack's pool
-    is indexed by the same page ids."""
+    """Pool-shaped cache, one pool per block stack: {stack: {leaf: (L,
+    n_pages, page_size, *row)}} over ``transformer.cache_leaves`` (k / v
+    rows (Hkv, D); MLA's c_kv (dc,) and k_rope (1, dr)) in the model
+    dtype. Every stack's pool is indexed by the same page ids."""
     dt = torch_dtype(cfg)
-    return {name: {k: torch.zeros(
-        (n, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim), dtype=dt,
-        device=device) for k in _POOL_LEAVES}
-        for name, n in stack_depths(cfg).items()}
+    return {name: {leaf: torch.zeros((n, n_pages, page_size) + row,
+                                     dtype=dt, device=device)
+                   for leaf, row in cache_leaves(cfg).items()}
+            for name, n in stack_depths(cfg).items()}
 
 
 def _pools(cache):
     """(stack name, leaf name, pool) of every pooled leaf."""
-    return [(st, name, leaves[name]) for st, leaves in cache.items()
-            for name in _POOL_LEAVES]
+    return [(st, name, pool) for st, leaves in cache.items()
+            for name, pool in leaves.items() if name in _POOL_LEAVES]
 
 
 def paged_insert_slot(cache, single, tables: Dict[str, torch.Tensor]):
     """Scatter a freshly prefilled batch-1 rectangular cache (``single``:
-    per stack, k/v (L, 1, rows, Hkv, D)) into the slot's pages, in place.
-    ``tables["linear"]``: the slot's (pages,) page-id vector, unmapped
+    per stack, each leaf (L, 1, rows, *row)) into the slot's pages, in
+    place. ``tables["linear"]``: the slot's (pages,) page-id vector, unmapped
     tail entries 0 — rows in those pages land on the null page, which is
     trash by design. Returns `cache`."""
     ids = tables["linear"].long()
@@ -80,7 +83,7 @@ def paged_insert_slot(cache, single, tables: Dict[str, torch.Tensor]):
 
 def copy_page(cache, src: int, dst: int):
     """Copy-on-write on the device: duplicate page `src` into page `dst`
-    across every layer of every stack's k and v pools, in place. Returns
+    across every layer of every stack's pooled leaves, in place. Returns
     `cache`."""
     for _, _, pool in _pools(cache):
         pool[:, dst] = pool[:, src]
@@ -88,7 +91,8 @@ def copy_page(cache, src: int, dst: int):
 
 
 def kv_cache_bytes(cache) -> int:
-    """Bytes held by the attention cache's k and v leaves."""
+    """Bytes held by the attention cache's leaves (k / v, or MLA's c_kv /
+    k_rope)."""
     return sum(t.numel() * t.element_size() for _, _, t in _pools(cache))
 
 

@@ -715,3 +715,95 @@ def test_moe_engine_kernels_match_plain_engine(dev, variant):
         assert megakernel.decode_step_megakernel_raw.launches == before[0]
         assert paged_attention.paged_decode_attention.launches > before[1]
         assert (st["prefix_hit_tokens"] > 0) == prefix
+
+
+# kernel #1 at deepseek-v2-lite-16b's shapes, 1.0 bpw: (K, N, R, G, x per
+# group) of the attention's w_kr (N and R below one 128-column tile) and
+# w_dkv, and of the 64-expert grid's gate/up and down
+DEEPSEEK_SHAPES = {"w_kr": (2048, 64, 32, 1, False),
+                   "w_dkv": (2048, 512, 384, 1, False),
+                   "gate": (2048, 1408, 800, 64, True),
+                   "down": (1408, 2048, 800, 64, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("linear,m", [("w_kr", 8), ("w_kr", 1),
+                                      ("w_dkv", 8), ("gate", 8),
+                                      ("down", 8), ("gate", 32),
+                                      ("down", 32)])
+def test_deepseek_shapes_matmul_vs_plain(dev, dt, linear, m):
+    """Kernel #1 at deepseek-v2-lite-16b's shapes: w_kr (K 2048 -> N 64 at
+    rank 32: one partial tile in each stage, stage 2 a single word row),
+    w_dkv (-> 512 at rank 384), and the expert grid (G = 64, x per group,
+    rank 800: 6.25 rank tiles) at M 8 (a decode step's capacity) and 32
+    (a 256-token prefill's)."""
+    K, N, R, G, per_group = DEEPSEEK_SHAPES[linear]
+    rng = np.random.default_rng(7 * m + len(linear))
+    x = torch.from_numpy(rng.standard_normal((G if per_group else 1, m, K),
+                                             np.float32)).to(dev, dt)
+    args = (x, _words(rng, G, K // 32, R).to(dev),
+            _words(rng, G, R // 32, N).to(dev),
+            torch.from_numpy(rng.standard_normal((G, N), np.float32)
+                             / R ** 0.5).to(dev),
+            torch.from_numpy(rng.standard_normal((G, K), np.float32)
+                             / K ** 0.5).to(dev))
+    n0 = binary_matmul.fused_lowrank_matmul_grouped.launches
+    got = binary_matmul.fused_lowrank_matmul_grouped(
+        *args, x_shared=not per_group)
+    torch.cuda.synchronize()
+    assert binary_matmul.fused_lowrank_matmul_grouped.launches == n0 + 1
+    want = binary_matmul.fused_lowrank_matmul_grouped_ref(
+        *args, x_shared=not per_group)
+    assert got.dtype == dt and got.shape == (G, m, N)
+    _close(want, got, TOL[dt], f"deepseek {linear} M={m}")
+
+
+@pytest.mark.cuda
+def test_mla_engine_kernels_match_plain_engine(dev):
+    """The deepseek-v2-lite smoke engine on the card (packed with min_dim 8,
+    so that w_kr packs too) emits the plain-oracle engine's greedy tokens
+    (f32), with and without the prefix cache. Every forward launches #1
+    four times per layer (wq, w_dkv, w_kr, wo: MLA's projections are not
+    merged), three times per MoE layer at the expert grid, twice per MoE
+    layer for the shared expert and twice for the dense block; the
+    latent read is plain torch ops, so #2, #3 and #4 never launch."""
+    cfg = dataclasses.replace(get_smoke("deepseek-v2-lite-16b"),
+                              dtype="float32")
+    tree = random_packed_params(abstract_quantized_params(cfg, 1.0,
+                                                          min_dim=8), 0)
+    m = NanoQuantModel.from_numpy(tree, cfg, device=dev)
+    rng = np.random.default_rng(5)
+    system = rng.integers(0, cfg.vocab_size, size=16)
+    prompts = [np.concatenate([system, rng.integers(0, cfg.vocab_size,
+                                                    size=n)])
+               for n in (3, 11, 0)] + [rng.integers(0, cfg.vocab_size,
+                                                    size=7)]
+
+    def serve(policy, prefix):
+        eng = m.engine(ServeConfig(greedy=True, page_size=8, debug=True),
+                       max_batch=2, max_len=48, policy=policy,
+                       prefix_cache=prefix)
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid, p, max_new_tokens=6))
+        return {u: r.output for u, r in eng.run().items()}, eng.stats
+
+    fused = binary_matmul.fused_lowrank_matmul_grouped
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    per_forward = 4 * cfg.n_layers + 5 * n_moe + 2 * cfg.first_k_dense
+    for prefix in (False, True):
+        want, _ = serve(KernelPolicy(mode="ref"), prefix)
+        n0, g0 = fused.launches, fused.grid_launches.get((8, False), 0)
+        others = (megakernel.decode_step_megakernel_raw.launches,
+                  paged_attention.paged_decode_attention.launches,
+                  binary_matmul.packed_matmul.launches)
+        got, st = serve(KernelPolicy(mode="cuda"), prefix)
+        for u in want:
+            np.testing.assert_array_equal(want[u], got[u])
+        forwards = st["admissions"] + st["decode_steps"]
+        assert fused.launches - n0 == per_forward * forwards
+        assert fused.grid_launches[8, False] - g0 == 3 * n_moe * forwards
+        assert (megakernel.decode_step_megakernel_raw.launches,
+                paged_attention.paged_decode_attention.launches,
+                binary_matmul.packed_matmul.launches) == others
+        assert (st["prefix_hit_tokens"] > 0) == prefix

@@ -21,8 +21,8 @@ import pytest
 import torch
 
 from _torch_common import (assert_close, check_forward, check_paged_decode,
-                           check_prefill, f32, jax_tree, pair, packed_model,
-                           torch_params)
+                           check_prefill, f32, flat_templates, jax_tree,
+                           packed_model, pair, torch_params)
 from repro import api as japi
 from repro import configs as jconfigs
 from repro.models import transformer as JT
@@ -128,18 +128,6 @@ def test_merged_groups_match_jax(model):
                 a.view(np.int32) if a.dtype == np.uint32 else a, b.numpy())
 
 
-def _flat_templates(want, got):
-    """(path, shape, dtype) of every leaf of JAX's template and the
-    port's, in JAX's flattening order."""
-    flat_w = jax.tree_util.tree_flatten_with_path(want)[0]
-    flat_g = jax.tree_util.tree_flatten_with_path(
-        got, is_leaf=lambda x: isinstance(x, tsurgery.LeafSpec))[0]
-    return ([(jax.tree_util.keystr(k), tuple(v.shape), str(v.dtype))
-             for k, v in flat_w],
-            [(jax.tree_util.keystr(k), tuple(v.shape), v.dtype)
-             for k, v in flat_g])
-
-
 @pytest.mark.parametrize("arch", tconfigs.list_archs())
 def test_configs_and_templates_match_jax(arch):
     assert dataclasses.asdict(tconfigs.get_config(arch)) == \
@@ -150,7 +138,7 @@ def test_configs_and_templates_match_jax(arch):
     want = jsurgery.abstract_quantized_params(cfg_j, 1.0, min_dim=16)
     got = tsurgery.abstract_quantized_params(tconfigs.get_smoke(arch), 1.0,
                                              min_dim=16)
-    flat_w, flat_g = _flat_templates(want, got)
+    flat_w, flat_g = flat_templates(want, got)
     assert flat_w == flat_g
 
 
@@ -163,7 +151,7 @@ def test_full_size_moe_template_matches_jax(dtype):
     arch = "qwen3-moe-235b-a22b"
     cfg_t = dataclasses.replace(tconfigs.get_config(arch), dtype=dtype)
     cfg_j = dataclasses.replace(jconfigs.get_config(arch), dtype=dtype)
-    flat_w, flat_g = _flat_templates(
+    flat_w, flat_g = flat_templates(
         jsurgery.abstract_quantized_params(cfg_j),
         tsurgery.abstract_quantized_params(cfg_t))
     assert flat_w == flat_g

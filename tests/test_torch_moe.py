@@ -31,17 +31,16 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_common import (assert_close, check_forward, check_paged_decode,
-                           check_prefill, f32, jax_tree, packed_model, pair,
-                           tol, torch_params)
+from _torch_common import (assert_close, cast_jax, check_forward,
+                           check_paged_decode, check_prefill, drained,
+                           draw_prompts, f32, jax_engine, jax_tree,
+                           leaves_equal, packed_model, pair, same_tokens,
+                           serve_engine, shared_prompts, tol, torch_params)
 from repro import api as japi
 from repro import configs as jconfigs
 from repro.kernels import ops as jops
 from repro.models import layers as JL
 from repro.quant import surgery as jsurgery
-from repro.serve import InferenceEngine as JEngine
-from repro.serve import Request as JRequest
-from repro.serve import ServeConfig as JServeConfig
 from repro_torch import configs as tconfigs
 from repro_torch.api import NanoQuantModel
 from repro_torch.convert import params_from_numpy
@@ -91,18 +90,6 @@ def _tparams(tparams, mode):
     if MODES[mode][0].use_merged_projections("cpu"):
         return tsurgery.merge_projection_groups(tparams)
     return tparams
-
-
-def _cast_jax(tree, dtype):
-    """JAX's model cast: FP leaves to `dtype`, packed leaves and the
-    router kept as stored."""
-    def walk(node, keep):
-        if isinstance(node, dict):
-            return {k: walk(v, keep or "qu_t" in node or k == "router")
-                    for k, v in node.items()}
-        return node if keep or node.dtype != jnp.float32 \
-            else node.astype(dtype)
-    return walk(tree, False)
 
 
 # ---------------------------------------------------------------------------
@@ -194,7 +181,7 @@ def _moe_pair(kind, dt, packed):
     jp = jax_tree(tree)
     tp = params_from_numpy(tree, "cpu")
     if dt == "bf16":
-        jp = _cast_jax(jp, jnp.bfloat16)
+        jp = cast_jax(jp, jnp.bfloat16)
         tp = params_from_numpy(tp, "cpu", torch.bfloat16)
     return cj, ct, jp, tp
 
@@ -327,61 +314,11 @@ PREFIX_KEYS = ("prefix_hit_tokens", "prefix_lookup_tokens", "cow_copies",
                "evicted_pages", "shared_pages", "preemptions")
 
 
-def _prompts(cfg, lens, seed=0):
-    rng = np.random.default_rng(seed)
-    return [rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32)
-            for n in lens]
-
-
-def _shared_prompts(cfg):
-    """A 2-page system prompt under 4 tails (the last one a page, so the
-    prompt is 3 full pages), a repeat of that prompt (a full cover: its
-    last page is copied on write) and one unshared prompt."""
-    sys_p = _prompts(cfg, [2 * PS], seed=10)[0]
-    tails = _prompts(cfg, [3, 7, 5, PS], seed=20)
-    out = [np.concatenate([sys_p, t]) for t in tails]
-    out += [out[3].copy(), _prompts(cfg, [13], seed=30)[0]]
-    return out, [6, 8, 5, 7, 6, 5]
-
-
-def _serve(engine, request, prompts, budgets, midflight=True):
-    """Submit every prompt to `engine` (either package's), the first two
-    up front and the rest after one step, and drain it."""
-    for uid, (p, b) in enumerate(zip(prompts, budgets)):
-        engine.submit(request(uid, p, max_new_tokens=b))
-        if midflight and uid == 1:
-            engine.step()
-    return {u: r.output for u, r in engine.run().items()}
-
-
-def _drained(eng):
-    assert not eng.kv.ref.any(), "a drained engine maps no page"
-    assert eng.kv.used_pages == eng.kv.cached_page_count
-    assert not eng.kv.tables["linear"].any()
-    eng.check_invariants()
-    if eng.prefix is not None:
-        eng.prefix.clear()
-    assert eng.kv.used_pages == 0
-
-
 @pytest.fixture(scope="module")
 def jax_runs():
     """JAX's engine runs, each made once and shared by the port's modes:
     {key: (tokens, stats, admission steps)}."""
     return {}
-
-
-def _jax_engine(runs, cj, jparams, prompts, budgets, **kw):
-    """JAX's engine (2 slots, max_len 48, page 8) on the trace: tokens,
-    stats and admission steps, from `runs` when already made."""
-    key = (cj.name, cj.first_k_dense, id(jparams), tuple(sorted(kw.items())))
-    if key not in runs:
-        eng = JEngine(jparams, cj, JServeConfig(greedy=True, page_size=PS,
-                                                **kw),
-                      max_batch=2, max_len=48)
-        runs[key] = (_serve(eng, JRequest, prompts, budgets),
-                     dict(eng.stats), dict(eng.admission_step))
-    return runs[key]
 
 
 def _port_engine(ct, tparams, mode, **kw):
@@ -391,24 +328,19 @@ def _port_engine(ct, tparams, mode, **kw):
                            policy=MODES[mode][0])
 
 
-def _same_tokens(want, got):
-    assert sorted(want) == sorted(got)
-    for u in want:
-        np.testing.assert_array_equal(want[u], got[u], err_msg=f"uid {u}")
-
-
 @pytest.mark.parametrize("mode", ["ref", "kernels"])
 def test_engine_matches_jax_engine(model, jax_runs, mode):
     """Plain decoding with mid-flight admission, no prefix cache."""
     cj, ct, _, jparams, tparams = model
-    prompts = _prompts(ct, LENS)
-    want, jstats, jsteps = _jax_engine(jax_runs, cj, jparams, prompts,
-                                       BUDGETS, prefix_cache=False)
+    prompts = draw_prompts(ct, LENS)
+    want, jstats, jsteps = jax_engine(jax_runs, cj, jparams, prompts,
+                                      BUDGETS, page_size=PS,
+                                      prefix_cache=False)
     teng = _port_engine(ct, tparams, mode, prefix_cache=False)
-    _same_tokens(want, _serve(teng, Request, prompts, BUDGETS))
+    same_tokens(want, serve_engine(teng, Request, prompts, BUDGETS))
     assert teng.admission_step == jsteps
     assert teng.stats["decode_steps"] == jstats["decode_steps"]
-    _drained(teng)
+    drained(teng)
 
 
 @pytest.mark.parametrize("mode", ["ref", "kernels"])
@@ -416,15 +348,16 @@ def test_prefix_engine_matches_jax_engine(model, jax_runs, mode):
     """The prefix cache: hits prefill their suffix padded as JAX pads it,
     so tokens and counters equal JAX's prefix engine."""
     cj, ct, _, jparams, tparams = model
-    prompts, budgets = _shared_prompts(ct)
-    want, jstats, _ = _jax_engine(jax_runs, cj, jparams, prompts, budgets)
+    prompts, budgets = shared_prompts(ct, PS)
+    want, jstats, _ = jax_engine(jax_runs, cj, jparams, prompts, budgets,
+                                 page_size=PS)
     teng = _port_engine(ct, tparams, mode)
-    _same_tokens(want, _serve(teng, Request, prompts, budgets))
+    same_tokens(want, serve_engine(teng, Request, prompts, budgets))
     assert {k: teng.stats[k] for k in PREFIX_KEYS} == \
         {k: jstats[k] for k in PREFIX_KEYS}
     assert teng.stats["prefix_hit_tokens"] > 0
     assert teng.stats["cow_copies"] >= 1
-    _drained(teng)
+    drained(teng)
 
 
 def test_suffix_prefill_pads_like_jax(monkeypatch):
@@ -445,12 +378,12 @@ def test_suffix_prefill_pads_like_jax(monkeypatch):
         eng = InferenceEngine(torch_params(packed_model(cfg, seed=0)), cfg,
                               ServeConfig(greedy=True, page_size=PS),
                               max_batch=1, max_len=40, device="cpu")
-        base = _prompts(cfg, [2 * PS + 3], seed=5)[0]
+        base = draw_prompts(cfg, [2 * PS + 3], seed=5)[0]
         # 19 tokens, then the same 19: a 2-page hit and a 3-token suffix,
         # bucket 8; then the 2 pages and 17 more: bucket 32, clamped to
         # the slot's 40 rows less the 16 shared
         for uid, p in enumerate((base, base, np.concatenate(
-                [base[:2 * PS], _prompts(cfg, [17], seed=6)[0]]))):
+                [base[:2 * PS], draw_prompts(cfg, [17], seed=6)[0]]))):
             eng.submit(Request(uid, p, max_new_tokens=2))
             eng.run()
     assert rows == [("moe", 2 * PS, 8, 2), ("moe", 2 * PS, 24, 16),
@@ -472,46 +405,23 @@ def test_spec_engine_matches_jax_engine(spec_model, jax_runs, mode):
     expert stacks go through the kernel's ``eff_rank``."""
     cj, ct, _, jparams, tparams = spec_model
     kw = dict(prefix_cache=False, spec_rank_frac=0.5, spec_k=4)
-    prompts = _prompts(ct, LENS)
-    want, jstats, _ = _jax_engine(jax_runs, cj, jparams, prompts, BUDGETS,
-                                  **kw)
+    prompts = draw_prompts(ct, LENS)
+    want, jstats, _ = jax_engine(jax_runs, cj, jparams, prompts, BUDGETS,
+                                 page_size=PS, **kw)
     teng = _port_engine(ct, tparams, mode, **kw)
     moe = teng.spec.draft_params["layers"][0]["moe"]
     assert moe["w_gate"]["eff_rank"] < moe["w_gate"]["qv"].shape[-1]
-    _same_tokens(want, _serve(teng, Request, prompts, BUDGETS))
+    same_tokens(want, serve_engine(teng, Request, prompts, BUDGETS))
     st = {k: teng.stats[k] for k in SPEC_KEYS}
     assert st["spec_cycles"] > 0 and st["spec_rollback_tokens"] > 0
     if mode == "ref":
         assert st == {k: jstats[k] for k in SPEC_KEYS}
-    _drained(teng)
+    drained(teng)
 
 
 # ---------------------------------------------------------------------------
 # artifacts and dtypes
 # ---------------------------------------------------------------------------
-
-
-def _bits(a) -> np.ndarray:
-    """A leaf of either package as numpy words of its stored bits: packed
-    words as int32, bf16 as int16."""
-    if isinstance(a, torch.Tensor):
-        a = a.view(torch.int16) if a.dtype == torch.bfloat16 else a
-        return a.numpy()
-    a = np.asarray(a)
-    if a.dtype == np.uint32:
-        return a.view(np.int32)
-    return a.view(np.int16) if a.dtype.name == "bfloat16" else a
-
-
-def _leaves_equal(want, got):
-    want = jax.tree_util.tree_flatten_with_path(want)[0]
-    got = jax.tree_util.tree_flatten_with_path(got)[0]
-    assert [jax.tree_util.keystr(k) for k, _ in want] == \
-        [jax.tree_util.keystr(k) for k, _ in got]
-    for (kp, a), (_, b) in zip(want, got):
-        a, b = _bits(a), _bits(b)
-        assert a.dtype == b.dtype, jax.tree_util.keystr(kp)
-        np.testing.assert_array_equal(a, b, err_msg=jax.tree_util.keystr(kp))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -524,17 +434,17 @@ def test_artifacts_cross_the_packages(tmp_path, dtype):
     tree = packed_model(ct, seed=5)
     jparams = jax_tree(tree)
     if dtype == "bfloat16":
-        jparams = _cast_jax(jparams, jnp.bfloat16)
+        jparams = cast_jax(jparams, jnp.bfloat16)
     qcfg = japi.QuantConfig(target_bpw=1.0, min_dim=16)
     japi.NanoQuantModel(jparams, cj, qcfg, {"ranks": {}}).save(
         str(tmp_path / "jax"))
     m = NanoQuantModel.load(str(tmp_path / "jax"), device="cpu")
     assert dataclasses.asdict(m.cfg) == dataclasses.asdict(cj)
-    _leaves_equal(jparams, m.params)
+    leaves_equal(jparams, m.params)
     assert m.params["layers"]["moe"]["router"]["w"].dtype == torch.float32
     m.save(str(tmp_path / "port"))
     back = japi.NanoQuantModel.load(str(tmp_path / "port"))
-    _leaves_equal(jparams, back.params)
+    leaves_equal(jparams, back.params)
 
 
 def test_router_stays_f32_in_a_bf16_model():
@@ -554,7 +464,7 @@ def test_router_stays_f32_in_a_bf16_model():
     assert tmpl["layers"]["moe"]["router"]["w"].dtype == "float32"
     assert tmpl["layers"]["moe"]["w_gate"]["w"].dtype == "bfloat16"
     cjb = dataclasses.replace(cj, dtype="bfloat16")
-    jparams = _cast_jax(jax_tree(tree), jnp.bfloat16)
+    jparams = cast_jax(jax_tree(tree), jnp.bfloat16)
     check_forward(cjb, jparams, m.params, MODES["ref"][0], tol("bf16"),
                   "bf16 moe")
 
@@ -562,9 +472,9 @@ def test_router_stays_f32_in_a_bf16_model():
 @pytest.mark.parametrize("arch", sorted(set(jconfigs.list_archs())
                                         - set(tconfigs.list_archs())))
 def test_unported_families_raise(arch):
-    """MLA (deepseek-v2-lite), ssm, hybrid, vlm and audio configs are
-    refused by the template, the cache and the forward, naming what is
-    missing."""
+    """The ssm, hybrid, vlm and audio configs are refused by the
+    template, the cache and the forward, naming what is missing (MLA is
+    served: ``tests/test_torch_mla.py``)."""
     cfg = ModelConfig(**dataclasses.asdict(jconfigs.get_smoke(arch)))
     what = "MLA" if cfg.is_mla else repr(cfg.family)
     assert cfg.is_mla or cfg.family not in ("dense", "moe")
