@@ -140,7 +140,21 @@ Phases, each printing its own line(s); any failure exits non-zero:
    device ms per step split by op group (#1 at the grid, #1 elsewhere,
    MLA's attention ops, the MoE's dispatch ops, the lm head, the rest;
    ``deepseek_split``);
-10. the seconds each phase took, the ``kernels`` JSON line (launches per
+10. mamba2-370m — kernel #1 at the Mamba2 mixer's packed projections (wz,
+   K 1024 -> N 2048 at rank 640, the shape of wx too; wB, -> 128 at rank
+   96, a partial tile of the rank stage, the shape of wC too; out_proj,
+   K 2048 -> 1024 at rank 640) at M 8 and 256, f32 and bf16, against its
+   plain version beside its library call; then the model at full width
+   and full depth (48 Mamba2 blocks, d 1024, d_inner 2048, 32 heads of
+   64, state 128, chunk 256, vocab 50280, tied head) at 1.0 bpw, weights
+   drawn on the card, on the per-slot state cache (no pool) under the
+   llama traffic with prompts of 17-520 tokens (``MAMBA``), on the path
+   ``mamba2-370m``: #1 only, 240 launches per forward (wz, wx, wB, wC
+   and out_proj per layer; wdt stays FP), #2, #3 and #4 never; gated like
+   the llama paths. Then one bf16 run (decode tok/s, TTFT, peak memory,
+   the state cache's bytes per slot) and its decode window under the
+   profiler, device ms per step split by op group (``mamba_split``);
+11. the seconds each phase took, the ``kernels`` JSON line (launches per
    serving path, each path's counts set to 0 just before its f32 run;
    ``chaos`` counts its kernel legs; ``restart`` launches in its child
    processes and is not counted), then the ``ok`` JSON line.
@@ -224,6 +238,11 @@ QWEN3_MOE = dict(QWEN, arch="qwen3-moe-235b-a22b")
 # layer dense) under the llama traffic: up to 4 pages of 64 latent rows per
 # slot, prefills of up to 256 tokens (expert capacity 8 to 32)
 DEEPSEEK = dict(LLAMA, arch="deepseek-v2-lite-16b")
+# mamba2-370m (SSM: 48 Mamba2 blocks over a per-slot recurrent state, no
+# attention) under the llama traffic with prompts of up to 520 tokens, so
+# that about half of the admissions cross the 256-token SSD chunk; the
+# state does not grow with max_len
+MAMBA = dict(LLAMA, arch="mamba2-370m", lens=(17, 521), max_len=560)
 
 # self-speculative decoding: the draft reads half of every packed rank
 SPEC = {"spec_rank_frac": 0.5, "spec_k": 4}
@@ -270,6 +289,8 @@ PATHS = (
     ("qwen3-moe-235b-a22b", QWEN3_MOE, {}, None, None, None, (FUSED, PAGED),
      (MEGA, PACKED)),
     ("deepseek-v2-lite-16b", DEEPSEEK, {}, None, None, None, (FUSED,),
+     (PAGED, MEGA, PACKED)),
+    ("mamba2-370m", MAMBA, {}, None, None, None, (FUSED,),
      (PAGED, MEGA, PACKED)),
 )
 
@@ -412,6 +433,26 @@ def main():
     del ds
     free()
     phase("deepseek-v2-lite-16b bf16 run and profile")
+
+    mamba = make_on_card("mamba2-370m")
+    lines[FUSED]["mamba"] = [
+        {k: r[k] for k in r if k in (
+            "group", "G", "M", "K", "R", "N", "dtype", "ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "bound_share",
+            "max_abs_err")}
+        for r in check_mamba_kernels(mamba, report) if r["dtype"] == "f32"]
+    phase("mamba2-370m kernels")
+    res = report["mamba2-370m"] = serve_paths(mamba, MAMBA, launches)
+    phase("mamba2-370m f32 engine path")
+    mamba = cast(mamba, torch.bfloat16)
+    free()
+    res["bf16"] = bf16_run(mamba, MAMBA, report)
+    res["bf16"]["state_bytes_per_slot"] = state_bytes_per_slot(mamba, MAMBA)
+    res["bf16_decode_profile"] = profile_decode(
+        mamba, MAMBA, [res["bf16"]["decode_step_ms"]], split=mamba_split)
+    del mamba
+    free()
+    phase("mamba2-370m bf16 run and profile")
 
     kernels = []
     for i, (name, source, replaces) in enumerate(KERNELS):
@@ -677,7 +718,10 @@ def check_fused(lp, names, ms, gen, model_name):
                "w_kr": ("attn", "w_kr", ("w_kr",)),
                "w_dkv": ("attn", "w_dkv", ("w_dkv",)),
                "gate_up": ("ffn", "wgu", ("w_gate", "w_up")),
-               "down": ("ffn", "w_down", ("w_down",))}
+               "down": ("ffn", "w_down", ("w_down",)),
+               "wz": ("mixer", "wz", ("wz",)),
+               "wB": ("mixer", "wB", ("wB",)),
+               "out_proj": ("mixer", "out_proj", ("out_proj",))}
     rows = []
     for name in names:
         blk, key, lins = members[name]
@@ -892,6 +936,22 @@ def check_deepseek_kernels(model, report):
     return report[key]
 
 
+def check_mamba_kernels(model, report):
+    """#1 at mamba2-370m's mixer shapes against its plain version, f32 and
+    bf16, at M 8 (a decode step of 8 slots) and M 256 (one SSD chunk of
+    prefill): wz (K 1024 -> N 2048, rank 640; wx has the same shape), wB
+    (-> 128 at rank 96, a partial tile of the rank stage; wC the same)
+    and out_proj (K 2048 -> 1024, rank 640), timed beside
+    ``torch.matmul`` over the unpacked factors. Returns every row."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    rows = check_fused(layer0(model), ("wz", "wB", "out_proj"), (8, 256),
+                       gen, model.cfg.name)
+    report["mamba_kernel_checks"] = rows
+    free()
+    return rows
+
+
 def _check_packed(stage, w, sk, sn, m, dt, tdt, gen):
     import torch
     from repro_torch.kernels import binary_matmul, ref
@@ -944,7 +1004,8 @@ def _tensor_core_row(rec, plan):
 def _dims(lp, name, eff_rank=None):
     """(rank, d_out) of layer ``lp``'s unmerged packed linear ``name``,
     the rank capped at ``eff_rank`` when a view reads fewer columns."""
-    p = (lp["attn"] if name in lp["attn"] else lp["ffn"])[name]
+    p = next(lp[blk][name] for blk in ("attn", "ffn", "mixer")
+             if name in lp.get(blk, {}))
     r = int(p["qv"].shape[-1])
     return min(r, eff_rank or r), int(p["qu_t"].shape[-1])
 
@@ -1267,13 +1328,18 @@ def serve(model, traffic, policy, megakernel=None, spec=None,
     done = eng.run()
     wall = time.perf_counter() - t0
     kv = eng.kv
-    if sorted(done) != list(range(n)) or kv.ref.any() \
-            or kv.used_pages != kv.cached_page_count \
-            or kv.tables["linear"].any():
+    if sorted(done) != list(range(n)) or eng.active.any() \
+            or eng.scheduler.pending:
         raise AssertionError("engine did not finish every request cleanly")
     for uid, r in done.items():
         if len(r.output) != traffic["new"]:
             raise AssertionError(f"request {uid}: {len(r.output)} tokens")
+    if kv is None:                    # the SSM family's state cache
+        return {u: r.output for u, r in done.items()}, eng, wall, \
+            dict(eng.stats)
+    if kv.ref.any() or kv.used_pages != kv.cached_page_count \
+            or kv.tables["linear"].any():
+        raise AssertionError("engine did not release every page")
     st = dict(eng.stats, peak_used_pages=kv.peak_used_pages)
     if eng.prefix is not None:
         eng.prefix.clear()
@@ -1539,6 +1605,16 @@ def serve_paths(model, traffic, launches):
                 t.get("logit_margin", t.get("router_gap"))
                 for t in near_ties)
         else:
+            if cfg.family == "ssm":
+                # five launches of #1 per Mamba2 block and forward (wz,
+                # wx, wB, wC, out_proj; wdt stays FP), nothing else
+                forwards = st["admissions"] + st["decode_steps"]
+                per_forward = 5 * cfg.n_layers
+                if launches[name][FUSED] != per_forward * forwards:
+                    raise AssertionError(
+                        f"engine path {name}: {launches[name][FUSED]} "
+                        f"launches of #1, expected {per_forward} x "
+                        f"{forwards} forwards")
             margin = gate(model, traffic, name, got,
                           want if versus is None else outs[versus])
         res[name] = {"wall_s": wall, "max_divergence_margin": margin,
@@ -2255,6 +2331,83 @@ def pool_bytes_per_token(model, traffic):
     del eng
     free()
     return out
+
+
+def state_bytes_per_slot(model, traffic):
+    """Bytes of the engine's per-slot state cache (the SSM family: every
+    layer's f32 ``ssm`` state and conv rings) per slot; it does not grow
+    with max_len."""
+    from repro_torch.kernels.ops import KernelPolicy
+    eng = _engine(model, traffic, KernelPolicy(mode="cuda"))
+    if eng.kv is not None or eng.kv_cache_bytes():
+        raise AssertionError("the SSM engine built a KV pool")
+    leaves = eng.cache["layers"]
+    out = eng.cache_bytes() / traffic["max_batch"]
+    log(f"engine {traffic['arch']} {model.cfg.dtype} state cache: "
+        f"{eng.cache_bytes()} bytes for {traffic['max_batch']} slots: "
+        f"{out:.0f} bytes per slot ("
+        + ", ".join(f"{k} {tuple(v.shape)} {v.dtype}"
+                    for k, v in leaves.items()) + ")")
+    del eng
+    free()
+    return out
+
+
+def mamba_split(prof, cfg, steps):
+    """Device ms per decode step of a Mamba2 model by op group, from the
+    kernels' order on the one stream, the window cut into steps as in
+    :func:`deepseek_split` (a step whose launches of #1 are not one whole
+    forward, 5 per layer, is left out and counted). #1 is ``fused``;
+    every kernel between a layer's wC and its out_proj is ``ssm_ops`` (the
+    FP wdt projection, softplus and the decay, the three conv steps, the
+    state update, the read-out, the gated norm); between a layer's
+    out_proj and the next layer's wz (or the lm head) ``state_commit``
+    (the residual, the state's select and copy into the cache, the next
+    block norm); the last forward's matmul after its last out_proj is
+    ``lm_head``; the rest (the embedding, the first block norm, sampling,
+    copies) ``other``. Raises when no step is whole."""
+    from torch.autograd import DeviceType
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    chunks = [[]]
+    for e in evs:
+        chunks[-1].append(e)
+        if "DtoH" in e.name or "Device -> P" in e.name:
+            chunks.append([])
+    per_forward = 5 * cfg.n_layers
+    out = dict.fromkeys(("fused", "ssm_ops", "state_commit", "lm_head",
+                         "other"), 0.0)
+    used = 0
+    for chunk in chunks:
+        if sum("fused_lowrank_kernel" in e.name for e in chunk) \
+                != per_forward:
+            continue
+        used += 1
+        pos, head = None, False
+        for e in chunk:
+            ms = e.time_range.elapsed_us() * 1e-3
+            gemm = any(g in e.name.lower() for g in GEMM_NAMES)
+            if "fused_lowrank_kernel" in e.name:
+                pos = 0 if pos is None else pos + 1
+                group = "fused"
+            elif pos is None or head:
+                group = "other"
+            elif pos % 5 == 3:
+                group = "ssm_ops"
+            elif pos == per_forward - 1 and gemm:
+                group, head = "lm_head", True
+            elif pos % 5 == 4:
+                group = "state_commit"
+            else:
+                group = "other"
+            out[group] += ms
+    if not used:
+        raise AssertionError(f"decode profile: none of {steps} steps holds "
+                             f"one whole forward of {per_forward} launches "
+                             f"of #1")
+    log(f"decode profile split: {used} of {steps} steps whole")
+    return dict({k: v / used for k, v in out.items()}, steps_used=used)
 
 
 def _mla_positions(cfg):

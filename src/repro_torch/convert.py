@@ -17,6 +17,9 @@ import torch
 
 # dtype names numpy cannot hold natively -> torch dtype of the same width
 _EXTENDED = {"bfloat16": torch.bfloat16}
+# FP leaves that stay float32 in a model of any dtype, as in the JAX
+# package: the MoE router, and the Mamba2 mixer's A_log, D and dt_bias
+KEEP_F32 = frozenset({"router", "A_log", "D", "dt_bias"})
 
 
 def tensor_from_numpy(arr: np.ndarray,
@@ -54,13 +57,13 @@ def params_from_numpy(tree: Any, device, dtype: Optional[torch.dtype] = None):
     """Map a nested dict of numpy arrays to tensors on `device`. `dtype`
     (optional) casts the model's floating FP leaves (embeddings, norms,
     FP linears); the leaves of a packed linear keep their stored dtype
-    (f32 scales, int32 words), and so does the MoE router (f32)."""
+    (f32 scales, int32 words), and so do those of :data:`KEEP_F32` (the
+    MoE router, the Mamba2 mixer's A_log, D and dt_bias: f32)."""
     device = torch.device(device)
 
     def conv(node, keep):
         if isinstance(node, dict):
-            # the router stays f32 in a bf16 model, as in the JAX package
-            return {k: conv(v, keep or "qu_t" in node or k == "router")
+            return {k: conv(v, keep or "qu_t" in node or k in KEEP_F32)
                     for k, v in node.items()}
         t = node if isinstance(node, torch.Tensor) else \
             tensor_from_numpy(np.asarray(node))

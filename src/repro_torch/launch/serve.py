@@ -8,8 +8,10 @@ A ``--quantized-ckpt`` directory (a ``NanoQuantModel`` artifact, written
 by either package's ``save``) is self-describing: its manifest carries
 the model config. Without one, the CLI serves ``--arch``'s smoke
 config (llama3.2-1b by default; any arch of ``repro_torch.configs``,
-qwen3-moe-235b-a22b's MoE among them) with packed words drawn from seed
-0 (the port cannot quantize).
+qwen3-moe-235b-a22b's MoE and mamba2-370m's SSM among them) with packed
+words drawn from seed 0 (the port cannot quantize). A family with
+nothing to page (SSM) is served on its per-slot state cache, and the
+pool line reports that layout instead.
 The engine runs on ``--device`` (``cuda`` by default; nothing falls back
 to the CPU).
 
@@ -214,6 +216,15 @@ def main():
 
 
 def _print_pool_stats(eng) -> None:
+    """The pool line for either cache layout: an engine without a paged
+    pool (a family with nothing to page, the SSM state) has no allocator
+    to report on."""
+    if eng.kv is None:
+        print(f"[serve] rectangular layout (paging disabled): per-slot "
+              f"state cache of {eng.max_batch} slots "
+              f"({eng.cache_bytes() / 2**20:.2f} MiB), KV "
+              f"{eng.kv_cache_bytes() / 2**20:.2f} MiB")
+        return
     print(f"[serve] paged KV pool: {eng.kv.n_pages} pages x "
           f"{eng.kv.page_size} rows ({eng.kv_cache_bytes() / 2**20:.2f} "
           f"MiB), peak {eng.kv.peak_used_pages} pages in use, "

@@ -1,5 +1,5 @@
-"""Dense- and MoE-family layers (GQA or MLA attention), the port of
-``repro.models.layers``.
+"""Dense-, MoE- and SSM-family layers (GQA or MLA attention, the Mamba2
+mixer), the port of ``repro.models.layers``.
 
 Params are plain dicts of tensors, as in the JAX package. Linear layers go
 through :func:`dense`, which runs a full-precision matmul or a NanoQuant
@@ -13,6 +13,7 @@ import math
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 
@@ -450,3 +451,149 @@ def moe_dense_oracle(p, cfg, x):
     if cfg.n_shared_experts:
         y = y + ffn(p["shared"], x)
     return y
+
+
+# --------------------------------------------------------------------------
+# Mamba2 (SSD): the chunked parallel form and the O(1) recurrent step
+# --------------------------------------------------------------------------
+
+
+def softplus(x):
+    """log(1 + e^x) as ``jax.nn.softplus`` computes it (``logaddexp(x,
+    0)``: max(x, 0) + log1p(exp(-|x|)))."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _causal_conv(x, w, b):
+    """Depthwise causal conv as K shifted adds: x (B, S, C), w (K, C).
+    The taps are summed in f32 in order, the bias last, and the sum cast
+    back to x's dtype."""
+    K, S = w.shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, K - 1, 0))
+    y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(K):
+        y = y + pad[:, i:i + S].float() * w[i].float()
+    return (y + b.float()).to(x.dtype)
+
+
+def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int):
+    """Chunked state-space-dual scan (Mamba2, arXiv:2405.21060), in f32.
+
+    xh: (B, S, H, P), dt: (B, S, H) (after softplus), A: (H,) negative,
+    Bm / Cm: (B, S, G, N). S is zero-padded up to a multiple of the
+    chunk (``min(chunk, S)``): a padded step has dt = 0, so it neither
+    decays the state nor adds to it. Returns (y (B, S, H, P), the final
+    state (B, H, P, N))."""
+    Bsz, S, H, P = xh.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    L = min(chunk, S)
+    S0 = S
+    if S % L:
+        pad = L - S % L
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, 0, 0, pad))
+        S += pad
+    nc = S // L
+    xc = xh.reshape(Bsz, nc, L, H, P).float()
+    dtc = dt.reshape(Bsz, nc, L, H)
+    Bc = Bm.reshape(Bsz, nc, L, G, N).repeat_interleave(rep, 3).float()
+    Cc = Cm.reshape(Bsz, nc, L, G, N).repeat_interleave(rep, 3).float()
+
+    dA_cs = torch.cumsum(dtc * A, dim=2)                        # (B,nc,L,H)
+    # intra-chunk: decay exp(dA_cs[i] - dA_cs[j]) for j <= i
+    diff = dA_cs[:, :, :, None, :] - dA_cs[:, :, None, :, :]    # (B,nc,L,L,H)
+    tri = torch.ones((L, L), dtype=torch.bool, device=xh.device).tril()
+    decay = torch.where(tri[None, None, :, :, None], torch.exp(diff),
+                        torch.zeros_like(diff))
+    scores = torch.einsum("bclhn,bcmhn->bclmh", Cc, Bc)
+    w_ij = scores * decay * dtc[:, :, None, :, :]               # dt_j factor
+    y_intra = torch.einsum("bclmh,bcmhp->bclhp", w_ij, xc)
+    # each chunk's state, decayed to the chunk's end
+    seg = torch.exp(dA_cs[:, :, -1:, :] - dA_cs)
+    states = torch.einsum("bclhn,bclhp->bchpn", Bc * (seg * dtc)[..., None],
+                          xc)
+    # inter-chunk recurrence: the state entering each chunk
+    chunk_decay = torch.exp(dA_cs[:, :, -1, :])                 # (B,nc,H)
+    st = xc.new_zeros((Bsz, H, P, N))
+    prevs = []
+    for c in range(nc):
+        prevs.append(st)
+        st = st * chunk_decay[:, c, :, None, None] + states[:, c]
+    prevs = torch.stack(prevs, 1)                               # (B,nc,H,P,N)
+    y_inter = torch.einsum("bclhn,bchpn->bclhp",
+                           Cc * torch.exp(dA_cs)[..., None], prevs)
+    y = (y_intra + y_inter).reshape(Bsz, S, H, P)
+    return y[:, :S0], st
+
+
+def _mamba_streams(p, x):
+    """The five input streams z, x, B, C, dt: every packed projection is
+    one launch of kernel #1 (:func:`dense`); dt's narrow projection stays
+    FP under the selection rule."""
+    return (dense(p["wz"], x), dense(p["wx"], x), dense(p["wB"], x),
+            dense(p["wC"], x), dense(p["wdt"], x))
+
+
+def _conv_step(buf, new, w, b):
+    """One-token depthwise causal conv from a (B, K-1, C) ring buffer,
+    oldest row first. new: (B, 1, C). Returns (y (B, C) f32 before the
+    activation, the next buffer)."""
+    cat = torch.cat([buf, new.to(buf.dtype)], dim=1)            # (B, K, C)
+    y = (cat.float() * w.float()[None]).sum(1) + b.float()
+    return y, cat[:, 1:]
+
+
+def mamba2(p, cfg, x, state=None):
+    """Mamba2 mixer. Returns (out, new state), the state as dict(ssm=(B,
+    H, P, N) f32, conv_x / conv_B / conv_C = (B, K-1, C) rings in x's
+    dtype, oldest row first), in new tensors (the caller commits them).
+    state None: the full sequence through the chunked SSD; the new state
+    is the terminal one (the reference's ``transformer._mamba_prefill``):
+    the SSD's final state, and each ring the stream's last K-1 rows before
+    the conv, a prompt shorter than K-1 right-aligned behind zeros, which
+    is what the causal conv's zero padding sees (the reference writes its
+    n rows at rows [0, n), ROADMAP §3). Otherwise the single-token
+    recurrent step (S == 1) from ``state``. Rounding points are the
+    reference's: each conv sum cast to x's dtype on the full route (f32
+    into the step's activation), the scan and the state in f32, y cast to
+    x's dtype before the gated norm."""
+    B, S, _ = x.shape
+    di, H, P = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
+    g, n = cfg.ssm_groups, cfg.ssm_state
+    z, xs, Bm, Cm, dt = _mamba_streams(p, x)
+    dt = softplus(dt.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"].float())                          # (H,) < 0
+    if state is None:
+        K1 = cfg.ssm_conv - 1
+        new_state = {k: F.pad(t[:, -K1:], (0, 0, max(0, K1 - S), 0))
+                     for k, t in (("conv_x", xs), ("conv_B", Bm),
+                                  ("conv_C", Cm))}
+        xs = silu(_causal_conv(xs, p["conv_x"], p["conv_bx"]))
+        Bm = silu(_causal_conv(Bm, p["conv_B"], p["conv_bB"]))
+        Cm = silu(_causal_conv(Cm, p["conv_C"], p["conv_bC"]))
+        xs = xs.reshape(B, S, H, P)
+        y, new_state["ssm"] = ssd_chunked(
+            xs, dt, A, Bm.reshape(B, S, g, n), Cm.reshape(B, S, g, n),
+            cfg.ssm_chunk)
+        y = y + p["D"].float()[None, None, :, None] * xs.float()
+    else:
+        xs1, cx = _conv_step(state["conv_x"], xs, p["conv_x"], p["conv_bx"])
+        Bm1, cB = _conv_step(state["conv_B"], Bm, p["conv_B"], p["conv_bB"])
+        Cm1, cC = _conv_step(state["conv_C"], Cm, p["conv_C"], p["conv_bC"])
+        xs = silu(xs1).reshape(B, H, P)
+        Bm = silu(Bm1).reshape(B, g, n).repeat_interleave(H // g, 1)
+        Cm = silu(Cm1).reshape(B, g, n).repeat_interleave(H // g, 1)
+        dt1 = dt[:, 0]                                          # (B, H)
+        dA = torch.exp(dt1 * A[None, :])
+        ssm = state["ssm"] * dA[:, :, None, None] + \
+            (dt1[:, :, None] * Bm)[:, :, None, :] * xs[:, :, :, None]
+        y = torch.einsum("bhn,bhpn->bhp", Cm, ssm)
+        y = y + p["D"].float()[None, :, None] * xs
+        y = y[:, None]                                          # (B,1,H,P)
+        new_state = {"ssm": ssm, "conv_x": cx, "conv_B": cB, "conv_C": cC}
+    y = y.reshape(B, S, di).to(x.dtype)
+    y = rms_norm(y * silu(z), p["norm_w"], cfg.norm_eps)
+    return dense(p["out_proj"], y), new_state

@@ -1,6 +1,6 @@
-"""Dense- and MoE-family model assembly: forward / prefill / decode, the
-port of the dense and MoE paths of ``repro.models.transformer`` (GQA or
-MLA attention, by ``cfg.is_mla``).
+"""Dense-, MoE- and SSM-family model assembly: forward / prefill / decode,
+the port of the dense, MoE and SSM paths of ``repro.models.transformer``
+(GQA or MLA attention, by ``cfg.is_mla``; Mamba2 blocks for ``ssm``).
 
 Each block stack keeps the JAX package's stacked layout (every leaf of
 ``params["layers"]`` has a leading layer axis); a Python loop takes the
@@ -8,8 +8,11 @@ place of ``lax.scan`` and reads one layer's views per step. The MoE
 family's blocks hold a ``moe`` dict instead of ``ffn``, and its first
 ``first_k_dense`` blocks, when any, are a stack of their own,
 ``params["dense_layers"]``, run before ``layers`` (with a cache of their
-own). A stack may also be given pre-split as a list of per-layer dicts
-(:func:`split_layers`), which saves the slicing on every call.
+own). The SSM family's blocks are ``{"ln", "mixer"}``; its cache is a
+per-slot recurrent state (the f32 SSM state and the conv rings), which
+does not grow with the sequence. A stack may also be given pre-split as a
+list of per-layer dicts (:func:`split_layers`), which saves the slicing
+on every call.
 """
 from __future__ import annotations
 
@@ -38,14 +41,19 @@ def _index(tree, i):
     return tree[i]
 
 
+def _depth(tree) -> int:
+    """Leading (layer) axis of a stacked block tree."""
+    leaf = next(iter(tree.values()))
+    return _depth(leaf) if isinstance(leaf, dict) else leaf.shape[0]
+
+
 def split_layers(params) -> Dict:
     """Same params with each block stack as a list of per-layer views."""
     out = dict(params)
     for name in STACKS:
         stack = params.get(name)
         if isinstance(stack, dict):
-            n = stack["ln1"].shape[0]
-            out[name] = [_index(stack, i) for i in range(n)]
+            out[name] = [_index(stack, i) for i in range(_depth(stack))]
     return out
 
 
@@ -67,6 +75,13 @@ def _apply_attn_block(p, cfg, x, positions, cache=None, cache_pos=None,
     return x + L.ffn(p["ffn"], h)
 
 
+def _apply_mamba_block(p, cfg, x, state=None):
+    """Residual Mamba2 block; returns (x, the mixer's new state)."""
+    y, new_state = L.mamba2(p["mixer"], cfg,
+                            L.rms_norm(x, p["ln"], cfg.norm_eps), state)
+    return x + y, new_state
+
+
 def embed_tokens(params, cfg, tokens):
     return params["embed"][tokens]
 
@@ -78,7 +93,10 @@ def backbone(params, cfg: ModelConfig, tokens):
     positions = torch.arange(x.shape[1], device=x.device)
     for _, layers in _stacks(params):
         for lp in layers:
-            x = _apply_attn_block(lp, cfg, x, positions)
+            if cfg.family == "ssm":
+                x, _ = _apply_mamba_block(lp, cfg, x)
+            else:
+                x = _apply_attn_block(lp, cfg, x, positions)
     return L.rms_norm(x, params["ln_f"], cfg.norm_eps)
 
 
@@ -113,12 +131,49 @@ def cache_leaves(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     """Rectangular cache, one per block stack: {stack: {leaf: (L, B,
-    max_len, *row)}} over :func:`cache_leaves`, in the model dtype."""
+    max_len, *row)}} over :func:`cache_leaves`, in the model dtype. The
+    SSM family's is its recurrent state, whatever max_len is: {"layers":
+    {"ssm": (L, B, H, P, N) f32, "conv_x" / "conv_B" / "conv_C": (L, B,
+    K-1, C) rings in the model dtype}}."""
     dt = torch_dtype(cfg)
+    if cfg.family == "ssm":
+        n, gn = cfg.n_layers, cfg.ssm_groups * cfg.ssm_state
+
+        def ring(width):
+            return torch.zeros((n, batch, cfg.ssm_conv - 1, width),
+                               dtype=dt, device=device)
+        ssm = torch.zeros((n, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                           cfg.ssm_state), dtype=torch.float32, device=device)
+        return {"layers": {"ssm": ssm, "conv_x": ring(cfg.d_inner),
+                           "conv_B": ring(gn), "conv_C": ring(gn)}}
     return {name: {leaf: torch.zeros((n, batch, max_len) + row, dtype=dt,
                                      device=device)
                    for leaf, row in cache_leaves(cfg).items()}
             for name, n in stack_depths(cfg).items()}
+
+
+def _commit_state(state, new, active=None):
+    """Write a layer's new recurrent state into its cache views, in place;
+    with `active` (B,) bool, rows of inactive slots keep their state bit
+    for bit (the reference's ``cache_select_active``)."""
+    for k, v in new.items():
+        if active is not None:
+            keep = active.reshape((-1,) + (1,) * (v.dim() - 1))
+            v = torch.where(keep, v, state[k])
+        state[k].copy_(v)
+
+
+def _ssm_forward(params, cfg, x, cache, active=None):
+    """The SSM family's cached forward: S == 1 takes each mixer's
+    recurrent step (a one-token prefill too), S > 1 the full-sequence SSD
+    with the terminal state rebuilt; the state is written in place."""
+    S = x.shape[1]
+    leaves = cache["layers"]
+    for i, lp in enumerate(split_layers(params)["layers"]):
+        state = {k: v[i] for k, v in leaves.items()}
+        x, ns = _apply_mamba_block(lp, cfg, x, state if S == 1 else None)
+        _commit_state(state, ns, active)
+    return L.rms_norm(x, params["ln_f"], cfg.norm_eps), cache
 
 
 def _cached_forward(params, cfg, tokens, cache, pos, block_tables=None):
@@ -127,6 +182,8 @@ def _cached_forward(params, cfg, tokens, cache, pos, block_tables=None):
     pages)}``). Writes the cache in place; returns (hidden, cache)."""
     check_family(cfg)
     x = embed_tokens(params, cfg, tokens)
+    if cfg.family == "ssm":
+        return _ssm_forward(params, cfg, x, cache)
     S = x.shape[1]
     steps = torch.arange(S, device=x.device)
     if isinstance(pos, torch.Tensor) and pos.dim():
@@ -179,9 +236,17 @@ def prefill(params, cfg, tokens, cache, last_idx: Optional[int] = None,
     return logits_fn(params, cfg, h), cache
 
 
-def decode_step(params, cfg, token, cache, pos, block_tables=None):
+def decode_step(params, cfg, token, cache, pos, block_tables=None,
+                active=None):
     """One decode step over a paged pool: token (B, S) (S == 1 normally),
     pos (B,) per-slot positions, block_tables {"linear": (B, pages)}.
-    Returns (logits (B, S, V), cache)."""
-    h, cache = _paged_forward(params, cfg, token, cache, pos, block_tables)
+    The SSM family's step runs over its per-slot state cache instead
+    (no tables, `pos` unused); `active` (B,) bool keeps the state of
+    inactive slots. Returns (logits (B, S, V), cache)."""
+    if cfg.family == "ssm":
+        h, cache = _ssm_forward(params, cfg, embed_tokens(params, cfg, token),
+                                cache, active)
+    else:
+        h, cache = _paged_forward(params, cfg, token, cache, pos,
+                                  block_tables)
     return logits_fn(params, cfg, h), cache

@@ -2,9 +2,9 @@
 ``repro.quant.surgery``:
 
 - :func:`abstract_quantized_params` — the shape/dtype template of a
-  NanoQuant-packed dense or MoE model with GQA or MLA attention (for the
-  artifact loader and for building a packed model of a published shape
-  from a seed);
+  NanoQuant-packed dense or MoE model with GQA or MLA attention, or of a
+  Mamba2 (SSM) model (for the artifact loader and for building a packed
+  model of a published shape from a seed);
 - :func:`merge_projection_groups` — the merged QKV / gate-up operands
   the grouped kernel launches read (padded rank + ``rmask``, padded s1
   columns set to 0);
@@ -37,16 +37,21 @@ class LeafSpec(NamedTuple):
 
 
 def param_specs(cfg: ModelConfig) -> Dict:
-    """FP parameter template of a dense- or MoE-family model — the tree
-    ``repro.models.transformer.init_params`` builds, each block stack with
-    a leading axis of its length. The MoE family's ``layers`` hold a
+    """FP parameter template of a dense-, MoE- or SSM-family model — the
+    tree ``repro.models.transformer.init_params`` builds, each block stack
+    with a leading axis of its length. The MoE family's ``layers`` hold a
     ``moe`` block (router, stacked experts, optional shared experts)
     instead of ``ffn``; its first ``first_k_dense`` blocks, when any, form
     the ``dense_layers`` stack with an FFN of ``dense_d_ff``. The router
     is float32 whatever ``cfg.dtype`` is. An MLA config's attention is
     ``repro.models.layers.init_mla``'s: the query, latent down, shared
     RoPE key, latent-to-key and latent-to-value up projections, the output
-    and the latent's norm."""
+    and the latent's norm. An SSM block is ``{"ln", "mixer"}``, the mixer
+    ``repro.models.layers.init_mamba2``'s: the split input projections
+    wz / wx / wB / wC / wdt and out_proj, the depthwise conv kernels
+    (K, C) of the x / B / C streams with their biases (arrays, not
+    linears, so never packed), A_log, D and dt_bias (float32 whatever
+    ``cfg.dtype`` is) and the gated norm's weight."""
     check_family(cfg)
     dt, d, hd = cfg.dtype, cfg.d_model, cfg.head_dim
 
@@ -94,9 +99,26 @@ def param_specs(cfg: ModelConfig) -> Dict:
         p["moe"] = moe
         return p
 
+    def mamba(n):
+        di, H, K = cfg.d_inner, cfg.ssm_heads, cfg.ssm_conv
+        gn = cfg.ssm_groups * cfg.ssm_state
+        mixer = {"wz": lin((n,), d, di), "wx": lin((n,), d, di),
+                 "wB": lin((n,), d, gn), "wC": lin((n,), d, gn),
+                 "wdt": lin((n,), d, H), "out_proj": lin((n,), di, d),
+                 "A_log": LeafSpec((n, H), "float32"),
+                 "D": LeafSpec((n, H), "float32"),
+                 "dt_bias": LeafSpec((n, H), "float32"),
+                 "norm_w": LeafSpec((n, di), dt)}
+        for s, c in (("x", di), ("B", gn), ("C", gn)):
+            mixer[f"conv_{s}"] = LeafSpec((n, K, c), dt)
+            mixer[f"conv_b{s}"] = LeafSpec((n, c), dt)
+        return {"ln": LeafSpec((n, d), dt), "mixer": mixer}
+
     tree = {"ln_f": LeafSpec((d,), dt),
             "embed": LeafSpec((cfg.vocab_size, d), dt)}
-    if cfg.family == "dense":
+    if cfg.family == "ssm":
+        tree["layers"] = mamba(cfg.n_layers)
+    elif cfg.family == "dense":
         tree["layers"] = block(cfg.n_layers, cfg.d_ff)
     else:
         tree["layers"] = block(cfg.n_layers - cfg.first_k_dense)

@@ -4,7 +4,12 @@ pool, the port of the plain path of ``repro.serve.engine``.
 :class:`InferenceEngine` owns a fixed pool of ``max_batch`` decode slots
 over one paged KV pool. Each slot carries its own position, budget and
 EOS state; one batched decode step advances every slot (inactive slots
-write to the null page and are ignored). Freed slots are refilled
+write to the null page and are ignored). A family with nothing to page
+(the SSM family's recurrent state) is served on a per-slot state cache
+instead: admission prefills the prompt at its exact length (a pad token
+would enter the state) and inserts the state into the slot; the decode
+step keeps inactive slots' state bit for bit; there is no pool, no
+prefix sharing, no preemption and no speculation. Freed slots are refilled
 mid-flight: admission prefills the prompt alone, right-padded to a
 power-of-two bucket, and scatters its KV rows into the slot's pages. With
 the prefix cache (``serve.prefix``, on by default) an admission first maps
@@ -53,14 +58,16 @@ from repro_torch.serve import paging, speculative
 from repro_torch.serve.faults import InjectedDeviceError
 from repro_torch.serve.prefix import PrefixCache
 from repro_torch.serve.scheduler import (Request, SlotScheduler,
-                                         bucket_length,
+                                         bucket_length, cache_insert_slot,
                                          pick_preemption_victim)
 
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """The JAX package's serving config, field for field. The port serves
-    the paged pool only (``paged=False`` raises). ``prefix_cache=True``
+    the attention families on the paged pool only (``paged=False`` raises
+    for them); the SSM family has nothing to page and is served on its
+    per-slot state cache under either setting. ``prefix_cache=True``
     shares prompt-prefix KV pages across requests (``serve.prefix``):
     admission maps the longest cached prefix read-only and prefills only
     the suffix, writes into shared pages copy on write, and cached pages
@@ -271,7 +278,9 @@ class _Resume:
 
 class InferenceEngine:
     """Slot-scheduled, continuously batched serving engine over a paged
-    KV pool (see the module docstring).
+    KV pool, or over the per-slot state cache of a family with nothing to
+    page (see the module docstring). ``paged`` says which: ``kv`` is the
+    pool's allocator, or None.
 
     params: the port's parameter tree, already on `device`; device:
     ``"cuda"`` by default (raises without a card) or ``"cpu"``; policy:
@@ -293,9 +302,11 @@ class InferenceEngine:
         self.scfg = scfg or ServeConfig()
         if self.scfg.spec_rank_frac is not None:
             speculative.check_config(self.scfg)
-        if not self.scfg.paged:
+        kinds = paging.cache_page_kinds(cfg)
+        if kinds and not self.scfg.paged:
             raise NotImplementedError(
-                "the port decodes over the paged pool only (paged=True)")
+                "the port decodes the attention families over the paged "
+                "pool only (paged=True)")
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"the engine on {self.device}")
@@ -315,12 +326,20 @@ class InferenceEngine:
         self.faults = faults
         # drain(): no fresh admissions (preempted resumes still re-admit)
         self.draining = False
-        self.kv = paging.PagedKVState(max_batch, max_len,
-                                      self.scfg.page_size,
-                                      self.scfg.kv_pool_pages,
-                                      self.scfg.page_watermark)
-        self.cache = paging.init_paged_cache(cfg, self.kv.n_pages,
-                                             self.kv.page_size, self.device)
+        # the paged pool, unless the family has nothing to page (the SSM
+        # family's state is O(1) per slot): then the per-slot state cache
+        self.kv: Optional[paging.PagedKVState] = None
+        if kinds:
+            self.kv = paging.PagedKVState(max_batch, max_len,
+                                          self.scfg.page_size,
+                                          self.scfg.kv_pool_pages,
+                                          self.scfg.page_watermark)
+        self.paged = self.kv is not None
+        if self.paged:
+            self.cache = paging.init_paged_cache(
+                cfg, self.kv.n_pages, self.kv.page_size, self.device)
+        else:
+            self.cache = T.init_cache(cfg, max_batch, max_len, self.device)
         self.pos = np.zeros((max_batch,), np.int64)
         self.active = np.zeros((max_batch,), bool)
         self.tokens = np.zeros((max_batch, 1), np.int64)
@@ -335,10 +354,13 @@ class InferenceEngine:
         self.completion_step: Dict[int, int] = {}
         self.stats: Dict[str, Any] = {}
         self.reset_stats()
-        # the dense and MoE families have linear tables only: both share
-        # (an MoE hit's suffix runs at the reference's padded length)
-        self.prefix = (PrefixCache(self.kv, self.stats)
-                       if self.scfg.prefix_cache else None)
+        # prompt-prefix sharing needs a pool of linear tables only (an MoE
+        # hit's suffix runs at the reference's padded length); the VLM's
+        # cache depends on image embeddings the index cannot key
+        self.prefix = None
+        if self.paged and self.scfg.prefix_cache \
+                and set(self.kv.tables) == {"linear"} and cfg.family != "vlm":
+            self.prefix = PrefixCache(self.kv, self.stats)
         self.spec = None
         if self.scfg.spec_rank_frac is not None:
             self.spec = speculative.SpecDecodeController(self)
@@ -369,8 +391,8 @@ class InferenceEngine:
         if req.deadline_s is not None and req.deadline_s < 0:
             raise ValueError(f"request {req.uid}: deadline_s must be "
                              f">= 0, got {req.deadline_s}")
-        need = self.kv.pages_for_prompt(n)
-        if need + self.kv.watermark > self.kv.n_pages - 1:
+        need = self.kv.pages_for_prompt(n) if self.paged else 0
+        if need and need + self.kv.watermark > self.kv.n_pages - 1:
             raise ValueError(
                 f"request {req.uid}: prompt needs {need} pages but the pool "
                 f"holds {self.kv.n_pages - 1} (watermark "
@@ -396,10 +418,12 @@ class InferenceEngine:
 
     def step(self) -> List[Request]:
         """One scheduler tick: fault hooks and reaping at the boundary,
-        admission into free slots, then one batched decode step across the
-        pool. Returns the requests finished now. `on_token` callbacks fire
-        after the tick's state is committed; each is delivered even if an
-        earlier one raises, and then the first error is raised."""
+        admission into free slots (gated on free pages when there is a
+        pool, on free slots alone otherwise), then one batched decode step
+        across the slots. Returns the requests finished now. `on_token`
+        callbacks fire after the tick's state is committed; each is
+        delivered even if an earlier one raises, and then the first error
+        is raised."""
         finished: List[Request] = []
         self._callbacks = []
         promised = [0]     # pages owed to earlier admissions of this batch
@@ -434,7 +458,7 @@ class InferenceEngine:
                 # e.g. evict cached pages between earlier items' match
                 # and their kv.admit: the protection must hold them
                 self.faults.on_gate(self)
-            return page_gate(item)
+            return page_gate(item) if self.paged else True
 
         with kops.kernel_policy(self.policy), torch.inference_mode():
             if self.faults is not None:
@@ -520,7 +544,8 @@ class InferenceEngine:
         self.active[slot] = False
         self._tasks[slot] = None
         self.slot_of.pop(handle.uid, None)
-        self.kv.release(slot)
+        if self.paged:
+            self.kv.release(slot)
         self.scheduler.release(slot)
 
     def _abort_slot(self, slot: int, status: str, reason: str) -> None:
@@ -545,11 +570,12 @@ class InferenceEngine:
 
     def _on_device_fault(self, err: InjectedDeviceError) -> None:
         """Recover from an injected device error in the decode step. It is
-        raised before the step enqueues any kernel, so the pool is intact:
+        raised before the step enqueues any kernel, so the cache is intact:
         fail the attributed slot with a RequestError (the youngest active
         slot when the target holds none), preempt every other active slot
-        (each resumes token-exactly by re-prefill) and audit the pool. A
-        real CUDA fault is sticky and never reaches this path."""
+        of a pool (each resumes token-exactly by re-prefill; without a
+        pool they keep decoding in place) and audit. A real CUDA fault is
+        sticky and never reaches this path."""
         slot = self.slot_of.get(err.uid)
         if slot is None and self.active.any():
             slot = int(np.nonzero(self.active)[0][-1])
@@ -557,15 +583,17 @@ class InferenceEngine:
         if slot is not None:
             self._abort_slot(slot, "failed",
                              f"device error in decode step: {err}")
-        for s in np.nonzero(self.active)[0]:
-            self._preempt(int(s))
+        if self.paged:
+            for s in np.nonzero(self.active)[0]:
+                self._preempt(int(s))
         self.check_invariants()
 
     def drain(self, timeout: Optional[float] = None) -> Dict[int, Request]:
         """Graceful drain: stop admitting fresh requests and keep stepping
         until every active slot finishes (or `timeout` seconds of the
         engine clock pass), then checkpoint what is still active as
-        requeued resumes, which ``serve.recovery.snapshot`` persists.
+        requeued resumes, which ``serve.recovery.snapshot`` persists; an
+        engine without a pool cannot checkpoint a live slot and fails it.
         Returns the requests completed so far. Admission stays closed
         until :meth:`resume_admission`."""
         self.draining = True
@@ -575,7 +603,12 @@ class InferenceEngine:
                 break
             self.step()
         for slot in np.nonzero(self.active)[0]:
-            self._preempt(int(slot))
+            if self.paged:
+                self._preempt(int(slot))
+            else:
+                self._abort_slot(int(slot), "failed",
+                                 "drain timeout: rectangular engine "
+                                 "cannot checkpoint a live slot")
         return dict(self.done)
 
     def resume_admission(self) -> None:
@@ -583,11 +616,12 @@ class InferenceEngine:
         self.draining = False
 
     def check_invariants(self) -> None:
-        """Audit the page pool, the prefix index and the slot/task/owner
-        alignment; raises ``paging.PageAccountingError`` on the first
-        violation. Runs on every fault and, with ``ServeConfig(debug=
-        True)``, at the end of every tick."""
-        self.kv.check_invariants()
+        """Audit the page pool (when there is one), the prefix index and
+        the slot/task/owner alignment; raises ``paging.PageAccountingError``
+        on the first violation. Runs on every fault and, with
+        ``ServeConfig(debug=True)``, at the end of every tick."""
+        if self.paged:
+            self.kv.check_invariants()
         if self.prefix is not None:
             self.prefix.check_invariants()
         for slot in range(self.max_batch):
@@ -603,7 +637,8 @@ class InferenceEngine:
                 raise paging.PageAccountingError(
                     f"slot {slot}: scheduler owner "
                     f"{self.scheduler.slots[slot]} != task uid {uid}")
-            if self.kv._mapped[slot] * self.kv.page_size < self.pos[slot]:
+            if self.paged and \
+                    self.kv._mapped[slot] * self.kv.page_size < self.pos[slot]:
                 raise paging.PageAccountingError(
                     f"slot {slot}: pos {int(self.pos[slot])} beyond its "
                     f"mapped rows")
@@ -629,8 +664,16 @@ class InferenceEngine:
         self.stats["decode_time_s"] = 0.0
 
     def kv_cache_bytes(self) -> int:
-        """Bytes of the paged pool's k and v leaves."""
+        """Bytes of the paged pool's attention leaves (0 without a pool,
+        as in the reference)."""
         return paging.kv_cache_bytes(self.cache)
+
+    def cache_bytes(self) -> int:
+        """Bytes of every leaf of the engine's cache: the paged pool, or
+        the per-slot state cache (the SSM family's f32 state and conv
+        rings, which do not grow with max_len)."""
+        return sum(t.numel() * t.element_size()
+                   for leaves in self.cache.values() for t in leaves.values())
 
     def _forget(self, uid: int) -> None:
         for d in (self.handles, self.done, self.slot_of,
@@ -685,7 +728,9 @@ class InferenceEngine:
         """Prefill `item`'s prompt into `slot` and emit its first token:
         on a prefix hit only the suffix, straight into the pool
         (:meth:`_admit_shared`); otherwise the whole prompt alone
-        (bucketed), its KV rows scattered into the slot's fresh pages.
+        (bucketed; at its exact length for the SSM family, where a pad
+        token would enter the state), its KV rows scattered into the
+        slot's fresh pages, or its state inserted into the slot.
         The logits are checked, and a cancel or expiry that landed
         meanwhile honoured, before any chunk is registered with the
         prefix index. Returns the request if it finished at once."""
@@ -708,7 +753,8 @@ class InferenceEngine:
         if p > 0:
             logits = self._admit_shared(slot, prompt, n, p, pages)
         else:
-            bucket = bucket_length(n, self.max_len)
+            bucket = n if self.cfg.is_ssm_layer_stack \
+                else bucket_length(n, self.max_len)
             padded = np.zeros((1, bucket), np.int64)
             padded[0, :n] = prompt
             single = T.init_cache(self.cfg, 1, self.max_len, self.device)
@@ -716,11 +762,14 @@ class InferenceEngine:
                 self.params, self.cfg,
                 torch.from_numpy(padded).to(self.device), single,
                 last_idx=n - 1)
-            ids = self.kv.admit(slot, n)           # gated by admit_batch
-            paging.paged_insert_slot(
-                self.cache, single,
-                {k: torch.from_numpy(v).to(self.device)
-                 for k, v in ids.items()})
+            if self.paged:
+                ids = self.kv.admit(slot, n)       # gated by admit_batch
+                paging.paged_insert_slot(
+                    self.cache, single,
+                    {k: torch.from_numpy(v).to(self.device)
+                     for k, v in ids.items()})
+            else:
+                cache_insert_slot(self.cache, single, slot)
         if self.faults is not None \
                 and self.faults.poison_prefill(self, handle.uid):
             logits = torch.full_like(logits, float("nan"))
@@ -789,21 +838,27 @@ class InferenceEngine:
 
     def _decode_tick(self, finished: List[Request]) -> None:
         """Reserve the next cache row of every active slot (preempting
-        if the pool is dry), run one batched decode step, commit
+        if the pool is dry), run one batched decode step over every slot
+        (without a pool, inactive slots keep their state), commit
         positions and emit."""
-        self._ensure_decode_pages()
+        if self.paged:
+            self._ensure_decode_pages()
         if not self.active.any():          # everything self-preempted
             return
         if self.faults is not None:
             # raises before any kernel of the step is enqueued, so the
-            # pool is intact for the recovery
+            # cache is intact for the recovery
             self.faults.before_decode(self)
         dev = self.device
-        tables = self.kv.device_tables(dev)
+        tables = active = None
+        if self.paged:
+            tables = self.kv.device_tables(dev)
+        else:
+            active = torch.from_numpy(self.active).to(dev)
         logits, self.cache = T.decode_step(
             self.params, self.cfg, torch.from_numpy(self.tokens).to(dev),
             self.cache, torch.from_numpy(self.pos).to(dev),
-            block_tables=tables)
+            block_tables=tables, active=active)
         tok = sample_token(logits, self.generator, self.scfg)
         tok = tok.cpu().numpy()
         tok[~self.active] = 0

@@ -32,8 +32,9 @@ Fault kinds:
   is intact).
 - ``"poison_prefill"``: the target's prefill logits overwritten with NaN.
 
-The port's engine always serves the paged pool, so the pool seams need no
-check of the layout.
+The pool seams (``dry_pool``, ``preempt``) fire only on an engine with a
+paged pool (``eng.paged``); on the SSM family's state cache they stay
+armed and unfired, as in the reference.
 """
 from __future__ import annotations
 
@@ -148,12 +149,14 @@ class FaultPlan:
                 h.deadline_at = eng.clock() - 1.0   # already past
                 self._fire(eng, i)
         for i, f in list(self._due(eng, "dry_pool")):
-            pages = eng.kv.borrow_pages(f.pages)
-            if pages:
-                self._borrowed.append((eng.stats["steps"] + f.hold, pages))
-                self._fire(eng, i)
+            if eng.paged:
+                pages = eng.kv.borrow_pages(f.pages)
+                if pages:
+                    self._borrowed.append((eng.stats["steps"] + f.hold,
+                                           pages))
+                    self._fire(eng, i)
         for i, f in list(self._due(eng, "preempt")):
-            if eng.active.any():
+            if eng.paged and eng.active.any():
                 for _ in range(max(1, f.pages)):
                     if not eng.active.any():
                         break

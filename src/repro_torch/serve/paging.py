@@ -32,11 +32,21 @@ from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
+from repro_torch.models.config import check_family
 from repro_torch.models.transformer import (cache_leaves, stack_depths,
                                              torch_dtype)
 
 # leaf names of the paged attention cache: GQA's k / v, MLA's c_kv / k_rope
 _POOL_LEAVES = ("k", "v", "c_kv", "k_rope")
+
+
+def cache_page_kinds(cfg) -> Set[str]:
+    """Which page kinds `cfg`'s cache contains: ``{"linear"}`` for the
+    attention families, the empty set for the SSM family, whose recurrent
+    state does not grow with the sequence (the engine then keeps the
+    per-slot state cache, as the reference's does)."""
+    check_family(cfg)
+    return set() if cfg.family == "ssm" else {"linear"}
 
 
 class PageAccountingError(AssertionError):
@@ -92,7 +102,7 @@ def copy_page(cache, src: int, dst: int):
 
 def kv_cache_bytes(cache) -> int:
     """Bytes held by the attention cache's leaves (k / v, or MLA's c_kv /
-    k_rope)."""
+    k_rope); 0 for the SSM family's state cache, as in the reference."""
     return sum(t.numel() * t.element_size() for _, _, t in _pools(cache))
 
 

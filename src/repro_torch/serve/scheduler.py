@@ -1,7 +1,8 @@
 """Slot scheduling for the continuous-batching engine, the port of
 ``repro.serve.scheduler``: the host-side bookkeeping of which request
 occupies which decode slot and what is still queued, the prompt-length
-buckets, the preemption victim policy, and the rectangular slot cache ops.
+buckets, the preemption victim policy, and the per-slot cache ops of an
+engine without a pool (the SSM family's recurrent state).
 
 Admission policies: ``"continuous"`` refills any freed slot at once (the
 default); ``"wave"`` admits a new batch only once every slot is free.
@@ -50,8 +51,12 @@ def pick_preemption_victim(candidates: List[Tuple[int, int, int]]) -> int:
 
 
 def cache_insert_slot(pool, single, slot: int):
-    """Insert a batch-1 rectangular cache into slot `slot` of a pooled
-    rectangular cache (batch axis 1 of every leaf), in place."""
+    """Insert a batch-1 cache into slot `slot` of a pooled per-slot cache
+    (batch axis 1 of every leaf), in place: the leading rows of a
+    rectangle, or the whole of an SSM state leaf (the f32 ``ssm`` state
+    and every row of each conv ring, whose short-prompt tail the prefill
+    right-aligns behind zeros, so no row of the previous occupant
+    survives)."""
     for name, leaf in pool["layers"].items():
         src = single["layers"][name]
         leaf[:, slot:slot + 1, :src.shape[2]] = src.to(leaf.dtype)
@@ -60,7 +65,8 @@ def cache_insert_slot(pool, single, slot: int):
 
 def cache_select_active(new, old, active):
     """Per-slot select: active slots take the freshly written cache,
-    the others keep their old entries."""
+    the others keep their old entries (the engine's decode commits the
+    SSM state this way, layer by layer: ``transformer._commit_state``)."""
     out = {}
     for name, n in new["layers"].items():
         shape = [1] * n.dim()

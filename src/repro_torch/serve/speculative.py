@@ -58,7 +58,8 @@ def check_config(scfg) -> None:
     """The ServeConfig conditions of speculative decoding; raises
     ValueError. The engine checks them before its own option checks (and
     before it builds the controller), so an unsupported combination names
-    what speculation needs."""
+    what speculation needs. What depends on the engine (a pool, its
+    tables, the family) the controller's constructor refuses."""
     frac = scfg.spec_rank_frac
     if not (0.0 < frac <= 1.0):
         raise ValueError(f"spec_rank_frac must be in (0, 1], got {frac}")
@@ -87,12 +88,27 @@ class SpecDecodeController:
     the engine's single-token decode tick."""
 
     def __init__(self, engine):
+        # what the engine decided (whether it built a pool, its tables),
+        # refused in the reference's order
         scfg = engine.scfg
+        if not engine.paged:
+            raise ValueError(
+                "speculative decoding requires the paged KV cache (draft "
+                "tokens live in the slot's pages; rollback is page "
+                "trimming): this family/config has none")
         if set(engine.kv.tables) != {"linear"}:
             raise ValueError(
                 "speculative decoding supports linear page tables only "
                 "(sliding-window ring pools wrap draft rows over committed "
                 f"KV); got kinds {sorted(engine.kv.tables)}")
+        if engine.cfg.is_ssm_layer_stack:
+            raise ValueError(
+                "speculative decoding is undefined for recurrent-state "
+                "families: rejected drafts cannot be rolled out of an "
+                "SSM/conv state by page trimming")
+        if engine.cfg.family == "audio":
+            raise ValueError("speculative decoding does not support "
+                             "multi-codebook audio decode")
         self.engine = engine
         self.rank_frac = float(scfg.spec_rank_frac)
         self.k_min = int(scfg.spec_k_min)

@@ -9,7 +9,10 @@ Both fillers draw from the same distributions, scaled so activations
 stay O(1) through any depth: packed words uniform; s2 ≈ 1/√K and s1 ≈
 1/√R times N(1, 0.1) (per expert for stacked experts); the embedding
 N(0, 0.02); norms N(1, 0.1); FP weights, the MoE router (f32) among
-them, N(0, 1/d_in); biases N(0, 0.02). :func:`random_packed_params`
+them, N(0, 1/d_in); biases N(0, 0.02). The Mamba2 mixer's leaves follow
+``repro.models.layers.init_mamba2``: conv kernels N(0, 0.2), conv biases
+N(0, 0.02), D N(1, 0.1), A_log uniform in [0, log 16] (decay rates 1 to
+16) and dt_bias uniform in [log 1e-3, log 1e-1]. :func:`random_packed_params`
 draws on the host with numpy (the CPU parity tests hand its arrays to
 both packages); :func:`random_packed_params_device` draws on the card, one
 leaf at a time, for full-size models whose host draw would take tens of
@@ -20,17 +23,25 @@ package's engine."""
 import numpy as np
 import torch
 
+# (low, high) of the leaves drawn uniformly: the Mamba2 mixer's A_log and
+# dt_bias (init_mamba2 spaces A over [1, 16] and draws dt in [1e-3, 1e-1])
+UNIFORM_LAWS = {"A_log": (0.0, float(np.log(16.0))),
+                "dt_bias": (float(np.log(1e-3)), float(np.log(1e-1)))}
+
 
 def _normal_law(name, shape, packed):
-    """(mean, std) of a floating leaf: the leaf is mean + std · N(0, 1)."""
+    """(mean, std) of a floating leaf not in :data:`UNIFORM_LAWS`: the leaf
+    is mean + std · N(0, 1)."""
     if packed and name == "s2":
         mean = 1.0 / np.sqrt(shape[-1])
         return mean, 0.1 * mean
     if packed and name == "s1":
         mean = 1.0 / np.sqrt(32 * packed["qu_t"].shape[-2])
         return mean, 0.1 * mean
-    if name in ("embed", "b"):
+    if name in ("embed", "b") or name.startswith("conv_b"):
         return 0.0, 0.02
+    if name.startswith("conv_"):                # Mamba2's depthwise kernels
+        return 0.0, 0.2
     if name == "w":
         return 0.0, 1.0 / np.sqrt(shape[-2])
     return 1.0, 0.1                             # norm weights
@@ -58,6 +69,9 @@ def random_packed_params(template, seed: int):
     def fill(name, shape, dtype, packed):
         if dtype == "uint32":
             return rng.integers(0, 2 ** 32, size=shape, dtype=np.uint32)
+        if name in UNIFORM_LAWS:
+            return rng.uniform(*UNIFORM_LAWS[name], size=shape
+                               ).astype(np.float32)
         mean, std = _normal_law(name, shape, packed)
         return (mean + std * rng.standard_normal(shape)).astype(np.float32)
 
@@ -77,6 +91,10 @@ def random_packed_params_device(template, seed: int, device="cuda"):
         if dtype == "uint32":
             return torch.randint(-2 ** 31, 2 ** 31, shape, dtype=torch.int32,
                                  generator=gen, device=device)
+        if name in UNIFORM_LAWS:
+            lo, hi = UNIFORM_LAWS[name]
+            return torch.rand(shape, generator=gen, device=device
+                              ).mul_(hi - lo).add_(lo)
         mean, std = _normal_law(name, shape, packed)
         return torch.randn(shape, generator=gen, device=device
                            ).mul_(float(std)).add_(float(mean))

@@ -172,11 +172,14 @@ def check_paged_decode(cfg, jparams, tparams, policy, tolerance, what):
 
 
 def cast_jax(tree, dtype):
-    """JAX's model cast: FP leaves to `dtype`, packed leaves and the
-    router kept as stored."""
+    """JAX's model cast: FP leaves to `dtype`, packed leaves, the router
+    and the Mamba2 mixer's A_log / D / dt_bias kept as stored (f32, as
+    JAX's init keeps them)."""
+    from repro_torch.convert import KEEP_F32
+
     def walk(node, keep):
         if isinstance(node, dict):
-            return {k: walk(v, keep or "qu_t" in node or k == "router")
+            return {k: walk(v, keep or "qu_t" in node or k in KEEP_F32)
                     for k, v in node.items()}
         return node if keep or node.dtype != jnp.float32 \
             else node.astype(dtype)

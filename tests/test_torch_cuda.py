@@ -807,3 +807,99 @@ def test_mla_engine_kernels_match_plain_engine(dev):
                 paged_attention.paged_decode_attention.launches,
                 binary_matmul.packed_matmul.launches) == others
         assert (st["prefix_hit_tokens"] > 0) == prefix
+
+
+# kernel #1 at mamba2-370m's mixer shapes, 1.0 bpw: (K, N, R) of wz / wx,
+# wB / wC (rank 96: a partial tile of the rank stage) and out_proj
+MAMBA_SHAPES = {"wz": (1024, 2048, 640), "wB": (1024, 128, 96),
+                "out_proj": (2048, 1024, 640)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("linear", list(MAMBA_SHAPES))
+@pytest.mark.parametrize("m", [8, 256])
+def test_mamba_shapes_matmul_vs_plain(dev, dt, linear, m):
+    """Kernel #1 at the Mamba2 mixer's packed projections: wz / wx (K 1024
+    -> N 2048, rank 640), wB / wC (-> 128 at rank 96, a partial tile of
+    the rank stage) and out_proj (K 2048 -> 1024, rank 640), at M 8 (a
+    decode step of 8 slots) and 256 (a chunk of prefill)."""
+    K, N, R = MAMBA_SHAPES[linear]
+    rng = np.random.default_rng(m + len(linear))
+    x = torch.from_numpy(rng.standard_normal((1, m, K), np.float32)
+                         ).to(dev, dt)
+    args = (x, _words(rng, 1, K // 32, R).to(dev),
+            _words(rng, 1, R // 32, N).to(dev),
+            torch.from_numpy(rng.standard_normal((1, N), np.float32)
+                             / R ** 0.5).to(dev),
+            torch.from_numpy(rng.standard_normal((1, K), np.float32)
+                             / K ** 0.5).to(dev))
+    n0 = binary_matmul.fused_lowrank_matmul_grouped.launches
+    got = binary_matmul.fused_lowrank_matmul_grouped(*args, x_shared=True)
+    torch.cuda.synchronize()
+    assert binary_matmul.fused_lowrank_matmul_grouped.launches == n0 + 1
+    want = binary_matmul.fused_lowrank_matmul_grouped_ref(*args,
+                                                          x_shared=True)
+    assert got.dtype == dt and got.shape == (1, m, N)
+    _close(want, got, TOL[dt], f"mamba {linear} M={m}")
+
+
+@pytest.mark.cuda
+def test_ssm_decode_step_and_engine_match_plain(dev):
+    """The mamba2-370m smoke model on the card (min_dim 16: wz, wx, wB, wC
+    and out_proj pack, wdt stays FP): one decode step of three slots from
+    a random state, kernel against plain (logits and the active slots'
+    state; the inactive slot's state bit for bit), then the state engine's
+    greedy tokens against the plain-oracle engine's (f32). Every forward
+    launches #1 five times per layer and no other kernel."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as TT
+    cfg = dataclasses.replace(get_smoke("mamba2-370m"), dtype="float32")
+    tree = random_packed_params(abstract_quantized_params(cfg, 1.0,
+                                                          min_dim=16), 0)
+    m = NanoQuantModel.from_numpy(tree, cfg, device=dev)
+    rng = np.random.default_rng(3)
+    state = {k: torch.from_numpy(rng.standard_normal(
+        tuple(v.shape)).astype(np.float32)).to(v.dtype)
+        for k, v in TT.init_cache(cfg, 3, 8, "cpu")["layers"].items()}
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(3, 1))
+                           ).to(dev)
+    active = torch.tensor([True, False, True], device=dev)
+    out = {}
+    for mode in ("ref", "cuda"):
+        cache = {"layers": {k: v.to(dev, copy=True)
+                            for k, v in state.items()}}
+        with torch.inference_mode(), \
+                ops.kernel_policy(KernelPolicy(mode=mode)):
+            logits, cache = TT.decode_step(m.params, cfg, tok, cache, None,
+                                           active=active)
+        out[mode] = (logits, cache["layers"])
+    _close(out["ref"][0], out["cuda"][0], 1e-4, "ssm decode logits")
+    for k, v in out["cuda"][1].items():
+        _close(out["ref"][1][k][:, [0, 2]], v[:, [0, 2]], 1e-4,
+               f"ssm decode state {k}")
+        assert torch.equal(v[:, 1].cpu(), state[k][:, 1]), k
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (5, 1, 21, 9)]
+
+    def serve(policy):
+        eng = m.engine(ServeConfig(greedy=True, debug=True), max_batch=2,
+                       max_len=48, policy=policy)
+        assert eng.kv is None
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid, p, max_new_tokens=6))
+        return {u: r.output for u, r in eng.run().items()}, eng.stats
+
+    fused = binary_matmul.fused_lowrank_matmul_grouped
+    want, _ = serve(KernelPolicy(mode="ref"))
+    n0 = fused.launches
+    others = (megakernel.decode_step_megakernel_raw.launches,
+              paged_attention.paged_decode_attention.launches,
+              binary_matmul.packed_matmul.launches)
+    got, st = serve(KernelPolicy(mode="cuda"))
+    for u in want:
+        np.testing.assert_array_equal(want[u], got[u])
+    forwards = st["admissions"] + st["decode_steps"]
+    assert fused.launches - n0 == 5 * cfg.n_layers * forwards
+    assert (megakernel.decode_step_megakernel_raw.launches,
+            paged_attention.paged_decode_attention.launches,
+            binary_matmul.packed_matmul.launches) == others

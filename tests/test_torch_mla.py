@@ -57,7 +57,9 @@ from repro_torch.quant import surgery as tsurgery
 from repro_torch.serve import paging as tpaging
 from repro_torch.serve.engine import InferenceEngine, ServeConfig
 from repro_torch.serve.scheduler import Request
-from repro_torch.testing import _normal_law
+from repro_torch.testing import (UNIFORM_LAWS, _normal_law,
+                                 random_packed_params,
+                                 random_packed_params_device)
 
 ARCH = "deepseek-v2-lite-16b"
 MIN_DIM = 8                  # packs w_kr (64 -> 8 at the smoke widths)
@@ -531,13 +533,34 @@ def test_artifacts_cross_the_packages(tmp_path, dtype):
 def test_seeded_filler_laws():
     """``testing._normal_law``: the latent's norm draws the norm law, the
     FP up projections the FP-weight law N(0, 1/d_in), so activations stay
-    O(1) through the depth."""
+    O(1) through the depth. The Mamba2 mixer's leaves draw
+    ``init_mamba2``'s laws (mamba2-370m's smoke config, both fillers):
+    conv kernels N(0, 0.2), conv biases N(0, 0.02), D near 1, A_log in
+    [0, log 16] and dt_bias in [log 1e-3, log 1e-1] (uniform), so 48
+    seeded layers run a recurrence of a trained model's range."""
     _, ct = _configs()
     attn = tsurgery.param_specs(ct)["layers"]["attn"]
     assert _normal_law("kv_norm", attn["kv_norm"].shape, None) == (1.0, 0.1)
     for k in ("w_uk", "w_uv"):
         mean, std = _normal_law("w", attn[k]["w"].shape, None)
         assert mean == 0.0 and np.isclose(std, 1 / np.sqrt(ct.kv_lora_rank))
+    mcfg = tconfigs.get_smoke("mamba2-370m")
+    mixer = tsurgery.param_specs(mcfg)["layers"]["mixer"]
+    for k in ("conv_x", "conv_B", "conv_C"):
+        assert _normal_law(k, mixer[k].shape, None) == (0.0, 0.2)
+    for k in ("conv_bx", "conv_bB", "conv_bC"):
+        assert _normal_law(k, mixer[k].shape, None) == (0.0, 0.02)
+    assert _normal_law("D", mixer["D"].shape, None) == (1.0, 0.1)
+    assert set(UNIFORM_LAWS) == {"A_log", "dt_bias"}
+    tmpl = {"mixer": {k: mixer[k] for k in ("A_log", "dt_bias", "conv_x")}}
+    for draw in (random_packed_params(tmpl, 0)["mixer"],
+                 {k: v.numpy() for k, v in random_packed_params_device(
+                     tmpl, 0, "cpu")["mixer"].items()}):
+        for k, (lo, hi) in UNIFORM_LAWS.items():
+            assert lo <= draw[k].min() and draw[k].max() <= hi, k
+        assert abs(draw["conv_x"].std() - 0.2) < 0.05
+    assert np.isclose(UNIFORM_LAWS["A_log"][1], np.log(16.0))
+    assert np.allclose(UNIFORM_LAWS["dt_bias"], np.log([1e-3, 1e-1]))
 
 
 def test_serve_cli_serves_deepseek(tmp_path):
