@@ -154,7 +154,32 @@ Phases, each printing its own line(s); any failure exits non-zero:
    the llama paths. Then one bf16 run (decode tok/s, TTFT, peak memory,
    the state cache's bytes per slot) and its decode window under the
    profiler, device ms per step split by op group (``mamba_split``);
-11. the seconds each phase took, the ``kernels`` JSON line (launches per
+11. zamba2-1.2b — kernel #1 at the hybrid's mixer shapes (wz, K 2048 ->
+   N 4096 at rank 1344, the shape of wx too; wdt, -> 64 at rank 32, a
+   partial tile in both stages; out_proj, K 4096 -> 2048 at rank 1344) at
+   M 8 and 256, f32 and bf16; #2 and #3 at the shared attention block's
+   decode shape (B 8, 32 query heads over 32 kv heads: G = 1, D 64, pages
+   of 64) over a ring-wrapped table of 64 entries (4096 rows, q_pos in
+   [4096, 4400), cache_pos = q_pos % 4096, window 4096) and an unwrapped
+   one of 4 entries, each against its plain version beside SDPA (the
+   ``ring`` records of #2 and #3 on the kernels line); then the model at
+   full width and full depth (38 Mamba2 blocks, d 2048, d_inner 4096, 64
+   heads of 64, state 64; the shared MHA + FFN block, d_ff 8192, after
+   every 6th block: 6 applications per forward over one pool of ring
+   pages) at 1.0 bpw, weights drawn on the card, on the paths
+   ``zamba2-1.2b`` (the llama traffic, ``ZAMBA``: the window clamps to
+   max_len 256, a ring of 4 pages that never wraps; megakernel on: #1
+   and #3), ``zamba2-1.2b-unfused`` (megakernel off: #1 and #2) and
+   ``zamba2-1.2b-wrap`` (``ZAMBA_WRAP``: 4 prompts of 4000-4080 tokens
+   and 128 new each on 4 slots, max_len 4224: a ring of 64 pages that
+   every request's writes wrap; #1 and #3), launches of #1, #2 and #3 per
+   forward asserted from the template, gated like the llama paths (the
+   wrap path's near-ties read the plain full-sequence forward with the
+   window mask). Then one bf16 run over ``ZAMBA`` (decode tok/s, TTFT,
+   peak memory, the ring pool's bytes per row and slot and the state's
+   bytes per slot) and its decode window under the profiler, device ms
+   per step split by op group (``zamba_split``);
+12. the seconds each phase took, the ``kernels`` JSON line (launches per
    serving path, each path's counts set to 0 just before its f32 run;
    ``chaos`` counts its kernel legs; ``restart`` launches in its child
    processes and is not counted), then the ``ok`` JSON line.
@@ -243,6 +268,19 @@ DEEPSEEK = dict(LLAMA, arch="deepseek-v2-lite-16b")
 # that about half of the admissions cross the 256-token SSD chunk; the
 # state does not grow with max_len
 MAMBA = dict(LLAMA, arch="mamba2-370m", lens=(17, 521), max_len=560)
+# zamba2-1.2b (hybrid: 38 Mamba2 blocks, one shared attention block after
+# every 6th over a ring-paged sliding-window pool) under the llama traffic:
+# the 4096-row window clamps to max_len 256, a ring of 4 pages per slot
+# that never wraps
+ZAMBA = dict(LLAMA, arch="zamba2-1.2b")
+# how a long-context zamba2 user meets the window: a document just under
+# 4096 tokens, then a reply that runs past it. The ring is min(4224, 4096)
+# = 4096 rows (64 pages); each request's 127 decode steps write positions
+# n .. n + 126, so even a 4000-token prompt writes 31 positions at 4096
+# and beyond, onto its oldest rows, while the window still masks them
+ZAMBA_WRAP = {"arch": "zamba2-1.2b", "n": 4, "lens": (4000, 4081),
+              "up_front": 4, "after": 0, "new": 128, "max_batch": 4,
+              "max_len": 4224}
 
 # self-speculative decoding: the draft reads half of every packed rank
 SPEC = {"spec_rank_frac": 0.5, "spec_k": 4}
@@ -292,6 +330,12 @@ PATHS = (
      (PAGED, MEGA, PACKED)),
     ("mamba2-370m", MAMBA, {}, None, None, None, (FUSED,),
      (PAGED, MEGA, PACKED)),
+    ("zamba2-1.2b", ZAMBA, {}, None, None, None, (FUSED, MEGA),
+     (PAGED, PACKED)),
+    ("zamba2-1.2b-unfused", ZAMBA, {}, False, None, None, (FUSED, PAGED),
+     (MEGA, PACKED)),
+    ("zamba2-1.2b-wrap", ZAMBA_WRAP, {}, None, None, None, (FUSED, MEGA),
+     (PAGED, PACKED)),
 )
 
 # the kernels' names in a profiler trace, and the lm head's matmul
@@ -454,6 +498,37 @@ def main():
     free()
     phase("mamba2-370m bf16 run and profile")
 
+    zamba = make_on_card("zamba2-1.2b")
+    rows = check_zamba_kernels(zamba, report)
+    lines[FUSED]["zamba"] = [
+        {k: r[k] for k in r if k in (
+            "group", "G", "M", "K", "R", "N", "dtype", "ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "bound_share",
+            "max_abs_err")}
+        for r in rows if r["kernel"] == "fused_lowrank_matmul_grouped"
+        and r["dtype"] == "f32"]
+    for i, kern in ((PAGED, "paged_decode_attention"),
+                    (MEGA, "decode_step_megakernel_raw")):
+        lines[i]["ring"] = [
+            {k: r[k] for k in r if k in (
+                "model", "B", "pages", "G", "D", "window", "wrapped",
+                "dtype", "ms", "plain_ms", "library_ms", "chain_ms",
+                "bound_ms", "bound_by", "bound_share", "max_abs_err")}
+            for r in rows if r["kernel"] == kern]
+    phase("zamba2-1.2b kernels")
+    res = report["zamba2-1.2b"] = serve_paths(zamba, ZAMBA, launches)
+    report["zamba2-1.2b-wrap"] = serve_paths(zamba, ZAMBA_WRAP, launches)
+    phase("zamba2-1.2b f32 engine paths")
+    zamba = cast(zamba, torch.bfloat16)
+    free()
+    res["bf16"] = bf16_run(zamba, ZAMBA, report)
+    res["bf16"].update(hybrid_bytes(zamba, ZAMBA))
+    res["bf16_decode_profile"] = profile_decode(
+        zamba, ZAMBA, [res["bf16"]["decode_step_ms"]], split=zamba_split)
+    del zamba
+    free()
+    phase("zamba2-1.2b bf16 run and profile")
+
     kernels = []
     for i, (name, source, replaces) in enumerate(KERNELS):
         rec = lines[i]
@@ -470,7 +545,8 @@ def main():
                       ("model", "group", "stage", "G", "M", "K", "R", "N",
                        "B", "pages", "dtype")},
             **{k: rec[k] for k in ("instruction", "plan", "bound_share",
-                                   "chain_ms", "cold_l2_ms", "long_context")
+                                   "chain_ms", "cold_l2_ms", "long_context",
+                                   "ring")
                if k in rec}})
     report["kernels"] = kernels
     report["script_s"] = time.perf_counter() - t_start
@@ -721,6 +797,7 @@ def check_fused(lp, names, ms, gen, model_name):
                "down": ("ffn", "w_down", ("w_down",)),
                "wz": ("mixer", "wz", ("wz",)),
                "wB": ("mixer", "wB", ("wB",)),
+               "wdt": ("mixer", "wdt", ("wdt",)),
                "out_proj": ("mixer", "out_proj", ("out_proj",))}
     rows = []
     for name in names:
@@ -952,6 +1029,39 @@ def check_mamba_kernels(model, report):
     return rows
 
 
+def check_zamba_kernels(model, report):
+    """#1 at zamba2-1.2b's mixer shapes against its plain version, f32 and
+    bf16, at M 8 and 256: wz (K 2048 -> N 4096, rank 1344; wx has the same
+    shape), wdt (-> 64 at rank 32: a partial tile in both stages, like
+    deepseek's w_kr, with a K 32 times longer) and out_proj (K 4096 ->
+    2048, rank 1344), timed beside ``torch.matmul`` over the unpacked
+    factors. Then #2 and #3 at the shared block's decode shape (B 8, G 1,
+    D 64, pages of 64, window 4096; #3 with the shared block's merged QKV
+    and wo), over a ring-wrapped table of 64 entries (q_pos in [4096,
+    4400), cache_pos = q_pos % 4096) and an unwrapped one of 4 entries,
+    f32 and bf16. Returns every row."""
+    import torch
+    from repro_torch.quant.surgery import merge_projection_groups
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    cfg = model.cfg
+    rows = check_fused(layer0(model), ("wz", "wdt", "out_proj"), (8, 256),
+                       gen, cfg.name)
+    lp = merge_projection_groups(model.params["shared_attn"])
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    for dt, tdt in _dtypes():
+        for case in (_ring_case(cfg, tdt, gen, B=8, pages=64),
+                     _paged_case(cfg, tdt, gen, B=8, pages=4, seed=SEED + 15,
+                                 window=cfg.sliding_window)):
+            for rec in (_check_paged(case, cfg, dt, cfg.name),
+                        _check_mega(case, lp, cfg, dt)):
+                rec["wrapped"] = case["wrapped"]
+                rows.append(rec)
+    report["zamba_kernel_checks"] = rows
+    del lp
+    free()
+    return rows
+
+
 def _check_packed(stage, w, sk, sn, m, dt, tdt, gen):
     import torch
     from repro_torch.kernels import binary_matmul, ref
@@ -1017,12 +1127,14 @@ def _group(p):
             "rmask": torch.ones((1, p["qv"].shape[-1]), device="cuda")}
 
 
-def _paged_case(cfg, tdt, gen, B, pages, seed=SEED + 1, min_mapped=1):
+def _paged_case(cfg, tdt, gen, B, pages, seed=SEED + 1, min_mapped=1,
+                window=0):
     """B slots over a pool of 64-row pages, `pages` per slot: ragged
     tables (min_mapped..pages mapped), null-page padding, the last slot
-    all-null. A case of another seed than the default draws its queries
-    and activations from `gen` too; the default's come from torch's
-    global generator, as they always have."""
+    all-null; cache_pos == q_pos (a linear cache), `window` the read's. A
+    case of another seed than the default draws its queries and
+    activations from `gen` too; the default's come from torch's global
+    generator, as they always have."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
@@ -1042,11 +1154,51 @@ def _paged_case(cfg, tdt, gen, B, pages, seed=SEED + 1, min_mapped=1):
         bt[b, :k] = perm[used:used + k]
         used += k
         pos[b] = int(rng.integers((k - 1) * PS, k * PS))
+    pos = torch.from_numpy(pos).cuda()
     return {"k_pool": kp, "v_pool": vp,
-            "block_table": torch.from_numpy(bt).cuda(),
-            "pos": torch.from_numpy(pos).cuda(), "valid_rows": int(
-                (pos + 1).sum()), "B": B, "pages": pages,
-            "gen": None if seed == SEED + 1 else gen}
+            "block_table": torch.from_numpy(bt).cuda(), "pos": pos,
+            "cache_pos": pos, "window": window, "wrapped": False,
+            "valid_rows": int(_valid(pos, pos, pages * PS, window).sum()),
+            "B": B, "pages": pages, "gen": None if seed == SEED + 1 else gen}
+
+
+def _ring_case(cfg, tdt, gen, B, pages, seed=SEED + 16):
+    """The hybrid's shared-attention decode over ring tables: B slots,
+    each mapping a whole ring of `pages` 64-row pages (in a shuffled
+    order), every one past its first wrap: q_pos in [rows, rows + 304),
+    cache_pos = q_pos % rows, the window the config's."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    PS = 64
+    rows = pages * PS
+    n_pages = B * pages + 1
+    hkv, hd = cfg.n_kv_heads, cfg.head_dim
+    kp = torch.randn((n_pages, PS, hkv, hd), generator=gen, device="cuda"
+                     ).to(tdt)
+    vp = torch.randn((n_pages, PS, hkv, hd), generator=gen, device="cuda"
+                     ).to(tdt)
+    bt = rng.permutation(np.arange(1, n_pages)).astype(np.int32).reshape(
+        B, pages)
+    pos = torch.from_numpy(rng.integers(rows, rows + 304, size=B
+                                        ).astype(np.int32)).cuda()
+    cpos = pos % rows
+    window = cfg.sliding_window
+    return {"k_pool": kp, "v_pool": vp,
+            "block_table": torch.from_numpy(bt).cuda(), "pos": pos,
+            "cache_pos": cpos, "window": window, "wrapped": True,
+            "valid_rows": int(_valid(pos, cpos, rows, window).sum()),
+            "B": B, "pages": pages, "gen": gen}
+
+
+def _valid(q_pos, cache_pos, rows, window):
+    """(B, rows) bool: the virtual rows each slot's query attends (the
+    kernels' validity: row r holds position q_pos - (cache_pos - r) mod
+    rows, valid when not negative and inside the window)."""
+    import torch
+    from repro_torch.kernels import paged_attention
+    return paged_attention._row_valid(torch.arange(rows, device="cuda"),
+                                      q_pos, cache_pos, rows, window, False)
 
 
 def _walk_rate(dt):
@@ -1069,23 +1221,23 @@ def _check_paged(case, cfg, dt, model_name):
     B, hq, hkv, hd = case["B"], cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     kp, vp = case["k_pool"], case["v_pool"]
     q = _randn(case, (B, 1, hq, hd), kp.dtype)
-    bt, pos = case["block_table"], case["pos"]
-    scale = 1.0 / math.sqrt(hd)
-    args = (q, kp, vp, bt, pos, pos)
+    bt, pos, cpos = case["block_table"], case["pos"], case["cache_pos"]
+    scale, window = 1.0 / math.sqrt(hd), case["window"]
+    args = (q, kp, vp, bt, pos, cpos)
 
     def kern():
-        return paged_attention.paged_decode_attention(*args, scale=scale)
+        return paged_attention.paged_decode_attention(*args, window=window,
+                                                      scale=scale)
 
     def plain():
-        return ref.paged_attention_ref(*args, scale=scale)
+        return ref.paged_attention_ref(*args, window=window, scale=scale)
     abs_err, rel = compare(f"paged_attention {model_name} {dt}", plain(),
                            kern(), TOL[dt])
     # yardstick: SDPA over the pages gathered beforehand, same mask
     rows = bt.shape[1] * kp.shape[1]
     kg = kp[bt.long()].reshape(B, rows, hkv, hd).transpose(1, 2)
     vg = vp[bt.long()].reshape(B, rows, hkv, hd).transpose(1, 2)
-    mask = (torch.arange(rows, device="cuda")[None, :] <= pos[:, None].long()
-            )[:, None, None, :]
+    mask = _valid(pos, cpos, rows, window)[:, None, None, :]
     qt = q.transpose(1, 2)
 
     def library():
@@ -1093,8 +1245,8 @@ def _check_paged(case, cfg, dt, model_name):
                                               scale=scale, enable_gqa=True)
     rec = _timed({"kernel": "paged_decode_attention", "model": model_name,
                   "B": B, "pages": bt.shape[1], "D": hd, "G": hq // hkv,
-                  "dtype": dt, "max_abs_err": abs_err, "rel_err": rel},
-                 kern, plain, library)
+                  "window": window, "dtype": dt, "max_abs_err": abs_err,
+                  "rel_err": rel}, kern, plain, library)
     kv_bytes = case["valid_rows"] * hkv * hd * 2 * kp.element_size()
     b = kv_bytes + 2 * nbytes(q) + nbytes(bt) + 2 * nbytes(pos)
     rec["bound_ms"], rec["bound_by"] = bound(
@@ -1102,7 +1254,10 @@ def _check_paged(case, cfg, dt, model_name):
     rec.update(plan=dict(paged_attention.paged_decode_attention.plan),
                bound_share=rec["bound_ms"] / rec["ms"])
     log(f"kernel paged_attention {model_name} B={B} pages={bt.shape[1]} "
-        f"D={hd} G={hq // hkv} {dt:4s} rel_err={rel:.2e} ms={rec['ms']:.4f} "
+        f"D={hd} G={hq // hkv}"
+        + (f" window={window}" if window else "")
+        + (" ring-wrapped" if case.get("wrapped") else "")
+        + f" {dt:4s} rel_err={rel:.2e} ms={rec['ms']:.4f} "
         f"plain_ms={rec['plain_ms']:.4f} library_ms={rec['library_ms']:.4f} "
         f"bound_ms={rec['bound_ms']:.5f} ({100 * rec['bound_share']:.1f}% of "
         f"it) splits={rec['plan']['splits']}")
@@ -1179,14 +1334,14 @@ def _check_mega(case, lp, cfg, dt, eff=None):
     kp, vp = case["k_pool"], case["v_pool"]
     x = _randn(case, (B, cfg.d_model), kp.dtype)
     mqkv, wo = lp["attn"]["wqkv"], lp["attn"]["wo"]
-    bt, pos = case["block_table"], case["pos"]
+    bt, pos, cpos = case["block_table"], case["pos"], case["cache_pos"]
     nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
     kw = dict(dims=(nq, nkv), head_dim=hd, theta=cfg.rope_theta,
-              scale=1.0 / math.sqrt(hd))
+              scale=1.0 / math.sqrt(hd), window=case["window"])
     if eff is not None:
         kw.update(eff_rank=eff[0], eff_rank_o=eff[1])
         mqkv, wo = {**mqkv, "eff_rank": eff[0]}, {**wo, "eff_rank": eff[1]}
-    args = (x, mqkv, wo, kp, vp, bt, pos, pos)
+    args = (x, mqkv, wo, kp, vp, bt, pos, cpos)
 
     def kern():
         return megakernel.decode_step_megakernel_raw(*args, **kw)
@@ -1203,7 +1358,8 @@ def _check_mega(case, lp, cfg, dt, eff=None):
                               cfg.rope_theta)
         layers.apply_rope(k.reshape(B, 1, cfg.n_kv_heads, hd), pos[:, None],
                           cfg.rope_theta)
-        o = kops.paged_attention(q, kp, vp, bt, pos, pos, scale=kw["scale"])
+        o = kops.paged_attention(q, kp, vp, bt, pos, cpos, scale=kw["scale"],
+                                 window=kw["window"])
         return layers.dense(wo, o.reshape(B, 1, nq))
     got, want = kern(), plain()
     errs = [compare(f"megakernel pages={bt.shape[1]} eff_rank={eff} {nm} "
@@ -1211,8 +1367,10 @@ def _check_mega(case, lp, cfg, dt, eff=None):
             for nm, w, g in zip(("y", "k_new", "v_new"), want, got)]
     abs_err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
     rec = _timed({"kernel": "decode_step_megakernel_raw",
-                  "model": "llama3.2-1b", "B": B, "pages": bt.shape[1],
-                  "dtype": dt, "max_abs_err": abs_err, "rel_err": rel,
+                  "model": cfg.name, "B": B, "pages": bt.shape[1],
+                  "G": cfg.n_heads // cfg.n_kv_heads, "D": hd,
+                  "window": kw["window"], "dtype": dt,
+                  "max_abs_err": abs_err, "rel_err": rel,
                   **({} if eff is None else {"eff_rank": list(eff)})},
                  kern, plain, None)
     rec["plan"] = dict(megakernel.decode_step_megakernel_raw.plan)
@@ -1233,8 +1391,10 @@ def _check_mega(case, lp, cfg, dt, eff=None):
         (qkv_flops + wo_flops, BF16_TC_FLOPS_S),
         (4.0 * cfg.n_heads * hd * case["valid_rows"], _walk_rate(dt)))
     rec["bound_share"] = rec["bound_ms"] / rec["ms"]
-    log(f"kernel megakernel B={B} pages={bt.shape[1]} "
-        f"{'' if eff is None else f'eff_rank={eff} '}{dt:4s} rel_err="
+    log(f"kernel megakernel {cfg.name} B={B} pages={bt.shape[1]} "
+        + (f"window={kw['window']} " if kw["window"] else "")
+        + ("ring-wrapped " if case.get("wrapped") else "")
+        + f"{'' if eff is None else f'eff_rank={eff} '}{dt:4s} rel_err="
         f"{rel:.2e} ms={rec['ms']:.4f} cold_l2_ms={rec['cold_l2_ms']:.4f} "
         f"chain_ms={rec['chain_ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
         f"bound_ms={rec['bound_ms']:.5f} ({rec['bound_by']}; "
@@ -1338,7 +1498,7 @@ def serve(model, traffic, policy, megakernel=None, spec=None,
         return {u: r.output for u, r in done.items()}, eng, wall, \
             dict(eng.stats)
     if kv.ref.any() or kv.used_pages != kv.cached_page_count \
-            or kv.tables["linear"].any():
+            or any(t.any() for t in kv.tables.values()):
         raise AssertionError("engine did not release every page")
     st = dict(eng.stats, peak_used_pages=kv.peak_used_pages)
     if eng.prefix is not None:
@@ -1556,6 +1716,7 @@ def serve_paths(model, traffic, launches):
     counters = _counters()
     paths = [p for p in PATHS if p[1] is traffic]
     outs = {}
+    prompts = _requests(cfg, traffic)
     for name, _, fields, mk, spec, versus, needed, forbidden in paths:
         torch.cuda.reset_peak_memory_stats()
         for c in counters:
@@ -1571,6 +1732,8 @@ def serve_paths(model, traffic, launches):
         grid = dict(grid)
         outs[name] = got
         acceptance = eng.spec.acceptance_rate() if spec else None
+        ring_rows = eng.kv.ring_pages * eng.kv.page_size \
+            if eng.kv is not None and eng.kv.has_ring else None
         del eng
         free()
         log(f"engine path {name}: launches " + ", ".join(
@@ -1615,6 +1778,17 @@ def serve_paths(model, traffic, launches):
                         f"engine path {name}: {launches[name][FUSED]} "
                         f"launches of #1, expected {per_forward} x "
                         f"{forwards} forwards")
+            if cfg.family == "hybrid":
+                hybrid_launches(name, cfg, st, launches[name], mk)
+                last = {u: len(p) + traffic["new"] - 2
+                        for u, p in enumerate(prompts)}
+                log(f"engine path {name}: rings of {ring_rows} rows; the "
+                    f"last position each request wrote: {last}")
+                short = {u: p for u, p in last.items() if p < ring_rows}
+                if traffic is ZAMBA_WRAP and short:
+                    raise AssertionError(
+                        f"engine path {name}: requests {short} never "
+                        f"wrapped their ring of {ring_rows} rows")
             margin = gate(model, traffic, name, got,
                           want if versus is None else outs[versus])
         res[name] = {"wall_s": wall, "max_divergence_margin": margin,
@@ -1671,6 +1845,35 @@ def serve_paths(model, traffic, launches):
 # ---------------------------------------------------------------------------
 # the request-lifecycle layer: chaos and restart
 # ---------------------------------------------------------------------------
+
+
+def hybrid_launches(name, cfg, st, counts, megakernel):
+    """The hybrid's launches of #1, #2 and #3 against its template: a
+    prefill forward (one per admission) runs the six packed mixer
+    projections of each Mamba2 block (wz, wx, wB, wC, wdt, out_proj) and,
+    per application of the shared block, its merged QKV, wo, merged
+    gate-up and w_down through #1; a decode forward the same mixer
+    launches and per application either #3 (QKV, the ring walk and wo in
+    one launch) plus the FFN's two launches of #1, or, with the
+    megakernel off, #2 and four launches of #1."""
+    from repro_torch.models.transformer import n_shared_apps
+    apps, mixer = n_shared_apps(cfg), 6 * cfg.n_layers
+    mega = megakernel is not False
+    prefill, decode = st["admissions"], st["decode_steps"]
+    want = {FUSED: (mixer + 4 * apps) * prefill
+            + (mixer + (2 if mega else 4) * apps) * decode,
+            MEGA: apps * decode if mega else 0,
+            PAGED: 0 if mega else apps * decode, PACKED: 0}
+    got = {i: counts[i] for i in want}
+    if got != want:
+        raise AssertionError(f"engine path {name}: launches {got}, expected "
+                             f"{want} from {prefill} prefill and {decode} "
+                             f"decode forwards")
+    log(f"engine path {name}: per decode forward {mixer} + "
+        f"{(2 if mega else 4) * apps} launches of #1 and {apps} of "
+        f"{'#3' if mega else '#2'}; per prefill forward "
+        f"{mixer + 4 * apps} of #1 ({prefill} prefills, {decode} decode "
+        f"steps)")
 
 
 def _chaos_trace(cfg, traffic):
@@ -2351,6 +2554,107 @@ def state_bytes_per_slot(model, traffic):
     del eng
     free()
     return out
+
+
+def hybrid_bytes(model, traffic):
+    """The hybrid engine's cache per unit: the ring pool's bytes per row
+    and slot (every application's k and v) and the Mamba2 state's bytes
+    per slot (which do not grow with max_len)."""
+    from repro_torch.kernels.ops import KernelPolicy
+    eng = _engine(model, traffic, KernelPolicy(mode="cuda"))
+    kv = eng.kv
+    ring = eng.kv_cache_bytes() / (kv.n_pages * kv.page_size)
+    state = (eng.cache_bytes() - eng.kv_cache_bytes()) / traffic["max_batch"]
+    log(f"engine {traffic['arch']} {model.cfg.dtype} cache: a pool of "
+        f"{kv.n_pages} pages of {kv.page_size} rows ({kv.ring_pages} ring "
+        f"pages per slot), {eng.kv_cache_bytes()} bytes: {ring:.0f} bytes "
+        f"per ring row and slot; state {state:.0f} bytes per slot ("
+        + ", ".join(f"{k} {tuple(v.shape)} {v.dtype}"
+                    for k, v in eng.cache["layers"].items()) + ")")
+    del eng
+    free()
+    return {"ring_bytes_per_row": ring, "state_bytes_per_slot": state}
+
+
+def _zamba_positions(cfg):
+    """What each launch of #1 in one decode forward of the hybrid with the
+    megakernel on computes, in launch order: per Mamba2 block its six
+    mixer projections, and after every ``attn_every``-th block the shared
+    FFN's merged gate-up and w_down (the attention is one launch of #3)."""
+    from repro_torch.models.transformer import shared_app
+    out = []
+    for i in range(cfg.n_layers):
+        out += [f"mixer.{k}" for k in ("wz", "wx", "wB", "wC", "wdt",
+                                       "out_proj")]
+        if shared_app(cfg, i) is not None:
+            out += ["ffn.wgu", "ffn.w_down"]
+    return out
+
+
+def zamba_split(prof, cfg, steps):
+    """Device ms per decode step of the hybrid by op group, from the
+    kernels' order on the one stream, the window cut into steps as in
+    :func:`deepseek_split` (a step whose launches of #1 are not one whole
+    forward, :func:`_zamba_positions`, is left out and counted). #1 is
+    ``fused_mixer`` or ``fused_shared_ffn`` by its place in the forward;
+    the shared block's attention kernel (#3, or #2) is ``attention``;
+    every other kernel goes by what ran before it: after a block's wdt
+    ``ssm_ops`` (softplus and the decay, the three conv steps, the state
+    update, the read-out, the gated norm), after its out_proj
+    ``state_commit`` (the residual, the state's select and copy into the
+    cache, the next norm, the shared block's first norm), after the last
+    launch of #1 a matmul is the ``lm_head``; the rest (the fresh k / v
+    rows' page writes and the residuals and norm around the shared FFN,
+    its activation, the embedding, sampling, copies) ``other``. Raises
+    when no step is whole."""
+    from torch.autograd import DeviceType
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    chunks = [[]]
+    for e in evs:
+        chunks[-1].append(e)
+        if "DtoH" in e.name or "Device -> P" in e.name:
+            chunks.append([])
+    order = _zamba_positions(cfg)
+    attn_names = (TRACE_NAMES[MEGA][1], TRACE_NAMES[PAGED][1])
+    out = dict.fromkeys(("fused_mixer", "ssm_ops", "state_commit",
+                         "attention", "fused_shared_ffn", "lm_head",
+                         "other"), 0.0)
+    used = 0
+    for chunk in chunks:
+        if sum("fused_lowrank_kernel" in e.name for e in chunk) != len(order):
+            continue
+        used += 1
+        pos = last = None
+        head = False
+        for e in chunk:
+            ms = e.time_range.elapsed_us() * 1e-3
+            gemm = any(g in e.name.lower() for g in GEMM_NAMES)
+            if "fused_lowrank_kernel" in e.name:
+                pos = 0 if pos is None else pos + 1
+                last = order[pos]
+                group = "fused_mixer" if last.startswith("mixer.") \
+                    else "fused_shared_ffn"
+            elif any(k in e.name for k in attn_names):
+                last, group = "attention", "attention"
+            elif head or last is None:
+                group = "other"
+            elif pos == len(order) - 1 and gemm:
+                group, head = "lm_head", True
+            elif last == "mixer.wdt":
+                group = "ssm_ops"
+            elif last == "mixer.out_proj":
+                group = "state_commit"
+            else:
+                group = "other"
+            out[group] += ms
+    if not used:
+        raise AssertionError(f"decode profile: none of {steps} steps holds "
+                             f"one whole forward of {len(order)} launches "
+                             f"of #1")
+    log(f"decode profile split: {used} of {steps} steps whole")
+    return dict({k: v / used for k, v in out.items()}, steps_used=used)
 
 
 def mamba_split(prof, cfg, steps):

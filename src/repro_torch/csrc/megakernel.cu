@@ -6,7 +6,8 @@
 //   1. merged-QKV packed low-rank matmul (3 groups, rmask, eff_rank),
 //   2. rotate-half RoPE of q and the fresh k at q_pos,
 //   3. the block-table page walk with an f32 online softmax that EXCLUDES
-//      the virtual row == cache_pos (this token's row, stale at read time),
+//      the virtual row == cache_pos mod rows (this token's row, stale at
+//      read time; a ring's cache_pos may be given unwrapped),
 //   4. the fold of the fresh k/v entry,
 //   5. normalisation,
 //   6. the packed wo projection (eff_rank_o).
@@ -42,7 +43,7 @@
 //      rounded to x's dtype.
 //   3. walk items (slot, kv head, split): RoPE at q_pos (one sincos per
 //      frequency), q and the fresh k rounded; the split walk without row
-//      cache_pos; the last split of a (slot, head) merges (paged_walk.cuh),
+//      cache_pos mod rows; the last split of a (slot, head) merges (paged_walk.cuh),
 //      folds the fresh entry, normalises and rounds o to x's dtype.
 //   4. wo stage 1 items (128 rank columns, K slice) on o * s2o; the last
 //      slice sums in order and splits t_o into terms.

@@ -13,7 +13,7 @@
 //  - never loads a page none of whose rows is valid: before any load, warp
 //    0 lists the split's entries that hold a valid row, from the positions
 //    alone (q_pos, cache_pos, window and, for #3, the excluded row r ==
-//    cache_pos). That is exact: such a page adds p = 0 to every sum, and
+//    cache_pos mod rows). That is exact: such a page adds p = 0 to every sum, and
 //    the null page 0 behind unmapped entries falls out the same way;
 //  - copies each listed page's K and V rows of head h with 16-byte
 //    cp.async through a ring of RING pages (rows padded by 16 bytes), the
@@ -113,14 +113,16 @@ struct Smem {
 
 // Whether virtual row r (0 <= r < rows) is attended: it last held
 // absolute position q_pos - floor_mod(cache_pos - r, rows), negative when
-// never written; cpm = floor_mod(cache_pos, rows).
-__device__ __forceinline__ bool row_valid(int r, int qp, int cp, int cpm,
-                                          int rows, int window, bool exclude) {
+// never written; cpm = floor_mod(cache_pos, rows), the row this token
+// writes, which #3 leaves out (a cache_pos at or past rows, a ring's
+// unwrapped write position, names the same row).
+__device__ __forceinline__ bool row_valid(int r, int qp, int cpm, int rows,
+                                          int window, bool exclude) {
   int d = cpm - r;
   d += d < 0 ? rows : 0;
   const int abs_pos = qp - d;
   return abs_pos >= 0 && (window == 0 || abs_pos > qp - window) &&
-         !(exclude && r == cp);
+         !(exclude && r == cpm);
 }
 
 // one 16-byte piece of a K row as f32 values
@@ -230,8 +232,8 @@ __device__ void walk_begin(const Walk& w, const Smem& sm, int b, int h,
                            int split) {
   const int tid = threadIdx.x, lane = tid & 31;
   const int PS = w.PS, rows = w.pages * PS;
-  const int qp = w.q_pos[b], cp = w.cache_pos[b];
-  const int cpm = floor_mod(cp, rows);
+  const int qp = w.q_pos[b];
+  const int cpm = floor_mod(w.cache_pos[b], rows);
   const bool excl = w.exclude != 0;
   const int e0 = split * w.eps, e1 = min(w.pages, e0 + w.eps);
   if (tid < 32) {
@@ -243,7 +245,7 @@ __device__ void walk_begin(const Walk& w, const Smem& sm, int b, int h,
       for (int k = 0; k < min(32, e1 - c0); ++k) {
         bool any = false;
         for (int row = lane; row < PS; row += 32)
-          any |= row_valid((c0 + k) * PS + row, qp, cp, cpm, rows, w.window,
+          any |= row_valid((c0 + k) * PS + row, qp, cpm, rows, w.window,
                            excl);
         const int page = __shfl_sync(0xffffffffu, page_l, k);
         if (__any_sync(0xffffffffu, any)) {
@@ -299,7 +301,7 @@ __device__ __forceinline__ void softmax_page(const Smem& sm, int G, int PS) {
 // Everything a page loop needs about its split.
 struct Split {
   int n;            // listed pages
-  int qp, cp, cpm, rows;
+  int qp, cpm, rows;
   bool excl;
 };
 
@@ -345,8 +347,8 @@ __device__ void loop_cores(const Walk& w, const Smem& sm, int h,
     for (int row0 = warp * RPW; row0 < PS; row0 += WARPS * RPW) {
       const int row = row0 + lane / LPR;
       const bool in = row < PS;
-      const bool valid = in && row_valid(r0 + row, sp.qp, sp.cp, sp.cpm,
-                                         sp.rows, w.window, sp.excl);
+      const bool valid = in && row_valid(r0 + row, sp.qp, sp.cpm, sp.rows,
+                                         w.window, sp.excl);
       for (int g0 = 0; g0 < G; g0 += GB) {
         float dot[GB];
 #pragma unroll
@@ -506,7 +508,7 @@ __device__ inline void loop_tensor(const Walk& w, const Smem& sm, int h,
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int key = nt * 8 + 2 * t4 + j;
-        const bool ok = row_valid(r0 + key, sp.qp, sp.cp, sp.cpm, sp.rows,
+        const bool ok = row_valid(r0 + key, sp.qp, sp.cpm, sp.rows,
                                   w.window, sp.excl);
         if (gid < G) sm.s[gid * PS + key] = ok ? c[j] * w.scale : -INFINITY;
         if (gid + 8 < G)
@@ -567,8 +569,7 @@ __device__ void walk_run(const Walk& w, const Smem& sm, int b, int h) {
   Split sp;
   sp.rows = w.pages * w.PS;
   sp.qp = w.q_pos[b];
-  sp.cp = w.cache_pos[b];
-  sp.cpm = floor_mod(sp.cp, sp.rows);
+  sp.cpm = floor_mod(w.cache_pos[b], sp.rows);
   sp.excl = w.exclude != 0;
   const PageCopier<T> copier(w);
   __syncthreads();                             // sm.q is complete

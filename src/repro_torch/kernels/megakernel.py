@@ -5,7 +5,8 @@ decode_step_megakernel_raw``), its wrapper and its plain version
 
 One launch runs the attention half of a decode step for B slots:
 merged-QKV packed matmul → RoPE at q_pos → page walk excluding the row
-``== cache_pos`` → fold of the fresh k/v → normalise → packed wo. It
+``== cache_pos mod rows`` → fold of the fresh k/v → normalise → packed
+wo. It
 returns ``y`` plus the fresh ``k_new`` / ``v_new`` rows in the pool
 dtype for the caller's paged cache write; the pools are only read.
 

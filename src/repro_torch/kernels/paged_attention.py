@@ -101,7 +101,7 @@ def _row_valid(r, q_pos, cache_pos, rows: int, window: int,
     if window:
         m = m & (abs_pos > qp - window)
     if exclude_cache_row:
-        m = m & (r[None, :] != cp)
+        m = m & (r[None, :] != torch.remainder(cp, rows))
     return m
 
 
@@ -118,8 +118,8 @@ def split_walk_model(q, k_pool, v_pool, block_table, q_pos, cache_pos, *,
     a page with no valid row when ``skip_masked_pages``; the runs merge in
     split order. Without ``skip_masked_pages`` every page is loaded and
     its masked rows score -1e30, as the Pallas kernel does.
-    ``exclude_cache_row`` leaves out row r == cache_pos (the megakernel's
-    walk). Returns the merged (m (B, Hkv, G), l (B, Hkv, G),
+    ``exclude_cache_row`` leaves out row r == cache_pos mod rows (the
+    megakernel's walk: the row this token writes). Returns the merged (m (B, Hkv, G), l (B, Hkv, G),
     acc (B, Hkv, G, D)), unnormalised."""
     B, Hq, D = q.shape
     NP, PS, Hkv, _ = k_pool.shape

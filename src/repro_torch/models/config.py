@@ -4,8 +4,8 @@ One frozen (hashable -> jit-static) dataclass covers the whole assigned
 pool: dense / MoE / MLA / SSM / hybrid / VLM / audio backbones. The
 port's copy of ``repro.models.config`` keeps every field, so a manifest
 written by the JAX package rebuilds the same config here; the port's
-model code serves the dense, MoE (MLA attention included) and SSM
-families (:func:`check_family`).
+model code serves the dense, MoE (MLA attention included), SSM and
+hybrid families (:func:`check_family`).
 """
 from __future__ import annotations
 
@@ -114,8 +114,6 @@ class ModelConfig:
 
 # what the port still lacks for each family it refuses
 _MISSING = {
-    "hybrid": "the shared attention block every attn_every layers and "
-              "its ring-paged sliding-window cache",
     "vlm": "cross-attention layers over per-slot image K/V",
     "audio": "multi-codebook embeddings, head and sampling",
 }
@@ -124,11 +122,13 @@ _MISSING = {
 def check_family(cfg: ModelConfig) -> None:
     """Raise NotImplementedError, naming what is missing, unless the port
     serves `cfg`: the dense family, the MoE family with GQA or MLA
-    attention (deepseek-v2's compressed-latent attention), and the SSM
-    family (Mamba2 blocks over a per-slot recurrent state)."""
-    if cfg.family not in ("dense", "moe", "ssm"):
+    attention (deepseek-v2's compressed-latent attention), the SSM family
+    (Mamba2 blocks over a per-slot recurrent state) and the hybrid
+    (zamba2: the Mamba2 stack plus one shared attention block every
+    ``attn_every`` layers over a ring-paged sliding-window cache)."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
-            f"the port serves the dense, moe and ssm families, not "
+            f"the port serves the dense, moe, ssm and hybrid families, not "
             f"{cfg.family!r} ({cfg.name}): it lacks "
             f"{_MISSING[cfg.family]}")
 

@@ -1,5 +1,5 @@
-"""Dense-, MoE- and SSM-family layers (GQA or MLA attention, the Mamba2
-mixer), the port of ``repro.models.layers``.
+"""Dense-, MoE-, SSM- and hybrid-family layers (GQA or MLA attention, the
+Mamba2 mixer), the port of ``repro.models.layers``.
 
 Params are plain dicts of tensors, as in the JAX package. Linear layers go
 through :func:`dense`, which runs a full-precision matmul or a NanoQuant
@@ -195,12 +195,17 @@ def attention(p, cfg, x, positions, cache=None, cache_pos=None,
     """GQA attention. Returns (out, cache).
 
     cache None: training / full-sequence forward. With a rectangular
-    cache dict(k=(B, Smax, Hkv, D), v=...) and S > 1: prompt prefill at
-    position 0 — the cache rows [0, S) are written and the prompt attends
-    to itself. With ``block_table`` (B, pages): the cache is a paged pool
+    cache dict(k=(B, Smax, Hkv, D), v=...): prompt prefill at position 0
+    — the cache rows [0, S) are written and the prompt attends to itself
+    (S == 1 only for the hybrid's exact-length prefill of a one-token
+    prompt). With ``block_table`` (B, pages): the cache is a paged pool
     (k/v: (n_pages, page_size, Hkv, D)) and the S tokens (a decode, the
     speculative verify or a prefix hit's suffix prefill) write and read
-    it at per-slot rows ``cache_pos`` (B,), positions (B, S)."""
+    it at per-slot rows ``cache_pos`` (B,), positions (B, S). Nothing here
+    assumes ``cache_pos == positions``: the hybrid's ring passes its write
+    row wrapped modulo the ring's rows and its query positions absolute,
+    and the write (:func:`paged_cache_write`), #2, #3 and their plain
+    versions place row r at position ``q - ((cache_pos - r) mod rows)``."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     if (cache is not None and block_table is not None and S == 1
@@ -251,7 +256,7 @@ def attention(p, cfg, x, positions, cache=None, cache_pos=None,
                                  scale=scale)
     else:
         if cache is not None:
-            if S == 1 or cache_pos != 0:
+            if isinstance(cache_pos, torch.Tensor) or cache_pos != 0:
                 raise NotImplementedError(
                     "the rectangular cache serves the prompt prefill at "
                     "position 0; decode runs over the paged pool")
@@ -531,8 +536,10 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int):
 
 def _mamba_streams(p, x):
     """The five input streams z, x, B, C, dt: every packed projection is
-    one launch of kernel #1 (:func:`dense`); dt's narrow projection stays
-    FP under the selection rule."""
+    one launch of kernel #1 (:func:`dense`). Whether dt's narrow
+    projection is packed is the selection rule's call: at mamba2-370m's
+    width it stays FP (1024 -> 32, under min_dim 48), at zamba2-1.2b's it
+    is packed (2048 -> 64), like the other five."""
     return (dense(p["wz"], x), dense(p["wx"], x), dense(p["wB"], x),
             dense(p["wC"], x), dense(p["wdt"], x))
 

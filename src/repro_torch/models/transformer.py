@@ -1,6 +1,7 @@
-"""Dense-, MoE- and SSM-family model assembly: forward / prefill / decode,
-the port of the dense, MoE and SSM paths of ``repro.models.transformer``
-(GQA or MLA attention, by ``cfg.is_mla``; Mamba2 blocks for ``ssm``).
+"""Dense-, MoE-, SSM- and hybrid-family model assembly: forward / prefill
+/ decode, the port of the dense, MoE, SSM and hybrid paths of
+``repro.models.transformer`` (GQA or MLA attention, by ``cfg.is_mla``;
+Mamba2 blocks for ``ssm`` and ``hybrid``).
 
 Each block stack keeps the JAX package's stacked layout (every leaf of
 ``params["layers"]`` has a leading layer axis); a Python loop takes the
@@ -10,9 +11,14 @@ family's blocks hold a ``moe`` dict instead of ``ffn``, and its first
 ``params["dense_layers"]``, run before ``layers`` (with a cache of their
 own). The SSM family's blocks are ``{"ln", "mixer"}``; its cache is a
 per-slot recurrent state (the f32 SSM state and the conv rings), which
-does not grow with the sequence. A stack may also be given pre-split as a
-list of per-layer dicts (:func:`split_layers`), which saves the slicing
-on every call.
+does not grow with the sequence. The hybrid (zamba2) is the SSM stack
+plus ``params["shared_attn"]``, ONE attention + FFN block with no leading
+axis, applied after every ``attn_every``-th Mamba2 layer with the
+sliding-window mask; its cache adds ``cache["shared_attn"]``, one ring of
+K/V rows per application (a rectangle of ``min(max_len, window)`` rows at
+prefill, a pool of ring pages at decode). A stack may also be given
+pre-split as a list of per-layer dicts (:func:`split_layers`), which saves
+the slicing on every call.
 """
 from __future__ import annotations
 
@@ -86,15 +92,38 @@ def embed_tokens(params, cfg, tokens):
     return params["embed"][tokens]
 
 
+def shared_app(cfg: ModelConfig, idx: int) -> Optional[int]:
+    """The hybrid's application of its shared attention block that follows
+    Mamba2 layer `idx` (the reference's ``(idx + 1) // attn_every - 1``),
+    or None when none follows it (or the family has no shared block)."""
+    if cfg.family != "hybrid" or (idx + 1) % cfg.attn_every:
+        return None
+    return (idx + 1) // cfg.attn_every - 1
+
+
+def n_shared_apps(cfg: ModelConfig) -> int:
+    """Applications of the hybrid's shared block per forward (0 without)."""
+    return cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+
+
+def ring_rows(cfg: ModelConfig, max_len: int) -> int:
+    """Rows of the hybrid's rectangular shared-attention ring: the window,
+    at most max_len (the reference's ``win``)."""
+    return min(max_len, cfg.sliding_window or max_len)
+
+
 def backbone(params, cfg: ModelConfig, tokens):
     """Full-sequence forward to final hidden states (B, S, d)."""
     check_family(cfg)
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
     for _, layers in _stacks(params):
-        for lp in layers:
-            if cfg.family == "ssm":
+        for idx, lp in enumerate(layers):
+            if cfg.is_ssm_layer_stack:
                 x, _ = _apply_mamba_block(lp, cfg, x)
+                if shared_app(cfg, idx) is not None:
+                    x = _apply_attn_block(params["shared_attn"], cfg, x,
+                                          positions)
             else:
                 x = _apply_attn_block(lp, cfg, x, positions)
     return L.rms_norm(x, params["ln_f"], cfg.norm_eps)
@@ -111,8 +140,9 @@ def forward(params, cfg, tokens):
 
 
 def stack_depths(cfg: ModelConfig) -> Dict[str, int]:
-    """Layers of each block stack: {"layers": n} for the dense family;
-    the MoE family's ``first_k_dense`` leading blocks as "dense_layers"."""
+    """Layers of each block stack: {"layers": n} for the dense, SSM and
+    hybrid families; the MoE family's ``first_k_dense`` leading blocks as
+    "dense_layers"."""
     check_family(cfg)
     if cfg.family == "moe" and cfg.first_k_dense:
         return {"dense_layers": cfg.first_k_dense,
@@ -129,23 +159,40 @@ def cache_leaves(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     return {leaf: (cfg.n_kv_heads, cfg.head_dim) for leaf in ("k", "v")}
 
 
+def state_cache(cfg: ModelConfig, batch: int, device="cuda"):
+    """The Mamba2 stack's per-slot recurrent state, whatever max_len is:
+    {"ssm": (L, B, H, P, N) f32, "conv_x" / "conv_B" / "conv_C": (L, B,
+    K-1, C) rings in the model dtype}."""
+    dt = torch_dtype(cfg)
+    n, gn = cfg.n_layers, cfg.ssm_groups * cfg.ssm_state
+
+    def ring(width):
+        return torch.zeros((n, batch, cfg.ssm_conv - 1, width), dtype=dt,
+                           device=device)
+    ssm = torch.zeros((n, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                       cfg.ssm_state), dtype=torch.float32, device=device)
+    return {"ssm": ssm, "conv_x": ring(cfg.d_inner), "conv_B": ring(gn),
+            "conv_C": ring(gn)}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     """Rectangular cache, one per block stack: {stack: {leaf: (L, B,
     max_len, *row)}} over :func:`cache_leaves`, in the model dtype. The
-    SSM family's is its recurrent state, whatever max_len is: {"layers":
-    {"ssm": (L, B, H, P, N) f32, "conv_x" / "conv_B" / "conv_C": (L, B,
-    K-1, C) rings in the model dtype}}."""
+    SSM family's is its recurrent state (:func:`state_cache`) under
+    "layers"; the hybrid adds "shared_attn": {"k" / "v": (n_apps, B, win,
+    Hkv, D)}, one ring of ``win = min(max_len, window)`` rows per
+    application of the shared block (:func:`ring_rows`)."""
+    check_family(cfg)
     dt = torch_dtype(cfg)
-    if cfg.family == "ssm":
-        n, gn = cfg.n_layers, cfg.ssm_groups * cfg.ssm_state
-
-        def ring(width):
-            return torch.zeros((n, batch, cfg.ssm_conv - 1, width),
-                               dtype=dt, device=device)
-        ssm = torch.zeros((n, batch, cfg.ssm_heads, cfg.ssm_head_dim,
-                           cfg.ssm_state), dtype=torch.float32, device=device)
-        return {"layers": {"ssm": ssm, "conv_x": ring(cfg.d_inner),
-                           "conv_B": ring(gn), "conv_C": ring(gn)}}
+    if cfg.is_ssm_layer_stack:
+        cache = {"layers": state_cache(cfg, batch, device)}
+        if cfg.family == "hybrid":
+            win = ring_rows(cfg, max_len)
+            cache["shared_attn"] = {
+                leaf: torch.zeros((n_shared_apps(cfg), batch, win) + row,
+                                  dtype=dt, device=device)
+                for leaf, row in cache_leaves(cfg).items()}
+        return cache
     return {name: {leaf: torch.zeros((n, batch, max_len) + row, dtype=dt,
                                      device=device)
                    for leaf, row in cache_leaves(cfg).items()}
@@ -163,16 +210,58 @@ def _commit_state(state, new, active=None):
         state[k].copy_(v)
 
 
-def _ssm_forward(params, cfg, x, cache, active=None):
-    """The SSM family's cached forward: S == 1 takes each mixer's
-    recurrent step (a one-token prefill too), S > 1 the full-sequence SSD
-    with the terminal state rebuilt; the state is written in place."""
+def _shared_positions(cfg, pos, S: int, attn_cache, block_tables):
+    """(positions, cache_pos, ring table) of the hybrid's shared block.
+    With ``block_tables["ring"]`` (B, pages): the paged decode (S == 1,
+    per-slot (B,) `pos`), whose write row wraps modulo the slot's virtual
+    ring ``pages · page_size`` on the device, the query position staying
+    absolute. Without: the rectangular prefill at position 0, rows [0, S)
+    of a ring of ``win`` rows; a prompt longer than the ring raises (the
+    reference's prefill fails there too)."""
+    bt = block_tables.get("ring") if block_tables else None
+    if bt is not None:
+        if S != 1:
+            raise NotImplementedError(
+                "the hybrid's paged forward is the one-token decode: a ring "
+                "table wraps its write row per token")
+        rows = bt.shape[1] * attn_cache["k"].shape[2]
+        pos = pos.long()
+        return pos[:, None], torch.remainder(pos, rows), bt
+    if isinstance(pos, torch.Tensor) or pos != 0:
+        raise NotImplementedError(
+            "the hybrid's rectangular cache serves the prompt prefill at "
+            "position 0; decode runs over the ring pool: pass "
+            "block_tables={'ring': ...}")
+    win = attn_cache["k"].shape[2]
+    if S > win:
+        raise ValueError(f"a prompt of {S} tokens is longer than the shared "
+                         f"attention's ring of {win} rows")
+    return torch.arange(S, device=attn_cache["k"].device), 0, None
+
+
+def _ssm_forward(params, cfg, x, cache, pos=0, block_tables=None,
+                 active=None):
+    """The cached forward of the SSM and hybrid families: S == 1 takes
+    each mixer's recurrent step (a one-token prefill too), S > 1 the
+    full-sequence SSD with the terminal state rebuilt; the state is
+    written in place, kept for inactive slots with `active`. The hybrid's
+    shared block, after every ``attn_every``-th layer, writes and reads
+    its application's ring (:func:`_shared_positions`)."""
     S = x.shape[1]
     leaves = cache["layers"]
+    attn = cache.get("shared_attn")
+    if attn is not None:
+        positions, cache_pos, bt = _shared_positions(cfg, pos, S, attn,
+                                                     block_tables)
     for i, lp in enumerate(split_layers(params)["layers"]):
         state = {k: v[i] for k, v in leaves.items()}
         x, ns = _apply_mamba_block(lp, cfg, x, state if S == 1 else None)
         _commit_state(state, ns, active)
+        app = shared_app(cfg, i)
+        if app is not None:
+            x = _apply_attn_block(params["shared_attn"], cfg, x, positions,
+                                  {k: v[app] for k, v in attn.items()},
+                                  cache_pos, bt)
     return L.rms_norm(x, params["ln_f"], cfg.norm_eps), cache
 
 
@@ -182,8 +271,8 @@ def _cached_forward(params, cfg, tokens, cache, pos, block_tables=None):
     pages)}``). Writes the cache in place; returns (hidden, cache)."""
     check_family(cfg)
     x = embed_tokens(params, cfg, tokens)
-    if cfg.family == "ssm":
-        return _ssm_forward(params, cfg, x, cache)
+    if cfg.is_ssm_layer_stack:
+        return _ssm_forward(params, cfg, x, cache, pos, block_tables)
     S = x.shape[1]
     steps = torch.arange(S, device=x.device)
     if isinstance(pos, torch.Tensor) and pos.dim():
@@ -242,10 +331,13 @@ def decode_step(params, cfg, token, cache, pos, block_tables=None,
     pos (B,) per-slot positions, block_tables {"linear": (B, pages)}.
     The SSM family's step runs over its per-slot state cache instead
     (no tables, `pos` unused); `active` (B,) bool keeps the state of
-    inactive slots. Returns (logits (B, S, V), cache)."""
-    if cfg.family == "ssm":
+    inactive slots. The hybrid takes both: the state cache with `active`,
+    and its shared block's ring pool through ``block_tables={"ring": (B,
+    ring_pages)}`` at the absolute positions `pos`. Returns (logits (B, S,
+    V), cache)."""
+    if cfg.is_ssm_layer_stack:
         h, cache = _ssm_forward(params, cfg, embed_tokens(params, cfg, token),
-                                cache, active)
+                                cache, pos, block_tables, active)
     else:
         h, cache = _paged_forward(params, cfg, token, cache, pos,
                                   block_tables)

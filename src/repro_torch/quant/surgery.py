@@ -2,9 +2,9 @@
 ``repro.quant.surgery``:
 
 - :func:`abstract_quantized_params` — the shape/dtype template of a
-  NanoQuant-packed dense or MoE model with GQA or MLA attention, or of a
-  Mamba2 (SSM) model (for the artifact loader and for building a packed
-  model of a published shape from a seed);
+  NanoQuant-packed dense or MoE model with GQA or MLA attention, of a
+  Mamba2 (SSM) model, or of a zamba2 hybrid (for the artifact loader and
+  for building a packed model of a published shape from a seed);
 - :func:`merge_projection_groups` — the merged QKV / gate-up operands
   the grouped kernel launches read (padded rank + ``rmask``, padded s1
   columns set to 0);
@@ -37,21 +37,24 @@ class LeafSpec(NamedTuple):
 
 
 def param_specs(cfg: ModelConfig) -> Dict:
-    """FP parameter template of a dense-, MoE- or SSM-family model — the
-    tree ``repro.models.transformer.init_params`` builds, each block stack
-    with a leading axis of its length. The MoE family's ``layers`` hold a
-    ``moe`` block (router, stacked experts, optional shared experts)
-    instead of ``ffn``; its first ``first_k_dense`` blocks, when any, form
-    the ``dense_layers`` stack with an FFN of ``dense_d_ff``. The router
-    is float32 whatever ``cfg.dtype`` is. An MLA config's attention is
-    ``repro.models.layers.init_mla``'s: the query, latent down, shared
-    RoPE key, latent-to-key and latent-to-value up projections, the output
-    and the latent's norm. An SSM block is ``{"ln", "mixer"}``, the mixer
-    ``repro.models.layers.init_mamba2``'s: the split input projections
-    wz / wx / wB / wC / wdt and out_proj, the depthwise conv kernels
-    (K, C) of the x / B / C streams with their biases (arrays, not
-    linears, so never packed), A_log, D and dt_bias (float32 whatever
-    ``cfg.dtype`` is) and the gated norm's weight."""
+    """FP parameter template of a dense-, MoE-, SSM- or hybrid-family
+    model — the tree ``repro.models.transformer.init_params`` builds, each
+    block stack with a leading axis of its length. The MoE family's
+    ``layers`` hold a ``moe`` block (router, stacked experts, optional
+    shared experts) instead of ``ffn``; its first ``first_k_dense``
+    blocks, when any, form the ``dense_layers`` stack with an FFN of
+    ``dense_d_ff``. The router is float32 whatever ``cfg.dtype`` is. An
+    MLA config's attention is ``repro.models.layers.init_mla``'s: the
+    query, latent down, shared RoPE key, latent-to-key and latent-to-value
+    up projections, the output and the latent's norm. An SSM block is
+    ``{"ln", "mixer"}``, the mixer ``repro.models.layers.init_mamba2``'s:
+    the split input projections wz / wx / wB / wC / wdt and out_proj, the
+    depthwise conv kernels (K, C) of the x / B / C streams with their
+    biases (arrays, not linears, so never packed), A_log, D and dt_bias
+    (float32 whatever ``cfg.dtype`` is) and the gated norm's weight. The
+    hybrid's ``layers`` are the SSM stack and ``shared_attn`` is ONE
+    attention + FFN block with no leading axis (zamba2's block shared by
+    every application)."""
     check_family(cfg)
     dt, d, hd = cfg.dtype, cfg.d_model, cfg.head_dim
 
@@ -61,69 +64,73 @@ def param_specs(cfg: ModelConfig) -> Dict:
             p["b"] = LeafSpec(lead + (d_out,), dt)
         return p
 
-    def ffn(n, d_ff):
-        return {"w_gate": lin((n,), d, d_ff), "w_up": lin((n,), d, d_ff),
-                "w_down": lin((n,), d_ff, d)}
+    def ffn(lead, d_ff):
+        return {"w_gate": lin(lead, d, d_ff), "w_up": lin(lead, d, d_ff),
+                "w_down": lin(lead, d_ff, d)}
 
-    def mla(n):
+    def mla(lead):
         H, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
         dv, dc = cfg.v_head_dim, cfg.kv_lora_rank
-        return {"wq": lin((n,), d, H * (dn + dr)), "w_dkv": lin((n,), d, dc),
-                "w_kr": lin((n,), d, dr), "w_uk": lin((n,), dc, H * dn),
-                "w_uv": lin((n,), dc, H * dv), "wo": lin((n,), H * dv, d),
-                "kv_norm": LeafSpec((n, dc), dt)}
+        return {"wq": lin(lead, d, H * (dn + dr)), "w_dkv": lin(lead, d, dc),
+                "w_kr": lin(lead, d, dr), "w_uk": lin(lead, dc, H * dn),
+                "w_uv": lin(lead, dc, H * dv), "wo": lin(lead, H * dv, d),
+                "kv_norm": LeafSpec(lead + (dc,), dt)}
 
-    def gqa(n):
-        attn = {"wq": lin((n,), d, cfg.n_heads * hd, cfg.qkv_bias),
-                "wk": lin((n,), d, cfg.n_kv_heads * hd, cfg.qkv_bias),
-                "wv": lin((n,), d, cfg.n_kv_heads * hd, cfg.qkv_bias),
-                "wo": lin((n,), cfg.n_heads * hd, d)}
+    def gqa(lead):
+        attn = {"wq": lin(lead, d, cfg.n_heads * hd, cfg.qkv_bias),
+                "wk": lin(lead, d, cfg.n_kv_heads * hd, cfg.qkv_bias),
+                "wv": lin(lead, d, cfg.n_kv_heads * hd, cfg.qkv_bias),
+                "wo": lin(lead, cfg.n_heads * hd, d)}
         if cfg.qk_norm:
-            attn["q_norm"] = LeafSpec((n, hd), dt)
-            attn["k_norm"] = LeafSpec((n, hd), dt)
+            attn["q_norm"] = LeafSpec(lead + (hd,), dt)
+            attn["k_norm"] = LeafSpec(lead + (hd,), dt)
         return attn
 
-    def block(n, d_ff=None):
-        attn = mla(n) if cfg.is_mla else gqa(n)
-        p = {"ln1": LeafSpec((n, d), dt), "attn": attn,
-             "ln2": LeafSpec((n, d), dt)}
+    def block(lead, d_ff=None):
+        attn = mla(lead) if cfg.is_mla else gqa(lead)
+        p = {"ln1": LeafSpec(lead + (d,), dt), "attn": attn,
+             "ln2": LeafSpec(lead + (d,), dt)}
         if d_ff is not None:
-            p["ffn"] = ffn(n, d_ff)
+            p["ffn"] = ffn(lead, d_ff)
             return p
         E, f = cfg.n_experts, cfg.moe_d_ff
-        moe = {"router": {"w": LeafSpec((n, d, E), "float32")},
-               "w_gate": lin((n, E), d, f), "w_up": lin((n, E), d, f),
-               "w_down": lin((n, E), f, d)}
+        moe = {"router": {"w": LeafSpec(lead + (d, E), "float32")},
+               "w_gate": lin(lead + (E,), d, f),
+               "w_up": lin(lead + (E,), d, f),
+               "w_down": lin(lead + (E,), f, d)}
         if cfg.n_shared_experts:
-            moe["shared"] = ffn(n, cfg.n_shared_experts * f)
+            moe["shared"] = ffn(lead, cfg.n_shared_experts * f)
         p["moe"] = moe
         return p
 
-    def mamba(n):
+    def mamba(lead):
         di, H, K = cfg.d_inner, cfg.ssm_heads, cfg.ssm_conv
         gn = cfg.ssm_groups * cfg.ssm_state
-        mixer = {"wz": lin((n,), d, di), "wx": lin((n,), d, di),
-                 "wB": lin((n,), d, gn), "wC": lin((n,), d, gn),
-                 "wdt": lin((n,), d, H), "out_proj": lin((n,), di, d),
-                 "A_log": LeafSpec((n, H), "float32"),
-                 "D": LeafSpec((n, H), "float32"),
-                 "dt_bias": LeafSpec((n, H), "float32"),
-                 "norm_w": LeafSpec((n, di), dt)}
+        mixer = {"wz": lin(lead, d, di), "wx": lin(lead, d, di),
+                 "wB": lin(lead, d, gn), "wC": lin(lead, d, gn),
+                 "wdt": lin(lead, d, H), "out_proj": lin(lead, di, d),
+                 "A_log": LeafSpec(lead + (H,), "float32"),
+                 "D": LeafSpec(lead + (H,), "float32"),
+                 "dt_bias": LeafSpec(lead + (H,), "float32"),
+                 "norm_w": LeafSpec(lead + (di,), dt)}
         for s, c in (("x", di), ("B", gn), ("C", gn)):
-            mixer[f"conv_{s}"] = LeafSpec((n, K, c), dt)
-            mixer[f"conv_b{s}"] = LeafSpec((n, c), dt)
-        return {"ln": LeafSpec((n, d), dt), "mixer": mixer}
+            mixer[f"conv_{s}"] = LeafSpec(lead + (K, c), dt)
+            mixer[f"conv_b{s}"] = LeafSpec(lead + (c,), dt)
+        return {"ln": LeafSpec(lead + (d,), dt), "mixer": mixer}
 
     tree = {"ln_f": LeafSpec((d,), dt),
             "embed": LeafSpec((cfg.vocab_size, d), dt)}
-    if cfg.family == "ssm":
-        tree["layers"] = mamba(cfg.n_layers)
+    n = cfg.n_layers
+    if cfg.is_ssm_layer_stack:
+        tree["layers"] = mamba((n,))
+        if cfg.family == "hybrid":
+            tree["shared_attn"] = block((), cfg.d_ff)
     elif cfg.family == "dense":
-        tree["layers"] = block(cfg.n_layers, cfg.d_ff)
+        tree["layers"] = block((n,), cfg.d_ff)
     else:
-        tree["layers"] = block(cfg.n_layers - cfg.first_k_dense)
+        tree["layers"] = block((n - cfg.first_k_dense,))
         if cfg.first_k_dense:
-            tree["dense_layers"] = block(cfg.first_k_dense,
+            tree["dense_layers"] = block((cfg.first_k_dense,),
                                          cfg.dense_d_ff or cfg.d_ff)
     if not cfg.tie_embeddings:
         tree["lm_head"] = {"w": LeafSpec((d, cfg.vocab_size), dt)}

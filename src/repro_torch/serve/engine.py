@@ -9,7 +9,12 @@ write to the null page and are ignored). A family with nothing to page
 instead: admission prefills the prompt at its exact length (a pad token
 would enter the state) and inserts the state into the slot; the decode
 step keeps inactive slots' state bit for bit; there is no pool, no
-prefix sharing, no preemption and no speculation. Freed slots are refilled
+prefix sharing, no preemption and no speculation. The hybrid (zamba2)
+has both: the same per-slot state for its Mamba2 stack and a pool of ring
+pages for its shared attention block, each slot's whole ring mapped at
+admission (exact-length prefill, no prefix sharing, no speculation; a
+prompt longer than the ring fails its request, as the reference's
+prefill does). Freed slots are refilled
 mid-flight: admission prefills the prompt alone, right-padded to a
 power-of-two bucket, and scatters its KV rows into the slot's pages. With
 the prefix cache (``serve.prefix``, on by default) an admission first maps
@@ -65,9 +70,9 @@ from repro_torch.serve.scheduler import (Request, SlotScheduler,
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """The JAX package's serving config, field for field. The port serves
-    the attention families on the paged pool only (``paged=False`` raises
-    for them); the SSM family has nothing to page and is served on its
-    per-slot state cache under either setting. ``prefix_cache=True``
+    the attention families and the hybrid on the paged pool only
+    (``paged=False`` raises for them); the SSM family has nothing to page
+    and is served on its per-slot state cache under either setting. ``prefix_cache=True``
     shares prompt-prefix KV pages across requests (``serve.prefix``):
     admission maps the longest cached prefix read-only and prefills only
     the suffix, writes into shared pages copy on write, and cached pages
@@ -278,9 +283,10 @@ class _Resume:
 
 class InferenceEngine:
     """Slot-scheduled, continuously batched serving engine over a paged
-    KV pool, or over the per-slot state cache of a family with nothing to
-    page (see the module docstring). ``paged`` says which: ``kv`` is the
-    pool's allocator, or None.
+    KV pool, over the per-slot state cache of a family with nothing to
+    page, or over both (the hybrid; see the module docstring). ``paged``
+    says whether there is a pool: ``kv`` is the pool's allocator, or
+    None.
 
     params: the port's parameter tree, already on `device`; device:
     ``"cuda"`` by default (raises without a card) or ``"cpu"``; policy:
@@ -305,8 +311,8 @@ class InferenceEngine:
         kinds = paging.cache_page_kinds(cfg)
         if kinds and not self.scfg.paged:
             raise NotImplementedError(
-                "the port decodes the attention families over the paged "
-                "pool only (paged=True)")
+                "the port decodes the attention families and the hybrid's "
+                "shared block over the paged pool only (paged=True)")
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"the engine on {self.device}")
@@ -327,17 +333,21 @@ class InferenceEngine:
         # drain(): no fresh admissions (preempted resumes still re-admit)
         self.draining = False
         # the paged pool, unless the family has nothing to page (the SSM
-        # family's state is O(1) per slot): then the per-slot state cache
+        # family's state is O(1) per slot): then the per-slot state cache.
+        # The hybrid's pool of ring pages holds its state leaves beside it.
         self.kv: Optional[paging.PagedKVState] = None
         if kinds:
             self.kv = paging.PagedKVState(max_batch, max_len,
                                           self.scfg.page_size,
                                           self.scfg.kv_pool_pages,
-                                          self.scfg.page_watermark)
+                                          self.scfg.page_watermark,
+                                          kinds=kinds,
+                                          window=cfg.sliding_window)
         self.paged = self.kv is not None
         if self.paged:
             self.cache = paging.init_paged_cache(
-                cfg, self.kv.n_pages, self.kv.page_size, self.device)
+                cfg, self.kv.n_pages, self.kv.page_size, self.device,
+                batch=max_batch)
         else:
             self.cache = T.init_cache(cfg, max_batch, max_len, self.device)
         self.pos = np.zeros((max_batch,), np.int64)
@@ -637,7 +647,7 @@ class InferenceEngine:
                 raise paging.PageAccountingError(
                     f"slot {slot}: scheduler owner "
                     f"{self.scheduler.slots[slot]} != task uid {uid}")
-            if self.paged and \
+            if self.paged and self.kv.has_linear and \
                     self.kv._mapped[slot] * self.kv.page_size < self.pos[slot]:
                 raise paging.PageAccountingError(
                     f"slot {slot}: pos {int(self.pos[slot])} beyond its "
@@ -665,13 +675,13 @@ class InferenceEngine:
 
     def kv_cache_bytes(self) -> int:
         """Bytes of the paged pool's attention leaves (0 without a pool,
-        as in the reference)."""
+        as in the reference; the hybrid's ring pool)."""
         return paging.kv_cache_bytes(self.cache)
 
     def cache_bytes(self) -> int:
-        """Bytes of every leaf of the engine's cache: the paged pool, or
-        the per-slot state cache (the SSM family's f32 state and conv
-        rings, which do not grow with max_len)."""
+        """Bytes of every leaf of the engine's cache: the paged pool, the
+        per-slot state cache (the SSM family's f32 state and conv rings,
+        which do not grow with max_len), or both (the hybrid)."""
         return sum(t.numel() * t.element_size()
                    for leaves in self.cache.values() for t in leaves.values())
 
@@ -728,9 +738,9 @@ class InferenceEngine:
         """Prefill `item`'s prompt into `slot` and emit its first token:
         on a prefix hit only the suffix, straight into the pool
         (:meth:`_admit_shared`); otherwise the whole prompt alone
-        (bucketed; at its exact length for the SSM family, where a pad
-        token would enter the state), its KV rows scattered into the
-        slot's fresh pages, or its state inserted into the slot.
+        (bucketed; at its exact length for the SSM and hybrid families,
+        where a pad token would enter the state), its KV rows scattered
+        into the slot's fresh pages and its state into the slot.
         The logits are checked, and a cancel or expiry that landed
         meanwhile honoured, before any chunk is registered with the
         prefix index. Returns the request if it finished at once."""
@@ -767,7 +777,7 @@ class InferenceEngine:
                 paging.paged_insert_slot(
                     self.cache, single,
                     {k: torch.from_numpy(v).to(self.device)
-                     for k, v in ids.items()})
+                     for k, v in ids.items()}, slot)
             else:
                 cache_insert_slot(self.cache, single, slot)
         if self.faults is not None \
@@ -839,8 +849,8 @@ class InferenceEngine:
     def _decode_tick(self, finished: List[Request]) -> None:
         """Reserve the next cache row of every active slot (preempting
         if the pool is dry), run one batched decode step over every slot
-        (without a pool, inactive slots keep their state), commit
-        positions and emit."""
+        (inactive slots keep their recurrent state, where the family has
+        one), commit positions and emit."""
         if self.paged:
             self._ensure_decode_pages()
         if not self.active.any():          # everything self-preempted
@@ -853,7 +863,7 @@ class InferenceEngine:
         tables = active = None
         if self.paged:
             tables = self.kv.device_tables(dev)
-        else:
+        if self.cfg.is_ssm_layer_stack:
             active = torch.from_numpy(self.active).to(dev)
         logits, self.cache = T.decode_step(
             self.params, self.cfg, torch.from_numpy(self.tokens).to(dev),

@@ -16,14 +16,24 @@ tables — the parts of ``repro.serve.paging`` the engine uses.
   leaves become ``(n_layers, n_pages, page_size, *row)``, K/V rows of
   ``(Hkv, D)`` or MLA's compressed latent ``c_kv`` ``(dc,)`` and shared
   RoPE key ``k_rope`` ``(1, dr)`` (the MoE family's ``dense_layers`` have
-  a pool of their own, read through the same block tables).
+  a pool of their own, read through the same block tables). The hybrid's
+  cache is mixed: its shared block's K/V pool ``(n_apps, n_pages,
+  page_size, Hkv, D)`` sits next to the Mamba2 stack's state leaves,
+  which have no sequence extent and stay slot-indexed ``(L, B, ...)``.
 - :func:`paged_insert_slot` / :func:`paged_select_active` — the paged
-  twins of the scheduler's slot cache ops; :func:`copy_page` — the
-  device side of a copy-on-write.
+  twins of the scheduler's slot cache ops (pool leaves through the block
+  tables, state leaves by slot); :func:`copy_page` — the device side of a
+  copy-on-write.
 
-Block tables are ordered by logical page, so a slot's gathered pages form
-a virtual rectangle whose row index equals the cache position — the
-decode read is the rectangular decode mask over the gather.
+Two page kinds exist, as in the reference: ``"linear"`` (page ``j`` of a
+slot holds rows ``[j*page_size, (j+1)*page_size)``, mapped as the slot
+grows) and ``"ring"`` (the hybrid's shared-attention sliding-window ring:
+``ring_pages`` pages mapped in full at admission, writes wrapping modulo
+the slot's virtual ring ``ring_pages * page_size``). Block tables are
+ordered by logical page, so a slot's gathered pages form a virtual
+rectangle whose row index equals the (possibly ring-wrapped) cache
+position — the decode read is the rectangular decode mask over the
+gather.
 """
 from __future__ import annotations
 
@@ -33,20 +43,28 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import check_family
-from repro_torch.models.transformer import (cache_leaves, stack_depths,
+from repro_torch.models.transformer import (cache_leaves, n_shared_apps,
+                                             stack_depths, state_cache,
                                              torch_dtype)
 
 # leaf names of the paged attention cache: GQA's k / v, MLA's c_kv / k_rope
 _POOL_LEAVES = ("k", "v", "c_kv", "k_rope")
 
 
+def page_kind(stack: str) -> str:
+    """The page kind of a stack's pool: the hybrid's shared-attention ring,
+    or linear pages."""
+    return "ring" if stack == "shared_attn" else "linear"
+
+
 def cache_page_kinds(cfg) -> Set[str]:
     """Which page kinds `cfg`'s cache contains: ``{"linear"}`` for the
-    attention families, the empty set for the SSM family, whose recurrent
-    state does not grow with the sequence (the engine then keeps the
-    per-slot state cache, as the reference's does)."""
+    attention families, ``{"ring"}`` for the hybrid (its shared block's
+    sliding-window ring), the empty set for the SSM family, whose
+    recurrent state does not grow with the sequence (the engine then keeps
+    the per-slot state cache, as the reference's does)."""
     check_family(cfg)
-    return set() if cfg.family == "ssm" else {"linear"}
+    return {"ssm": set(), "hybrid": {"ring"}}.get(cfg.family, {"linear"})
 
 
 class PageAccountingError(AssertionError):
@@ -54,16 +72,31 @@ class PageAccountingError(AssertionError):
     mismatch, block table mapping a page its slot does not own)."""
 
 
-def init_paged_cache(cfg, n_pages: int, page_size: int, device="cuda"):
+def init_paged_cache(cfg, n_pages: int, page_size: int, device="cuda",
+                     batch: Optional[int] = None):
     """Pool-shaped cache, one pool per block stack: {stack: {leaf: (L,
     n_pages, page_size, *row)}} over ``transformer.cache_leaves`` (k / v
     rows (Hkv, D); MLA's c_kv (dc,) and k_rope (1, dr)) in the model
-    dtype. Every stack's pool is indexed by the same page ids."""
+    dtype. Every stack's pool is indexed by the same page ids. The
+    hybrid's is mixed: {"layers": the Mamba2 state of `batch` slots
+    (``transformer.state_cache``), "shared_attn": {"k" / "v": (n_apps,
+    n_pages, page_size, Hkv, D)}}."""
+    kinds = cache_page_kinds(cfg)
+    if not kinds:
+        raise ValueError(f"family {cfg.family!r} has no pageable KV cache")
     dt = torch_dtype(cfg)
-    return {name: {leaf: torch.zeros((n, n_pages, page_size) + row,
-                                     dtype=dt, device=device)
-                   for leaf, row in cache_leaves(cfg).items()}
-            for name, n in stack_depths(cfg).items()}
+
+    def pool(n):
+        return {leaf: torch.zeros((n, n_pages, page_size) + row, dtype=dt,
+                                  device=device)
+                for leaf, row in cache_leaves(cfg).items()}
+    if "ring" in kinds:
+        if batch is None:
+            raise ValueError("the hybrid's pool sits beside per-slot state: "
+                             "pass batch")
+        return {"layers": state_cache(cfg, batch, device),
+                "shared_attn": pool(n_shared_apps(cfg))}
+    return {name: pool(n) for name, n in stack_depths(cfg).items()}
 
 
 def _pools(cache):
@@ -72,14 +105,26 @@ def _pools(cache):
             for name, pool in leaves.items() if name in _POOL_LEAVES]
 
 
-def paged_insert_slot(cache, single, tables: Dict[str, torch.Tensor]):
+def paged_insert_slot(cache, single, tables: Dict[str, torch.Tensor],
+                      slot: Optional[int] = None):
     """Scatter a freshly prefilled batch-1 rectangular cache (``single``:
-    per stack, each leaf (L, 1, rows, *row)) into the slot's pages, in
-    place. ``tables["linear"]``: the slot's (pages,) page-id vector, unmapped
-    tail entries 0 — rows in those pages land on the null page, which is
-    trash by design. Returns `cache`."""
-    ids = tables["linear"].long()
+    per stack, each leaf (L, 1, rows, *row)) into slot `slot`, in place.
+    Pool leaves go into the slot's pages: ``tables[kind]`` is the slot's
+    (pages,) page-id vector of the stack's page kind (:func:`page_kind`),
+    unmapped tail entries 0 — rows in those pages land on the null page,
+    which is trash by design; rows past the rectangle (a ring of
+    ``ring_pages * page_size`` rows longer than the window) are zero.
+    Slot-indexed state leaves (the hybrid's Mamba2 state) are copied
+    whole into slot `slot`. Returns `cache`."""
+    for stack, leaves in cache.items():
+        for name, leaf in leaves.items():
+            if name not in _POOL_LEAVES:
+                if slot is None:
+                    raise ValueError("a cache with per-slot state needs the "
+                                     "slot to insert into")
+                leaf[:, slot] = single[stack][name][:, 0].to(leaf.dtype)
     for stack, name, pool in _pools(cache):
+        ids = tables[page_kind(stack)].long()
         ps = pool.shape[2]
         x = single[stack][name][:, 0]                     # (L, rows, ...)
         pad = ids.shape[0] * ps - x.shape[1]
@@ -93,8 +138,8 @@ def paged_insert_slot(cache, single, tables: Dict[str, torch.Tensor]):
 
 def copy_page(cache, src: int, dst: int):
     """Copy-on-write on the device: duplicate page `src` into page `dst`
-    across every layer of every stack's pooled leaves, in place. Returns
-    `cache`."""
+    across every layer of every stack's pooled leaves, in place (state
+    leaves untouched). Returns `cache`."""
     for _, _, pool in _pools(cache):
         pool[:, dst] = pool[:, src]
     return cache
@@ -102,7 +147,8 @@ def copy_page(cache, src: int, dst: int):
 
 def kv_cache_bytes(cache) -> int:
     """Bytes held by the attention cache's leaves (k / v, or MLA's c_kv /
-    k_rope); 0 for the SSM family's state cache, as in the reference."""
+    k_rope; the hybrid's ring pool); the state leaves do not count (0 for
+    the SSM family's state cache), as in the reference."""
     return sum(t.numel() * t.element_size() for _, _, t in _pools(cache))
 
 
@@ -123,11 +169,15 @@ def paged_select_active(new, old, active):
 
 
 class PagedKVState:
-    """Host-side page allocator + per-slot linear block tables.
+    """Host-side page allocator + per-slot block tables of each page kind
+    (``kinds``: ``{"linear"}``, or the hybrid's ``{"ring"}`` with its
+    ``window``).
 
     Pages [1, n_pages) are allocatable; page 0 is the null page. The
     default pool (``n_pages=None``) holds one worst-case slot footprint
-    per slot (no overcommit). A smaller ``n_pages`` overcommits:
+    per slot (no overcommit): ``lin_pages`` linear pages for max_len rows
+    plus ``ring_pages`` ring pages for ``min(max_len, window)`` rows, the
+    ring mapped whole at admission. A smaller ``n_pages`` overcommits:
     admission gates on available pages, decode reserves lazily
     (``ensure``, ``reserve_rows``) and the engine preempts a slot when
     the pool runs dry.
@@ -145,21 +195,35 @@ class PagedKVState:
     """
 
     def __init__(self, max_batch: int, max_len: int, page_size: int,
-                 n_pages: Optional[int] = None, watermark: int = 0):
+                 n_pages: Optional[int] = None, watermark: int = 0,
+                 kinds: Set[str] = frozenset({"linear"}), window: int = 0):
+        if not kinds or set(kinds) - {"linear", "ring"}:
+            raise ValueError(f"page kinds {sorted(kinds)}: linear and/or "
+                             f"ring")
         ps = max(1, min(int(page_size), max_len))
         self.page_size = ps
-        self.lin_pages = -(-max_len // ps)
+        self.has_linear = "linear" in kinds
+        self.has_ring = "ring" in kinds
+        self.lin_pages = -(-max_len // ps) if self.has_linear else 0
+        win = min(max_len, window or max_len)
+        self.ring_pages = -(-win // ps) if self.has_ring else 0
+        per_slot = self.lin_pages + self.ring_pages
         if n_pages is None:
-            n_pages = max_batch * self.lin_pages + 1
-        if n_pages < self.lin_pages + 1:
+            n_pages = max_batch * per_slot + 1
+        if n_pages < per_slot + 1:
             raise ValueError(
                 f"kv_pool_pages={n_pages} cannot hold one slot's worst "
-                f"case ({self.lin_pages} pages + the null page); a lone "
+                f"case ({per_slot} pages + the null page); a lone "
                 f"request could never complete")
         self.n_pages = int(n_pages)
         self.watermark = int(watermark)
-        self.tables: Dict[str, np.ndarray] = {
-            "linear": np.zeros((max_batch, self.lin_pages), np.int32)}
+        self.tables: Dict[str, np.ndarray] = {}
+        if self.has_linear:
+            self.tables["linear"] = np.zeros((max_batch, self.lin_pages),
+                                             np.int32)
+        if self.has_ring:
+            self.tables["ring"] = np.zeros((max_batch, self.ring_pages),
+                                           np.int32)
         self._free = list(range(self.n_pages - 1, 0, -1))  # pop() ascending
         self._slot_pages: List[List[int]] = [[] for _ in range(max_batch)]
         self._mapped = [0] * max_batch        # linear pages mapped per slot
@@ -206,7 +270,10 @@ class PagedKVState:
         return int(self.cached.sum())
 
     def pages_for_prompt(self, n: int) -> int:
-        return -(-n // self.page_size)
+        """Pages an `n`-token prompt maps at admission: its linear pages
+        and the whole ring."""
+        lin = -(-n // self.page_size) if self.has_linear else 0
+        return lin + self.ring_pages
 
     # ---- lifecycle --------------------------------------------------------
 
@@ -249,28 +316,40 @@ class PagedKVState:
         :func:`paged_insert_slot`).
 
         shared: already-filled page ids (a prefix-index match) mapped
-        read-only as the slot's leading pages; only the suffix pages are
-        allocated. The refs are taken before any allocation, so a reclaim
-        that the allocation triggers cannot evict the pages being shared."""
+        read-only as the slot's leading linear pages; only the suffix pages
+        are allocated. The refs are taken before any allocation, so a
+        reclaim that the allocation triggers cannot evict the pages being
+        shared. A ring is mapped whole, ``ring_pages`` fresh pages."""
         if self._slot_pages[slot]:
             raise PageAccountingError(f"slot {slot} pages leaked")
         self._device_tables = None
-        k = self.pages_for_prompt(n)
-        if len(shared) > k:
-            raise ValueError("shared prefix longer than the prompt")
-        for p in shared:
-            self.ref[p] += 1
-        pages = list(shared) + self._alloc(k - len(shared))
-        self._slot_pages[slot].extend(pages)
-        self._mapped[slot] = k
-        row = self.tables["linear"][slot]
-        row[:] = 0
-        row[:k] = pages
-        return {"linear": row.copy()}
+        ids: Dict[str, np.ndarray] = {}
+        if self.has_linear:
+            k = -(-n // self.page_size)
+            if len(shared) > k:
+                raise ValueError("shared prefix longer than the prompt")
+            for p in shared:
+                self.ref[p] += 1
+            pages = list(shared) + self._alloc(k - len(shared))
+            self._slot_pages[slot].extend(pages)
+            self._mapped[slot] = k
+            row = self.tables["linear"][slot]
+            row[:] = 0
+            row[:k] = pages
+            ids["linear"] = row.copy()
+        elif shared:
+            raise ValueError("shared pages need a linear table")
+        if self.has_ring:
+            pages = self._alloc(self.ring_pages)
+            self._slot_pages[slot].extend(pages)
+            self.tables["ring"][slot] = pages
+            ids["ring"] = np.asarray(pages, np.int32)
+        return ids
 
     def ensure(self, slot: int, row: int) -> bool:
-        """Map the page that will hold cache row `row` (the next decode
-        write). False => pool exhausted (the caller preempts)."""
+        """Map the linear page that will hold cache row `row` (the next
+        decode write). False => pool exhausted (the caller preempts). Ring
+        pages are mapped whole at admission: nothing to map."""
         return self.reserve_rows(slot, row + 1)
 
     def reserve_rows(self, slot: int, n_rows: int) -> bool:
@@ -280,7 +359,10 @@ class PagedKVState:
         reclaim, with the reservation partially applied: the caller
         preempts somebody and retries (pages already mapped stay mapped,
         so a retry is idempotent). A mapped page may still be shared:
-        the engine copies it on write (:meth:`cow`)."""
+        the engine copies it on write (:meth:`cow`). Without a linear
+        table there is nothing to map."""
+        if not self.has_linear:
+            return True
         need = -(-n_rows // self.page_size)
         while self._mapped[slot] < need:
             if not self._ensure_free(1):
@@ -301,6 +383,8 @@ class PagedKVState:
         the device: rows past the committed frontier reconstruct to
         negative positions in the decode mask and are never read
         (``kernels.ref.paged_attention_ref``)."""
+        if not self.has_linear:
+            return 0
         keep = -(-n_rows // self.page_size)
         mapped = self._mapped[slot]
         if keep >= mapped:
@@ -309,6 +393,7 @@ class PagedKVState:
         dropped = [int(p) for p in row[keep:mapped]]
         row[keep:mapped] = 0
         for p in dropped:
+            # by value: _slot_pages interleaves linear and ring pages
             self._slot_pages[slot].remove(p)
         for p in reversed(dropped):
             self._unref(p)
@@ -317,14 +402,16 @@ class PagedKVState:
         return len(dropped)
 
     def release(self, slot: int) -> None:
-        """Drop the slot's mappings and zero its block table row (a later
-        occupant can never read a stale mapping). Pages with other sharers
-        or held by the index survive; the others return to the free list."""
+        """Drop the slot's mappings (linear and ring) and zero its block
+        table rows (a later occupant can never read a stale mapping).
+        Pages with other sharers or held by the index survive; the others
+        return to the free list."""
         for p in reversed(self._slot_pages[slot]):
             self._unref(p)
         self._slot_pages[slot] = []
         self._mapped[slot] = 0
-        self.tables["linear"][slot] = 0
+        for t in self.tables.values():
+            t[slot] = 0
         self._device_tables = None
 
     def borrow_pages(self, k: int) -> List[int]:
@@ -352,9 +439,10 @@ class PagedKVState:
         """Audit the pool; raise :class:`PageAccountingError` on the first
         violation. Checked: free <=> (ref == 0 and not cached); each ref
         equals the number of slots mapping the page plus one if it is
-        borrowed; table rows map only pages their slot owns (never a
-        borrowed one), each once, as a dense prefix of exactly ``_mapped``
-        pages; no page is leaked."""
+        borrowed; table rows of every kind map only pages their slot owns
+        (never a borrowed one), each once; linear rows as a dense prefix
+        of exactly ``_mapped`` pages, which are all the slot's pages but
+        its ring's; no page is leaked."""
         def fail(msg: str):
             raise PageAccountingError(f"page accounting violated: {msg}")
 
@@ -388,25 +476,31 @@ class PagedKVState:
             if p not in free and self.ref[p] == 0 and not self.cached[p]:
                 fail(f"page {p} leaked (unreferenced, uncached, not on "
                      f"the free list)")
-        tab = self.tables["linear"]
-        for slot in range(tab.shape[0]):
-            own = set(self._slot_pages[slot])
-            row = tab[slot]
-            m = self._mapped[slot]
-            mapped = [int(p) for p in row if p != 0]
-            for p in mapped:
-                if p not in own:
-                    fail(f"slot {slot} table maps page {p} it does not own"
-                         + (" (freed)" if p in free else "")
-                         + (" (borrowed)" if p in self.external else ""))
-            if len(set(mapped)) != len(mapped):
-                fail(f"slot {slot} table maps a page twice")
-            if (row[:m] == 0).any() or (row[m:] != 0).any():
-                fail(f"slot {slot} linear row not a dense prefix of {m} "
-                     f"pages")
-            if len(self._slot_pages[slot]) != m:
-                fail(f"slot {slot} owns {len(self._slot_pages[slot])} pages "
-                     f"but maps {m}")
+        for kind, tab in self.tables.items():
+            for slot in range(tab.shape[0]):
+                own = set(self._slot_pages[slot])
+                mapped = [int(p) for p in tab[slot] if p != 0]
+                for p in mapped:
+                    if p not in own:
+                        fail(f"slot {slot} {kind} table maps page {p} it "
+                             f"does not own"
+                             + (" (freed)" if p in free else "")
+                             + (" (borrowed)" if p in self.external
+                                else ""))
+                if len(set(mapped)) != len(mapped):
+                    fail(f"slot {slot} {kind} table maps a page twice")
+        if self.has_linear:
+            for slot, row in enumerate(self.tables["linear"]):
+                m = self._mapped[slot]
+                if (row[:m] == 0).any() or (row[m:] != 0).any():
+                    fail(f"slot {slot} linear row not a dense prefix of {m} "
+                         f"pages")
+                ring = int((self.tables["ring"][slot] != 0).sum()) \
+                    if self.has_ring else 0
+                if len(self._slot_pages[slot]) - ring != m:
+                    fail(f"slot {slot} owns "
+                         f"{len(self._slot_pages[slot]) - ring} linear "
+                         f"pages but maps {m}")
 
     # ---- prefix-cache sharing (serve.prefix) ------------------------------
 
@@ -433,8 +527,9 @@ class PagedKVState:
                                row1: int) -> Optional[int]:
         """First logical page covering rows [row0, row1) that `slot`
         cannot write privately (shared with another slot or held by the
-        index); None when the whole range is private."""
-        if row0 >= row1:
+        index); None when the whole range is private (or there is no linear
+        table: ring pages are never shared)."""
+        if not self.has_linear or row0 >= row1:
             return None
         row = self.tables["linear"][slot]
         for i in range(row0 // self.page_size, -(-row1 // self.page_size)):

@@ -52,11 +52,13 @@ def pick_preemption_victim(candidates: List[Tuple[int, int, int]]) -> int:
 
 def cache_insert_slot(pool, single, slot: int):
     """Insert a batch-1 cache into slot `slot` of a pooled per-slot cache
-    (batch axis 1 of every leaf), in place: the leading rows of a
-    rectangle, or the whole of an SSM state leaf (the f32 ``ssm`` state
-    and every row of each conv ring, whose short-prompt tail the prefill
-    right-aligns behind zeros, so no row of the previous occupant
-    survives)."""
+    (batch axis 1 of every leaf of ``"layers"``), in place: the leading
+    rows of a rectangle, or the whole of an SSM state leaf (the f32
+    ``ssm`` state and every row of each conv ring, whose short-prompt tail
+    the prefill right-aligns behind zeros, so no row of the previous
+    occupant survives). Only the state leaves: the hybrid's shared
+    attention ring lives in the paged pool (``paging.paged_insert_slot``
+    inserts both)."""
     for name, leaf in pool["layers"].items():
         src = single["layers"][name]
         leaf[:, slot:slot + 1, :src.shape[2]] = src.to(leaf.dtype)
@@ -64,15 +66,17 @@ def cache_insert_slot(pool, single, slot: int):
 
 
 def cache_select_active(new, old, active):
-    """Per-slot select: active slots take the freshly written cache,
-    the others keep their old entries (the engine's decode commits the
-    SSM state this way, layer by layer: ``transformer._commit_state``)."""
+    """Per-slot select of the state leaves (``"layers"``): active slots
+    take the freshly written state, the others keep their old entries (the
+    engine's decode commits the SSM state this way, layer by layer:
+    ``transformer._commit_state``). Any other stack of a mixed cache (the
+    hybrid's ring pool) passes through from `new`."""
     out = {}
     for name, n in new["layers"].items():
         shape = [1] * n.dim()
         shape[1] = -1
         out[name] = torch.where(active.reshape(shape), n, old["layers"][name])
-    return {"layers": out}
+    return dict(new, layers=out)
 
 
 class SlotScheduler:

@@ -19,7 +19,8 @@ from repro_torch.api import NanoQuantModel
 from repro_torch.configs import get_smoke
 from repro_torch.kernels import binary_matmul, megakernel, paged_attention, ref
 from repro_torch.kernels.ops import KernelPolicy
-from repro_torch.quant.surgery import abstract_quantized_params
+from repro_torch.quant.surgery import (abstract_quantized_params,
+                                       merge_projection_groups)
 from repro_torch.serve.engine import ServeConfig
 from repro_torch.serve.scheduler import Request
 from repro_torch.testing import random_packed_params
@@ -276,10 +277,31 @@ def test_paged_attention_after_a_smaller_shape(dev, dt):
                "paged attention after a smaller shape")
 
 
-def _mega_operands(rng, dev, dt, B, pages, ko_pad=0, D=32, PS=16):
-    q, kp, vp, bt, pos, _ = _paged(rng, dev, dt, B=B, hq=8, hkv=2, D=D,
-                                   PS=PS, pages=pages)
-    K, nq, nkv, R = 256, 8 * D, 2 * D, 96
+def _ring(rng, dev, dt, B=8, hq=8, hkv=8, D=64, PS=16, pages=4):
+    """Whole ring tables (every entry mapped, shuffled), the last slot
+    all-null; q_pos past the ring (up to three wraps) and cache_pos =
+    q_pos % rows, as the hybrid's decode passes them."""
+    n_pages = B * pages + 1
+    kp = torch.from_numpy(rng.standard_normal((n_pages, PS, hkv, D),
+                                              np.float32)).to(dev, dt)
+    vp = torch.from_numpy(rng.standard_normal((n_pages, PS, hkv, D),
+                                              np.float32)).to(dev, dt)
+    q = torch.from_numpy(rng.standard_normal((B, 1, hq, D), np.float32)
+                         ).to(dev, dt)
+    bt = rng.permutation(np.arange(1, n_pages)).astype(np.int32).reshape(
+        B, pages)
+    bt[-1] = 0
+    rows = pages * PS
+    pos = rng.integers(rows, 4 * rows, size=B).astype(np.int32)
+    return (q, kp, vp, torch.from_numpy(bt).to(dev),
+            torch.from_numpy(pos).to(dev), torch.from_numpy(pos % rows).to(dev))
+
+
+def _mega_operands(rng, dev, dt, B, pages, ko_pad=0, D=32, PS=16,
+                   hq=8, hkv=2, ring=False):
+    q, kp, vp, bt, pos, cpos = (_ring if ring else _paged)(
+        rng, dev, dt, B=B, hq=hq, hkv=hkv, D=D, PS=PS, pages=pages)
+    K, nq, nkv, R = 256, hq * D, hkv * D, 96
     s1 = rng.standard_normal((3, nq), np.float32) / R ** 0.5
     s1[1:, nkv:] = 0.0
     mqkv = {"qv": _words(rng, 3, K // 32, R), "qu_t": _words(rng, 3, R // 32,
@@ -298,7 +320,7 @@ def _mega_operands(rng, dev, dt, B, pages, ko_pad=0, D=32, PS=16):
     wo = {k: v.to(dev) for k, v in wo.items()}
     x = torch.from_numpy(rng.standard_normal((B, K), np.float32)).to(dev, dt)
     kw = dict(head_dim=D, dims=(nq, nkv), theta=5e5, scale=D ** -0.5)
-    return (x, mqkv, wo, kp, vp, bt, pos, pos), kw
+    return (x, mqkv, wo, kp, vp, bt, pos, cpos), kw
 
 
 @pytest.mark.cuda
@@ -319,6 +341,62 @@ def test_megakernel_vs_plain(dev, dt, ko_pad, B, pages, window):
     want = ref.decode_step_ref(*args, window=window, **kw)
     for nm, a, b in zip(("y", "k_new", "v_new"), want, got):
         _close(a, b, TOL[dt], f"megakernel {nm}")
+
+
+# ring-wrapped tables (cache_pos = q_pos % rows, q_pos past the rows):
+# (query heads, kv heads) of zamba2's MHA (G = 1) and of a GQA (G = 4),
+# D 64, tables of 4, 32 and 64 entries of 16 rows, windows 0, 20 and rows
+RING_HEADS = [(8, 8), (8, 2)]
+RING_PAGES = [4, 32, 64]
+
+
+def _window(name, pages, PS=16):
+    return {"none": 0, "20": 20, "rows": pages * PS}[name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("hq,hkv", RING_HEADS)
+@pytest.mark.parametrize("pages", RING_PAGES)
+@pytest.mark.parametrize("window", ["none", "20", "rows"])
+def test_paged_attention_at_a_wrapped_ring_vs_plain(dev, dt, hq, hkv, pages,
+                                                    window):
+    """#2 at ring-wrapped tables (the hybrid's shared-attention decode):
+    row r of a slot holds position q_pos - (cache_pos - r) mod rows; every
+    slot but the last (all-null) maps a whole ring."""
+    args = _ring(np.random.default_rng(60 + pages + hkv), dev, dt, hq=hq,
+                 hkv=hkv, pages=pages)
+    w = _window(window, pages)
+    n0 = paged_attention.paged_decode_attention.launches
+    got = paged_attention.paged_decode_attention(*args, window=w,
+                                                 scale=0.125)
+    torch.cuda.synchronize()
+    assert paged_attention.paged_decode_attention.launches == n0 + 1
+    want = ref.paged_attention_ref(*args, window=w, scale=0.125)
+    _close(want, got, TOL[dt], f"ring paged attention G={hq // hkv}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("hq,hkv", RING_HEADS)
+@pytest.mark.parametrize("pages", RING_PAGES)
+@pytest.mark.parametrize("window", ["none", "20", "rows"])
+def test_megakernel_at_a_wrapped_ring_vs_plain(dev, dt, hq, hkv, pages,
+                                               window):
+    """#3 at ring-wrapped tables: the walk leaves out row q_pos % rows and
+    folds the fresh entry in its place. Held on the slots that map pages
+    (the all-null slot maps the null page `pages` times, so the plain
+    version's fresh row lands in every copy)."""
+    args, kw = _mega_operands(np.random.default_rng(70 + pages + hkv), dev,
+                              dt, 8, pages, D=64, hq=hq, hkv=hkv, ring=True)
+    w = _window(window, pages)
+    n0 = megakernel.decode_step_megakernel_raw.launches
+    got = megakernel.decode_step_megakernel_raw(*args, window=w, **kw)
+    torch.cuda.synchronize()
+    assert megakernel.decode_step_megakernel_raw.launches == n0 + 1
+    want = ref.decode_step_ref(*args, window=w, **kw)
+    for nm, a, b in zip(("y", "k_new", "v_new"), want, got):
+        _close(a[:-1], b[:-1], TOL[dt], f"ring megakernel {nm}")
 
 
 @pytest.mark.cuda
@@ -903,3 +981,83 @@ def test_ssm_decode_step_and_engine_match_plain(dev):
     assert (megakernel.decode_step_megakernel_raw.launches,
             paged_attention.paged_decode_attention.launches,
             binary_matmul.packed_matmul.launches) == others
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("megakernel_on", [True, False])
+def test_hybrid_decode_step_and_engine_match_plain(dev, megakernel_on):
+    """The zamba2-1.2b smoke model on the card (min_dim 8: all six mixer
+    projections pack, wdt included, and the shared block): one decode step
+    of three slots over ring tables (slot 0 before its ring wraps, slot 1
+    past it, slot 2 inactive), kernels against plain (logits, the active
+    slots' state, the ring pages; the inactive slot's state bit for bit),
+    then the engine's greedy tokens at a window of 16 on pages of 8 (the
+    rings wrap) against the plain-oracle engine's (f32). A decode forward
+    launches #1 six times per layer plus, per application of the shared
+    block, twice with #3 or four times with #2 (megakernel off)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as TT
+    cfg = dataclasses.replace(get_smoke("zamba2-1.2b"), dtype="float32",
+                              sliding_window=16)
+    tree = random_packed_params(abstract_quantized_params(cfg, 1.0,
+                                                          min_dim=8), 0)
+    m = NanoQuantModel.from_numpy(tree, cfg, device=dev)
+    pol = KernelPolicy(mode="cuda", megakernel=megakernel_on)
+    params = {"ref": m.params, "cuda": merge_projection_groups(m.params)}
+    rng = np.random.default_rng(4)
+    state = {k: torch.from_numpy(rng.standard_normal(
+        tuple(v.shape)).astype(np.float32))
+        for k, v in TT.state_cache(cfg, 3, "cpu").items()}
+    bt = torch.tensor([[1, 2], [3, 4], [0, 0]], dtype=torch.int32)
+    pool = {leaf: torch.from_numpy(rng.standard_normal(
+        (2, 5, 8, cfg.n_kv_heads, cfg.head_dim)).astype(np.float32))
+        for leaf in ("k", "v")}
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(3, 1))
+                           ).to(dev)
+    pos = torch.tensor([5, 30, 7], device=dev)
+    active = torch.tensor([True, True, False], device=dev)
+    out = {}
+    for mode, policy in (("ref", KernelPolicy(mode="ref")), ("cuda", pol)):
+        cache = {"layers": {k: v.to(dev, copy=True) for k, v in state.items()},
+                 "shared_attn": {k: v.to(dev, copy=True)
+                                 for k, v in pool.items()}}
+        with torch.inference_mode(), ops.kernel_policy(policy):
+            logits, cache = TT.decode_step(
+                params[mode], cfg, tok, cache, pos,
+                block_tables={"ring": bt.to(dev)}, active=active)
+        out[mode] = (logits, cache)
+    _close(out["ref"][0][:2], out["cuda"][0][:2], 1e-4, "hybrid logits")
+    for k, v in out["cuda"][1]["layers"].items():
+        _close(out["ref"][1]["layers"][k][:, :2], v[:, :2], 1e-4,
+               f"hybrid state {k}")
+        assert torch.equal(v[:, 2].cpu(), state[k][:, 2]), k
+    for k, v in out["cuda"][1]["shared_attn"].items():
+        _close(out["ref"][1]["shared_attn"][k][:, 1:], v[:, 1:], 1e-4,
+               f"hybrid ring pool {k}")
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (5, 7, 1, 12)]
+
+    def serve(policy, mk):
+        eng = m.engine(ServeConfig(greedy=True, debug=True, page_size=8,
+                                   megakernel=mk),
+                       max_batch=2, max_len=48, policy=policy)
+        assert set(eng.kv.tables) == {"ring"} and eng.kv.ring_pages == 2
+        for uid, (p, b) in enumerate(zip(prompts, (26, 20, 30, 9))):
+            eng.submit(Request(uid, p, max_new_tokens=b))
+        return {u: r.output for u, r in eng.run().items()}, eng.stats
+
+    counters = (binary_matmul.fused_lowrank_matmul_grouped,
+                paged_attention.paged_decode_attention,
+                megakernel.decode_step_megakernel_raw,
+                binary_matmul.packed_matmul)
+    want, _ = serve(KernelPolicy(mode="ref"), None)
+    n0 = [c.launches for c in counters]
+    got, st = serve(KernelPolicy(mode="cuda"), megakernel_on)
+    for u in want:
+        np.testing.assert_array_equal(want[u], got[u])
+    n = [c.launches - b for c, b in zip(counters, n0)]
+    apps, mixer = TT.n_shared_apps(cfg), 6 * cfg.n_layers
+    pre, dec = st["admissions"], st["decode_steps"]
+    assert n[0] == (mixer + 4 * apps) * pre \
+        + (mixer + (2 if megakernel_on else 4) * apps) * dec
+    assert n[1:] == ([0, apps * dec, 0] if megakernel_on
+                     else [apps * dec, 0, 0])
