@@ -94,7 +94,8 @@ Phases, each printing its own line(s); any failure exits non-zero:
    kv head; then the speculative path's shapes: #4's two launches of the
    draft's gate (rank 3488 of 6976, read in place) at M = 4 and #1's
    merged QKV at the verify's M = 20;
-6. qwen1.5-110b engine — full width and full depth (80 layers) at 1.0
+6. qwen1.5-110b engine — full width, cut to 40 of its 80 layers
+   (``DEPTH``, so that the script keeps inside its time limit), at 1.0
    bpw, weights drawn on the card from the seed: 4 slots, max_len 128,
    4 requests of 16-64 prompt tokens and 16 new tokens, 2 admitted after
    three steps, on the paths ``qwen1.5-110b`` and ``qwen1.5-110b-spec``.
@@ -111,9 +112,9 @@ Phases, each printing its own line(s); any failure exits non-zero:
    4096; M 8, the capacity of a decode step and of a prefill of up to 64
    tokens, and M 40, a 256-token prefill's; f32 and bf16) against its
    plain version, timed beside the batched library call over unpacked
-   bf16 factors; then the model at full width and full depth (94
-   layers, 128 experts, top-8) at 1.0 bpw, weights and routers drawn on
-   the card, under the qwen1.5-110b traffic on the path
+   bf16 factors; then the model at full width, cut to 47 of its 94
+   layers (``DEPTH``; 128 experts, top-8), at 1.0 bpw, weights and
+   routers drawn on the card, under the qwen1.5-110b traffic on the path
    ``qwen3-moe-235b-a22b`` (#1 and #2 only, #1 launched at the expert
    grid three times per MoE layer and forward). Its f32 gate also reads
    the router: a request's first expert choice that differs from the
@@ -179,7 +180,31 @@ Phases, each printing its own line(s); any failure exits non-zero:
    peak memory, the ring pool's bytes per row and slot and the state's
    bytes per slot) and its decode window under the profiler, device ms
    per step split by op group (``zamba_split``);
-12. the seconds each phase took, the ``kernels`` JSON line (launches per
+12. llama-3.2-vision-90b — #3 at the VLM's self-attention decode (B 4 and
+   8, 64 query heads over 8 kv heads: G 8, D 128, K 8192, merged-QKV and
+   wo rank 4064, pages of 64 at 2 and 32 table entries) against its plain
+   version beside its unfused chain; #1 at the image K/V projection (wk,
+   K 8192 -> N 1024 at rank 864, M = 4 images x 1024 patches = 4096) and
+   at the cross block's wq at M 4; #4 at the vision FFN's four two-call
+   stages (rank 6336) at M 4; f32 and bf16. Then the model at full width
+   and full depth (100 layers: 20 groups of 4 self-attention blocks over
+   the paged pool and one gated cross-attention block over per-slot image
+   K/V) at 1.0 bpw, weights drawn on the card, on the paths
+   ``llama-3.2-vision-90b`` (the engine under the qwen1.5-110b traffic,
+   ``VISION``; no request carries an image, as in the reference's engine,
+   so the image K/V is zero; #1, #3 and #4) and
+   ``llama-3.2-vision-90b-image`` (the port's ``generate`` of
+   ``VISION_IMAGE``: 4 prompts of 32 tokens, each with its own 1024 seeded
+   image tokens, 8 new; #1, its image K/V projection at M 4096, #3 and
+   #4), launches of #1-#4 per forward asserted from the template (a quiet
+   fallback from #3 to its chain fails the run), each gated like the llama
+   paths against the same entry point on the plain oracles. Then one bf16
+   run over ``VISION`` (decode tok/s, TTFT, peak memory, the pool's bytes
+   per token and the image K/V's bytes per slot) and its decode window
+   under the profiler, device ms per step split by op group
+   (``vision_split``), and the bf16 image prefill of ``VISION_IMAGE``
+   under the profiler (host ms, device ms by kernel);
+13. the seconds each phase took, the ``kernels`` JSON line (launches per
    serving path, each path's counts set to 0 just before its f32 run;
    ``chaos`` counts its kernel legs; ``restart`` launches in its child
    processes and is not counted), then the ``ok`` JSON line.
@@ -282,6 +307,20 @@ ZAMBA_WRAP = {"arch": "zamba2-1.2b", "n": 4, "lens": (4000, 4081),
               "up_front": 4, "after": 0, "new": 128, "max_batch": 4,
               "max_len": 4224}
 
+# llama-3.2-vision-90b (VLM: 20 groups of 4 self-attention blocks, each
+# followed by one gated cross-attention block over per-slot image K/V)
+# under the qwen1.5-110b traffic. A request carries no image, as in the
+# reference's engine, so every cross layer reads zero image K/V
+VISION = dict(QWEN, arch="llama-3.2-vision-90b")
+# the VLM's image entry point: ``generate`` of `n` prompts of `prompt`
+# tokens, each with its own 1024 patch embeddings drawn from the seed, and
+# `new` new tokens: the image K/V projection runs #1 at M = n x 1024
+VISION_IMAGE = {"arch": "llama-3.2-vision-90b", "n": 4, "prompt": 32,
+                "new": 8}
+# depth cuts that keep the script inside its time limit: the layers each
+# model is served at (width untouched; every other model at full depth)
+DEPTH = {"qwen1.5-110b": 40, "qwen3-moe-235b-a22b": 47}
+
 # self-speculative decoding: the draft reads half of every packed rank
 SPEC = {"spec_rank_frac": 0.5, "spec_k": 4}
 
@@ -336,6 +375,8 @@ PATHS = (
      (MEGA, PACKED)),
     ("zamba2-1.2b-wrap", ZAMBA_WRAP, {}, None, None, None, (FUSED, MEGA),
      (PAGED, PACKED)),
+    ("llama-3.2-vision-90b", VISION, {}, None, None, None,
+     (FUSED, MEGA, PACKED), (PAGED,)),
 )
 
 # the kernels' names in a profiler trace, and the lm head's matmul
@@ -412,7 +453,7 @@ def main():
     free()
     phase("llama3.2-1b bf16 shared-prefix (SGLang mix) runs and profiles")
 
-    qwen = make_on_card("qwen1.5-110b")
+    qwen = make_on_card("qwen1.5-110b", DEPTH["qwen1.5-110b"])
     lines[PACKED] = check_qwen_kernels(qwen, report)
     phase("qwen1.5-110b kernels")
     report["qwen1.5-110b"] = serve_paths(qwen, QWEN, launches)
@@ -438,7 +479,7 @@ def main():
     free()
     phase("qwen3-4b bf16 run")
 
-    moe = make_on_card("qwen3-moe-235b-a22b")
+    moe = make_on_card("qwen3-moe-235b-a22b", DEPTH["qwen3-moe-235b-a22b"])
     line = check_expert_grid(moe, report)
     lines[FUSED]["expert_grid"] = [
         {k: r[k] for k in r if k in (
@@ -529,6 +570,35 @@ def main():
     free()
     phase("zamba2-1.2b bf16 run and profile")
 
+    vision = make_on_card("llama-3.2-vision-90b")
+    rows = check_vision_kernels(vision, report)
+    keep = ("model", "group", "stage", "B", "pages", "G", "D", "M", "K", "R",
+            "N", "dtype", "ms", "plain_ms", "library_ms", "chain_ms",
+            "cold_l2_ms", "bound_ms", "bound_by", "bound_share",
+            "max_abs_err")
+    for i, kern in ((FUSED, "fused_lowrank_matmul_grouped"),
+                    (MEGA, "decode_step_megakernel_raw"),
+                    (PACKED, "packed_matmul")):
+        lines[i]["vision"] = [{k: r[k] for k in r if k in keep} for r in rows
+                              if r["kernel"] == kern]
+    phase("llama-3.2-vision-90b kernels")
+    res = report["llama-3.2-vision-90b"] = serve_paths(vision, VISION,
+                                                        launches)
+    report["llama-3.2-vision-90b-image"] = vision_image_path(vision,
+                                                             launches)
+    phase("llama-3.2-vision-90b f32 engine and generate paths")
+    vision = cast(vision, torch.bfloat16)
+    free()
+    res["bf16"] = bf16_run(vision, VISION, report)
+    res["bf16"].update(vision_bytes(vision, VISION))
+    res["bf16_decode_profile"] = profile_decode(
+        vision, VISION, [res["bf16"]["decode_step_ms"]], split=vision_split)
+    report["llama-3.2-vision-90b-image"]["bf16_prefill"] = \
+        profile_image_prefill(vision)
+    del vision
+    free()
+    phase("llama-3.2-vision-90b bf16 runs and profiles")
+
     kernels = []
     for i, (name, source, replaces) in enumerate(KERNELS):
         rec = lines[i]
@@ -546,7 +616,7 @@ def main():
                        "B", "pages", "dtype")},
             **{k: rec[k] for k in ("instruction", "plan", "bound_share",
                                    "chain_ms", "cold_l2_ms", "long_context",
-                                   "ring")
+                                   "ring", "vision")
                if k in rec}})
     report["kernels"] = kernels
     report["script_s"] = time.perf_counter() - t_start
@@ -583,23 +653,26 @@ def make_llama():
                                      quant={"target_bpw": 1.0, "min_dim": 48})
 
 
-def make_on_card(arch):
-    """`arch` at full width and depth, 1.0 bpw, in f32, every leaf drawn on
-    the card from the seed (qwen1.5-110b: 13.5 GB of packed words and 10 GB
-    of f32 embedding and lm head; qwen3-moe-235b-a22b: 26.5 GiB of packed
-    words, its routers f32)."""
+def make_on_card(arch, n_layers=None):
+    """`arch` at full width, 1.0 bpw, in f32, every leaf drawn on the card
+    from the seed, at full depth or at `n_layers` (:data:`DEPTH`;
+    qwen1.5-110b at full depth: 13.5 GB of packed words and 10 GB of f32
+    embedding and lm head; qwen3-moe-235b-a22b: 26.5 GiB of packed words,
+    its routers f32)."""
     import torch
     from repro_torch.api import NanoQuantModel
     from repro_torch.configs import get_config
     from repro_torch.quant.surgery import abstract_quantized_params
     from repro_torch.testing import random_packed_params_device
     cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     tree = random_packed_params_device(abstract_quantized_params(cfg, 1.0),
                                        SEED, "cuda")
     torch.cuda.synchronize()
-    log(f"{arch} f32 weights drawn on the card: "
+    log(f"{arch} f32 weights drawn on the card ({cfg.n_layers} layers): "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB in "
         f"{time.perf_counter() - t0:.3f} s")
     return NanoQuantModel(tree, cfg)
@@ -719,11 +792,12 @@ def _dtypes():
 # ---------------------------------------------------------------------------
 
 
-def layer0(model):
-    """Layer 0's views with its merged QKV / gate-up groups added."""
+def layer0(model, stack="layers"):
+    """Layer 0 of `stack` (its views) with its merged QKV / gate-up groups
+    added."""
     from repro_torch.models.transformer import split_layers
     from repro_torch.quant.surgery import merge_projection_groups
-    return merge_projection_groups(split_layers(model.params)["layers"][0])
+    return merge_projection_groups(split_layers(model.params)[stack][0])
 
 
 def check_llama_kernels(model, report):
@@ -798,7 +872,9 @@ def check_fused(lp, names, ms, gen, model_name):
                "wz": ("mixer", "wz", ("wz",)),
                "wB": ("mixer", "wB", ("wB",)),
                "wdt": ("mixer", "wdt", ("wdt",)),
-               "out_proj": ("mixer", "out_proj", ("out_proj",))}
+               "out_proj": ("mixer", "out_proj", ("out_proj",)),
+               "image_wk": ("xattn", "wk", ("wk",)),
+               "cross_wq": ("xattn", "wq", ("wq",))}
     rows = []
     for name in names:
         blk, key, lins = members[name]
@@ -1062,7 +1138,51 @@ def check_zamba_kernels(model, report):
     return rows
 
 
-def _check_packed(stage, w, sk, sn, m, dt, tdt, gen):
+def check_vision_kernels(model, report):
+    """#3 at llama-3.2-vision-90b's self-attention decode (B 4 and 8, 64
+    query heads over 8 kv heads: G 8, D 128, K 8192, merged-QKV rank 4064,
+    wo rank 4064, pages of 64 rows at 2 and 32 table entries, the last
+    slot all-null) against its plain version, beside its unfused chain;
+    #1 at the image K/V projection (the first cross layer's wk, K 8192 ->
+    N 1024 at rank 864, at M = 4 images x 1024 patches = 4096) and at the
+    cross block's wq (K 8192 -> 8192 at rank 4064) at the decode's M 4,
+    beside ``torch.matmul`` over the unpacked factors; #4 at the four
+    two-call stages of the first self block's FFN (rank 6336) at M 4, the
+    decode's most frequent launches. f32 and bf16. Returns every row."""
+    import torch
+    from repro_torch.models.transformer import split_layers
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    cfg = model.cfg
+    lp = layer0(model, "self_layers")
+    rows = []
+    for dt, tdt in _dtypes():
+        for B in (4, 8):
+            for pages in (2, LONG_PAGES):
+                case = _paged_case(cfg, tdt, gen, B=B, pages=pages,
+                                   seed=SEED + 17)
+                rows.append(_check_mega(case, lp, cfg, dt))
+                del case
+    free()
+    cp = split_layers(model.params)["cross_layers"][0]
+    m = VISION["max_batch"]
+    rows += check_fused(cp, ("image_wk",),
+                        (VISION_IMAGE["n"] * cfg.n_image_tokens,), gen,
+                        cfg.name)
+    rows += check_fused(cp, ("cross_wq",), (m,), gen, cfg.name)
+    for stage, lin, leaf in STAGES:
+        p = lp["ffn"][lin]
+        sk, sn = (p["s2"], None) if leaf == "qv" else (None, p["s1"])
+        for dt, tdt in _dtypes():
+            rows.append(_check_packed(stage, p[leaf], sk, sn, m, dt, tdt,
+                                      gen, cfg.name))
+    report["vision_kernel_checks"] = rows
+    del lp, cp
+    free()
+    return rows
+
+
+def _check_packed(stage, w, sk, sn, m, dt, tdt, gen,
+                  model_name="qwen1.5-110b"):
     import torch
     from repro_torch.kernels import binary_matmul, ref
     KW, N = w.shape
@@ -1083,7 +1203,7 @@ def _check_packed(stage, w, sk, sn, m, dt, tdt, gen):
     def library():
         y = torch.matmul(x if skt is None else x * skt, W)
         return y if snt is None else y * snt
-    rec = _timed({"kernel": "packed_matmul", "model": "qwen1.5-110b",
+    rec = _timed({"kernel": "packed_matmul", "model": model_name,
                   "stage": stage, "M": m, "K": K, "N": N, "dtype": dt,
                   "max_abs_err": abs_err, "rel_err": rel,
                   "contiguous": w.is_contiguous()}, kern, plain, library)
@@ -1094,8 +1214,8 @@ def _check_packed(stage, w, sk, sn, m, dt, tdt, gen):
     rec["bound_ms"], rec["bound_by"] = bound(
         4 * KW * N + io, (2.0 * m * K * N, BF16_TC_FLOPS_S))
     _tensor_core_row(rec, binary_matmul.packed_matmul.plan)
-    log(f"kernel packed_matmul {stage:22s} M={m:<3d} {dt:4s} rel_err="
-        f"{rel:.2e} ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+    log(f"kernel packed_matmul {model_name} {stage:22s} M={m:<3d} {dt:4s} "
+        f"rel_err={rel:.2e} ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
         f"library_ms={rec['library_ms']:.4f} bound_ms={rec['bound_ms']:.5f} "
         f"({rec['bound_by']}; {100 * rec['bound_share']:.1f}% of it) "
         f"ks={rec['plan']['ks']}")
@@ -1114,7 +1234,7 @@ def _tensor_core_row(rec, plan):
 def _dims(lp, name, eff_rank=None):
     """(rank, d_out) of layer ``lp``'s unmerged packed linear ``name``,
     the rank capped at ``eff_rank`` when a view reads fewer columns."""
-    p = next(lp[blk][name] for blk in ("attn", "ffn", "mixer")
+    p = next(lp[blk][name] for blk in ("attn", "ffn", "mixer", "xattn")
              if name in lp.get(blk, {}))
     r = int(p["qv"].shape[-1])
     return min(r, eff_rank or r), int(p["qu_t"].shape[-1])
@@ -1509,26 +1629,36 @@ def serve(model, traffic, policy, megakernel=None, spec=None,
     return {u: r.output for u, r in done.items()}, eng, wall, st
 
 
-def _margin(model, prompt, prefix):
+def _margin(model, prompt, prefix, image=None):
     """Top-2 logit margin and tolerance of the plain path at the step
-    that produced the next token after `prefix` (teacher-forced)."""
+    that produced the next token after `prefix` (teacher-forced). The
+    VLM's forward reads `image` (1, n_img, d), or zeros: the image K/V an
+    engine's request meets."""
     import numpy as np
     import torch
     from repro_torch.kernels.ops import KernelPolicy, kernel_policy
     from repro_torch.models import transformer as TT
+    cfg = model.cfg
     toks = np.concatenate([prompt, np.asarray(prefix, np.int64)])[None]
+    if cfg.family == "vlm" and image is None:
+        image = torch.zeros((1, cfg.n_image_tokens, cfg.d_model),
+                            dtype=TT.torch_dtype(cfg), device=model.device)
     with kernel_policy(KernelPolicy(mode="ref")), torch.inference_mode():
-        lg = TT.forward(model.params, model.cfg,
-                        torch.from_numpy(toks).to(model.device))[0, -1]
+        lg = TT.forward(model.params, cfg,
+                        torch.from_numpy(toks).to(model.device),
+                        image)[0, -1]
     lg = lg.float()
     top = torch.topk(lg, 2).values
     return float(top[0] - top[1]), LOGITS_TOL * max(1.0, float(lg.abs().max()))
 
 
-def gate(model, traffic, name, got, want):
+def gate(model, traffic, name, got, want, prompts=None, images=None):
     """Identical greedy tokens, or a first divergence at a near-tie of
-    the plain path (top-2 margin below the logits tolerance)."""
-    prompts = _requests(model.cfg, traffic)
+    the plain path (top-2 margin below the logits tolerance). `prompts`
+    default to the traffic's; `images` (B, n_img, d), the VLM's, one per
+    prompt."""
+    if prompts is None:
+        prompts = _requests(model.cfg, traffic)
     worst = None
     for uid in sorted(want):
         diff = [i for i, (a, b) in enumerate(zip(want[uid], got[uid]))
@@ -1536,7 +1666,9 @@ def gate(model, traffic, name, got, want):
         if not diff:
             continue
         i = diff[0]
-        margin, tol = _margin(model, prompts[uid], want[uid][:i])
+        margin, tol = _margin(model, prompts[uid], want[uid][:i],
+                              None if images is None
+                              else images[uid:uid + 1])
         log(f"engine {name}: request {uid} diverges at token {i}: plain-path "
             f"top-2 margin {margin:.3e} (tolerance {tol:.3e})")
         if margin >= tol:
@@ -1778,6 +1910,8 @@ def serve_paths(model, traffic, launches):
                         f"engine path {name}: {launches[name][FUSED]} "
                         f"launches of #1, expected {per_forward} x "
                         f"{forwards} forwards")
+            if cfg.family == "vlm":
+                vision_launches(name, cfg, st, launches[name], mk)
             if cfg.family == "hybrid":
                 hybrid_launches(name, cfg, st, launches[name], mk)
                 last = {u: len(p) + traffic["new"] - 2
@@ -1874,6 +2008,103 @@ def hybrid_launches(name, cfg, st, counts, megakernel):
         f"{'#3' if mega else '#2'}; per prefill forward "
         f"{mixer + 4 * apps} of #1 ({prefill} prefills, {decode} decode "
         f"steps)")
+
+
+def vision_launches(name, cfg, st, counts, megakernel, image=False):
+    """The VLM's launches of #1-#4 against its template: a prefill forward
+    (one per admission) runs through #1 each self block's merged QKV and
+    wo and each cross block's wq and wo (with an image also its wk and
+    wv: the image K/V, projected once), and through #4 the two-call FFN of
+    every block (rank 6336: the merged gate-up's two groups and w_down,
+    two launches each: six); a decode forward the same FFN launches, #1
+    for each cross block's wq and wo, and per self block either #3 (QKV,
+    the page walk and wo in one launch) or, with the megakernel off, #2
+    and two launches of #1."""
+    groups = cfg.n_layers // cfg.cross_attn_every
+    n_self = cfg.n_layers - groups
+    mega = megakernel is not False
+    prefill, decode = st["admissions"], st["decode_steps"]
+    per_prefill = 2 * n_self + (4 if image else 2) * groups
+    want = {FUSED: per_prefill * prefill
+            + (2 * groups + (0 if mega else 2 * n_self)) * decode,
+            MEGA: n_self * decode if mega else 0,
+            PAGED: 0 if mega else n_self * decode,
+            PACKED: 6 * cfg.n_layers * (prefill + decode)}
+    got = {i: counts[i] for i in want}
+    if got != want:
+        raise AssertionError(f"engine path {name}: launches {got}, expected "
+                             f"{want} from {prefill} prefill and {decode} "
+                             f"decode forwards")
+    log(f"engine path {name}: per decode forward {6 * cfg.n_layers} "
+        f"launches of #4, {2 * groups + (0 if mega else 2 * n_self)} of "
+        f"#1 and {n_self} of {'#3' if mega else '#2'}; per prefill forward "
+        f"{per_prefill} of #1 ({prefill} prefills, {decode} decode steps)")
+
+
+def _vision_image_inputs(cfg, dtype):
+    """``VISION_IMAGE``'s prompts (numpy, from the seed) and images (drawn
+    on the card from the seed, in `dtype`)."""
+    import numpy as np
+    from repro_torch.testing import image_embeds_device
+    t = VISION_IMAGE
+    rng = np.random.default_rng(SEED + 20)
+    toks = rng.integers(0, cfg.vocab_size, size=(t["n"], t["prompt"])
+                        ).astype(np.int64)
+    return toks, image_embeds_device(cfg, t["n"], SEED + 21, "cuda", dtype)
+
+
+def vision_image_path(model, launches):
+    """The ``llama-3.2-vision-90b-image`` path: the port's ``generate`` of
+    ``VISION_IMAGE`` (4 prompts, each with its own 1024 seeded patch
+    embeddings: one batched prefill projecting every cross layer's image
+    K/V once, #1 at M 4096, then decode steps over a pool of 4 slots), in
+    f32 on the plain oracles, then on the kernels with every launch count
+    set to 0 just before; tokens gated as the engine paths' (a near-tie
+    read with the request's image), launches checked against the
+    template."""
+    import torch
+    from repro_torch.kernels.ops import KernelPolicy
+    from repro_torch.serve.engine import ServeConfig, generate
+    name = "llama-3.2-vision-90b-image"
+    cfg = model.cfg
+    toks, img = _vision_image_inputs(cfg, torch.float32)
+    scfg = ServeConfig(greedy=True, max_new_tokens=VISION_IMAGE["new"],
+                       page_size=64)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    want, _ = generate(model.params, cfg, toks, scfg, image_embeds=img,
+                       policy=KernelPolicy(mode="ref"))
+    want = want.cpu().numpy()
+    ref_wall = time.perf_counter() - t0
+    free()
+    counters = _counters()
+    for c in counters:
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got, _ = generate(model.params, cfg, toks, scfg, image_embeds=img,
+                      policy=KernelPolicy(mode="cuda"))
+    got = got.cpu().numpy()
+    wall = time.perf_counter() - t0
+    launches[name] = [c.launches for c in counters]
+    free()
+    log(f"engine path {name}: launches " + ", ".join(
+        f"{k[0]}={n}" for k, n in zip(KERNELS, launches[name])))
+    vision_launches(name, cfg, {"admissions": 1,
+                                "decode_steps": VISION_IMAGE["new"]},
+                    launches[name], None, image=True)
+    margin = gate(model, None, name, dict(enumerate(got)),
+                  dict(enumerate(want)), prompts=list(toks), images=img)
+    res = {"ref_wall_s": ref_wall, "wall_s": wall,
+           "max_divergence_margin": margin, "peak_gib": _peak_gib(),
+           "tokens": got.tolist(), "launches": launches[name]}
+    log(f"engine {name} f32: generate of {len(toks)} prompts of "
+        f"{toks.shape[1]} tokens with {cfg.n_image_tokens} image tokens "
+        f"each, {VISION_IMAGE['new']} new: tokens match the plain path"
+        + ("" if margin is None else " up to near-ties")
+        + f"; wall {wall:.2f} s (plain {ref_wall:.2f} s), peak "
+        f"{res['peak_gib']:.2f} GiB")
+    return res
 
 
 def _chaos_trace(cfg, traffic):
@@ -2790,6 +3021,137 @@ def deepseek_split(prof, cfg, steps):
                              f"of #1")
     log(f"decode profile split: {used} of {steps} steps whole")
     return dict({k: v / used for k, v in out.items()}, steps_used=used)
+
+
+def vision_bytes(model, traffic):
+    """The VLM engine's cache per unit: the self layers' pool bytes per row
+    it holds (every self layer's k and v) and the image K/V bytes per slot
+    (every cross layer's), each checked against its shapes."""
+    from repro_torch.kernels.ops import KernelPolicy
+    eng = _engine(model, traffic, KernelPolicy(mode="cuda"))
+    kv, cfg = eng.kv, model.cfg
+
+    def size(stack):
+        return sum(t.numel() * t.element_size()
+                   for t in eng.cache[stack].values())
+    pool, image = size("self_layers"), size("cross_kv")
+    per_token = pool / (kv.n_pages * kv.page_size)
+    per_slot = image / traffic["max_batch"]
+    es = eng.cache["cross_kv"]["k"].element_size()
+    groups = cfg.n_layers // cfg.cross_attn_every
+    row = 2 * cfg.n_kv_heads * cfg.head_dim * es
+    if per_token != (cfg.n_layers - groups) * row or \
+            per_slot != groups * cfg.n_image_tokens * row or \
+            eng.kv_cache_bytes() != pool + image:
+        raise AssertionError(f"vision cache bytes {per_token}, {per_slot}")
+    log(f"engine {traffic['arch']} {cfg.dtype} cache: a pool of "
+        f"{kv.n_pages} pages of {kv.page_size} rows, {pool} bytes: "
+        f"{per_token:.0f} bytes per token; image K/V {image} bytes for "
+        f"{traffic['max_batch']} slots: {per_slot:.0f} bytes per slot")
+    del eng
+    free()
+    return {"pool_bytes_per_token": per_token,
+            "image_kv_bytes_per_slot": per_slot}
+
+
+def vision_split(prof, cfg, steps):
+    """Device ms per decode step of the VLM by op group, from the kernels'
+    order on the one stream, the window cut into steps at the host reads
+    of the sampled tokens (a step whose launches of #1 are not one whole
+    forward's, two per cross block, is left out and counted). #4 is
+    ``packed_ffn`` (every FFN's two-call stages), #3 ``megakernel`` (the
+    self layers' attention), #2 ``paged_attention`` (the megakernel off),
+    #1 ``fused_cross`` (each cross block's wq and wo); every other kernel
+    between a cross block's wq and its wo is ``cross_attention_ops`` (the
+    q norm, the two score and value products over the 1024 image keys,
+    the softmax), a matmul after the forward's last launch of #4 the
+    ``lm_head``, and the rest ``other`` (norms, residuals, the FFN's
+    activation, the fresh k / v rows' page writes, the gates, the
+    embedding, sampling, copies). Raises when no step is whole."""
+    from torch.autograd import DeviceType
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    chunks = [[]]
+    for e in evs:
+        chunks[-1].append(e)
+        if "DtoH" in e.name or "Device -> P" in e.name:
+            chunks.append([])
+    groups = cfg.n_layers // cfg.cross_attn_every
+    names = {TRACE_NAMES[PACKED][1]: "packed_ffn",
+             TRACE_NAMES[MEGA][1]: "megakernel",
+             TRACE_NAMES[PAGED][1]: "paged_attention",
+             TRACE_NAMES[FUSED][1]: "fused_cross"}
+    out = dict.fromkeys(("packed_ffn", "megakernel", "paged_attention",
+                         "fused_cross", "cross_attention_ops", "lm_head",
+                         "other"), 0.0)
+    used = 0
+    for chunk in chunks:
+        fused = [i for i, e in enumerate(chunk)
+                 if TRACE_NAMES[FUSED][1] in e.name]
+        if len(fused) != 2 * groups:
+            continue
+        used += 1
+        last4 = max((i for i, e in enumerate(chunk)
+                     if TRACE_NAMES[PACKED][1] in e.name), default=-1)
+        n_fused = 0
+        for i, e in enumerate(chunk):
+            ms = e.time_range.elapsed_us() * 1e-3
+            group = next((g for k, g in names.items() if k in e.name), None)
+            if group == "fused_cross":
+                n_fused += 1
+            elif group is None:
+                if n_fused % 2:
+                    group = "cross_attention_ops"
+                elif i > last4 and any(g in e.name.lower()
+                                       for g in GEMM_NAMES):
+                    group = "lm_head"
+                else:
+                    group = "other"
+            out[group] += ms
+    if not used:
+        raise AssertionError(f"decode profile: none of {steps} steps holds "
+                             f"one whole forward of {2 * groups} launches "
+                             f"of #1")
+    log(f"decode profile split: {used} of {steps} steps whole")
+    return dict({k: v / used for k, v in out.items()}, steps_used=used)
+
+
+def profile_image_prefill(model):
+    """The VLM's image prefill in bf16: ``generate`` of ``VISION_IMAGE``
+    with no new token (the batched prefill, each cross layer's image K/V
+    projected once, and the rows' insertion into the pool), once to warm
+    up and once under the profiler: host ms, and device ms by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.ops import KernelPolicy
+    from repro_torch.serve.engine import ServeConfig, generate
+    cfg = model.cfg
+    toks, img = _vision_image_inputs(cfg, torch.bfloat16)
+    scfg = ServeConfig(greedy=True, max_new_tokens=0, page_size=64)
+
+    def run():
+        t0 = time.perf_counter()
+        generate(model.params, cfg, toks, scfg, image_embeds=img,
+                 policy=KernelPolicy(mode="cuda"))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    run()
+    host_s = run()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+    busy_s, top = _device_kernels(prof)
+    free()
+    if busy_s == 0:
+        log("image prefill profile: device time not measured")
+        return None
+    by_kernel = _by_kernel(prof)
+    log(f"engine {cfg.name} bf16 image prefill ({len(toks)} prompts of "
+        f"{toks.shape[1]} tokens, {cfg.n_image_tokens} image tokens each): "
+        f"host {1e3 * host_s:.1f} ms, device {1e3 * busy_s:.1f} ms: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in by_kernel.items() if v))
+    return {"host_ms": 1e3 * host_s, "device_ms": 1e3 * busy_s,
+            "by_kernel_ms": by_kernel, "top": top}
 
 
 if __name__ == "__main__":

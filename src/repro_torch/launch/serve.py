@@ -8,12 +8,14 @@ A ``--quantized-ckpt`` directory (a ``NanoQuantModel`` artifact, written
 by either package's ``save``) is self-describing: its manifest carries
 the model config. Without one, the CLI serves ``--arch``'s smoke
 config (llama3.2-1b by default; any arch of ``repro_torch.configs``,
-qwen3-moe-235b-a22b's MoE, mamba2-370m's SSM and zamba2-1.2b's hybrid
-among them) with packed words drawn from seed 0 (the port cannot
-quantize). A family with nothing to page (SSM) is served on its per-slot
-state cache, and the pool line reports that layout instead; the hybrid's
-line gives its ring pages per slot and its per-slot state beside the
-pool.
+qwen3-moe-235b-a22b's MoE, mamba2-370m's SSM, zamba2-1.2b's hybrid and
+llama-3.2-vision-90b's VLM among them) with packed words drawn from seed
+0 (the port cannot quantize). A family with nothing to page (SSM) is
+served on its per-slot state cache, and the pool line reports that
+layout instead; the hybrid's line gives its ring pages per slot and its
+per-slot state beside the pool, the VLM's its image K/V bytes per slot
+beside the pool (a request carries no image: they stay zero, as in the
+reference's engine).
 The engine runs on ``--device`` (``cuda`` by default; nothing falls back
 to the CPU).
 
@@ -221,7 +223,7 @@ def _print_pool_stats(eng) -> None:
     """The pool line for each cache layout: an engine without a paged
     pool (a family with nothing to page, the SSM state) has no allocator
     to report on; the hybrid's pool of ring pages holds its per-slot
-    state beside it."""
+    state beside it, the VLM's pool its per-slot image K/V."""
     if eng.kv is None:
         print(f"[serve] rectangular layout (paging disabled): per-slot "
               f"state cache of {eng.max_batch} slots "
@@ -229,13 +231,20 @@ def _print_pool_stats(eng) -> None:
               f"{eng.kv_cache_bytes() / 2**20:.2f} MiB")
         return
     ring = ""
+    pool = eng.kv_cache_bytes()
     if eng.kv.has_ring:
         state = eng.cache_bytes() - eng.kv_cache_bytes()
         ring = (f", {eng.kv.ring_pages} ring pages per slot, per-slot "
                 f"state of {eng.max_batch} slots "
                 f"({state / 2**20:.2f} MiB)")
+    if "cross_kv" in eng.cache:
+        image = sum(t.numel() * t.element_size()
+                    for t in eng.cache["cross_kv"].values())
+        pool -= image
+        ring = (f", per-slot image K/V of {eng.max_batch} slots beside it "
+                f"({image // eng.max_batch} bytes per slot)")
     print(f"[serve] paged KV pool: {eng.kv.n_pages} pages x "
-          f"{eng.kv.page_size} rows ({eng.kv_cache_bytes() / 2**20:.2f} "
+          f"{eng.kv.page_size} rows ({pool / 2**20:.2f} "
           f"MiB){ring}, peak {eng.kv.peak_used_pages} pages in use, "
           f"{eng.stats['page_waits']} page waits, "
           f"{eng.stats['preemptions']} preemptions")

@@ -4,8 +4,8 @@ One frozen (hashable -> jit-static) dataclass covers the whole assigned
 pool: dense / MoE / MLA / SSM / hybrid / VLM / audio backbones. The
 port's copy of ``repro.models.config`` keeps every field, so a manifest
 written by the JAX package rebuilds the same config here; the port's
-model code serves the dense, MoE (MLA attention included), SSM and
-hybrid families (:func:`check_family`).
+model code serves the dense, MoE (MLA attention included), SSM, hybrid
+and VLM families (:func:`check_family`).
 """
 from __future__ import annotations
 
@@ -114,7 +114,6 @@ class ModelConfig:
 
 # what the port still lacks for each family it refuses
 _MISSING = {
-    "vlm": "cross-attention layers over per-slot image K/V",
     "audio": "multi-codebook embeddings, head and sampling",
 }
 
@@ -123,13 +122,16 @@ def check_family(cfg: ModelConfig) -> None:
     """Raise NotImplementedError, naming what is missing, unless the port
     serves `cfg`: the dense family, the MoE family with GQA or MLA
     attention (deepseek-v2's compressed-latent attention), the SSM family
-    (Mamba2 blocks over a per-slot recurrent state) and the hybrid
-    (zamba2: the Mamba2 stack plus one shared attention block every
-    ``attn_every`` layers over a ring-paged sliding-window cache)."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+    (Mamba2 blocks over a per-slot recurrent state), the hybrid (zamba2:
+    the Mamba2 stack plus one shared attention block every ``attn_every``
+    layers over a ring-paged sliding-window cache) and the VLM
+    (llama-3.2-vision: groups of ``cross_attn_every - 1`` self-attention
+    blocks over the paged pool, each followed by one gated
+    cross-attention block over per-slot image K/V)."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm"):
         raise NotImplementedError(
-            f"the port serves the dense, moe, ssm and hybrid families, not "
-            f"{cfg.family!r} ({cfg.name}): it lacks "
+            f"the port serves the dense, moe, ssm, hybrid and vlm families, "
+            f"not {cfg.family!r} ({cfg.name}): it lacks "
             f"{_MISSING[cfg.family]}")
 
 

@@ -1,5 +1,6 @@
-"""Dense-, MoE-, SSM- and hybrid-family layers (GQA or MLA attention, the
-Mamba2 mixer), the port of ``repro.models.layers``.
+"""Dense-, MoE-, SSM-, hybrid- and VLM-family layers (GQA or MLA
+attention, the Mamba2 mixer, the VLM's gated cross-attention), the port
+of ``repro.models.layers``.
 
 Params are plain dicts of tensors, as in the JAX package. Linear layers go
 through :func:`dense`, which runs a full-precision matmul or a NanoQuant
@@ -331,6 +332,42 @@ def mla_attention(p, cfg, x, positions, cache=None, cache_pos=None,
     o_lat = torch.einsum("bhst,btc->bshc", prob, c_kv)          # (B, S, H, dc)
     o = torch.einsum("bshc,chd->bshd", o_lat, w_uv)
     return dense(p["wo"], o.reshape(B, S, H * dv)), cache
+
+
+# --------------------------------------------------------------------------
+# cross-attention (VLM layers) — gated, non-causal, image K/V cacheable
+# --------------------------------------------------------------------------
+
+
+def cross_attention(p, cfg, x, image_kv):
+    """Gated cross-attention of the hidden state over an image's K/V (the
+    llama-3.2-vision layer): per-head RMS-normed q from wq, the plain
+    :func:`sdpa` over all ``n_img`` keys (no mask, no RoPE, scale
+    1/sqrt(D)), the output through wo scaled by ``tanh(gate)`` in x's
+    dtype. image_kv: (k, v), each (B, n_img, Hkv, D), from
+    :func:`image_kv`. The reference keeps this plain, so it is plain torch
+    ops here: no kernel serves it."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim
+    q = dense(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
+    q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    k, v = image_kv
+    msk = torch.ones((S, k.shape[1]), dtype=torch.bool, device=x.device)
+    o = sdpa(q, k, v, msk, 1.0 / math.sqrt(hd))
+    return torch.tanh(p["gate"]).to(x.dtype) * dense(p["wo"],
+                                                     o.reshape(B, S, -1))
+
+
+def image_kv(p, cfg, image_embeds):
+    """Project the stubbed image patch embeddings (B, n_img, d) to one
+    cross layer's (k, v), each (B, n_img, Hkv, D): k per-head RMS-normed,
+    v as projected."""
+    B, n_img, _ = image_embeds.shape
+    hd = cfg.head_dim
+    k = dense(p["wk"], image_embeds).reshape(B, n_img, cfg.n_kv_heads, hd)
+    k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    v = dense(p["wv"], image_embeds).reshape(B, n_img, cfg.n_kv_heads, hd)
+    return k, v
 
 
 # --------------------------------------------------------------------------

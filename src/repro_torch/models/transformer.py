@@ -1,7 +1,7 @@
-"""Dense-, MoE-, SSM- and hybrid-family model assembly: forward / prefill
-/ decode, the port of the dense, MoE, SSM and hybrid paths of
-``repro.models.transformer`` (GQA or MLA attention, by ``cfg.is_mla``;
-Mamba2 blocks for ``ssm`` and ``hybrid``).
+"""Dense-, MoE-, SSM-, hybrid- and VLM-family model assembly: forward /
+prefill / decode, the port of those paths of ``repro.models.transformer``
+(GQA or MLA attention, by ``cfg.is_mla``; Mamba2 blocks for ``ssm`` and
+``hybrid``; gated cross-attention blocks for ``vlm``).
 
 Each block stack keeps the JAX package's stacked layout (every leaf of
 ``params["layers"]`` has a leading layer axis); a Python loop takes the
@@ -16,12 +16,21 @@ plus ``params["shared_attn"]``, ONE attention + FFN block with no leading
 axis, applied after every ``attn_every``-th Mamba2 layer with the
 sliding-window mask; its cache adds ``cache["shared_attn"]``, one ring of
 K/V rows per application (a rectangle of ``min(max_len, window)`` rows at
-prefill, a pool of ring pages at decode). A stack may also be given
-pre-split as a list of per-layer dicts (:func:`split_layers`), which saves
-the slicing on every call.
+prefill, a pool of ring pages at decode). The VLM (llama-3.2-vision) runs
+``groups = n_layers // cross_attn_every`` groups, each of ``per =
+cross_attn_every - 1`` self-attention blocks followed by one gated
+cross-attention block: ``params["self_layers"]`` has two leading axes
+``(groups, per)`` and ``params["cross_layers"]`` one, ``(groups,)``; its
+cache is ``{"self_layers": {k, v}}`` with the same two leading axes (the
+paged pool at decode) beside ``{"cross_kv": {k, v}}``, each cross layer's
+image K/V per slot, projected once from ``image_embeds`` when they are
+given and read from the cache otherwise. A stack may also be given
+pre-split as a list of per-layer dicts (:func:`split_layers`, the VLM's
+self layers in run order), which saves the slicing on every call.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -37,8 +46,16 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-# the block stacks, in the order a forward runs them
-STACKS = ("dense_layers", "layers")
+# the block stacks, in the order a forward runs them (the VLM's
+# self_layers and cross_layers interleave by group: :func:`_vlm_groups`)
+STACKS = ("dense_layers", "layers", "self_layers", "cross_layers")
+# leading layer axes of a stack's params and cache leaves: the VLM's self
+# layers are (groups, per); every other stack has one
+LEAD_AXES = {"self_layers": 2}
+
+
+def lead_axes(stack: str) -> int:
+    return LEAD_AXES.get(stack, 1)
 
 
 def _index(tree, i):
@@ -47,19 +64,24 @@ def _index(tree, i):
     return tree[i]
 
 
-def _depth(tree) -> int:
-    """Leading (layer) axis of a stacked block tree."""
+def _lead(tree, n: int) -> Tuple[int, ...]:
+    """The `n` leading (layer) axes of a stacked block tree."""
     leaf = next(iter(tree.values()))
-    return _depth(leaf) if isinstance(leaf, dict) else leaf.shape[0]
+    return _lead(leaf, n) if isinstance(leaf, dict) else tuple(leaf.shape[:n])
 
 
 def split_layers(params) -> Dict:
-    """Same params with each block stack as a list of per-layer views."""
+    """Same params with each block stack as a list of per-layer views (a
+    stack of two leading axes flattened in run order: group-major)."""
     out = dict(params)
     for name in STACKS:
         stack = params.get(name)
         if isinstance(stack, dict):
-            out[name] = [_index(stack, i) for i in range(_depth(stack))]
+            lead = _lead(stack, lead_axes(name))
+            views = [stack]
+            for n in lead:
+                views = [_index(v, i) for v in views for i in range(n)]
+            out[name] = views
     return out
 
 
@@ -67,6 +89,16 @@ def _stacks(params) -> List:
     """(stack name, per-layer views) of every block stack, in order."""
     split = split_layers(params)
     return [(name, split[name]) for name in STACKS if name in split]
+
+
+def _vlm_groups(params, cfg):
+    """The VLM's groups in run order: (group, [its self layers' views],
+    its cross layer's view)."""
+    split = split_layers(params)
+    per = cfg.cross_attn_every - 1
+    selfs = split["self_layers"]
+    return [(g, selfs[g * per:(g + 1) * per], cp)
+            for g, cp in enumerate(split["cross_layers"])]
 
 
 def _apply_attn_block(p, cfg, x, positions, cache=None, cache_pos=None,
@@ -79,6 +111,15 @@ def _apply_attn_block(p, cfg, x, positions, cache=None, cache_pos=None,
     if "moe" in p:
         return x + L.moe(p["moe"], cfg, h)
     return x + L.ffn(p["ffn"], h)
+
+
+def _apply_cross_block(p, cfg, x, img_kv):
+    """The VLM's gated cross block: cross-attention over the image K/V,
+    then the FFN scaled by ``tanh(ffn_gate)`` in x's dtype."""
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    x = x + L.cross_attention(p["xattn"], cfg, h, img_kv)
+    h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + torch.tanh(p["ffn_gate"]).to(x.dtype) * L.ffn(p["ffn"], h)
 
 
 def _apply_mamba_block(p, cfg, x, state=None):
@@ -112,11 +153,22 @@ def ring_rows(cfg: ModelConfig, max_len: int) -> int:
     return min(max_len, cfg.sliding_window or max_len)
 
 
-def backbone(params, cfg: ModelConfig, tokens):
-    """Full-sequence forward to final hidden states (B, S, d)."""
+def backbone(params, cfg: ModelConfig, tokens, image_embeds=None):
+    """Full-sequence forward to final hidden states (B, S, d). The VLM
+    needs `image_embeds` (B, n_img, d), projected to each cross layer's
+    K/V."""
     check_family(cfg)
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
+    if cfg.family == "vlm":
+        if image_embeds is None:
+            raise ValueError("the VLM's forward needs image_embeds")
+        for _, selfs, cp in _vlm_groups(params, cfg):
+            for lp in selfs:
+                x = _apply_attn_block(lp, cfg, x, positions)
+            x = _apply_cross_block(cp, cfg, x,
+                                   L.image_kv(cp["xattn"], cfg, image_embeds))
+        return L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     for _, layers in _stacks(params):
         for idx, lp in enumerate(layers):
             if cfg.is_ssm_layer_stack:
@@ -135,19 +187,40 @@ def logits_fn(params, cfg, hidden):
     return hidden @ w.to(hidden.dtype)
 
 
-def forward(params, cfg, tokens):
-    return logits_fn(params, cfg, backbone(params, cfg, tokens))
+def forward(params, cfg, tokens, image_embeds=None):
+    return logits_fn(params, cfg, backbone(params, cfg, tokens,
+                                           image_embeds))
+
+
+def stack_lead(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """Leading layer axes of each attention-cache stack: {"layers": (n,)}
+    for the dense, SSM and hybrid families; the MoE family's
+    ``first_k_dense`` leading blocks as "dense_layers"; the VLM's
+    "self_layers" as (groups, cross_attn_every - 1)."""
+    check_family(cfg)
+    if cfg.family == "vlm":
+        per = cfg.cross_attn_every
+        return {"self_layers": (cfg.n_layers // per, per - 1)}
+    if cfg.family == "moe" and cfg.first_k_dense:
+        return {"dense_layers": (cfg.first_k_dense,),
+                "layers": (cfg.n_layers - cfg.first_k_dense,)}
+    return {"layers": (cfg.n_layers,)}
 
 
 def stack_depths(cfg: ModelConfig) -> Dict[str, int]:
-    """Layers of each block stack: {"layers": n} for the dense, SSM and
-    hybrid families; the MoE family's ``first_k_dense`` leading blocks as
-    "dense_layers"."""
-    check_family(cfg)
-    if cfg.family == "moe" and cfg.first_k_dense:
-        return {"dense_layers": cfg.first_k_dense,
-                "layers": cfg.n_layers - cfg.first_k_dense}
-    return {"layers": cfg.n_layers}
+    """Layers of each attention-cache stack (:func:`stack_lead`'s axes
+    multiplied out)."""
+    return {name: math.prod(lead) for name, lead in stack_lead(cfg).items()}
+
+
+def image_cache(cfg: ModelConfig, batch: int, device="cuda"):
+    """The VLM's per-slot image K/V, one per cross layer: {"k" / "v":
+    (groups, B, n_img, Hkv, D)} in the model dtype, zero until an image is
+    projected into it."""
+    shape = (cfg.n_layers // cfg.cross_attn_every, batch,
+             cfg.n_image_tokens, cfg.n_kv_heads, cfg.head_dim)
+    return {leaf: torch.zeros(shape, dtype=torch_dtype(cfg), device=device)
+            for leaf in ("k", "v")}
 
 
 def cache_leaves(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
@@ -181,7 +254,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
     SSM family's is its recurrent state (:func:`state_cache`) under
     "layers"; the hybrid adds "shared_attn": {"k" / "v": (n_apps, B, win,
     Hkv, D)}, one ring of ``win = min(max_len, window)`` rows per
-    application of the shared block (:func:`ring_rows`)."""
+    application of the shared block (:func:`ring_rows`). The VLM's
+    "self_layers" leaves are (groups, per, B, max_len, Hkv, D), beside
+    its per-slot image K/V "cross_kv" (:func:`image_cache`)."""
     check_family(cfg)
     dt = torch_dtype(cfg)
     if cfg.is_ssm_layer_stack:
@@ -193,10 +268,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device="cuda"):
                                   dtype=dt, device=device)
                 for leaf, row in cache_leaves(cfg).items()}
         return cache
-    return {name: {leaf: torch.zeros((n, batch, max_len) + row, dtype=dt,
-                                     device=device)
-                   for leaf, row in cache_leaves(cfg).items()}
-            for name, n in stack_depths(cfg).items()}
+    cache = {name: {leaf: torch.zeros(lead + (batch, max_len) + row,
+                                      dtype=dt, device=device)
+                    for leaf, row in cache_leaves(cfg).items()}
+             for name, lead in stack_lead(cfg).items()}
+    if cfg.family == "vlm":
+        cache["cross_kv"] = image_cache(cfg, batch, device)
+    return cache
 
 
 def _commit_state(state, new, active=None):
@@ -265,7 +343,31 @@ def _ssm_forward(params, cfg, x, cache, pos=0, block_tables=None,
     return L.rms_norm(x, params["ln_f"], cfg.norm_eps), cache
 
 
-def _cached_forward(params, cfg, tokens, cache, pos, block_tables=None):
+def _vlm_forward(params, cfg, x, cache, positions, pos, bt,
+                 image_embeds=None):
+    """The VLM's cached forward: each group's self layers over their cache
+    (rectangular or paged through `bt`), then its cross block over the
+    image K/V, projected from `image_embeds` when given (and written into
+    ``cache["cross_kv"]``, cast to its dtype) or read from that cache,
+    per slot."""
+    sc, ckv = cache["self_layers"], cache["cross_kv"]
+    for g, selfs, cp in _vlm_groups(params, cfg):
+        for j, lp in enumerate(selfs):
+            x = _apply_attn_block(lp, cfg, x, positions,
+                                  {k: v[g, j] for k, v in sc.items()}, pos,
+                                  bt)
+        if image_embeds is not None:
+            kv = L.image_kv(cp["xattn"], cfg, image_embeds)
+            for leaf, t in zip(("k", "v"), kv):
+                ckv[leaf][g] = t.to(ckv[leaf].dtype)
+        else:
+            kv = (ckv["k"][g], ckv["v"][g])
+        x = _apply_cross_block(cp, cfg, x, kv)
+    return L.rms_norm(x, params["ln_f"], cfg.norm_eps), cache
+
+
+def _cached_forward(params, cfg, tokens, cache, pos, block_tables=None,
+                    image_embeds=None):
     """Prefill (rectangular cache, pos 0), or a paged decode, verify or
     suffix prefill (per-slot (B,) pos and ``block_tables={"linear": (B,
     pages)}``). Writes the cache in place; returns (hidden, cache)."""
@@ -280,6 +382,9 @@ def _cached_forward(params, cfg, tokens, cache, pos, block_tables=None):
     else:
         positions = int(pos) + steps                              # (S,)
     bt = block_tables.get("linear") if block_tables else None
+    if cfg.family == "vlm":
+        return _vlm_forward(params, cfg, x, cache, positions, pos, bt,
+                            image_embeds)
     for name, layers in _stacks(params):
         leaves = cache[name]
         for i, lp in enumerate(layers):
@@ -300,7 +405,7 @@ def _paged_forward(params, cfg, tokens, cache, pos, block_tables):
 
 
 def prefill(params, cfg, tokens, cache, last_idx: Optional[int] = None,
-            start_pos=None, block_tables=None):
+            start_pos=None, block_tables=None, image_embeds=None):
     """Process the prompt; returns (logits at `last_idx`, cache).
 
     Without `start_pos`: a full prefill into a rectangular cache at
@@ -315,9 +420,15 @@ def prefill(params, cfg, tokens, cache, last_idx: Optional[int] = None,
     ``start_pos + j`` through the slot's table and attends to every
     earlier row, the paged S > 1 route of the speculative verify. Rows
     wrap modulo the table's rectangle, so `tokens` must end inside it: a
-    pad row past it would overwrite the shared prefix."""
+    pad row past it would overwrite the shared prefix.
+
+    `image_embeds` (B, n_img, d), the VLM's: each cross layer's image K/V
+    is projected once into ``cache["cross_kv"]``; without them the cross
+    layers read that cache as it is (zero in a fresh one, as the JAX
+    package's engine leaves it)."""
     if start_pos is None:
-        h, cache = _cached_forward(params, cfg, tokens, cache, 0)
+        h, cache = _cached_forward(params, cfg, tokens, cache, 0,
+                                   image_embeds=image_embeds)
     else:
         h, cache = _paged_forward(params, cfg, tokens, cache, start_pos,
                                   block_tables)
@@ -333,8 +444,9 @@ def decode_step(params, cfg, token, cache, pos, block_tables=None,
     (no tables, `pos` unused); `active` (B,) bool keeps the state of
     inactive slots. The hybrid takes both: the state cache with `active`,
     and its shared block's ring pool through ``block_tables={"ring": (B,
-    ring_pages)}`` at the absolute positions `pos`. Returns (logits (B, S,
-    V), cache)."""
+    ring_pages)}`` at the absolute positions `pos`. The VLM's cross layers
+    read ``cache["cross_kv"]`` per slot. Returns (logits (B, S, V),
+    cache)."""
     if cfg.is_ssm_layer_stack:
         h, cache = _ssm_forward(params, cfg, embed_tokens(params, cfg, token),
                                 cache, pos, block_tables, active)

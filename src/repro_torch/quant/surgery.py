@@ -3,8 +3,9 @@
 
 - :func:`abstract_quantized_params` — the shape/dtype template of a
   NanoQuant-packed dense or MoE model with GQA or MLA attention, of a
-  Mamba2 (SSM) model, or of a zamba2 hybrid (for the artifact loader and
-  for building a packed model of a published shape from a seed);
+  Mamba2 (SSM) model, of a zamba2 hybrid or of a llama-3.2-vision VLM
+  (for the artifact loader and for building a packed model of a
+  published shape from a seed);
 - :func:`merge_projection_groups` — the merged QKV / gate-up operands
   the grouped kernel launches read (padded rank + ``rmask``, padded s1
   columns set to 0);
@@ -37,7 +38,7 @@ class LeafSpec(NamedTuple):
 
 
 def param_specs(cfg: ModelConfig) -> Dict:
-    """FP parameter template of a dense-, MoE-, SSM- or hybrid-family
+    """FP parameter template of a dense-, MoE-, SSM-, hybrid- or VLM-family
     model — the tree ``repro.models.transformer.init_params`` builds, each
     block stack with a leading axis of its length. The MoE family's
     ``layers`` hold a ``moe`` block (router, stacked experts, optional
@@ -54,7 +55,12 @@ def param_specs(cfg: ModelConfig) -> Dict:
     (float32 whatever ``cfg.dtype`` is) and the gated norm's weight. The
     hybrid's ``layers`` are the SSM stack and ``shared_attn`` is ONE
     attention + FFN block with no leading axis (zamba2's block shared by
-    every application)."""
+    every application). The VLM's ``self_layers`` are attention + FFN
+    blocks with two leading axes ``(groups, cross_attn_every - 1)``, and
+    its ``cross_layers`` one gated cross-attention block per group
+    (``repro.models.transformer._init_block(kind="cross")``): ``ln1``,
+    ``xattn`` (wq, wk, wv, wo, the per-head q_norm / k_norm and the scalar
+    ``gate``), ``ln2``, ``ffn`` and the scalar ``ffn_gate``."""
     check_family(cfg)
     dt, d, hd = cfg.dtype, cfg.d_model, cfg.head_dim
 
@@ -118,10 +124,27 @@ def param_specs(cfg: ModelConfig) -> Dict:
             mixer[f"conv_b{s}"] = LeafSpec(lead + (c,), dt)
         return {"ln": LeafSpec(lead + (d,), dt), "mixer": mixer}
 
+    def cross(lead):
+        xattn = {"wq": lin(lead, d, cfg.n_heads * hd),
+                 "wk": lin(lead, d, cfg.n_kv_heads * hd),
+                 "wv": lin(lead, d, cfg.n_kv_heads * hd),
+                 "wo": lin(lead, cfg.n_heads * hd, d),
+                 "gate": LeafSpec(lead, dt),
+                 "q_norm": LeafSpec(lead + (hd,), dt),
+                 "k_norm": LeafSpec(lead + (hd,), dt)}
+        return {"ln1": LeafSpec(lead + (d,), dt), "xattn": xattn,
+                "ln2": LeafSpec(lead + (d,), dt), "ffn": ffn(lead, cfg.d_ff),
+                "ffn_gate": LeafSpec(lead, dt)}
+
     tree = {"ln_f": LeafSpec((d,), dt),
             "embed": LeafSpec((cfg.vocab_size, d), dt)}
     n = cfg.n_layers
-    if cfg.is_ssm_layer_stack:
+    if cfg.family == "vlm":
+        groups = n // cfg.cross_attn_every
+        tree["self_layers"] = block((groups, cfg.cross_attn_every - 1),
+                                    cfg.d_ff)
+        tree["cross_layers"] = cross((groups,))
+    elif cfg.is_ssm_layer_stack:
         tree["layers"] = mamba((n,))
         if cfg.family == "hybrid":
             tree["shared_attn"] = block((), cfg.d_ff)
@@ -232,25 +255,37 @@ def _stack_group(subs):
     return mp
 
 
+# blocks whose sibling projections read different inputs: the VLM's
+# cross-attention projects the hidden state through wq and the image
+# through wk / wv (``layers.cross_attention`` / ``layers.image_kv``)
+SPLIT_INPUT_BLOCKS = frozenset({"xattn"})
+
+
 def merge_projection_groups(params):
     """Add merged operand groups (``wqkv`` / ``wgu``) wherever a block
     holds packed sibling projections that read the same activations with
     a common packed d_in, so the model layer issues ONE grouped kernel
     launch instead of three/two. The per-projection leaves are kept;
     the input tree is not modified (a new dict is returned where
-    anything was added)."""
-    def walk(d):
+    anything was added).
+
+    A departure from the JAX package: its merge also builds ``wqkv`` in
+    the VLM's cross-attention blocks (:data:`SPLIT_INPUT_BLOCKS`), whose
+    wq reads the hidden state while wk / wv read the image, so no layer
+    ever reads that group (≈ 25 MB per cross layer at full size); the port
+    skips it, which changes no output."""
+    def walk(d, name=None):
         out = {}
         changed = False
         for k, v in d.items():
             if isinstance(v, dict):
-                nv = walk(v)
+                nv = walk(v, k)
                 changed = changed or (nv is not v)
                 out[k] = nv
             else:
                 out[k] = v
         for names, merged_key in MERGE_GROUPS:
-            if merged_key in out:
+            if merged_key in out or name in SPLIT_INPUT_BLOCKS:
                 continue
             if "router" in out:
                 # MoE expert stacks run through dense_expert (kernel #1's

@@ -1,5 +1,6 @@
 """Continuous-batching serving over a paged KV pool, the port of
-``repro.serve``: the engine (:class:`InferenceEngine`), its scheduler,
+``repro.serve``: the engine (:class:`InferenceEngine`), the host-driven
+``generate`` loop (the VLM's image entry point), its scheduler,
 the refcounted page pool, the prefix cache, self-speculative decoding,
 and the request-lifecycle layer: deadlines, ``RequestHandle.cancel()``
 and the terminal statuses (:class:`RequestError`), ``engine.drain()``
@@ -15,14 +16,14 @@ from repro_torch.serve.faults import (  # noqa: F401
     Fault, FaultPlan, InjectedDeviceError)
 from repro_torch.serve.engine import (  # noqa: F401
     InferenceEngine, RequestError, RequestHandle, ServeConfig,
-    TERMINAL_STATUSES, sample_token)
+    TERMINAL_STATUSES, generate, sample_token)
 from repro_torch.serve import recovery  # noqa: F401
 from repro_torch.serve.speculative import SpecDecodeController  # noqa: F401
 
 __all__ = [
     "InferenceEngine", "RequestHandle", "ServeConfig", "Request",
     "SlotScheduler", "PagedKVState", "PrefixCache", "SpecDecodeController",
-    "bucket_length", "pick_preemption_victim", "sample_token",
+    "bucket_length", "pick_preemption_victim", "sample_token", "generate",
     "RequestError", "TERMINAL_STATUSES", "PageAccountingError",
     "Fault", "FaultPlan", "InjectedDeviceError", "recovery",
 ]

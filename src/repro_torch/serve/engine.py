@@ -43,6 +43,12 @@ snapshot (``launch.supervisor``, ``launch.serve``) recover a real one.
     engine = InferenceEngine(params, cfg, ServeConfig(greedy=True))
     handle = engine.submit(Request(0, prompt), on_token=print)
     done = engine.run()
+
+The VLM is served over the pool as the reference's engine serves it: a
+request carries no image, so every cross layer reads the zero image K/V
+the admission's fresh cache holds. Images reach the model through
+:func:`generate` (the reference's ``generate(image_embeds=)``), which
+prefills a batch of prompts with their images and decodes them.
 """
 from __future__ import annotations
 
@@ -116,6 +122,76 @@ def sample_token(logits, generator: Optional[torch.Generator],
         lf = torch.where(lf < kth, torch.full_like(lf, -torch.inf), lf)
     return torch.multinomial(torch.softmax(lf, dim=-1), 1,
                              generator=generator)
+
+
+def _batch_row(cache, b: int):
+    """Row `b` of a rectangular cache as a batch-1 cache (views), each
+    leaf cut at its stack's batch axis (``transformer.lead_axes``)."""
+    return {st: {k: v.narrow(T.lead_axes(st), b, 1) for k, v in leaves.items()}
+            for st, leaves in cache.items()}
+
+
+def generate(params, cfg: ModelConfig, tokens, scfg: ServeConfig,
+             generator: Optional[torch.Generator] = None, image_embeds=None,
+             policy: Optional[kops.KernelPolicy] = None):
+    """Host-driven generation, the port of ``repro.serve.engine.generate``:
+    one batched prefill of the B equal-length prompts `tokens` (B, S) at
+    position 0 into a rectangular cache (the VLM's image K/V projected
+    once from `image_embeds` (B, n_img, d), zero without them), then
+    ``scfg.max_new_tokens`` decode steps at positions ``S + i``, each
+    sampling from the last logits (`generator` draws when not greedy).
+    The port decodes over a pool only, so the prefilled rows go into a
+    pool of B slots whose tables map each row's pages (linear tables, or
+    the hybrid's rings), the slot-indexed leaves (the VLM's image K/V, the
+    Mamba2 state) by slot; the SSM family decodes on its state cache. The
+    kernel policy is `policy` or the ambient one (with merged projections
+    added on the kernel path, ``scfg.megakernel`` overriding its bit), on
+    the params' device. Returns (generated (B, max_new) int64, the last
+    decode step's logits (B, 1, V)), as the reference does."""
+    dev = params["embed"].device
+    pol = policy if policy is not None else kops.current_kernel_policy()
+    if scfg.megakernel is not None:
+        pol = dataclasses.replace(pol, megakernel=scfg.megakernel)
+    if pol.use_merged_projections(dev):
+        params = merge_projection_groups(params)
+    params = T.split_layers(params)
+    tokens = torch.as_tensor(np.asarray(tokens), device=dev).long()
+    B, S = tokens.shape
+    max_len = S + scfg.max_new_tokens
+    kinds = paging.cache_page_kinds(cfg)
+    with kops.kernel_policy(pol), torch.inference_mode():
+        rect = T.init_cache(cfg, B, max_len, dev)
+        logits, rect = T.prefill(params, cfg, tokens, rect,
+                                 image_embeds=image_embeds)
+        kv = None
+        if kinds:
+            kv = paging.PagedKVState(B, max_len, scfg.page_size, kinds=kinds,
+                                     window=cfg.sliding_window)
+            cache = paging.init_paged_cache(cfg, kv.n_pages, kv.page_size,
+                                            dev, batch=B)
+            for b in range(B):
+                ids = kv.admit(b, S)
+                paging.paged_insert_slot(
+                    cache, _batch_row(rect, b),
+                    {k: torch.from_numpy(v).to(dev) for k, v in ids.items()},
+                    slot=b)
+            del rect
+        else:
+            cache = rect
+        pos = torch.full((B,), S, dtype=torch.long, device=dev)
+        outs = []
+        for i in range(scfg.max_new_tokens):
+            tok = sample_token(logits, generator, scfg)
+            outs.append(tok)
+            tables = None
+            if kv is not None:
+                for b in range(B):
+                    kv.ensure(b, S + i)
+                tables = kv.device_tables(dev)
+            logits, cache = T.decode_step(params, cfg, tok, cache, pos + i,
+                                          block_tables=tables)
+    gen = torch.cat(outs, dim=1) if outs else tokens.new_zeros((B, 0))
+    return gen, logits
 
 
 #: Terminal request statuses. "done" is the only successful one; the

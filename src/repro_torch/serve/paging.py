@@ -20,6 +20,12 @@ tables — the parts of ``repro.serve.paging`` the engine uses.
   cache is mixed: its shared block's K/V pool ``(n_apps, n_pages,
   page_size, Hkv, D)`` sits next to the Mamba2 stack's state leaves,
   which have no sequence extent and stay slot-indexed ``(L, B, ...)``.
+  The VLM's is mixed too: its self layers' pool ``(groups, per, n_pages,
+  page_size, Hkv, D)`` (two leading layer axes) beside ``cross_kv``, each
+  cross layer's image K/V ``(groups, B, n_img, Hkv, D)``, slot-indexed:
+  its leaves carry pool names (k / v), so what is pooled is decided by
+  stack and leaf (:func:`is_pool_leaf`), as the reference decides it by
+  path.
 - :func:`paged_insert_slot` / :func:`paged_select_active` — the paged
   twins of the scheduler's slot cache ops (pool leaves through the block
   tables, state leaves by slot); :func:`copy_page` — the device side of a
@@ -43,12 +49,29 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import check_family
-from repro_torch.models.transformer import (cache_leaves, n_shared_apps,
-                                             stack_depths, state_cache,
+from repro_torch.models.transformer import (cache_leaves, image_cache,
+                                             lead_axes, n_shared_apps,
+                                             stack_lead, state_cache,
                                              torch_dtype)
 
-# leaf names of the paged attention cache: GQA's k / v, MLA's c_kv / k_rope
+# leaf names of the attention cache: GQA's k / v, MLA's c_kv / k_rope
 _POOL_LEAVES = ("k", "v", "c_kv", "k_rope")
+# stacks whose attention-cache leaves have no sequence extent and stay
+# slot-indexed (B at axis 1): the VLM's image K/V
+_SLOT_STACKS = ("cross_kv",)
+
+
+def is_pool_leaf(stack: str, name: str) -> bool:
+    """Whether leaf `name` of cache stack `stack` is paged (read through
+    the block tables) rather than slot-indexed: the reference's
+    ``page_kind(path) is not None``."""
+    return name in _POOL_LEAVES and stack not in _SLOT_STACKS
+
+
+def _layers_flat(stack: str, t):
+    """A stack's leaf with its leading layer axes flattened into one (a
+    view: the VLM's self layers (groups, per, ...) -> (groups·per, ...))."""
+    return t.flatten(0, lead_axes(stack) - 1)
 
 
 def page_kind(stack: str) -> str:
@@ -74,35 +97,43 @@ class PageAccountingError(AssertionError):
 
 def init_paged_cache(cfg, n_pages: int, page_size: int, device="cuda",
                      batch: Optional[int] = None):
-    """Pool-shaped cache, one pool per block stack: {stack: {leaf: (L,
+    """Pool-shaped cache, one pool per block stack: {stack: {leaf: (*lead,
     n_pages, page_size, *row)}} over ``transformer.cache_leaves`` (k / v
     rows (Hkv, D); MLA's c_kv (dc,) and k_rope (1, dr)) in the model
-    dtype. Every stack's pool is indexed by the same page ids. The
-    hybrid's is mixed: {"layers": the Mamba2 state of `batch` slots
+    dtype, `lead` the stack's layer axes (``transformer.stack_lead``).
+    Every stack's pool is indexed by the same page ids. The hybrid's is
+    mixed: {"layers": the Mamba2 state of `batch` slots
     (``transformer.state_cache``), "shared_attn": {"k" / "v": (n_apps,
-    n_pages, page_size, Hkv, D)}}."""
+    n_pages, page_size, Hkv, D)}}; so is the VLM's: {"self_layers": the
+    pool of (groups, per) layers, "cross_kv": the image K/V of `batch`
+    slots (``transformer.image_cache``)}."""
     kinds = cache_page_kinds(cfg)
     if not kinds:
         raise ValueError(f"family {cfg.family!r} has no pageable KV cache")
     dt = torch_dtype(cfg)
 
-    def pool(n):
-        return {leaf: torch.zeros((n, n_pages, page_size) + row, dtype=dt,
-                                  device=device)
+    def pool(lead):
+        return {leaf: torch.zeros(lead + (n_pages, page_size) + row,
+                                  dtype=dt, device=device)
                 for leaf, row in cache_leaves(cfg).items()}
+    if batch is None and cfg.family in ("hybrid", "vlm"):
+        raise ValueError(f"the {cfg.family}'s pool sits beside per-slot "
+                         f"leaves: pass batch")
     if "ring" in kinds:
-        if batch is None:
-            raise ValueError("the hybrid's pool sits beside per-slot state: "
-                             "pass batch")
         return {"layers": state_cache(cfg, batch, device),
-                "shared_attn": pool(n_shared_apps(cfg))}
-    return {name: pool(n) for name, n in stack_depths(cfg).items()}
+                "shared_attn": pool((n_shared_apps(cfg),))}
+    cache = {name: pool(lead) for name, lead in stack_lead(cfg).items()}
+    if cfg.family == "vlm":
+        cache["cross_kv"] = image_cache(cfg, batch, device)
+    return cache
 
 
 def _pools(cache):
-    """(stack name, leaf name, pool) of every pooled leaf."""
-    return [(st, name, pool) for st, leaves in cache.items()
-            for name, pool in leaves.items() if name in _POOL_LEAVES]
+    """(stack name, leaf name, pool) of every pooled leaf, its layer axes
+    flattened into one: (L, n_pages, page_size, ...) views."""
+    return [(st, name, _layers_flat(st, pool))
+            for st, leaves in cache.items()
+            for name, pool in leaves.items() if is_pool_leaf(st, name)]
 
 
 def paged_insert_slot(cache, single, tables: Dict[str, torch.Tensor],
@@ -114,19 +145,20 @@ def paged_insert_slot(cache, single, tables: Dict[str, torch.Tensor],
     unmapped tail entries 0 — rows in those pages land on the null page,
     which is trash by design; rows past the rectangle (a ring of
     ``ring_pages * page_size`` rows longer than the window) are zero.
-    Slot-indexed state leaves (the hybrid's Mamba2 state) are copied
-    whole into slot `slot`. Returns `cache`."""
+    Slot-indexed leaves (the hybrid's Mamba2 state, the VLM's image K/V)
+    are copied whole into slot `slot`, so nothing of its previous occupant
+    survives there. Returns `cache`."""
     for stack, leaves in cache.items():
         for name, leaf in leaves.items():
-            if name not in _POOL_LEAVES:
+            if not is_pool_leaf(stack, name):
                 if slot is None:
-                    raise ValueError("a cache with per-slot state needs the "
-                                     "slot to insert into")
+                    raise ValueError("a cache with per-slot leaves needs "
+                                     "the slot to insert into")
                 leaf[:, slot] = single[stack][name][:, 0].to(leaf.dtype)
     for stack, name, pool in _pools(cache):
         ids = tables[page_kind(stack)].long()
         ps = pool.shape[2]
-        x = single[stack][name][:, 0]                     # (L, rows, ...)
+        x = _layers_flat(stack, single[stack][name])[:, 0]  # (L, rows, ...)
         pad = ids.shape[0] * ps - x.shape[1]
         if pad > 0:
             x = torch.cat([x, x.new_zeros((x.shape[0], pad) + x.shape[2:])], 1)
@@ -138,8 +170,8 @@ def paged_insert_slot(cache, single, tables: Dict[str, torch.Tensor],
 
 def copy_page(cache, src: int, dst: int):
     """Copy-on-write on the device: duplicate page `src` into page `dst`
-    across every layer of every stack's pooled leaves, in place (state
-    leaves untouched). Returns `cache`."""
+    across every layer of every stack's pooled leaves, in place
+    (slot-indexed leaves untouched). Returns `cache`."""
     for _, _, pool in _pools(cache):
         pool[:, dst] = pool[:, src]
     return cache
@@ -147,9 +179,11 @@ def copy_page(cache, src: int, dst: int):
 
 def kv_cache_bytes(cache) -> int:
     """Bytes held by the attention cache's leaves (k / v, or MLA's c_kv /
-    k_rope; the hybrid's ring pool); the state leaves do not count (0 for
-    the SSM family's state cache), as in the reference."""
-    return sum(t.numel() * t.element_size() for _, _, t in _pools(cache))
+    k_rope; the hybrid's ring pool; the VLM's pool and its per-slot image
+    K/V), keyed on the leaf name as in the reference; the state leaves do
+    not count (0 for the SSM family's state cache)."""
+    return sum(t.numel() * t.element_size() for leaves in cache.values()
+               for name, t in leaves.items() if name in _POOL_LEAVES)
 
 
 def paged_select_active(new, old, active):
@@ -158,7 +192,7 @@ def paged_select_active(new, old, active):
     slots map the null page); slot-indexed leaves (batch axis 1) keep
     their old entries for inactive slots."""
     def sel(stack, name, n):
-        if name in _POOL_LEAVES:
+        if is_pool_leaf(stack, name):
             return n
         shape = [1] * n.dim()
         shape[1] = -1

@@ -1,8 +1,9 @@
 """Slot scheduling for the continuous-batching engine, the port of
 ``repro.serve.scheduler``: the host-side bookkeeping of which request
 occupies which decode slot and what is still queued, the prompt-length
-buckets, the preemption victim policy, and the per-slot cache ops of an
-engine without a pool (the SSM family's recurrent state).
+buckets, the preemption victim policy, and the per-slot cache ops of a
+rectangular cache (the SSM family's recurrent state, the engine's cache
+without a pool).
 
 Admission policies: ``"continuous"`` refills any freed slot at once (the
 default); ``"wave"`` admits a new batch only once every slot is free.
@@ -16,7 +17,12 @@ from typing import Deque, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.models.transformer import lead_axes
+
 ADMISSION_POLICIES = ("continuous", "wave")
+# the hybrid's shared-attention ring lives in the paged pool
+# (``paging.paged_insert_slot`` inserts it): the slot ops pass it through
+_POOLED_STACKS = ("shared_attn",)
 
 
 @dataclasses.dataclass
@@ -50,33 +56,51 @@ def pick_preemption_victim(candidates: List[Tuple[int, int, int]]) -> int:
     return min(candidates, key=lambda t: (t[1], -t[2], -t[0]))[0]
 
 
+def _slot_stacks(cache):
+    """The stacks of a cache the slot ops write: all but the pooled
+    :data:`_POOLED_STACKS`. A leaf's batch axis follows its stack's layer
+    axes (``transformer.lead_axes``: 2 for the VLM's self layers, 1 for
+    every other stack, the VLM's image K/V among them)."""
+    return [(st, leaves) for st, leaves in cache.items()
+            if st not in _POOLED_STACKS]
+
+
 def cache_insert_slot(pool, single, slot: int):
-    """Insert a batch-1 cache into slot `slot` of a pooled per-slot cache
-    (batch axis 1 of every leaf of ``"layers"``), in place: the leading
-    rows of a rectangle, or the whole of an SSM state leaf (the f32
-    ``ssm`` state and every row of each conv ring, whose short-prompt tail
-    the prefill right-aligns behind zeros, so no row of the previous
-    occupant survives). Only the state leaves: the hybrid's shared
-    attention ring lives in the paged pool (``paging.paged_insert_slot``
-    inserts both)."""
-    for name, leaf in pool["layers"].items():
-        src = single["layers"][name]
-        leaf[:, slot:slot + 1, :src.shape[2]] = src.to(leaf.dtype)
+    """Insert a batch-1 cache into slot `slot` of a pooled per-slot cache,
+    in place, as the reference's ``cache_insert_slot`` does: the leading
+    rows of a rectangle (the VLM's self layers and image K/V too), or the
+    whole of an SSM state leaf (the f32 ``ssm`` state and every row of
+    each conv ring, whose short-prompt tail the prefill right-aligns
+    behind zeros, so no row of the previous occupant survives). The
+    hybrid's shared attention ring lives in the paged pool
+    (``paging.paged_insert_slot`` inserts both)."""
+    for stack, leaves in _slot_stacks(pool):
+        ax = lead_axes(stack)
+        for name, leaf in leaves.items():
+            src = single[stack][name]
+            idx = (slice(None),) * ax + (slice(slot, slot + 1),
+                                         slice(0, src.shape[ax + 1]))
+            leaf[idx] = src.to(leaf.dtype)
     return pool
 
 
 def cache_select_active(new, old, active):
-    """Per-slot select of the state leaves (``"layers"``): active slots
-    take the freshly written state, the others keep their old entries (the
-    engine's decode commits the SSM state this way, layer by layer:
-    ``transformer._commit_state``). Any other stack of a mixed cache (the
-    hybrid's ring pool) passes through from `new`."""
-    out = {}
-    for name, n in new["layers"].items():
-        shape = [1] * n.dim()
-        shape[1] = -1
-        out[name] = torch.where(active.reshape(shape), n, old["layers"][name])
-    return dict(new, layers=out)
+    """Per-slot select of the slot-indexed leaves: active slots take the
+    freshly written cache, the others keep their old entries (the engine's
+    decode commits the SSM state this way, layer by layer:
+    ``transformer._commit_state``). The hybrid's ring pool passes through
+    from `new`."""
+    out = dict(new)
+    for stack, leaves in _slot_stacks(new):
+        ax = lead_axes(stack)
+        sel = {}
+        for name, n in leaves.items():
+            shape = [1] * n.dim()
+            shape[ax] = -1
+            sel[name] = torch.where(active.reshape(shape), n,
+                                    old[stack][name])
+        out[stack] = sel
+    return out
 
 
 class SlotScheduler:

@@ -9,7 +9,11 @@ Both fillers draw from the same distributions, scaled so activations
 stay O(1) through any depth: packed words uniform; s2 ≈ 1/√K and s1 ≈
 1/√R times N(1, 0.1) (per expert for stacked experts); the embedding
 N(0, 0.02); norms N(1, 0.1); FP weights, the MoE router (f32) among
-them, N(0, 1/d_in); biases N(0, 0.02). The Mamba2 mixer's leaves follow
+them, N(0, 1/d_in); biases N(0, 0.02). The VLM's scalar cross-attention
+and FFN gates are N(1, 0.1) (:data:`GATE_LAWS`), so that tanh(gate) ≈
+0.76 and every cross block does real work (the JAX package initialises
+them to 0, which makes each cross block the identity). The Mamba2
+mixer's leaves follow
 ``repro.models.layers.init_mamba2``: conv kernels N(0, 0.2), conv biases
 N(0, 0.02), D N(1, 0.1), A_log uniform in [0, log 16] (decay rates 1 to
 16) and dt_bias uniform in [log 1e-3, log 1e-1]. :func:`random_packed_params`
@@ -19,7 +23,9 @@ leaf at a time, for full-size models whose host draw would take tens of
 GB and minutes. The two give different numbers from one seed.
 :func:`chaos_trace`, :func:`chaos_plan` and :func:`drive_chaos` are the
 JAX package's chaos benchmark (``benchmarks/serve_bench.py``) for either
-package's engine."""
+package's engine; :func:`image_embeds` and :func:`image_embeds_device`
+the VLM's stubbed patch embeddings under the JAX package's law
+(``repro.data.synthetic``: standard normal)."""
 import numpy as np
 import torch
 
@@ -29,9 +35,15 @@ UNIFORM_LAWS = {"A_log": (0.0, float(np.log(16.0))),
                 "dt_bias": (float(np.log(1e-3)), float(np.log(1e-1)))}
 
 
+# (mean, std) of the VLM's scalar gates: tanh(1) ≈ 0.76, away from 0
+GATE_LAWS = {"gate": (1.0, 0.1), "ffn_gate": (1.0, 0.1)}
+
+
 def _normal_law(name, shape, packed):
     """(mean, std) of a floating leaf not in :data:`UNIFORM_LAWS`: the leaf
     is mean + std · N(0, 1)."""
+    if name in GATE_LAWS:
+        return GATE_LAWS[name]
     if packed and name == "s2":
         mean = 1.0 / np.sqrt(shape[-1])
         return mean, 0.1 * mean
@@ -100,6 +112,24 @@ def random_packed_params_device(template, seed: int, device="cuda"):
                            ).mul_(float(std)).add_(float(mean))
 
     return _walk(template, fill)
+
+
+def image_embeds(cfg, batch: int, seed: int) -> np.ndarray:
+    """Stubbed patch embeddings (batch, n_image_tokens, d_model), float32
+    standard normal from ``numpy.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((batch, cfg.n_image_tokens, cfg.d_model)
+                               ).astype(np.float32)
+
+
+def image_embeds_device(cfg, batch: int, seed: int, device="cuda",
+                        dtype=torch.float32):
+    """The same law drawn on `device` from a ``torch.Generator`` seeded
+    with `seed` (other numbers than :func:`image_embeds`)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return torch.randn((batch, cfg.n_image_tokens, cfg.d_model),
+                       generator=gen, device=device).to(dtype)
 
 
 def chaos_trace(rng, n_req: int, vocab: int, max_prompt: int = 24,

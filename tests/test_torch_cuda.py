@@ -1061,3 +1061,192 @@ def test_hybrid_decode_step_and_engine_match_plain(dev, megakernel_on):
         + (mixer + (2 if megakernel_on else 4) * apps) * dec
     assert n[1:] == ([0, apps * dec, 0] if megakernel_on
                      else [apps * dec, 0, 0])
+
+
+# llama-3.2-vision-90b's self-attention decode at 1.0 bpw: 64 query heads
+# over 8 kv heads (G = 8) of D 128, K 8192, merged-QKV ranks 4064 / 864 /
+# 864 (padded to 4064), wo rank 4064, pages of 64 rows
+VISION = {"hq": 64, "hkv": 8, "D": 128, "K": 8192, "ranks": (4064, 864, 864),
+          "ro": 4064, "PS": 64}
+
+
+def _vision_operands(rng, dev, dt, B, pages):
+    """#3's operands at the vision shape: a merged QKV group of the three
+    ranks (rmask zeroing the padded rank columns, s1 the padded output
+    columns), wo, and a pool with ragged tables of B slots, every one
+    mapping pages."""
+    v = VISION
+    _, kp, vp, bt, pos, cpos = _paged(rng, dev, dt, B=B + 1, hq=v["hq"],
+                                      hkv=v["hkv"], D=v["D"], PS=v["PS"],
+                                      pages=pages)
+    bt, pos, cpos = bt[:B].contiguous(), pos[:B], cpos[:B]
+    K, R, ro = v["K"], max(v["ranks"]), v["ro"]
+    nq, nkv = v["hq"] * v["D"], v["hkv"] * v["D"]
+    s1 = rng.standard_normal((3, nq), np.float32)
+    for i, (r, n) in enumerate(zip(v["ranks"], (nq, nkv, nkv))):
+        s1[i] /= r ** 0.5
+        s1[i, n:] = 0.0
+    mqkv = {"qv": _words(rng, 3, K // 32, R),
+            "qu_t": _words(rng, 3, R // 32, nq),
+            "s1": torch.from_numpy(s1),
+            "s2": torch.from_numpy(rng.standard_normal((3, K), np.float32)
+                                   / K ** 0.5),
+            "rmask": torch.stack([(torch.arange(R) < r).float()
+                                  for r in v["ranks"]])}
+    wo = {"qv": _words(rng, nq // 32, ro), "qu_t": _words(rng, ro // 32, K),
+          "s1": torch.from_numpy(rng.standard_normal(K, np.float32)
+                                 / ro ** 0.5),
+          "s2": torch.from_numpy(rng.standard_normal(nq, np.float32)
+                                 / nq ** 0.5)}
+    mqkv = {k: t.to(dev) for k, t in mqkv.items()}
+    wo = {k: t.to(dev) for k, t in wo.items()}
+    x = torch.from_numpy(rng.standard_normal((B, K), np.float32)).to(dev, dt)
+    kw = dict(head_dim=v["D"], dims=(nq, nkv), theta=5e5,
+              scale=v["D"] ** -0.5)
+    return (x, mqkv, wo, kp, vp, bt, pos, cpos), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("B", [1, 4, 8])
+@pytest.mark.parametrize("pages", [2, 32])
+def test_megakernel_at_the_vision_shape_vs_plain(dev, dt, B, pages):
+    """#3 at llama-3.2-vision-90b's self-attention decode (D 128, G 8, K
+    8192, QKV ranks 4064 / 864 / 864, wo rank 4064, pages of 64 rows, 2
+    and 32 table entries, B 1-8): one launch, against its plain version
+    and against the unfused chain it replaces on the kernel path (#1
+    merged QKV and RoPE, the fresh k / v written into the pool, #2, #1
+    wo)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers
+    args, kw = _vision_operands(np.random.default_rng(B * 100 + pages),
+                                dev, dt, B, pages)
+    x, mqkv, wo, kp, vp, bt, pos, cpos = args
+    n0 = megakernel.decode_step_megakernel_raw.launches
+    got = megakernel.decode_step_megakernel_raw(*args, **kw)
+    torch.cuda.synchronize()
+    assert megakernel.decode_step_megakernel_raw.launches == n0 + 1
+    want = ref.decode_step_ref(*args, **kw)
+    for nm, a, b in zip(("y", "k_new", "v_new"), want, got):
+        _close(a, b, TOL[dt], f"vision megakernel {nm}")
+    nq, nkv = kw["dims"]
+    D = kw["head_dim"]
+    with ops.kernel_policy(KernelPolicy(mode="cuda")):
+        q, k, v = layers.dense_merged(mqkv, x[:, None], (nq, nkv, nkv))
+        q = layers.apply_rope(q.reshape(B, 1, nq // D, D), pos[:, None],
+                              kw["theta"])
+        k = layers.apply_rope(k.reshape(B, 1, nkv // D, D), pos[:, None],
+                              kw["theta"])
+        layers.paged_cache_write(kp, k, bt, cpos)
+        layers.paged_cache_write(vp, v.reshape(B, 1, nkv // D, D), bt, cpos)
+        o = ops.paged_attention(q, kp, vp, bt, pos, cpos, scale=kw["scale"])
+        y = layers.dense(wo, o.reshape(B, 1, nq))
+    _close(y[:, 0], got[0], TOL[dt], "vision megakernel y vs chain")
+    _close(k.reshape(B, nkv // D, D), got[1], TOL[dt],
+           "vision megakernel k_new vs chain")
+    _close(v.reshape(B, nkv // D, D), got[2], TOL[dt],
+           "vision megakernel v_new vs chain")
+
+
+# kernel #1 at the vision model's cross-attention shapes: (K, N, R, M) of
+# the image K/V projection (wk / wv over B 4 images of 1024 patches) and of
+# the cross block's wq at a decode step of 4 slots
+VISION_LINEARS = {"image_wk": (8192, 1024, 864, 4096),
+                  "cross_wq": (8192, 8192, 4064, 4)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("linear", list(VISION_LINEARS))
+def test_vision_shapes_matmul_vs_plain(dev, dt, linear):
+    """Kernel #1 at the image K/V projection (K 8192 -> N 1024 at rank
+    864, M = 4 images x 1024 patches = 4096 rows) and at the cross block's
+    wq (K 8192 -> N 8192 at rank 4064, M 4): one launch against its plain
+    version."""
+    K, N, R, m = VISION_LINEARS[linear]
+    rng = np.random.default_rng(m + N)
+    x = torch.from_numpy(rng.standard_normal((1, m, K), np.float32)
+                         ).to(dev, dt)
+    args = (x, _words(rng, 1, K // 32, R).to(dev),
+            _words(rng, 1, R // 32, N).to(dev),
+            torch.from_numpy(rng.standard_normal((1, N), np.float32)
+                             / R ** 0.5).to(dev),
+            torch.from_numpy(rng.standard_normal((1, K), np.float32)
+                             / K ** 0.5).to(dev))
+    n0 = binary_matmul.fused_lowrank_matmul_grouped.launches
+    got = binary_matmul.fused_lowrank_matmul_grouped(*args, x_shared=True)
+    torch.cuda.synchronize()
+    assert binary_matmul.fused_lowrank_matmul_grouped.launches == n0 + 1
+    want = binary_matmul.fused_lowrank_matmul_grouped_ref(*args,
+                                                          x_shared=True)
+    assert got.dtype == dt and got.shape == (1, m, N)
+    _close(want, got, TOL[dt], f"vision {linear} M={m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("megakernel_on", [True, False])
+def test_vlm_engine_and_generate_match_plain(dev, megakernel_on):
+    """The llama-3.2-vision smoke model on the card (min_dim 16: every
+    linear packs; gates drawn away from 0): the engine's greedy tokens
+    (image K/V zero, as the reference's engine) and ``generate`` with a
+    seeded image per prompt, kernels against the plain oracles (f32). A
+    decode forward launches #1 twice per cross layer (wq, wo) plus twice
+    per self layer with the megakernel off (merged QKV, wo), the FFN's
+    merged gate-up and w_down twice per layer, and #3 (or #2) once per
+    self layer; a prefill with an image adds wk and wv per cross layer."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as TT
+    from repro_torch.serve.engine import generate
+    from repro_torch.testing import image_embeds
+    cfg = dataclasses.replace(get_smoke("llama-3.2-vision-90b"),
+                              dtype="float32")
+    tree = random_packed_params(abstract_quantized_params(cfg, 1.0,
+                                                          min_dim=16), 0)
+    m = NanoQuantModel.from_numpy(tree, cfg, device=dev)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in (5, 9, 3, 12)]
+    counters = (binary_matmul.fused_lowrank_matmul_grouped,
+                paged_attention.paged_decode_attention,
+                megakernel.decode_step_megakernel_raw,
+                binary_matmul.packed_matmul)
+    groups = cfg.n_layers // cfg.cross_attn_every
+    n_self = cfg.n_layers - groups
+
+    def launches(pre, dec, image=False):
+        fused = (2 * n_self + 2 * groups + 2 * cfg.n_layers) * (pre + dec) \
+            - (0 if not megakernel_on else 2 * n_self * dec) \
+            + (2 * groups * pre if image else 0)
+        attn = n_self * dec
+        return [fused] + ([0, attn, 0] if megakernel_on else [attn, 0, 0])
+
+    def serve(policy, mk):
+        eng = m.engine(ServeConfig(greedy=True, debug=True, page_size=8,
+                                   megakernel=mk),
+                       max_batch=2, max_len=48, policy=policy)
+        assert eng.prefix is None and set(eng.kv.tables) == {"linear"}
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid, p, max_new_tokens=6))
+        return {u: r.output for u, r in eng.run().items()}, eng.stats
+
+    want, _ = serve(KernelPolicy(mode="ref"), None)
+    n0 = [c.launches for c in counters]
+    got, st = serve(KernelPolicy(mode="cuda"), megakernel_on)
+    for u in want:
+        np.testing.assert_array_equal(want[u], got[u])
+    assert [c.launches - b for c, b in zip(counters, n0)] == \
+        launches(st["admissions"], st["decode_steps"])
+    toks = rng.integers(0, cfg.vocab_size, size=(3, 7))
+    img = torch.from_numpy(image_embeds(cfg, 3, 6)).to(dev)
+    scfg = ServeConfig(greedy=True, max_new_tokens=5, page_size=8,
+                       megakernel=megakernel_on)
+    with torch.inference_mode():
+        want, wl = generate(m.params, cfg, toks, scfg, image_embeds=img,
+                            policy=KernelPolicy(mode="ref"))
+        n0 = [c.launches for c in counters]
+        got, gl = generate(m.params, cfg, toks, scfg, image_embeds=img,
+                           policy=KernelPolicy(mode="cuda"))
+    assert torch.equal(want, got)
+    _close(wl, gl, 1e-4, "vlm generate logits")
+    assert [c.launches - b for c, b in zip(counters, n0)] == \
+        launches(1, 5, image=True)
+    assert TT.stack_lead(cfg) == {"self_layers": (groups, 1)}

@@ -472,10 +472,11 @@ def test_router_stays_f32_in_a_bf16_model():
 @pytest.mark.parametrize("arch", sorted(set(jconfigs.list_archs())
                                         - set(tconfigs.list_archs())))
 def test_unported_families_raise(arch):
-    """The vlm and audio configs (the JAX archs the port lacks) are refused
-    by the template, the cache and the forward, naming what is missing
-    (MLA is served: ``tests/test_torch_mla.py``; the SSM family:
-    ``tests/test_torch_ssm.py``; the hybrid: ``tests/test_torch_hybrid.py``)."""
+    """The audio config (the JAX arch the port lacks) is refused by the
+    template, the cache and the forward, naming what is missing (MLA is
+    served: ``tests/test_torch_mla.py``; the SSM family:
+    ``tests/test_torch_ssm.py``; the hybrid: ``tests/test_torch_hybrid.py``;
+    the VLM: ``tests/test_torch_vlm.py``)."""
     cfg = ModelConfig(**dataclasses.asdict(jconfigs.get_smoke(arch)))
     what = "MLA" if cfg.is_mla else repr(cfg.family)
     assert cfg.is_mla or cfg.family not in ("dense", "moe")

@@ -360,16 +360,19 @@ def test_merge_leaves_the_mixer_unmerged(model):
 
 def test_check_family_admits_ssm_only():
     """Of the state-space families, mamba2-370m (ssm) and, since the
-    hybrid was ported, zamba2 (hybrid, over ring pages) are served;
-    llama-3.2-vision (vlm) and musicgen (audio) are refused, each naming
+    hybrid was ported, zamba2 (hybrid, over ring pages) are served; since
+    the VLM was ported, llama-3.2-vision (vlm, over linear pages beside its
+    per-slot image K/V) is served too; musicgen (audio) is refused, naming
     what the port lacks. (The name predates the hybrid's port and is kept,
     so that the test keeps its identity across the change.)"""
     check_family(tconfigs.get_config(ARCH))
     check_family(tconfigs.get_config("zamba2-1.2b"))
     assert paging.cache_page_kinds(tconfigs.get_smoke("zamba2-1.2b")) == \
         {"ring"}
-    lacks = {"llama-3.2-vision-90b": "cross-attention",
-             "musicgen-medium": "multi-codebook"}
+    check_family(tconfigs.get_config("llama-3.2-vision-90b"))
+    assert paging.cache_page_kinds(
+        tconfigs.get_smoke("llama-3.2-vision-90b")) == {"linear"}
+    lacks = {"musicgen-medium": "multi-codebook"}
     for arch, what in lacks.items():
         cfg = ModelConfig(**dataclasses.asdict(jconfigs.get_smoke(arch)))
         with pytest.raises(NotImplementedError, match=what):
