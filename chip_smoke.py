@@ -204,7 +204,27 @@ Phases, each printing its own line(s); any failure exits non-zero:
    under the profiler, device ms per step split by op group
    (``vision_split``), and the bf16 image prefill of ``VISION_IMAGE``
    under the profiler (host ms, device ms by kernel);
-13. the seconds each phase took, the ``kernels`` JSON line (launches per
+13. musicgen-medium — #1 at the audio model's merged QKV (G 3, K 1536 ->
+   3 x 1536 at rank 736), merged gate-up (G 2, -> 2 x 6144 at rank 1184)
+   and w_down (6144 -> 1536 at rank 1184) at M 8 and 256; #2 and #3 at
+   its decode shape (B 8, 24 query heads over 24 kv heads: G 1, D 64, K
+   1536, pages of 64) over 4 and 32 table entries, each against its
+   plain version beside its library call (#3 also beside its unfused
+   chain), f32 and bf16. Then the model at full width and full depth (48
+   layers, d 1536, 4 codebooks of 2048; the reference's llama-style block)
+   at 1.0 bpw, weights drawn on the card, under ``MUSICGEN``: 8 requests
+   of 17-200 prompt frames of 4 codebook ids (about 0.3-4 s of audio at
+   EnCodec's 50 frames per second), 32 new frames each, on the paths
+   ``musicgen-medium`` (megakernel on: #1 and #3) and
+   ``musicgen-medium-unfused`` (#1 and #2), launches of #1-#4 per forward
+   asserted from the template, each gated against the plain-oracle engine
+   frame for frame (a divergence must fall at a plain-path near-tie of
+   every codebook that differs). Then one bf16 run (decode frames/s and
+   codebook tokens/s, TTFT, peak memory, the pool's bytes per token,
+   exactly 48 x 2 x 24 x 64 x 2) and its decode window under the profiler,
+   device ms per step split by op group (``audio_split``) beside the host
+   ms per step, and the device's busy share of the decode steps;
+14. the seconds each phase took, the ``kernels`` JSON line (launches per
    serving path, each path's counts set to 0 just before its f32 run;
    ``chaos`` counts its kernel legs; ``restart`` launches in its child
    processes and is not counted), then the ``ok`` JSON line.
@@ -317,6 +337,10 @@ VISION = dict(QWEN, arch="llama-3.2-vision-90b")
 # `new` new tokens: the image K/V projection runs #1 at M = n x 1024
 VISION_IMAGE = {"arch": "llama-3.2-vision-90b", "n": 4, "prompt": 32,
                 "new": 8}
+# musicgen-medium (audio: the dense block over frames of 4 codebook ids)
+# under the llama traffic: prompts of 17-200 frames, about 0.3-4 s of audio
+# at EnCodec's 50 frames per second (arXiv:2306.05284), 32 new frames
+MUSICGEN = dict(LLAMA, arch="musicgen-medium")
 # depth cuts that keep the script inside its time limit: the layers each
 # model is served at (width untouched; every other model at full depth)
 DEPTH = {"qwen1.5-110b": 40, "qwen3-moe-235b-a22b": 47}
@@ -377,6 +401,10 @@ PATHS = (
      (PAGED, PACKED)),
     ("llama-3.2-vision-90b", VISION, {}, None, None, None,
      (FUSED, MEGA, PACKED), (PAGED,)),
+    ("musicgen-medium", MUSICGEN, {}, True, None, None, (FUSED, MEGA),
+     (PAGED, PACKED)),
+    ("musicgen-medium-unfused", MUSICGEN, {}, False, None, None,
+     (FUSED, PAGED), (MEGA, PACKED)),
 )
 
 # the kernels' names in a profiler trace, and the lm head's matmul
@@ -599,6 +627,28 @@ def main():
     free()
     phase("llama-3.2-vision-90b bf16 runs and profiles")
 
+    mg = make_on_card("musicgen-medium")
+    rows = check_musicgen_kernels(mg, report)
+    for i, kern in ((FUSED, "fused_lowrank_matmul_grouped"),
+                    (PAGED, "paged_decode_attention"),
+                    (MEGA, "decode_step_megakernel_raw")):
+        lines[i]["musicgen"] = [{k: r[k] for k in r if k in keep}
+                                for r in rows if r["kernel"] == kern]
+    phase("musicgen-medium kernels")
+    res = report["musicgen-medium"] = serve_paths(mg, MUSICGEN, launches)
+    phase("musicgen-medium f32 engine paths")
+    mg = cast(mg, torch.bfloat16)
+    free()
+    res["bf16"] = bf16_run(mg, MUSICGEN, report)
+    res["bf16"].update(audio_bytes(mg, MUSICGEN))
+    res["bf16_decode_profile"] = profile_decode(
+        mg, MUSICGEN, [res["bf16"]["decode_step_ms"]], split=audio_split,
+        tail=embed_probe(mg))
+    audio_summary(res, mg.cfg, report)
+    del mg
+    free()
+    phase("musicgen-medium bf16 run and profile")
+
     kernels = []
     for i, (name, source, replaces) in enumerate(KERNELS):
         rec = lines[i]
@@ -616,7 +666,7 @@ def main():
                        "B", "pages", "dtype")},
             **{k: rec[k] for k in ("instruction", "plan", "bound_share",
                                    "chain_ms", "cold_l2_ms", "long_context",
-                                   "ring", "vision")
+                                   "ring", "vision", "musicgen")
                if k in rec}})
     report["kernels"] = kernels
     report["script_s"] = time.perf_counter() - t_start
@@ -1181,6 +1231,34 @@ def check_vision_kernels(model, report):
     return rows
 
 
+def check_musicgen_kernels(model, report):
+    """#1 at musicgen-medium's groups against its plain version, f32 and
+    bf16, at M 8 (a decode step of 8 slots) and M 256 (a prefill bucket):
+    the merged QKV (G 3, K 1536 -> 3 x 1536, rank 736), the merged gate-up
+    (G 2, -> 2 x 6144, rank 1184) and w_down (K 6144 -> 1536, rank 1184),
+    timed beside ``torch.matmul`` over the unpacked factors. Then #2 and #3
+    at its decode shape (B 8, 24 query heads over 24 kv heads: G 1, D 64,
+    K 1536; #3 with layer 0's merged QKV and wo) over 4 and 32 table
+    entries of 64-row pages, f32 and bf16. Returns every row."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    cfg = model.cfg
+    lp = layer0(model)
+    rows = check_fused(lp, ("qkv", "gate_up", "down"), (8, 256), gen,
+                       cfg.name)
+    for dt, tdt in _dtypes():
+        for pages in (4, LONG_PAGES):
+            case = _paged_case(cfg, tdt, gen, B=MUSICGEN["max_batch"],
+                               pages=pages, seed=SEED + 22)
+            rows += [_check_paged(case, cfg, dt, cfg.name),
+                     _check_mega(case, lp, cfg, dt)]
+            del case
+    report["musicgen_kernel_checks"] = rows
+    del lp
+    free()
+    return rows
+
+
 def _check_packed(stage, w, sk, sn, m, dt, tdt, gen,
                   model_name="qwen1.5-110b"):
     import torch
@@ -1538,8 +1616,10 @@ def _requests(cfg, traffic):
         return _prefix_requests(cfg, traffic)
     rng = np.random.default_rng(SEED + 2)
     lens = rng.integers(*traffic["lens"], size=traffic["n"])
-    return [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int64)
-            for n in lens]
+    # the audio family's prompts are frames of one id per codebook
+    frame = (cfg.n_codebooks,) if cfg.family == "audio" else ()
+    return [rng.integers(0, cfg.vocab_size, size=(int(n),) + frame
+                         ).astype(np.int64) for n in lens]
 
 
 def _prefix_requests(cfg, traffic):
@@ -1629,11 +1709,14 @@ def serve(model, traffic, policy, megakernel=None, spec=None,
     return {u: r.output for u, r in done.items()}, eng, wall, st
 
 
-def _margin(model, prompt, prefix, image=None):
+def _margin(model, prompt, prefix, image=None, books=None):
     """Top-2 logit margin and tolerance of the plain path at the step
     that produced the next token after `prefix` (teacher-forced). The
     VLM's forward reads `image` (1, n_img, d), or zeros: the image K/V an
-    engine's request meets."""
+    engine's request meets. The audio family's frame has one margin per
+    codebook, each over that codebook's logits: of `books` (the codebooks
+    whose ids differ), the one furthest from a near-tie is returned, with
+    its index."""
     import numpy as np
     import torch
     from repro_torch.kernels.ops import KernelPolicy, kernel_policy
@@ -1647,30 +1730,42 @@ def _margin(model, prompt, prefix, image=None):
         lg = TT.forward(model.params, cfg,
                         torch.from_numpy(toks).to(model.device),
                         image)[0, -1]
-    lg = lg.float()
-    top = torch.topk(lg, 2).values
-    return float(top[0] - top[1]), LOGITS_TOL * max(1.0, float(lg.abs().max()))
+    lg = lg.float().reshape(-1, lg.shape[-1])     # (1, V), or (K, V)
+    top = torch.topk(lg, 2, dim=-1).values
+    margins = (top[:, 0] - top[:, 1]).tolist()
+    tols = [LOGITS_TOL * max(1.0, float(r.abs().max())) for r in lg]
+    book = max(books if books is not None else range(len(margins)),
+               key=lambda b: margins[b] / tols[b])
+    return margins[book], tols[book], book
 
 
 def gate(model, traffic, name, got, want, prompts=None, images=None):
     """Identical greedy tokens, or a first divergence at a near-tie of
     the plain path (top-2 margin below the logits tolerance). `prompts`
     default to the traffic's; `images` (B, n_img, d), the VLM's, one per
-    prompt."""
+    prompt. An audio frame diverges at each codebook whose id differs,
+    and each must be at a near-tie of that codebook's logits."""
+    import numpy as np
     if prompts is None:
         prompts = _requests(model.cfg, traffic)
+    audio = model.cfg.family == "audio"
     worst = None
     for uid in sorted(want):
         diff = [i for i, (a, b) in enumerate(zip(want[uid], got[uid]))
-                if a != b]
+                if np.any(a != b)]
         if not diff:
             continue
         i = diff[0]
-        margin, tol = _margin(model, prompts[uid], want[uid][:i],
-                              None if images is None
-                              else images[uid:uid + 1])
-        log(f"engine {name}: request {uid} diverges at token {i}: plain-path "
-            f"top-2 margin {margin:.3e} (tolerance {tol:.3e})")
+        books = list(np.nonzero(want[uid][i] != got[uid][i])[0]) \
+            if audio else None
+        margin, tol, book = _margin(model, prompts[uid], want[uid][:i],
+                                    None if images is None
+                                    else images[uid:uid + 1], books)
+        log(f"engine {name}: request {uid} diverges at token {i}"
+            + (f" (codebooks {books}; the widest margin at codebook {book})"
+               if audio else "")
+            + f": plain-path top-2 margin {margin:.3e} (tolerance "
+            f"{tol:.3e})")
         if margin >= tol:
             raise AssertionError(f"engine {name}: request {uid} token {i} "
                                  f"differs at a margin past the tolerance")
@@ -1912,6 +2007,8 @@ def serve_paths(model, traffic, launches):
                         f"{forwards} forwards")
             if cfg.family == "vlm":
                 vision_launches(name, cfg, st, launches[name], mk)
+            if cfg.family == "audio":
+                audio_launches(name, cfg, st, launches[name], mk)
             if cfg.family == "hybrid":
                 hybrid_launches(name, cfg, st, launches[name], mk)
                 last = {u: len(p) + traffic["new"] - 2
@@ -2039,6 +2136,30 @@ def vision_launches(name, cfg, st, counts, megakernel, image=False):
         f"launches of #4, {2 * groups + (0 if mega else 2 * n_self)} of "
         f"#1 and {n_self} of {'#3' if mega else '#2'}; per prefill forward "
         f"{per_prefill} of #1 ({prefill} prefills, {decode} decode steps)")
+
+
+def audio_launches(name, cfg, st, counts, megakernel):
+    """The audio model's launches of #1-#4 against its template: a
+    prefill forward (one per admission; no request's prompt shares a
+    prefix, so no suffix prefill runs #2) launches #1 four times per layer
+    (merged QKV, wo, merged gate-up, w_down); a decode forward launches per
+    layer either #3 (QKV, the page walk and wo in one launch) and #1 for
+    the FFN's two groups, or, with the megakernel off, #2 and four
+    launches of #1. #4 never runs: every rank is within #1's reach."""
+    n, mega = cfg.n_layers, megakernel is not False
+    prefill, decode = st["admissions"], st["decode_steps"]
+    want = {FUSED: 4 * n * prefill + (2 if mega else 4) * n * decode,
+            MEGA: n * decode if mega else 0,
+            PAGED: 0 if mega else n * decode, PACKED: 0}
+    got = {i: counts[i] for i in want}
+    if got != want or st["prefix_hit_tokens"]:
+        raise AssertionError(f"engine path {name}: launches {got}, expected "
+                             f"{want} from {prefill} prefill and {decode} "
+                             f"decode forwards ({st['prefix_hit_tokens']} "
+                             f"prompt frames hit the prefix index)")
+    log(f"engine path {name}: per decode forward {(2 if mega else 4) * n} "
+        f"launches of #1 and {n} of {'#3' if mega else '#2'}; per prefill "
+        f"forward {4 * n} of #1 ({prefill} prefills, {decode} decode steps)")
 
 
 def _vision_image_inputs(cfg, dtype):
@@ -2693,13 +2814,18 @@ def profile_engine(model, traffic, wall):
     return {"device_busy_s": busy_s, "wall_s": wall, "top": top}
 
 
-def profile_decode(model, traffic, host_ms, spec=None, split=None):
+def profile_decode(model, traffic, host_ms, spec=None, split=None,
+                   tail=None):
     """The bf16 engine again (speculative with `spec`), admitting every
     request unprofiled and then profiling the decode-only steps that
     follow: device time per decode step (per cycle when speculative) and
     per committed token, by kernel, beside ``host_ms``, the unprofiled
     runs' host ms per step. ``split(prof, cfg, steps)``, when given, adds
-    its device ms per step by op group as ``by_group_ms_per_step``."""
+    its device ms per step by op group as ``by_group_ms_per_step``.
+    ``tail()``, when given, runs inside the profile after the decode
+    window, for the split to read (the window's first events may go
+    unrecorded in a process that profiled before; its last ones are
+    kept)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.ops import KernelPolicy
@@ -2716,6 +2842,8 @@ def profile_decode(model, traffic, host_ms, spec=None, split=None):
             if eng.scheduler.pending:
                 raise AssertionError("an admission fell in the decode window")
             eng.step()
+        if tail is not None:
+            tail()
         torch.cuda.synchronize()
     steps = eng.stats["decode_steps"] - steps0
     tokens = eng.stats["tokens_emitted"] - tokens0
@@ -3115,6 +3243,138 @@ def vision_split(prof, cfg, steps):
                              f"of #1")
     log(f"decode profile split: {used} of {steps} steps whole")
     return dict({k: v / used for k, v in out.items()}, steps_used=used)
+
+
+def audio_bytes(model, traffic):
+    """The audio engine's pool bytes per token (every layer's k and v row
+    of one frame), checked against the shapes: 48 x 2 x 24 x 64 x 2 =
+    294,912 bytes in bf16."""
+    from repro_torch.kernels.ops import KernelPolicy
+    eng = _engine(model, traffic, KernelPolicy(mode="cuda"))
+    kv, cfg = eng.kv, model.cfg
+    per_token = eng.kv_cache_bytes() / (kv.n_pages * kv.page_size)
+    es = eng.cache["layers"]["k"].element_size()
+    if per_token != cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim * es:
+        raise AssertionError(f"audio pool bytes per token {per_token}")
+    log(f"engine {traffic['arch']} {cfg.dtype} pool: a pool of "
+        f"{kv.n_pages} pages of {kv.page_size} rows, {eng.kv_cache_bytes()} "
+        f"bytes: {per_token:.0f} bytes per token (one frame of "
+        f"{cfg.n_codebooks} codebook ids)")
+    del eng
+    free()
+    return {"pool_bytes_per_token": per_token}
+
+
+def embed_probe(model):
+    """A call of the audio embedding (the sum of the per-codebook tables)
+    at a decode step's shape, ending in a host read: run as
+    ``profile_decode``'s tail, after the last step's host read, its
+    kernels are the window's last chunk, which :func:`audio_split`
+    counts. The frames are allocated here, before any profile."""
+    import torch
+    from repro_torch.models import transformer as TT
+    cfg = model.cfg
+    toks = torch.zeros((MUSICGEN["max_batch"], 1, cfg.n_codebooks),
+                       dtype=torch.long, device="cuda")
+
+    def probe():
+        with torch.inference_mode():
+            TT.embed_tokens(model.params, cfg, toks)
+            toks.cpu()
+    return probe
+
+
+def audio_split(prof, cfg, steps):
+    """Device ms per decode step of the audio model by op group, from the
+    kernels' order on the one stream, the window cut into steps at the
+    host reads of the sampled frames (a step whose launches of #1 are not
+    one whole forward's, two per layer with the megakernel on and four
+    with it off, is left out and counted). #3 is ``megakernel``, #2
+    ``paged_attention`` (the megakernel off), #1 ``fused``; a step's first
+    kernels (the host-to-card copies of the frames, positions and tables
+    before them are not kernels), as many as the embedding alone launched
+    between the window's last two host reads (:func:`embed_probe`), are
+    the ``embedding`` sum of the 4 codebook tables, a matmul after the
+    step's last launch of #1 the ``lm_head``, and the rest ``other``
+    (norms, residuals, the FFN's activation, the fresh k / v rows' page
+    writes, the greedy argmax, copies). Raises when that chunk holds no
+    kernel or a kernel of #1-#4 (it is then no embedding alone), or when
+    no step is whole."""
+    from torch.autograd import DeviceType
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    chunks = [[]]
+    for e in evs:
+        chunks[-1].append(e)
+        if "DtoH" in e.name or "Device -> P" in e.name:
+            chunks.append([])
+    def copy(e):
+        return "Memcpy" in e.name or "Memset" in e.name or "->" in e.name
+    probe = chunks[-2] if len(chunks) > 1 else []
+    n_embed = sum(not copy(e) for e in probe)
+    if n_embed == 0 or any(k in e.name for e in probe
+                           for _, k in TRACE_NAMES):
+        raise AssertionError(f"decode profile: {n_embed} kernels between "
+                             f"the window's last two host reads, not the "
+                             f"embedding alone")
+    names = {TRACE_NAMES[MEGA][1]: "megakernel",
+             TRACE_NAMES[PAGED][1]: "paged_attention",
+             TRACE_NAMES[FUSED][1]: "fused"}
+    out = dict.fromkeys(("embedding", "megakernel", "paged_attention",
+                         "fused", "lm_head", "other"), 0.0)
+    used = 0
+    for chunk in chunks:
+        fused = [i for i, e in enumerate(chunk)
+                 if TRACE_NAMES[FUSED][1] in e.name]
+        if len(fused) not in (2 * cfg.n_layers, 4 * cfg.n_layers):
+            continue
+        used += 1
+        kernels = 0
+        for i, e in enumerate(chunk):
+            ms = e.time_range.elapsed_us() * 1e-3
+            group = next((g for k, g in names.items() if k in e.name), None)
+            if group is None:
+                if not copy(e) and kernels < n_embed:
+                    group = "embedding"
+                elif i > fused[-1] and any(g in e.name.lower()
+                                           for g in GEMM_NAMES):
+                    group = "lm_head"
+                else:
+                    group = "other"
+            kernels += not copy(e)
+            out[group] += ms
+    if not used:
+        raise AssertionError(f"decode profile: none of {steps} steps holds "
+                             f"one whole forward's launches of #1")
+    log(f"decode profile split: {used} of {steps} steps whole; the "
+        f"embedding launches {n_embed} kernels")
+    return dict({k: v / used for k, v in out.items()}, steps_used=used,
+                embedding_kernels=n_embed)
+
+
+def audio_summary(res, cfg, report):
+    """The audio model's bf16 line: decode frames/s and codebook tokens/s
+    (frames x codebooks), host and device ms per step, the device's busy
+    share of the decode steps (device ms over the unprofiled host ms per
+    step), TTFT, peak memory and the pool's bytes per token."""
+    run, prof = res["bf16"], res["bf16_decode_profile"]
+    run["decode_frames_s"] = run["decode_tok_s"]
+    run["decode_codebook_tokens_s"] = cfg.n_codebooks * run["decode_tok_s"]
+    dev_ms = None if prof is None else prof["device_ms_per_step"]
+    run["decode_busy_share"] = None if dev_ms is None \
+        else dev_ms / run["decode_step_ms"]
+    ttft = run["ttft_s"]
+    log(f"engine {cfg.name} bf16 on {report['device']}: decode "
+        f"{run['decode_frames_s']:.1f} frames/s "
+        f"({run['decode_codebook_tokens_s']:.1f} codebook tokens/s), host "
+        f"{run['decode_step_ms']:.2f} ms per step, device "
+        + ("not measured" if dev_ms is None else
+           f"{dev_ms:.2f} ms per step (busy "
+           f"{100 * run['decode_busy_share']:.1f}%)")
+        + f", TTFT median {ttft[len(ttft) // 2] * 1e3:.1f} ms (max "
+        f"{ttft[-1] * 1e3:.1f} ms), peak {run['peak_gib']:.2f} GiB, pool "
+        f"{run['pool_bytes_per_token']:.0f} bytes per token")
 
 
 def profile_image_prefill(model):

@@ -154,7 +154,8 @@ class NanoQuantModel:
                  scfg: Optional[ServeConfig] = None, max_batch: int = 8,
                  seed: int = 0) -> List[np.ndarray]:
         """Batched generation on the engine; one output array per prompt,
-        in order."""
+        in order. The audio family's prompts are (S, K) frames and its
+        outputs (n, K); ``max_len`` counts frames."""
         if not prompts:
             raise ValueError("generate() needs at least one prompt")
         if max_new_tokens is None:

@@ -10,14 +10,15 @@ from typing import List
 
 from repro_torch.configs import (deepseek_v2_lite, llama3p2_1b,
                                  llama3p2_vision_90b, mamba2_370m,
-                                 qwen1p5_0p5b, qwen1p5_110b, qwen3_4b,
-                                 qwen3_moe_235b, zamba2_1p2b)
+                                 musicgen_medium, qwen1p5_0p5b, qwen1p5_110b,
+                                 qwen3_4b, qwen3_moe_235b, zamba2_1p2b)
 from repro_torch.models.config import ModelConfig
 
 _ARCHS = {m.CONFIG.name: m for m in (deepseek_v2_lite, llama3p2_1b,
                                      llama3p2_vision_90b, mamba2_370m,
-                                     qwen1p5_0p5b, qwen1p5_110b, qwen3_4b,
-                                     qwen3_moe_235b, zamba2_1p2b)}
+                                     musicgen_medium, qwen1p5_0p5b,
+                                     qwen1p5_110b, qwen3_4b, qwen3_moe_235b,
+                                     zamba2_1p2b)}
 
 
 def list_archs() -> List[str]:

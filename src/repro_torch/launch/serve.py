@@ -9,13 +9,16 @@ by either package's ``save``) is self-describing: its manifest carries
 the model config. Without one, the CLI serves ``--arch``'s smoke
 config (llama3.2-1b by default; any arch of ``repro_torch.configs``,
 qwen3-moe-235b-a22b's MoE, mamba2-370m's SSM, zamba2-1.2b's hybrid and
-llama-3.2-vision-90b's VLM among them) with packed words drawn from seed
-0 (the port cannot quantize). A family with nothing to page (SSM) is
+llama-3.2-vision-90b's VLM and musicgen-medium's audio among them) with
+packed words drawn from seed 0 (the port cannot quantize). The pool line
+gives the pool's bytes per token. A family with nothing to page (SSM) is
 served on its per-slot state cache, and the pool line reports that
 layout instead; the hybrid's line gives its ring pages per slot and its
 per-slot state beside the pool, the VLM's its image K/V bytes per slot
 beside the pool (a request carries no image: they stay zero, as in the
-reference's engine).
+reference's engine). The audio family's prompts are ``--prompt-len``
+frames of ``n_codebooks`` ids; ``--shared-prefix`` refuses them, as the
+reference's CLI does.
 The engine runs on ``--device`` (``cuda`` by default; nothing falls back
 to the CPU).
 
@@ -147,8 +150,13 @@ def main():
                        max_len=(args.shared_prefix + args.prompt_len
                                 + args.max_new))
     rng = np.random.default_rng(0)
+    # a prompt of tokens, or the audio family's frames of n_codebooks ids
+    shape = ((args.prompt_len, cfg.n_codebooks)
+             if cfg.family == "audio" else (args.prompt_len,))
     sys_prompt = None
     if args.shared_prefix:
+        if cfg.family == "audio":
+            ap.error("--shared-prefix does not support audio prompts")
         sys_prompt = rng.integers(0, cfg.vocab_size,
                                   size=args.shared_prefix).astype(np.int64)
     t0 = time.time()
@@ -162,7 +170,7 @@ def main():
         handles = []
         for uid in range(args.requests):
             prompt = rng.integers(0, cfg.vocab_size,
-                                  size=args.prompt_len).astype(np.int64)
+                                  size=shape).astype(np.int64)
             if sys_prompt is not None:
                 prompt = np.concatenate([sys_prompt, prompt])
             handles.append(eng.submit(Request(
@@ -243,9 +251,11 @@ def _print_pool_stats(eng) -> None:
         pool -= image
         ring = (f", per-slot image K/V of {eng.max_batch} slots beside it "
                 f"({image // eng.max_batch} bytes per slot)")
+    rows = eng.kv.n_pages * eng.kv.page_size
     print(f"[serve] paged KV pool: {eng.kv.n_pages} pages x "
-          f"{eng.kv.page_size} rows ({pool / 2**20:.2f} "
-          f"MiB){ring}, peak {eng.kv.peak_used_pages} pages in use, "
+          f"{eng.kv.page_size} rows ({pool / 2**20:.2f} MiB, "
+          f"{pool // rows} bytes per token){ring}, peak "
+          f"{eng.kv.peak_used_pages} pages in use, "
           f"{eng.stats['page_waits']} page waits, "
           f"{eng.stats['preemptions']} preemptions")
     if eng.prefix is not None:

@@ -4,13 +4,14 @@ One frozen (hashable -> jit-static) dataclass covers the whole assigned
 pool: dense / MoE / MLA / SSM / hybrid / VLM / audio backbones. The
 port's copy of ``repro.models.config`` keeps every field, so a manifest
 written by the JAX package rebuilds the same config here; the port's
-model code serves the dense, MoE (MLA attention included), SSM, hybrid
-and VLM families (:func:`check_family`).
+model code serves every one of those families (:func:`check_family`).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
+
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,7 +80,7 @@ class ModelConfig:
     def __post_init__(self):
         if self.head_dim is None:
             object.__setattr__(self, "head_dim", self.d_model // max(self.n_heads, 1))
-        assert self.family in ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+        assert self.family in FAMILIES
         if self.n_heads:
             assert self.n_heads % max(self.n_kv_heads, 1) == 0
 
@@ -112,27 +113,18 @@ class ModelConfig:
         return self.head_dim
 
 
-# what the port still lacks for each family it refuses
-_MISSING = {
-    "audio": "multi-codebook embeddings, head and sampling",
-}
-
-
 def check_family(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError, naming what is missing, unless the port
-    serves `cfg`: the dense family, the MoE family with GQA or MLA
-    attention (deepseek-v2's compressed-latent attention), the SSM family
-    (Mamba2 blocks over a per-slot recurrent state), the hybrid (zamba2:
-    the Mamba2 stack plus one shared attention block every ``attn_every``
-    layers over a ring-paged sliding-window cache) and the VLM
-    (llama-3.2-vision: groups of ``cross_attn_every - 1`` self-attention
-    blocks over the paged pool, each followed by one gated
-    cross-attention block over per-slot image K/V)."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm"):
+    """Raise NotImplementedError unless `cfg`'s family is one the port
+    serves, which is every family of the JAX package: dense, MoE (GQA or
+    MLA attention), SSM (Mamba2 blocks over a per-slot recurrent state),
+    hybrid (zamba2: the Mamba2 stack plus one shared attention block over
+    a ring-paged sliding-window cache), VLM (llama-3.2-vision: gated
+    cross-attention blocks over per-slot image K/V) and audio (musicgen:
+    the dense block over frames of ``n_codebooks`` ids)."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"the port serves the dense, moe, ssm, hybrid and vlm families, "
-            f"not {cfg.family!r} ({cfg.name}): it lacks "
-            f"{_MISSING[cfg.family]}")
+            f"the port serves the {', '.join(FAMILIES)} families, not "
+            f"{cfg.family!r} ({cfg.name})")
 
 
 def scaled_down(cfg: ModelConfig, **overrides) -> ModelConfig:

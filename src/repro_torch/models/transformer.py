@@ -1,7 +1,8 @@
-"""Dense-, MoE-, SSM-, hybrid- and VLM-family model assembly: forward /
-prefill / decode, the port of those paths of ``repro.models.transformer``
-(GQA or MLA attention, by ``cfg.is_mla``; Mamba2 blocks for ``ssm`` and
-``hybrid``; gated cross-attention blocks for ``vlm``).
+"""Model assembly of every family: forward / prefill / decode, the port
+of those paths of ``repro.models.transformer`` (GQA or MLA attention, by
+``cfg.is_mla``; Mamba2 blocks for ``ssm`` and ``hybrid``; gated
+cross-attention blocks for ``vlm``; the dense block over frames of
+``n_codebooks`` ids for ``audio``).
 
 Each block stack keeps the JAX package's stacked layout (every leaf of
 ``params["layers"]`` has a leading layer axis); a Python loop takes the
@@ -27,6 +28,11 @@ image K/V per slot, projected once from ``image_embeds`` when they are
 given and read from the cache otherwise. A stack may also be given
 pre-split as a list of per-layer dicts (:func:`split_layers`, the VLM's
 self layers in run order), which saves the slicing on every call.
+
+The audio family (musicgen) is the dense family over frames: its tokens
+are (B, S, K), one id per codebook, embedded as the sum of K tables
+(:func:`embed_tokens`), and its logits (B, S, K, V) (:func:`logits_fn`);
+everything between runs as for ``dense``.
 """
 from __future__ import annotations
 
@@ -130,7 +136,15 @@ def _apply_mamba_block(p, cfg, x, state=None):
 
 
 def embed_tokens(params, cfg, tokens):
-    return params["embed"][tokens]
+    """Token ids (B, S) to (B, S, d); the audio family's frames (B, S, K)
+    to the sum of each codebook's embedding, in codebook order."""
+    emb = params["embed"]
+    if cfg.family != "audio":
+        return emb[tokens]
+    x = emb[0][tokens[..., 0]]
+    for k in range(1, cfg.n_codebooks):
+        x = x + emb[k][tokens[..., k]]
+    return x
 
 
 def shared_app(cfg: ModelConfig, idx: int) -> Optional[int]:
@@ -154,9 +168,9 @@ def ring_rows(cfg: ModelConfig, max_len: int) -> int:
 
 
 def backbone(params, cfg: ModelConfig, tokens, image_embeds=None):
-    """Full-sequence forward to final hidden states (B, S, d). The VLM
-    needs `image_embeds` (B, n_img, d), projected to each cross layer's
-    K/V."""
+    """Full-sequence forward to final hidden states (B, S, d) of tokens
+    (B, S), or (B, S, K) frames for the audio family. The VLM needs
+    `image_embeds` (B, n_img, d), projected to each cross layer's K/V."""
     check_family(cfg)
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
@@ -182,9 +196,13 @@ def backbone(params, cfg: ModelConfig, tokens, image_embeds=None):
 
 
 def logits_fn(params, cfg, hidden):
-    """The lm head stays a plain matmul (tied to the embedding or not)."""
+    """The lm head stays a plain matmul (tied to the embedding or not);
+    the audio family's logits come back as (..., n_codebooks, vocab)."""
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]["w"]
-    return hidden @ w.to(hidden.dtype)
+    out = hidden @ w.to(hidden.dtype)
+    if cfg.family == "audio":
+        out = out.unflatten(-1, (cfg.n_codebooks, cfg.vocab_size))
+    return out
 
 
 def forward(params, cfg, tokens, image_embeds=None):
@@ -445,7 +463,8 @@ def decode_step(params, cfg, token, cache, pos, block_tables=None,
     inactive slots. The hybrid takes both: the state cache with `active`,
     and its shared block's ring pool through ``block_tables={"ring": (B,
     ring_pages)}`` at the absolute positions `pos`. The VLM's cross layers
-    read ``cache["cross_kv"]`` per slot. Returns (logits (B, S, V),
+    read ``cache["cross_kv"]`` per slot. The audio family's `token` is
+    (B, S, K) and its logits (B, S, K, V). Returns (logits (B, S, V),
     cache)."""
     if cfg.is_ssm_layer_stack:
         h, cache = _ssm_forward(params, cfg, embed_tokens(params, cfg, token),

@@ -3,9 +3,9 @@
 
 - :func:`abstract_quantized_params` — the shape/dtype template of a
   NanoQuant-packed dense or MoE model with GQA or MLA attention, of a
-  Mamba2 (SSM) model, of a zamba2 hybrid or of a llama-3.2-vision VLM
-  (for the artifact loader and for building a packed model of a
-  published shape from a seed);
+  Mamba2 (SSM) model, of a zamba2 hybrid, of a llama-3.2-vision VLM or
+  of a musicgen audio model (for the artifact loader and for building a
+  packed model of a published shape from a seed);
 - :func:`merge_projection_groups` — the merged QKV / gate-up operands
   the grouped kernel launches read (padded rank + ``rmask``, padded s1
   columns set to 0);
@@ -20,6 +20,7 @@ excluded (the MoE router stays FP32).
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple, Tuple
 
 import torch
@@ -38,9 +39,9 @@ class LeafSpec(NamedTuple):
 
 
 def param_specs(cfg: ModelConfig) -> Dict:
-    """FP parameter template of a dense-, MoE-, SSM-, hybrid- or VLM-family
-    model — the tree ``repro.models.transformer.init_params`` builds, each
-    block stack with a leading axis of its length. The MoE family's
+    """FP parameter template of a model of any family — the tree
+    ``repro.models.transformer.init_params`` builds, each block stack
+    with a leading axis of its length. The MoE family's
     ``layers`` hold a ``moe`` block (router, stacked experts, optional
     shared experts) instead of ``ffn``; its first ``first_k_dense``
     blocks, when any, form the ``dense_layers`` stack with an FFN of
@@ -60,7 +61,10 @@ def param_specs(cfg: ModelConfig) -> Dict:
     its ``cross_layers`` one gated cross-attention block per group
     (``repro.models.transformer._init_block(kind="cross")``): ``ln1``,
     ``xattn`` (wq, wk, wv, wo, the per-head q_norm / k_norm and the scalar
-    ``gate``), ``ln2``, ``ffn`` and the scalar ``ffn_gate``."""
+    ``gate``), ``ln2``, ``ffn`` and the scalar ``ffn_gate``. The audio
+    family's blocks are the dense family's; its ``embed`` is one table per
+    codebook, (n_codebooks, vocab, d), and its ``lm_head.w`` (d,
+    n_codebooks · vocab)."""
     check_family(cfg)
     dt, d, hd = cfg.dtype, cfg.d_model, cfg.head_dim
 
@@ -136,8 +140,10 @@ def param_specs(cfg: ModelConfig) -> Dict:
                 "ln2": LeafSpec(lead + (d,), dt), "ffn": ffn(lead, cfg.d_ff),
                 "ffn_gate": LeafSpec(lead, dt)}
 
+    # audio: one embedding table per codebook, and a head over all of them
+    books = (cfg.n_codebooks,) if cfg.family == "audio" else ()
     tree = {"ln_f": LeafSpec((d,), dt),
-            "embed": LeafSpec((cfg.vocab_size, d), dt)}
+            "embed": LeafSpec(books + (cfg.vocab_size, d), dt)}
     n = cfg.n_layers
     if cfg.family == "vlm":
         groups = n // cfg.cross_attn_every
@@ -148,7 +154,7 @@ def param_specs(cfg: ModelConfig) -> Dict:
         tree["layers"] = mamba((n,))
         if cfg.family == "hybrid":
             tree["shared_attn"] = block((), cfg.d_ff)
-    elif cfg.family == "dense":
+    elif cfg.family in ("dense", "audio"):
         tree["layers"] = block((n,), cfg.d_ff)
     else:
         tree["layers"] = block((n - cfg.first_k_dense,))
@@ -156,7 +162,8 @@ def param_specs(cfg: ModelConfig) -> Dict:
             tree["dense_layers"] = block((cfg.first_k_dense,),
                                          cfg.dense_d_ff or cfg.d_ff)
     if not cfg.tie_embeddings:
-        tree["lm_head"] = {"w": LeafSpec((d, cfg.vocab_size), dt)}
+        tree["lm_head"] = {"w": LeafSpec(
+            (d, math.prod(books) * cfg.vocab_size), dt)}
     return tree
 
 

@@ -49,6 +49,14 @@ request carries no image, so every cross layer reads the zero image K/V
 the admission's fresh cache holds. Images reach the model through
 :func:`generate` (the reference's ``generate(image_embeds=)``), which
 prefills a batch of prompts with their images and decodes them.
+
+The audio family is served as the dense family, over frames: a prompt is
+(S, K), one id per codebook, a frame counts as one token against
+``max_len``, the budget and the pages, each step emits one (K,) frame per
+slot (``Request.output`` is (n, K)), and a request ends on EOS when
+codebook 0 of a frame is its ``eos_id``, as in the reference. Its prompt
+prefixes are shared through the index as the dense family's (a chunk is
+``page_size`` frames).
 """
 from __future__ import annotations
 
@@ -110,18 +118,21 @@ class ServeConfig:
 
 def sample_token(logits, generator: Optional[torch.Generator],
                  scfg: ServeConfig):
-    """logits (B, S, V) -> token ids (B, 1) int64 from the last position:
-    greedy argmax, or temperature + top-k sampling drawn from
-    `generator`."""
+    """logits (B, S, V) -> token ids (B, 1) int64 from the last position,
+    or the audio family's (B, S, K, V) -> one id per codebook (B, K):
+    greedy argmax, or temperature + top-k sampling (per codebook) drawn
+    from `generator`."""
     lf = logits[:, -1].float()
+    B, V = lf.shape[0], lf.shape[-1]
+    lf = lf.reshape(B, -1, V)                    # (B, 1) or (B, K) rows
     if scfg.greedy:
-        return lf.argmax(dim=-1, keepdim=True)
+        return lf.argmax(dim=-1)
     lf = lf / max(scfg.temperature, 1e-6)
     if scfg.top_k:
         kth = torch.topk(lf, scfg.top_k, dim=-1).values[..., -1:]
         lf = torch.where(lf < kth, torch.full_like(lf, -torch.inf), lf)
-    return torch.multinomial(torch.softmax(lf, dim=-1), 1,
-                             generator=generator)
+    return torch.multinomial(torch.softmax(lf, dim=-1).reshape(-1, V), 1,
+                             generator=generator).reshape(B, -1)
 
 
 def _batch_row(cache, b: int):
@@ -135,9 +146,10 @@ def generate(params, cfg: ModelConfig, tokens, scfg: ServeConfig,
              generator: Optional[torch.Generator] = None, image_embeds=None,
              policy: Optional[kops.KernelPolicy] = None):
     """Host-driven generation, the port of ``repro.serve.engine.generate``:
-    one batched prefill of the B equal-length prompts `tokens` (B, S) at
-    position 0 into a rectangular cache (the VLM's image K/V projected
-    once from `image_embeds` (B, n_img, d), zero without them), then
+    one batched prefill of the B equal-length prompts `tokens` (B, S), or
+    the audio family's frames (B, S, K), at position 0 into a rectangular
+    cache (the VLM's image K/V projected once from `image_embeds` (B,
+    n_img, d), zero without them), then
     ``scfg.max_new_tokens`` decode steps at positions ``S + i``, each
     sampling from the last logits (`generator` draws when not greedy).
     The port decodes over a pool only, so the prefilled rows go into a
@@ -146,8 +158,9 @@ def generate(params, cfg: ModelConfig, tokens, scfg: ServeConfig,
     Mamba2 state) by slot; the SSM family decodes on its state cache. The
     kernel policy is `policy` or the ambient one (with merged projections
     added on the kernel path, ``scfg.megakernel`` overriding its bit), on
-    the params' device. Returns (generated (B, max_new) int64, the last
-    decode step's logits (B, 1, V)), as the reference does."""
+    the params' device. Returns (generated (B, max_new) int64, or (B,
+    max_new, K) frames, and the last decode step's logits (B, 1, V) or
+    (B, 1, K, V)), as the reference does."""
     dev = params["embed"].device
     pol = policy if policy is not None else kops.current_kernel_policy()
     if scfg.megakernel is not None:
@@ -156,7 +169,7 @@ def generate(params, cfg: ModelConfig, tokens, scfg: ServeConfig,
         params = merge_projection_groups(params)
     params = T.split_layers(params)
     tokens = torch.as_tensor(np.asarray(tokens), device=dev).long()
-    B, S = tokens.shape
+    B, S = tokens.shape[:2]
     max_len = S + scfg.max_new_tokens
     kinds = paging.cache_page_kinds(cfg)
     with kops.kernel_policy(pol), torch.inference_mode():
@@ -182,6 +195,8 @@ def generate(params, cfg: ModelConfig, tokens, scfg: ServeConfig,
         outs = []
         for i in range(scfg.max_new_tokens):
             tok = sample_token(logits, generator, scfg)
+            if cfg.family == "audio":
+                tok = tok[:, None]                  # (B, 1, K)
             outs.append(tok)
             tables = None
             if kv is not None:
@@ -190,7 +205,8 @@ def generate(params, cfg: ModelConfig, tokens, scfg: ServeConfig,
                 tables = kv.device_tables(dev)
             logits, cache = T.decode_step(params, cfg, tok, cache, pos + i,
                                           block_tables=tables)
-    gen = torch.cat(outs, dim=1) if outs else tokens.new_zeros((B, 0))
+    gen = torch.cat(outs, dim=1) if outs \
+        else tokens.new_zeros((B, 0) + tokens.shape[2:])
     return gen, logits
 
 
@@ -234,7 +250,8 @@ class RequestHandle:
     of :data:`TERMINAL_STATUSES`. A non-"done" terminal carries a
     :class:`RequestError` on ``error``: ``result()`` raises it, and
     iteration yields the tokens emitted before the terminal, then raises
-    it. ``cancel()`` takes effect at the engine's next tick boundary."""
+    it. ``cancel()`` takes effect at the engine's next tick boundary.
+    A token is an int, or the audio family's (K,) frame of int64 ids."""
 
     def __init__(self, engine: "InferenceEngine", request: Request,
                  on_token: Optional[Callable] = None):
@@ -242,7 +259,7 @@ class RequestHandle:
         self.request = request
         self.uid = request.uid
         self.on_token = on_token
-        self.tokens: List[int] = []
+        self.tokens: List[Any] = []
         self.status = "pending"
         self.error: Optional[RequestError] = None
         self.cancel_requested = False
@@ -278,7 +295,7 @@ class RequestHandle:
         self.error = error
         self.finish_t = time.monotonic()
 
-    def _append(self, token: int) -> None:
+    def _append(self, token) -> None:
         if self.first_token_t is None:
             self.first_token_t = time.monotonic()
         self.tokens.append(token)
@@ -340,7 +357,7 @@ class _SlotTask:
     """Host-side record of the request occupying one decode slot."""
     handle: RequestHandle
     budget: int                        # new tokens still allowed
-    toks: List[int] = dataclasses.field(default_factory=list)
+    toks: List[Any] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -350,7 +367,7 @@ class _Resume:
     handle: RequestHandle
     prompt: np.ndarray
     budget: int
-    emitted: List[int] = dataclasses.field(default_factory=list)
+    emitted: List[Any] = dataclasses.field(default_factory=list)
 
     @property
     def uid(self) -> int:
@@ -428,7 +445,9 @@ class InferenceEngine:
             self.cache = T.init_cache(cfg, max_batch, max_len, self.device)
         self.pos = np.zeros((max_batch,), np.int64)
         self.active = np.zeros((max_batch,), bool)
-        self.tokens = np.zeros((max_batch, 1), np.int64)
+        # the last emitted token of each slot: (max_batch, 1), or the
+        # audio family's frames (max_batch, 1, K)
+        self.tokens = np.zeros((max_batch, 1) + self._frame, np.int64)
         self._tasks: List[Optional[_SlotTask]] = [None] * max_batch
         self._callbacks: List[Tuple[Callable, int, Any]] = []
         self.handles: Dict[int, RequestHandle] = {}
@@ -643,7 +662,7 @@ class InferenceEngine:
             self.check_invariants()
 
     def _finalize_aborted(self, handle: RequestHandle, status: str,
-                          reason: str, toks: List[int]) -> None:
+                          reason: str, toks: List[Any]) -> None:
         """Move `handle` to a non-successful terminal. The tokens emitted
         before it stay readable on ``request.output`` and
         ``handle.tokens``; ``result()`` raises."""
@@ -841,7 +860,7 @@ class InferenceEngine:
         else:
             bucket = n if self.cfg.is_ssm_layer_stack \
                 else bucket_length(n, self.max_len)
-            padded = np.zeros((1, bucket), np.int64)
+            padded = np.zeros((1, bucket) + prompt.shape[1:], np.int64)
             padded[0, :n] = prompt
             single = T.init_cache(self.cfg, 1, self.max_len, self.device)
             logits, single = T.prefill(
@@ -872,7 +891,8 @@ class InferenceEngine:
             self.prefix.register(prompt, n, self.kv.tables["linear"][slot])
             self.stats["shared_pages"] = max(self.stats["shared_pages"],
                                              self.kv.shared_page_count)
-        tok = int(sample_token(logits, self.generator, self.scfg)[0, 0])
+        tok = self._token(sample_token(logits, self.generator,
+                                       self.scfg).cpu().numpy()[0])
         task = _SlotTask(handle, budget=min(budget_cap, self.max_len - n),
                          toks=list(prior))
         handle.status = "running"          # sticky across preemption
@@ -911,7 +931,7 @@ class InferenceEngine:
             # shared prefix pages). The dense family keeps its exact length.
             rows = min(bucket_length(m, self.max_len),
                        self.kv.lin_pages * self.kv.page_size - start)
-        suffix = np.zeros((1, rows), np.int64)
+        suffix = np.zeros((1, rows) + prompt.shape[1:], np.int64)
         suffix[0, :m] = prompt[start:]
         table = torch.from_numpy(
             self.kv.tables["linear"][slot:slot + 1].copy()).to(dev)
@@ -948,13 +968,13 @@ class InferenceEngine:
         tok = sample_token(logits, self.generator, self.scfg)
         tok = tok.cpu().numpy()
         tok[~self.active] = 0
-        self.tokens = tok
+        self.tokens = tok.reshape(self.tokens.shape)
         self.stats["decode_steps"] += 1
         self.stats["wasted_slot_steps"] += int(self.max_batch
                                                - self.active.sum())
         for slot in np.nonzero(self.active)[0]:
             self.pos[slot] += 1
-            fin = self._emit(int(slot), int(tok[slot, 0]))
+            fin = self._emit(int(slot), self._token(tok[slot]))
             if fin is not None:
                 finished.append(fin)
 
@@ -1022,8 +1042,21 @@ class InferenceEngine:
                                        list(task.toks)))
         self.stats["preemptions"] += 1
 
-    def _emit(self, slot: int, token: int) -> Optional[Request]:
-        """Record one emitted token; finish the slot on EOS or budget."""
+    @property
+    def _frame(self) -> Tuple[int, ...]:
+        """The trailing shape of one token: (K,) for the audio family's
+        frames, () otherwise."""
+        return (self.cfg.n_codebooks,) if self.cfg.family == "audio" else ()
+
+    def _token(self, row: np.ndarray):
+        """One slot's sampled row as the token it emits: an int, or the
+        audio family's (K,) frame."""
+        return row.copy() if self._frame else int(row[0])
+
+    def _emit(self, slot: int, token) -> Optional[Request]:
+        """Record one emitted token; finish the slot on EOS or budget. An
+        audio frame ends its request when codebook 0 is ``eos_id``, as in
+        the reference."""
         task = self._tasks[slot]
         req = task.handle.request
         task.toks.append(token)
@@ -1033,7 +1066,8 @@ class InferenceEngine:
         if task.handle.on_token is not None:
             self._callbacks.append((task.handle.on_token, task.handle.uid,
                                     token))
-        if (req.eos_id is not None and token == req.eos_id) \
+        first = int(token[0]) if self._frame else token
+        if (req.eos_id is not None and first == req.eos_id) \
                 or task.budget <= 0:
             return self._finish(slot)
         return None

@@ -10,7 +10,8 @@ resource:
 - The unit of sharing is one page-aligned token chunk (``page_size``
   tokens, one KV page). Chunk ``i`` of a prompt is keyed by a chained hash
   over every chunk up to and including it, so two prompts share page
-  ``i`` only if they agree on all ``(i+1) * page_size`` leading tokens.
+  ``i`` only if they agree on all ``(i+1) * page_size`` leading tokens
+  (the audio family's tokens are frames: a chunk is (page_size, K) ids).
   Entries keep the raw chunk bytes (int32, whatever the prompt's integer
   type) and compare them on every lookup, so a hash collision, a reused
   uid or any other aliasing degrades to a miss, never to wrong KV.

@@ -119,7 +119,9 @@ def restore(engine: InferenceEngine, snap: Dict[str, Any],
                       eos_id=it["eos_id"],
                       deadline_s=it["deadline_left_s"])
         handle = engine.submit(req, on_token=on_token)
-        emitted = [int(t) for t in it["emitted"]]
+        # an int per token, or the audio family's (K,) frames
+        emitted = [np.asarray(t, np.int64) if prompt.ndim > 1 else int(t)
+                   for t in it["emitted"]]
         if emitted:
             # swap the fresh queue entry for a resume carrying the emitted
             # tokens (what a preemption requeues)

@@ -28,7 +28,7 @@ _POOLED_STACKS = ("shared_attn",)
 @dataclasses.dataclass
 class Request:
     uid: int
-    prompt: np.ndarray                # (S,) token ids
+    prompt: np.ndarray                # (S,) token ids, or (S, K) frames
     max_new_tokens: int = 32
     eos_id: Optional[int] = None
     output: Optional[np.ndarray] = None

@@ -1067,15 +1067,19 @@ def test_hybrid_decode_step_and_engine_match_plain(dev, megakernel_on):
 # over 8 kv heads (G = 8) of D 128, K 8192, merged-QKV ranks 4064 / 864 /
 # 864 (padded to 4064), wo rank 4064, pages of 64 rows
 VISION = {"hq": 64, "hkv": 8, "D": 128, "K": 8192, "ranks": (4064, 864, 864),
-          "ro": 4064, "PS": 64}
+          "ro": 4064, "PS": 64, "theta": 5e5}
+# musicgen-medium's decode at 1.0 bpw: 24 query heads over 24 kv heads (G =
+# 1, a head count that is no power of two) of D 64, K 1536 (48 words),
+# merged-QKV ranks 736, wo rank 736, pages of 64 rows
+MUSICGEN = {"hq": 24, "hkv": 24, "D": 64, "K": 1536, "ranks": (736, 736, 736),
+            "ro": 736, "PS": 64, "theta": 1e4}
 
 
-def _vision_operands(rng, dev, dt, B, pages):
-    """#3's operands at the vision shape: a merged QKV group of the three
-    ranks (rmask zeroing the padded rank columns, s1 the padded output
-    columns), wo, and a pool with ragged tables of B slots, every one
-    mapping pages."""
-    v = VISION
+def _mega_operands_at(v, rng, dev, dt, B, pages):
+    """#3's operands at a model's shape `v` (:data:`VISION`,
+    :data:`MUSICGEN`): a merged QKV group of the three ranks (rmask zeroing
+    the padded rank columns, s1 the padded output columns), wo, and a pool
+    with ragged tables of B slots, every one mapping pages."""
     _, kp, vp, bt, pos, cpos = _paged(rng, dev, dt, B=B + 1, hq=v["hq"],
                                       hkv=v["hkv"], D=v["D"], PS=v["PS"],
                                       pages=pages)
@@ -1101,26 +1105,19 @@ def _vision_operands(rng, dev, dt, B, pages):
     mqkv = {k: t.to(dev) for k, t in mqkv.items()}
     wo = {k: t.to(dev) for k, t in wo.items()}
     x = torch.from_numpy(rng.standard_normal((B, K), np.float32)).to(dev, dt)
-    kw = dict(head_dim=v["D"], dims=(nq, nkv), theta=5e5,
+    kw = dict(head_dim=v["D"], dims=(nq, nkv), theta=v["theta"],
               scale=v["D"] ** -0.5)
     return (x, mqkv, wo, kp, vp, bt, pos, cpos), kw
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dt", DTYPES)
-@pytest.mark.parametrize("B", [1, 4, 8])
-@pytest.mark.parametrize("pages", [2, 32])
-def test_megakernel_at_the_vision_shape_vs_plain(dev, dt, B, pages):
-    """#3 at llama-3.2-vision-90b's self-attention decode (D 128, G 8, K
-    8192, QKV ranks 4064 / 864 / 864, wo rank 4064, pages of 64 rows, 2
-    and 32 table entries, B 1-8): one launch, against its plain version
-    and against the unfused chain it replaces on the kernel path (#1
-    merged QKV and RoPE, the fresh k / v written into the pool, #2, #1
-    wo)."""
+def _check_mega_at(v, name, dev, dt, B, pages):
+    """One launch of #3 at shape `v` against its plain version and against
+    the unfused chain it replaces on the kernel path (#1 merged QKV and
+    RoPE, the fresh k / v written into the pool, #2, #1 wo)."""
     from repro_torch.kernels import ops
     from repro_torch.models import layers
-    args, kw = _vision_operands(np.random.default_rng(B * 100 + pages),
-                                dev, dt, B, pages)
+    args, kw = _mega_operands_at(v, np.random.default_rng(B * 100 + pages),
+                                 dev, dt, B, pages)
     x, mqkv, wo, kp, vp, bt, pos, cpos = args
     n0 = megakernel.decode_step_megakernel_raw.launches
     got = megakernel.decode_step_megakernel_raw(*args, **kw)
@@ -1128,7 +1125,7 @@ def test_megakernel_at_the_vision_shape_vs_plain(dev, dt, B, pages):
     assert megakernel.decode_step_megakernel_raw.launches == n0 + 1
     want = ref.decode_step_ref(*args, **kw)
     for nm, a, b in zip(("y", "k_new", "v_new"), want, got):
-        _close(a, b, TOL[dt], f"vision megakernel {nm}")
+        _close(a, b, TOL[dt], f"{name} megakernel {nm}")
     nq, nkv = kw["dims"]
     D = kw["head_dim"]
     with ops.kernel_policy(KernelPolicy(mode="cuda")):
@@ -1141,11 +1138,23 @@ def test_megakernel_at_the_vision_shape_vs_plain(dev, dt, B, pages):
         layers.paged_cache_write(vp, v.reshape(B, 1, nkv // D, D), bt, cpos)
         o = ops.paged_attention(q, kp, vp, bt, pos, cpos, scale=kw["scale"])
         y = layers.dense(wo, o.reshape(B, 1, nq))
-    _close(y[:, 0], got[0], TOL[dt], "vision megakernel y vs chain")
+    _close(y[:, 0], got[0], TOL[dt], f"{name} megakernel y vs chain")
     _close(k.reshape(B, nkv // D, D), got[1], TOL[dt],
-           "vision megakernel k_new vs chain")
+           f"{name} megakernel k_new vs chain")
     _close(v.reshape(B, nkv // D, D), got[2], TOL[dt],
-           "vision megakernel v_new vs chain")
+           f"{name} megakernel v_new vs chain")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("B", [1, 4, 8])
+@pytest.mark.parametrize("pages", [2, 32])
+def test_megakernel_at_the_vision_shape_vs_plain(dev, dt, B, pages):
+    """#3 at llama-3.2-vision-90b's self-attention decode (D 128, G 8, K
+    8192, QKV ranks 4064 / 864 / 864, wo rank 4064, pages of 64 rows, 2
+    and 32 table entries, B 1-8), against its plain version and its
+    unfused chain."""
+    _check_mega_at(VISION, "vision", dev, dt, B, pages)
 
 
 # kernel #1 at the vision model's cross-attention shapes: (K, N, R, M) of
@@ -1250,3 +1259,101 @@ def test_vlm_engine_and_generate_match_plain(dev, megakernel_on):
     assert [c.launches - b for c, b in zip(counters, n0)] == \
         launches(1, 5, image=True)
     assert TT.stack_lead(cfg) == {"self_layers": (groups, 1)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("pages", [2, 32])
+def test_megakernel_at_the_musicgen_shape_vs_plain(dev, dt, B, pages):
+    """#3 at musicgen-medium's decode (D 64, G 1 over 24 heads, K 1536,
+    QKV and wo ranks 736, pages of 64 rows, 2 and 32 table entries, B
+    1-8), against its plain version and its unfused chain."""
+    _check_mega_at(MUSICGEN, "musicgen", dev, dt, B, pages)
+
+
+# kernel #1 at musicgen-medium's groups: (G, K, N, R) of the merged QKV,
+# the merged gate-up and w_down at 1.0 bpw
+MUSICGEN_GROUPS = {"qkv": (3, 1536, 1536, 736), "gate_up": (2, 1536, 6144, 1184),
+                   "down": (1, 6144, 1536, 1184)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("group", list(MUSICGEN_GROUPS))
+@pytest.mark.parametrize("m", [8, 256])
+def test_musicgen_groups_matmul_vs_plain(dev, dt, group, m):
+    """Kernel #1 at musicgen-medium's merged QKV (G 3, K 1536 -> 3 x 1536,
+    rank 736), merged gate-up (G 2, -> 2 x 6144, rank 1184) and w_down
+    (6144 -> 1536, rank 1184), x shared by the groups, at a decode step's
+    M 8 and a prefill's M 256: one launch against its plain version."""
+    G, K, N, R = MUSICGEN_GROUPS[group]
+    rng = np.random.default_rng(G * 1000 + m)
+    args = _grouped_args(rng, dev, dt, G, m, K, R, N, True, [R] * G)
+    n0 = binary_matmul.fused_lowrank_matmul_grouped.launches
+    got = binary_matmul.fused_lowrank_matmul_grouped(*args, x_shared=True)
+    torch.cuda.synchronize()
+    assert binary_matmul.fused_lowrank_matmul_grouped.launches == n0 + 1
+    want = binary_matmul.fused_lowrank_matmul_grouped_ref(*args,
+                                                          x_shared=True)
+    assert got.dtype == dt and got.shape == (G, m, N)
+    _close(want, got, TOL[dt], f"musicgen {group} M={m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("megakernel_on", [True, False])
+def test_audio_engine_and_generate_match_plain(dev, megakernel_on):
+    """The musicgen smoke model on the card (min_dim 16: every linear
+    packs): the engine's greedy frames and ``generate``'s, kernels against
+    the plain oracles (f32). A forward runs #1 for the merged QKV, wo, the
+    merged gate-up and w_down of each layer, except that a decode forward
+    with the megakernel on runs the attention as one launch of #3 per
+    layer (#2 and two launches of #1 with it off)."""
+    from repro_torch.serve.engine import generate
+    cfg = dataclasses.replace(get_smoke("musicgen-medium"), dtype="float32")
+    tree = random_packed_params(abstract_quantized_params(cfg, 1.0,
+                                                          min_dim=16), 0)
+    m = NanoQuantModel.from_numpy(tree, cfg, device=dev)
+    rng = np.random.default_rng(5)
+    K = cfg.n_codebooks
+    prompts = [rng.integers(0, cfg.vocab_size, size=(n, K))
+               for n in (5, 9, 3, 12)]
+    counters = (binary_matmul.fused_lowrank_matmul_grouped,
+                paged_attention.paged_decode_attention,
+                megakernel.decode_step_megakernel_raw,
+                binary_matmul.packed_matmul)
+    n = cfg.n_layers
+
+    def launches(pre, dec):
+        fused = 4 * n * pre + (2 if megakernel_on else 4) * n * dec
+        return [fused] + ([0, n * dec, 0] if megakernel_on
+                          else [n * dec, 0, 0])
+
+    def serve(policy, mk):
+        eng = m.engine(ServeConfig(greedy=True, debug=True, page_size=8,
+                                   megakernel=mk),
+                       max_batch=2, max_len=48, policy=policy)
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid, p, max_new_tokens=6))
+        return {u: r.output for u, r in eng.run().items()}, eng.stats
+
+    want, _ = serve(KernelPolicy(mode="ref"), None)
+    n0 = [c.launches for c in counters]
+    got, st = serve(KernelPolicy(mode="cuda"), megakernel_on)
+    for u in want:
+        assert got[u].shape == (6, K)
+        np.testing.assert_array_equal(want[u], got[u])
+    assert [c.launches - b for c, b in zip(counters, n0)] == \
+        launches(st["admissions"], st["decode_steps"])
+    toks = rng.integers(0, cfg.vocab_size, size=(3, 7, K))
+    scfg = ServeConfig(greedy=True, max_new_tokens=5, page_size=8,
+                       megakernel=megakernel_on)
+    with torch.inference_mode():
+        want, wl = generate(m.params, cfg, toks, scfg,
+                            policy=KernelPolicy(mode="ref"))
+        n0 = [c.launches for c in counters]
+        got, gl = generate(m.params, cfg, toks, scfg,
+                           policy=KernelPolicy(mode="cuda"))
+    assert tuple(got.shape) == (3, 5, K) and torch.equal(want, got)
+    _close(wl, gl, 1e-4, "audio generate logits")
+    assert [c.launches - b for c, b in zip(counters, n0)] == launches(1, 5)

@@ -14,7 +14,7 @@ model's forward, prefill and paged decode; the engine's greedy tokens
 against JAX's engine (plain, prefix cache with its counters, speculative
 with its counters in the unmerged layout), every pool drained; artifacts
 in both directions; the router kept f32 in a bf16 model; and the families
-the port still refuses.
+every JAX arch served by the port.
 
 Inputs come from ``np.random.default_rng``; tolerances are
 ``_torch_common.tol`` (relative max-abs f32 1e-5, bf16 3e-2) per layer
@@ -33,11 +33,13 @@ import torch
 
 from _torch_common import (assert_close, cast_jax, check_forward,
                            check_paged_decode, check_prefill, drained,
-                           draw_prompts, f32, jax_engine, jax_tree,
-                           leaves_equal, packed_model, pair, same_tokens,
-                           serve_engine, shared_prompts, tol, torch_params)
+                           draw_prompts, f32, flat_templates, jax_engine,
+                           jax_tree, leaves_equal, packed_model, pair,
+                           same_tokens, serve_engine, shared_prompts, tol,
+                           torch_params)
 from repro import api as japi
 from repro import configs as jconfigs
+from repro.configs import shapes as jshapes
 from repro.kernels import ops as jops
 from repro.models import layers as JL
 from repro.quant import surgery as jsurgery
@@ -47,8 +49,9 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.kernels import binary_matmul, ops
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import check_family
 from repro_torch.quant import surgery as tsurgery
+from repro_torch.serve import paging
 from repro_torch.serve.engine import InferenceEngine, ServeConfig
 from repro_torch.serve.scheduler import Request
 from repro_torch.testing import random_packed_params
@@ -469,20 +472,19 @@ def test_router_stays_f32_in_a_bf16_model():
                   "bf16 moe")
 
 
-@pytest.mark.parametrize("arch", sorted(set(jconfigs.list_archs())
-                                        - set(tconfigs.list_archs())))
-def test_unported_families_raise(arch):
-    """The audio config (the JAX arch the port lacks) is refused by the
-    template, the cache and the forward, naming what is missing (MLA is
-    served: ``tests/test_torch_mla.py``; the SSM family:
-    ``tests/test_torch_ssm.py``; the hybrid: ``tests/test_torch_hybrid.py``;
-    the VLM: ``tests/test_torch_vlm.py``)."""
-    cfg = ModelConfig(**dataclasses.asdict(jconfigs.get_smoke(arch)))
-    what = "MLA" if cfg.is_mla else repr(cfg.family)
-    assert cfg.is_mla or cfg.family not in ("dense", "moe")
-    for call in (lambda: tsurgery.param_specs(cfg),
-                 lambda: TT.init_cache(cfg, 1, 8, "cpu"),
-                 lambda: TT.forward({}, cfg, torch.zeros((1, 2),
-                                                         dtype=torch.long))):
-        with pytest.raises(NotImplementedError, match=what):
-            call()
+@pytest.mark.parametrize("arch", sorted(jconfigs.list_archs()))
+def test_every_jax_arch_is_served(arch):
+    """Every arch of the JAX package is registered in the port with the same
+    full-size and smoke configs, ``check_family`` admits it, its cache has
+    page kinds (none for the SSM family), and the port's FP template equals
+    JAX's ``param_specs`` leaf for leaf (shapes only, at full size)."""
+    for get in ("get_config", "get_smoke"):
+        cj = getattr(jconfigs, get)(arch)
+        ct = getattr(tconfigs, get)(arch)
+        assert dataclasses.asdict(ct) == dataclasses.asdict(cj)
+        check_family(ct)
+        assert paging.cache_page_kinds(ct) <= {"linear", "ring"}
+    want, got = flat_templates(
+        jshapes.param_specs(jconfigs.get_config(arch)),
+        tsurgery.param_specs(tconfigs.get_config(arch)))
+    assert want == got

@@ -362,23 +362,22 @@ def test_check_family_admits_ssm_only():
     """Of the state-space families, mamba2-370m (ssm) and, since the
     hybrid was ported, zamba2 (hybrid, over ring pages) are served; since
     the VLM was ported, llama-3.2-vision (vlm, over linear pages beside its
-    per-slot image K/V) is served too; musicgen (audio) is refused, naming
-    what the port lacks. (The name predates the hybrid's port and is kept,
-    so that the test keeps its identity across the change.)"""
+    per-slot image K/V) is served too, and since the audio family was
+    ported, musicgen (audio, over linear pages of frames) as well. (The
+    name predates the hybrid's port and is kept, so that the test keeps its
+    identity across the changes.)"""
     check_family(tconfigs.get_config(ARCH))
     check_family(tconfigs.get_config("zamba2-1.2b"))
     assert paging.cache_page_kinds(tconfigs.get_smoke("zamba2-1.2b")) == \
         {"ring"}
-    check_family(tconfigs.get_config("llama-3.2-vision-90b"))
-    assert paging.cache_page_kinds(
-        tconfigs.get_smoke("llama-3.2-vision-90b")) == {"linear"}
-    lacks = {"musicgen-medium": "multi-codebook"}
-    for arch, what in lacks.items():
-        cfg = ModelConfig(**dataclasses.asdict(jconfigs.get_smoke(arch)))
-        with pytest.raises(NotImplementedError, match=what):
-            check_family(cfg)
-        with pytest.raises(NotImplementedError):
-            paging.cache_page_kinds(cfg)
+    for arch in ("llama-3.2-vision-90b", "musicgen-medium"):
+        check_family(tconfigs.get_config(arch))
+        assert paging.cache_page_kinds(tconfigs.get_smoke(arch)) == \
+            {"linear"}
+    cfg = ModelConfig(**dataclasses.asdict(jconfigs.get_smoke(
+        "musicgen-medium")))
+    check_family(cfg)
+    assert paging.cache_page_kinds(cfg) == {"linear"}
     assert paging.cache_page_kinds(tconfigs.get_smoke(ARCH)) == set()
     assert paging.cache_page_kinds(tconfigs.get_smoke("llama3.2-1b")) == \
         {"linear"}

@@ -695,13 +695,14 @@ def test_generate_with_an_image_matches_jax(model, jax_generate, mode):
 # every family the port serves, at its smoke config: (arch, min_dim)
 FAMILIES = {"llama3.2-1b": 16, "qwen1.5-0.5b": 16, "qwen3-4b": 16,
             "qwen3-moe-235b-a22b": 16, "deepseek-v2-lite-16b": 8,
-            "mamba2-370m": 16, "zamba2-1.2b": 8, ARCH: 16}
+            "mamba2-370m": 16, "zamba2-1.2b": 8, ARCH: 16,
+            "musicgen-medium": 16}
 
 
 def test_generate_covers_every_served_family():
     """The families of :data:`FAMILIES` are all the port serves."""
     assert {tconfigs.get_smoke(a).family for a in FAMILIES} == \
-        {"dense", "moe", "ssm", "hybrid", "vlm"}
+        {"dense", "moe", "ssm", "hybrid", "vlm", "audio"}
     assert set(FAMILIES) >= set(tconfigs.list_archs()) - {"qwen1.5-110b"}
 
 
@@ -712,11 +713,13 @@ def test_generate_matches_jax_per_family(arch):
     kernel wrappers' dispatch, against JAX's ``generate``: tokens
     identical, last logits within the tolerance. The port decodes over a
     pool of 2 slots (linear tables; the hybrid's rings), the SSM family on
-    its state cache; the VLM's prompts carry images."""
+    its state cache; the VLM's prompts carry images, the audio family's
+    are frames of 4 codebook ids (2, 6, 4)."""
     cj = f32(jconfigs.get_smoke(arch))
     ct = f32(tconfigs.get_smoke(arch))
     tree = packed_model(ct, seed=1, min_dim=FAMILIES[arch])
-    toks = tokens(ct, (2, 6), 3)
+    toks = tokens(ct, (2, 6) + ((ct.n_codebooks,) if ct.family == "audio"
+                                else ()), 3)
     jimg = timg = None
     if ct.family == "vlm":
         jimg, timg = _image(ct, 2, 4)
