@@ -8,6 +8,31 @@ Phases, each printing its own line(s); any failure exits non-zero:
 1. device — the card's name and power limit, as nvidia-smi reports them;
 2. build  — the four CUDA kernels of ``src/repro_torch/csrc`` built with
    nvcc for sm_90a (one process per source, started together);
+2b. llama3.2-1b quantize (right after the build, so that its KD profile
+   is the process's first profiler session) — kernel #1 under its
+   autograd Function (the KD phase's student linear,
+   ``ops.lowrank_binary_matmul``) against autograd through its plain
+   version at the gate shape (K 2048 -> N 8192 at rank 1600) with M =
+   1024, f32 and bf16: output and the gradients of x, s1 and s2, forward
+   and forward + backward timed. Then the port's quantization pipeline
+   (``NanoQuantModel.quantize``) on llama3.2-1b at full width and full
+   depth in bf16, the teacher drawn on the card by
+   ``models.transformer.init_params`` from the seed, calibrated on
+   ``QUANT``'s 16 samples of 256 tokens (cut from the paper's 128 x
+   2048), ``QuantConfig()`` at its defaults (1.0 bpw, ADMM 40, TuneFP 40,
+   STE 60, KD 60), on the path ``llama3.2-1b-quantize``: #1 only, 7
+   launches per block's check forward and 112 per KD step; the seconds of
+   calibration, of each block and of KD, each block's error and init
+   method, the KD loss at its first and last step and over its first and
+   last pass of the batches, the ranks and the linears' bpw, peak memory;
+   gated on finite block errors and KD losses and a packed leaf for every
+   one of the 112 linears. One more KD step of the pipeline's own
+   (``tune_scales_kd``) under the profiler gives its device ms by group
+   (#1's forward, the backward's plain ops with the packed linears' share,
+   the other ops). The artifact is saved, loaded and cast to f32 and served on the
+   path ``llama3.2-1b-quantized`` (4 requests of the llama traffic,
+   ``QUANT_SERVE``; #1 and #3), gated against the plain-oracle engine
+   like the llama paths;
 3. llama3.2-1b kernels — kernels #1-#3 against their plain PyTorch
    versions on the card at the shapes the llama3.2-1b serving path gives
    them (decode M in {1, 8}, prefill M = 512; B = 8 slots, page_size 64,
@@ -94,7 +119,7 @@ Phases, each printing its own line(s); any failure exits non-zero:
    kv head; then the speculative path's shapes: #4's two launches of the
    draft's gate (rank 3488 of 6976, read in place) at M = 4 and #1's
    merged QKV at the verify's M = 20;
-6. qwen1.5-110b engine — full width, cut to 40 of its 80 layers
+6. qwen1.5-110b engine — full width, cut to 20 of its 80 layers
    (``DEPTH``, so that the script keeps inside its time limit), at 1.0
    bpw, weights drawn on the card from the seed: 4 slots, max_len 128,
    4 requests of 16-64 prompt tokens and 16 new tokens, 2 admitted after
@@ -112,7 +137,7 @@ Phases, each printing its own line(s); any failure exits non-zero:
    4096; M 8, the capacity of a decode step and of a prefill of up to 64
    tokens, and M 40, a 256-token prefill's; f32 and bf16) against its
    plain version, timed beside the batched library call over unpacked
-   bf16 factors; then the model at full width, cut to 47 of its 94
+   bf16 factors; then the model at full width, cut to 24 of its 94
    layers (``DEPTH``; 128 experts, top-8), at 1.0 bpw, weights and
    routers drawn on the card, under the qwen1.5-110b traffic on the path
    ``qwen3-moe-235b-a22b`` (#1 and #2 only, #1 launched at the expert
@@ -186,10 +211,10 @@ Phases, each printing its own line(s); any failure exits non-zero:
    version beside its unfused chain; #1 at the image K/V projection (wk,
    K 8192 -> N 1024 at rank 864, M = 4 images x 1024 patches = 4096) and
    at the cross block's wq at M 4; #4 at the vision FFN's four two-call
-   stages (rank 6336) at M 4; f32 and bf16. Then the model at full width
-   and full depth (100 layers: 20 groups of 4 self-attention blocks over
-   the paged pool and one gated cross-attention block over per-slot image
-   K/V) at 1.0 bpw, weights drawn on the card, on the paths
+   stages (rank 6336) at M 4; f32 and bf16. Then the model at full width,
+   cut to 50 of its 100 layers (``DEPTH``: 10 groups of 4 self-attention
+   blocks over the paged pool and one gated cross-attention block over
+   per-slot image K/V) at 1.0 bpw, weights drawn on the card, on the paths
    ``llama-3.2-vision-90b`` (the engine under the qwen1.5-110b traffic,
    ``VISION``; no request carries an image, as in the reference's engine,
    so the image K/V is zero; #1, #3 and #4) and
@@ -252,6 +277,7 @@ LOGITS_TOL = 1e-4
 SLEEP_CYCLES = 20_000_000     # ~10 ms: holds the card while one timed call queues
 L2_FLUSH_BYTES = 64 << 20     # past the H100's 50 MB L2
 LONG_PAGES = 32               # table entries per slot of the long-context rows
+PROFILE_MARGIN_S = 0.5        # idle host time at a profiled window's ends
 
 # (name, source, TPU kernel it replaces); the order of the kernels line
 KERNELS = (
@@ -343,7 +369,18 @@ VISION_IMAGE = {"arch": "llama-3.2-vision-90b", "n": 4, "prompt": 32,
 MUSICGEN = dict(LLAMA, arch="musicgen-medium")
 # depth cuts that keep the script inside its time limit: the layers each
 # model is served at (width untouched; every other model at full depth)
-DEPTH = {"qwen1.5-110b": 40, "qwen3-moe-235b-a22b": 47}
+DEPTH = {"qwen1.5-110b": 20, "qwen3-moe-235b-a22b": 24,
+         "llama-3.2-vision-90b": 50}
+
+# the quantization pipeline on the card: llama3.2-1b at full width and
+# depth in its config's dtype (bf16), calibrated on `samples` sequences of
+# `seq` tokens (the paper's 128 x 2048 cut to 16 x 256), QuantConfig() at
+# its defaults; the artifact is served in f32 under 4 requests of the
+# llama traffic
+QUANT = {"arch": "llama3.2-1b", "samples": 16, "seq": 256}
+QUANT_SERVE = dict(LLAMA, n=4, up_front=2)
+# the autograd check's shape: llama3.2-1b's w_gate at M = 4 x 256 rows
+AUTOGRAD = {"M": 1024, "K": 2048, "R": 1600, "N": 8192}
 
 # self-speculative decoding: the draft reads half of every packed rank
 SPEC = {"spec_rank_frac": 0.5, "spec_k": 4}
@@ -405,7 +442,10 @@ PATHS = (
      (PAGED, PACKED)),
     ("musicgen-medium-unfused", MUSICGEN, {}, False, None, None,
      (FUSED, PAGED), (MEGA, PACKED)),
+    ("llama3.2-1b-quantized", QUANT_SERVE, {}, True, None, None,
+     (FUSED, MEGA), (PACKED,)),
 )
+QUANT_PATH = "llama3.2-1b-quantize"
 
 # the kernels' names in a profiler trace, and the lm head's matmul
 TRACE_NAMES = ((FUSED, "fused_lowrank_kernel"),
@@ -450,8 +490,17 @@ def main():
     phase("build")
 
     launches = {}                     # path -> launches of each kernel
+    # the quantization phase first: its KD step's profile is the process's
+    # first profiler session
+    autograd = check_autograd()
+    report[QUANT_PATH], artifact = quantize_path(launches)
+    phase("llama3.2-1b quantize")
+    report["llama3.2-1b-quantized"] = quantize_serve(artifact, launches)
+    phase("llama3.2-1b quantized artifact f32 engine path")
+
     llama = make_llama()
     lines = check_llama_kernels(llama, report)
+    lines[FUSED]["autograd"] = autograd
     phase("llama3.2-1b kernels")
     report["llama3.2-1b"] = serve_paths(llama, LLAMA, launches)
     report["llama3.2-1b-prefix"] = serve_paths(llama, PREFIX, launches)
@@ -481,7 +530,7 @@ def main():
     free()
     phase("llama3.2-1b bf16 shared-prefix (SGLang mix) runs and profiles")
 
-    qwen = make_on_card("qwen1.5-110b", DEPTH["qwen1.5-110b"])
+    qwen = make_on_card("qwen1.5-110b")
     lines[PACKED] = check_qwen_kernels(qwen, report)
     phase("qwen1.5-110b kernels")
     report["qwen1.5-110b"] = serve_paths(qwen, QWEN, launches)
@@ -507,7 +556,7 @@ def main():
     free()
     phase("qwen3-4b bf16 run")
 
-    moe = make_on_card("qwen3-moe-235b-a22b", DEPTH["qwen3-moe-235b-a22b"])
+    moe = make_on_card("qwen3-moe-235b-a22b")
     line = check_expert_grid(moe, report)
     lines[FUSED]["expert_grid"] = [
         {k: r[k] for k in r if k in (
@@ -649,6 +698,7 @@ def main():
     free()
     phase("musicgen-medium bf16 run and profile")
 
+
     kernels = []
     for i, (name, source, replaces) in enumerate(KERNELS):
         rec = lines[i]
@@ -666,7 +716,7 @@ def main():
                        "B", "pages", "dtype")},
             **{k: rec[k] for k in ("instruction", "plan", "bound_share",
                                    "chain_ms", "cold_l2_ms", "long_context",
-                                   "ring", "vision", "musicgen")
+                                   "ring", "vision", "musicgen", "autograd")
                if k in rec}})
     report["kernels"] = kernels
     report["script_s"] = time.perf_counter() - t_start
@@ -703,20 +753,20 @@ def make_llama():
                                      quant={"target_bpw": 1.0, "min_dim": 48})
 
 
-def make_on_card(arch, n_layers=None):
+def make_on_card(arch):
     """`arch` at full width, 1.0 bpw, in f32, every leaf drawn on the card
-    from the seed, at full depth or at `n_layers` (:data:`DEPTH`;
-    qwen1.5-110b at full depth: 13.5 GB of packed words and 10 GB of f32
-    embedding and lm head; qwen3-moe-235b-a22b: 26.5 GiB of packed words,
-    its routers f32)."""
+    from the seed, at full depth or at its :data:`DEPTH` (qwen1.5-110b at
+    full depth: 13.5 GB of packed words and 10 GB of f32 embedding and lm
+    head; qwen3-moe-235b-a22b: 26.5 GiB of packed words, its routers
+    f32)."""
     import torch
     from repro_torch.api import NanoQuantModel
     from repro_torch.configs import get_config
     from repro_torch.quant.surgery import abstract_quantized_params
     from repro_torch.testing import random_packed_params_device
     cfg = dataclasses.replace(get_config(arch), dtype="float32")
-    if n_layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    if arch in DEPTH:
+        cfg = dataclasses.replace(cfg, n_layers=DEPTH[arch])
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     tree = random_packed_params_device(abstract_quantized_params(cfg, 1.0),
@@ -2762,6 +2812,18 @@ def prefix_compare(model, traffic, report):
 # small ops about 11x slower on the H100's host.
 
 
+def _settle():
+    """Idle host time at a profiled window's two ends, the card drained
+    first: the profiler keeps only the device events that it places
+    inside the window's host-clock bounds, and it places them through a
+    conversion between the two clocks, so events at either end of a
+    window that starts or ends with its work went unrecorded in some runs
+    (a decode window's first host read; its last step and probe)."""
+    import torch
+    torch.cuda.synchronize()
+    time.sleep(PROFILE_MARGIN_S)
+
+
 def _device_events(prof):
     from torch.autograd import DeviceType
     return sorted((e for e in prof.key_averages()
@@ -2838,13 +2900,14 @@ def profile_decode(model, traffic, host_ms, spec=None, split=None,
     torch.cuda.synchronize()
     steps0, tokens0 = eng.stats["decode_steps"], eng.stats["tokens_emitted"]
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _settle()
         while eng.in_flight:
             if eng.scheduler.pending:
                 raise AssertionError("an admission fell in the decode window")
             eng.step()
         if tail is not None:
             tail()
-        torch.cuda.synchronize()
+        _settle()
     steps = eng.stats["decode_steps"] - steps0
     tokens = eng.stats["tokens_emitted"] - tokens0
     acceptance = eng.spec.acceptance_rate() if spec else None
@@ -3293,7 +3356,8 @@ def audio_split(prof, cfg, steps):
     ``paged_attention`` (the megakernel off), #1 ``fused``; a step's first
     kernels (the host-to-card copies of the frames, positions and tables
     before them are not kernels), as many as the embedding alone launched
-    between the window's last two host reads (:func:`embed_probe`), are
+    in the window's last chunk that holds a kernel (:func:`embed_probe`,
+    after the last step's host read), are
     the ``embedding`` sum of the 4 codebook tables, a matmul after the
     step's last launch of #1 the ``lm_head``, and the rest ``other``
     (norms, residuals, the FFN's activation, the fresh k / v rows' page
@@ -3311,7 +3375,11 @@ def audio_split(prof, cfg, steps):
             chunks.append([])
     def copy(e):
         return "Memcpy" in e.name or "Memset" in e.name or "->" in e.name
-    probe = chunks[-2] if len(chunks) > 1 else []
+    # the probe's kernels: the window's last chunk that holds a kernel (the
+    # probe's closing host read can go unrecorded, leaving its kernels in
+    # the unterminated last chunk rather than the one before it)
+    probe = next((c for c in reversed(chunks)
+                  if any(not copy(e) for e in c)), [])
     n_embed = sum(not copy(e) for e in probe)
     if n_embed == 0 or any(k in e.name for e in probe
                            for _, k in TRACE_NAMES):
@@ -3412,6 +3480,271 @@ def profile_image_prefill(model):
         + ", ".join(f"{k} {v:.2f}" for k, v in by_kernel.items() if v))
     return {"host_ms": 1e3 * host_s, "device_ms": 1e3 * busy_s,
             "by_kernel_ms": by_kernel, "top": top}
+
+
+# ---------------------------------------------------------------------------
+# the quantization pipeline on the card
+# ---------------------------------------------------------------------------
+
+QUANT_LINEARS = (("attn", ("wq", "wk", "wv", "wo")),
+                 ("ffn", ("w_gate", "w_up", "w_down")))
+
+
+def check_autograd():
+    """#1 under its autograd Function (``ops.lowrank_binary_matmul``)
+    against autograd through its plain version at ``AUTOGRAD``'s shape,
+    f32 and bf16: the output and the gradients of x, s1 and s2 within the
+    kernel tolerances; the forward and the forward + backward timed
+    (CUDA events, median of 21) beside the same forward + backward through
+    library matmuls over factors unpacked beforehand in x's dtype (a
+    yardstick). The bound of the forward + backward: its inputs read and
+    outputs written once, and the four products the function needs at the
+    bf16 tensor rate the exact ±1 factors allow: z = ((x ⊙ s2) @ V) @ Uᵀ
+    in the forward, ((g ⊙ s1) @ U) @ Vᵀ for ∂x and ∂s2, and ∂s1 =
+    Σ_rows g ⊙ z with no product (the Function's backward recomputes z,
+    two products more than the bound counts). Returns the f32 and bf16
+    records."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    M, K, R, N = (AUTOGRAD[k] for k in "MKRN")
+
+    def words(*shape):
+        return torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=gen,
+                             device="cuda", dtype=torch.int32)
+    rows = []
+    for dt, tdt in _dtypes():
+        x = torch.randn((M, K), generator=gen, device="cuda").to(tdt)
+        qv, qu = words(K // 32, R), words(R // 32, N)
+        s1 = (torch.rand(N, generator=gen, device="cuda") + 0.5) / R ** 0.5
+        s2 = (torch.rand(K, generator=gen, device="cuda") + 0.5) / K ** 0.5
+        gy = torch.randn((M, N), generator=gen, device="cuda").to(tdt)
+        leaves = [t.clone().requires_grad_() for t in (x, s1, s2)]
+
+        def run(fn):
+            y = fn(leaves[0], qv, qu, leaves[1], leaves[2])
+            return (y, *torch.autograd.grad(y, leaves, gy))
+        kern = run(ops.lowrank_binary_matmul)
+        plain = run(ref.lowrank_binary_matmul_fused_ref)
+        errs = [compare(f"#1 autograd {dt} {nm}", a, b, TOL[dt])
+                for nm, a, b in zip(("y", "dx", "ds1", "ds2"), plain, kern)]
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: ops.lowrank_binary_matmul(
+                x, qv, qu, s1, s2))
+        v, u = ref.unpack_signs(qv).to(tdt), ref.unpack_signs(qu).to(tdt)
+
+        def library(xx, qv_, qu_, a, b):
+            return torch.matmul(torch.matmul(xx * b.to(tdt), v), u) \
+                * a.to(tdt)
+        w_bytes, flops = lowrank_cost(K, ((R, N),), M)
+        io = 2 * nbytes(x, gy) + nbytes(s1, s2)   # x, dx, gy, y; ds1, ds2
+        bound_ms, bound_by = bound(w_bytes + io,
+                                   (2 * flops, BF16_TC_FLOPS_S))
+        rec = {"M": M, "K": K, "R": R, "N": N, "dtype": dt,
+               "max_abs_err": max(e[0] for e in errs),
+               "rel_err": max(e[1] for e in errs), "forward_ms": fwd_ms,
+               "ms": time_ms(lambda: run(ops.lowrank_binary_matmul)),
+               "plain_ms": time_ms(lambda: run(
+                   ref.lowrank_binary_matmul_fused_ref)),
+               "library_ms": time_ms(lambda: run(library)),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        del v, u
+        log(f"#1 autograd {dt} M {M} K {K} R {R} N {N}: output and dx, ds1, "
+            f"ds2 match the plain version (rel err {rec['rel_err']:.2e}); "
+            f"forward {fwd_ms:.3f} ms, forward + backward {rec['ms']:.3f} "
+            f"ms (plain {rec['plain_ms']:.3f}, library over unpacked factors "
+            f"{rec['library_ms']:.3f}, bound {bound_ms:.4f} ms by "
+            f"{bound_by})")
+        rows.append(rec)
+    return rows
+
+
+def quantize_path(launches):
+    """The port's quantization pipeline on llama3.2-1b at full width and
+    depth (``QUANT``) with every launch count set to 0 just before it; see
+    phase 2b of the module docstring. Returns (its record, the saved
+    artifact's directory)."""
+    import tempfile
+    import torch
+    from repro_torch.api import NanoQuantModel
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import QuantConfig
+    from repro_torch.data.synthetic import calib_batches
+    from repro_torch.models import transformer as T
+    cfg = get_config(QUANT["arch"])
+    t0 = time.perf_counter()
+    teacher = T.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    calib = calib_batches(cfg, QUANT["samples"], QUANT["seq"])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    qcfg = QuantConfig()
+    counters = _counters()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    model = NanoQuantModel.quantize(teacher, cfg, calib, qcfg,
+                                    verbose=False, device="cuda")
+    launches[QUANT_PATH] = [c.launches for c in counters]
+    peak = _peak_gib()
+    rep = model.report
+    secs = rep["seconds"]
+    for row, sec in zip(rep["blocks"], secs["blocks"]):
+        log(f"quantize {row['block']}: {sec:.2f} s, block_err "
+            f"{row['block_err']:.6g}, pre_loss {row['pre_loss']:.6g}, "
+            f"ste_loss {row['ste_loss']:.6g}, init {row['init_method']}"
+            + (f", fallbacks {row['fallbacks']}" if row["fallbacks"] else ""))
+    kd = rep.get("kd_losses", [])
+    # KD's steps cycle over the calibration batches: its first and last
+    # pass read the same batches
+    n_cal = len(calib)
+    kd_pass = (sum(kd[:n_cal]) / n_cal, sum(kd[-n_cal:]) / n_cal) \
+        if len(kd) >= n_cal else (float("nan"), float("nan"))
+    sizes = model.size_report()
+    ranks = {}
+    for key, r in model.ranks.items():      # the same in every block
+        ranks.setdefault(key.split(".", 1)[1], set()).add(r)
+    ranks = {k: sorted(v) for k, v in ranks.items()}
+    blocks = len(rep["blocks"])
+    per_step = sum(len(names) for _, names in QUANT_LINEARS) * cfg.n_layers
+    want = blocks * per_step // cfg.n_layers + qcfg.t_glob * per_step
+    n = launches[QUANT_PATH]
+    log(f"quantize {cfg.name} {cfg.dtype} ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, calibration {QUANT['samples']} x {QUANT['seq']}): "
+        f"teacher and data {setup_s:.2f} s, calibration "
+        f"{secs['calibration']:.2f} s, blocks {sum(secs['blocks']):.2f} s, "
+        f"KD {secs['kd']:.2f} s ({qcfg.t_glob} steps), wall "
+        f"{rep['wall_s']:.2f} s, peak {peak:.2f} GiB; KD loss "
+        f"{kd[0]:.6g} -> {kd[-1]:.6g} (first and last pass over the "
+        f"{n_cal} batches: {kd_pass[0]:.6g} -> {kd_pass[1]:.6g}); ranks "
+        f"{ranks}; linears bpw "
+        f"{sizes['linears_bpw']:.4f}; launches " + ", ".join(
+            f"{k[0]}={c}" for k, c in zip(KERNELS, n)))
+    bad = [r["block"] for r in rep["blocks"]
+           if not math.isfinite(r["block_err"])]
+    if bad or not kd or not all(math.isfinite(v) for v in kd):
+        raise AssertionError(f"quantize: non-finite block errors {bad} or "
+                             f"KD losses {kd}")
+    layers = model.params["layers"]
+    packed = sum(layers[g][nm]["qu_t"].shape[0] for g, names in QUANT_LINEARS
+                 for nm in names if "qu_t" in layers[g][nm])
+    if packed != per_step:
+        raise AssertionError(f"quantize: {packed} packed linears, expected "
+                             f"{per_step}")
+    if n[FUSED] != want or any(n[i] for i in (PAGED, MEGA, PACKED)):
+        raise AssertionError(f"quantize: launches {n}, expected {want} of "
+                             f"#1 ({blocks} check forwards x "
+                             f"{per_step // cfg.n_layers} + {qcfg.t_glob} KD "
+                             f"steps x {per_step}) and none of the others")
+    fallbacks = {r["block"]: r["fallbacks"] for r in rep["blocks"]
+                 if r["fallbacks"]}
+    if fallbacks:
+        log(f"quantize: blocks off the lb_admm rung: {fallbacks}")
+    split = kd_split(teacher, model.params, cfg, calib[0], qcfg)
+    d = tempfile.mkdtemp(prefix="quantize-")
+    art = os.path.join(d, "artifact")
+    t0 = time.perf_counter()
+    model.save(art)
+    save_s = time.perf_counter() - t0
+    res = {"setup_s": setup_s, "seconds": secs, "wall_s": rep["wall_s"],
+           "peak_gib": peak, "blocks": rep["blocks"], "kd_losses": kd,
+           "kd_pass_means": kd_pass,
+           "kd_lowered_loss": kd_pass[1] < kd_pass[0], "ranks": ranks,
+           "sizes": sizes, "launches": n, "fallbacks": fallbacks,
+           "kd_step_split": split, "save_s": save_s,
+           "quant_config": dataclasses.asdict(qcfg),
+           "calibration": dict(QUANT)}
+    del model, teacher
+    free()
+    return res, art
+
+
+# the profiler's range around each autograd node's backward
+BACKWARD_RANGE = "autograd::engine::evaluate_function: "
+
+
+def kd_split(teacher, qparams, cfg, batch, qcfg):
+    """One more KD step, the pipeline's own (``tune_scales_kd`` over one
+    batch with ``t_glob`` 1), under the profiler: its device ms split into
+    #1's forward (the student's packed linears, by the kernel's name), the
+    backward's plain ops (kernels launched by ATen ops under the autograd
+    engine's ``evaluate_function`` ranges; the packed linears' share of
+    them, under ``_LowrankBinaryMatmulBackward``, beside) and the other ops
+    (teacher forward, the student's other ops and the loss, the
+    optimizer), with the step's host ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import pipeline as P
+    one = dataclasses.replace(qcfg, t_glob=1)
+
+    def step():
+        t0 = time.perf_counter()
+        P.tune_scales_kd(teacher, qparams, cfg, [batch], one)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+    step()                                   # warm
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _settle()
+        host_ms = step()
+        _settle()
+    events = prof.events()
+    fused = TRACE_NAMES[FUSED][1]
+    total = first = 0.0
+    for e in events:
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
+            ms = e.time_range.elapsed_us() * 1e-3
+            total += ms
+            first += ms if fused in e.name else 0.0
+
+    def backward_fn(e):
+        """The autograd node whose backward launched e's kernels, or
+        None outside the backward."""
+        while e is not None:
+            if e.name.startswith(BACKWARD_RANGE):
+                return e.name[len(BACKWARD_RANGE):]
+            e = e.cpu_parent
+        return None
+    backward = packed = 0.0
+    for e in events:
+        node = (backward_fn(e) if e.device_type == DeviceType.CPU
+                and e.kernels else None)
+        if node is not None:
+            ms = sum(k.duration for k in e.kernels
+                     if fused not in k.name) * 1e-3
+            backward += ms
+            packed += ms if node == "_LowrankBinaryMatmulBackward" else 0.0
+    if total == 0:
+        log("quantize KD step profile: device time not measured")
+        return {"host_ms": host_ms, "device_ms": None}
+    groups = {"#1 forward": first, "backward plain ops": backward,
+              "other ops": total - first - backward}
+    log(f"quantize KD step: device {total:.1f} ms: " + ", ".join(
+        f"{k} {v:.1f} ms ({100 * v / total:.1f}%)" for k, v in groups.items())
+        + f" (of the backward, the packed linears' {packed:.1f} ms); host "
+        f"{host_ms:.1f} ms")
+    return {"host_ms": host_ms, "device_ms": total, "by_group_ms": groups,
+            "packed_backward_ms": packed}
+
+
+def quantize_serve(art, launches):
+    """The quantized artifact loaded and cast to f32, served on the plain
+    oracles and on the path ``llama3.2-1b-quantized`` (#1 and #3) under
+    ``QUANT_SERVE``, gated like the llama paths."""
+    import shutil
+    import torch
+    from repro_torch.api import NanoQuantModel
+    t0 = time.perf_counter()
+    model = cast(NanoQuantModel.load(art), torch.float32)
+    load_s = time.perf_counter() - t0
+    log(f"quantized artifact loaded in {load_s:.2f} s and cast to f32")
+    res = serve_paths(model, QUANT_SERVE, launches)
+    res["load_s"] = load_s
+    del model
+    free()
+    shutil.rmtree(os.path.dirname(art))
+    return res
 
 
 if __name__ == "__main__":

@@ -1,6 +1,9 @@
-"""The NanoQuant model artifact, serving side: the port of ``save`` /
-``load`` / ``engine`` / ``generate`` of ``repro.api.model.NanoQuantModel``.
+"""The NanoQuant model artifact, the port of ``repro.api.model.
+NanoQuantModel``: quantize (the dense family), save / load, serve,
+evaluate.
 
+    model = NanoQuantModel.quantize(params, cfg, calib)  # on the card
+    model.save("/ckpt/nq")                           # JAX's load reads it
     model = NanoQuantModel.load("/ckpt/nq")          # on the card
     outs = model.generate(prompts, max_new_tokens=32)
     eng = model.engine(ServeConfig(greedy=True), max_batch=8)
@@ -23,9 +26,13 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.convert import params_from_numpy
+from repro_torch.core.pipeline import QuantConfig, nanoquant_quantize
+from repro_torch.data.synthetic import calib_batches, eval_perplexity
 from repro_torch.kernels.ops import KernelPolicy
+from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
-from repro_torch.quant.surgery import abstract_quantized_params, param_specs
+from repro_torch.quant.surgery import (abstract_quantized_params,
+                                       packed_model_bytes, param_specs)
 from repro_torch.serve.engine import InferenceEngine, ServeConfig
 from repro_torch.serve.scheduler import Request
 
@@ -44,9 +51,40 @@ class NanoQuantModel:
     quant: Optional[Dict[str, Any]] = None
     report: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
+    # ---- lifecycle: quantize ---------------------------------------------
+
+    @classmethod
+    def quantize(cls, params, cfg: ModelConfig, calib,
+                 qcfg: Optional[QuantConfig] = None, verbose: bool = True,
+                 journal_dir: Optional[str] = None, resume: bool = False,
+                 faults=None, heartbeat=None,
+                 device="cuda") -> "NanoQuantModel":
+        """Run the full pipeline (paper Alg. 1) on an FP teacher (tensors,
+        or the JAX package's numpy tree), moved to `device` first. The
+        manifest's quant config is ``dataclasses.asdict(qcfg)``, which the
+        JAX package's ``load`` rebuilds with ``QuantConfig(**...)``. The
+        journal, resume and fault arguments are ROADMAP item 11b and
+        raise when set (``core.pipeline.nanoquant_quantize``)."""
+        qcfg = qcfg or QuantConfig()
+        params = params_from_numpy(params, resolve_device(device))
+        qparams, report = nanoquant_quantize(
+            params, cfg, calib, qcfg, verbose=verbose,
+            journal_dir=journal_dir, resume=resume, faults=faults,
+            heartbeat=heartbeat)
+        return cls(qparams, cfg, dataclasses.asdict(qcfg), report)
+
+    @classmethod
+    def from_fp(cls, params, cfg: ModelConfig) -> "NanoQuantModel":
+        """Wrap unquantized params (the FP baseline) in the artifact."""
+        return cls(params, cfg, None, {})
+
     @property
     def quantized(self) -> bool:
         return self.quant is not None
+
+    @property
+    def ranks(self) -> Dict[str, int]:
+        return dict(self.report.get("ranks", {}))
 
     @property
     def device(self) -> torch.device:
@@ -169,6 +207,25 @@ class NanoQuantModel:
                                max_new_tokens=max_new_tokens))
         done = eng.run()
         return [done[uid].output for uid in range(len(prompts))]
+
+    # ---- lifecycle: evaluate ---------------------------------------------
+
+    def perplexity(self, batches=None, n_samples: int = 8, seq: int = 64,
+                   seed: int = 99) -> float:
+        """exp(mean token NLL); `batches` default to a deterministic
+        synthetic eval set (the JAX package's, from the same seed)."""
+        if batches is None:
+            batches = calib_batches(self.cfg, n_samples, seq, seed=seed)
+        return eval_perplexity(T.loss_fn, self.params, self.cfg, batches)
+
+    def size_report(self) -> Dict[str, float]:
+        """Full-scale storage accounting of this config and bpw
+        (``quant.surgery.packed_model_bytes``)."""
+        q = self.quant or dataclasses.asdict(QuantConfig())
+        return packed_model_bytes(self.cfg, q.get("target_bpw", 1.0),
+                                  q.get("min_dim", 48),
+                                  q.get("rank_align", 32),
+                                  q.get("pack_k_align", 32))
 
 
 def _param_template(cfg: ModelConfig, quant: Optional[Dict[str, Any]]):

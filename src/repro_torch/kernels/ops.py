@@ -112,16 +112,8 @@ def _fits_fused(p: KernelPolicy, r: int) -> bool:
     return p.fused and r <= binary_matmul.MAX_FUSED_RANK
 
 
-def lowrank_binary_matmul(x, qv, qu_t, s1, s2,
-                          policy: Optional[KernelPolicy] = None,
-                          eff_rank: Optional[int] = None):
-    """y = s1 ⊙ ((x ⊙ s2) @ V±1) @ U±1ᵀ — packed operands (paper Eq. 1).
-    The kernel path runs the fused kernel (f32 intermediate) up to
-    MAX_FUSED_RANK with ``fused``, else the two-call chain (intermediate
-    rounded to x's dtype, as the JAX package's two-call); the ref path
-    the two-stage oracle (rounded likewise)."""
-    p = policy if policy is not None else current_kernel_policy()
-    x = _match_packed_k(x, qv)
+def _lowrank_forward(x, qv, qu_t, s1, s2, p: KernelPolicy,
+                     eff_rank: Optional[int]):
     if p.use_kernels(x.device):
         if _fits_fused(p, qv.shape[-1]):
             return binary_matmul.fused_lowrank_matmul(
@@ -134,6 +126,66 @@ def lowrank_binary_matmul(x, qv, qu_t, s1, s2,
     if eff_rank is not None:
         qv, qu_t = _slice_rank(qv, qu_t, eff_rank)
     return ref.lowrank_binary_matmul_ref(x, qv, qu_t, s1, s2)
+
+
+class _LowrankBinaryMatmul(torch.autograd.Function):
+    """The packed linear with a gradient for x, s1 and s2 (the packed words
+    get none). Forward: the dispatch of :func:`lowrank_binary_matmul`,
+    whatever the grad mode. Backward: plain f32 ops over the unpacked ±1
+    factors — with t = (x ⊙ s2) @ V and g the output gradient,
+    ∂s1 = Σ_rows g ⊙ (t @ Uᵀ), ∂(x ⊙ s2) = ((g ⊙ s1) @ U) @ Vᵀ, then
+    ∂x and ∂s2 by the product rule — the JAX package's autodiff of its
+    packed ``dense`` path, without its roundings to x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, qv, qu_t, s1, s2, policy, eff_rank):
+        ctx.save_for_backward(x, qv, qu_t, s1, s2)
+        ctx.eff_rank = eff_rank
+        return _lowrank_forward(x, qv, qu_t, s1, s2, policy, eff_rank)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, qv, qu_t, s1, s2 = ctx.saved_tensors
+        if ctx.eff_rank is not None:
+            qv, qu_t = _slice_rank(qv, qu_t, ctx.eff_rank)
+        v = ref.unpack_signs(qv)                        # (K, r)
+        u_t = ref.unpack_signs(qu_t)                    # (r, N)
+        gf = g.float().reshape(-1, g.shape[-1])
+        xf = x.float().reshape(-1, x.shape[-1])
+        need_x, need_s1, need_s2 = (ctx.needs_input_grad[i]
+                                    for i in (0, 3, 4))
+        grad_x = grad_s1 = grad_s2 = None
+        if need_s1:
+            t = (xf * s2.float()) @ v
+            grad_s1 = (gf * (t @ u_t)).sum(0).to(s1.dtype)
+        if need_x or need_s2:
+            gxs = ((gf * s1.float()) @ u_t.T) @ v.T     # ∂(x ⊙ s2)
+            if need_x:
+                grad_x = (gxs * s2.float()).to(x.dtype).reshape(x.shape)
+            if need_s2:
+                grad_s2 = (gxs * xf).sum(0).to(s2.dtype)
+        return grad_x, None, None, grad_s1, grad_s2, None, None
+
+
+def lowrank_binary_matmul(x, qv, qu_t, s1, s2,
+                          policy: Optional[KernelPolicy] = None,
+                          eff_rank: Optional[int] = None):
+    """y = s1 ⊙ ((x ⊙ s2) @ V±1) @ U±1ᵀ — packed operands (paper Eq. 1).
+    The kernel path runs the fused kernel (f32 intermediate) up to
+    MAX_FUSED_RANK with ``fused``, else the two-call chain (intermediate
+    rounded to x's dtype, as the JAX package's two-call); the ref path
+    the two-stage oracle (rounded likewise). Differentiable in x, s1 and
+    s2 (:class:`_LowrankBinaryMatmul`), which the quantization pipeline's
+    scale-only distillation needs. With no gradient to take (grad mode
+    off, or none of x, s1, s2 requiring one) the same forward runs without
+    the Function's per-call bookkeeping, which serving would pay per
+    linear and step."""
+    p = policy if policy is not None else current_kernel_policy()
+    x = _match_packed_k(x, qv)
+    if torch.is_grad_enabled() and (x.requires_grad or s1.requires_grad
+                                    or s2.requires_grad):
+        return _LowrankBinaryMatmul.apply(x, qv, qu_t, s1, s2, p, eff_rank)
+    return _lowrank_forward(x, qv, qu_t, s1, s2, p, eff_rank)
 
 
 def lowrank_binary_matmul_merged(x, mp, dims: Sequence[int],

@@ -1,0 +1,126 @@
+"""Quantization CLI, the port of ``repro.launch.quantize`` for the
+dense family: build the FP teacher, run the NanoQuant pipeline through
+``NanoQuantModel.quantize``, save the packed artifact and report sizes
+and perplexities.
+
+    PYTHONPATH=src python -m repro_torch.launch.quantize --arch llama3.2-1b \
+        --bpw 1.0 --out /tmp/nq
+    PYTHONPATH=src python -m repro_torch.launch.serve --quantized-ckpt /tmp/nq
+
+The teacher is ``models.transformer.init_params`` from seed 0 (what the
+JAX package's CLI quantizes with ``--teacher-steps 0``): the smoke
+config by default, the published one with ``--full``. The run is on
+``--device`` (``cuda`` by default; nothing falls back to the CPU).
+Teacher training (``--teacher-steps`` > 0, ``--teacher-ckpt``) waits for
+the trainer (ROADMAP item 13); the crash-safe journal and its supervisor
+(``--journal-dir``, ``--resume``, ``--supervise``, ``--heartbeat``,
+``--crash-at-block``) and the other families wait for item 11b. Those
+flags exit non-zero.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+
+# flags of the JAX package's CLI the port refuses: (flag, what it
+# needs, the ROADMAP item that brings it)
+_REFUSED = (
+    ("teacher_steps", "a trained teacher", "13 (the trainer)"),
+    ("teacher_ckpt", "a trained teacher", "13 (the trainer)"),
+    ("journal_dir", "the crash-safe journal", "11b"),
+    ("resume", "the crash-safe journal", "11b"),
+    ("supervise", "the crash-safe journal", "11b"),
+    ("heartbeat", "the crash-safe journal's supervisor", "11b"),
+    ("crash_at_block", "quantization fault injection", "11b"),
+)
+
+
+def main(argv=None):
+    from repro_torch.configs import get_config, get_smoke, list_archs
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-1b", choices=list_archs())
+    ap.add_argument("--full", action="store_true",
+                    help="the full published config (needs the card)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default) or cpu")
+    ap.add_argument("--bpw", type=float, default=1.0)
+    ap.add_argument("--init-method", default="lb_admm")
+    ap.add_argument("--fallback-inits", default="dbf_admm,dual_svid",
+                    help="comma-separated init-method ladder tried when "
+                         "a block diverges ('' disables fallbacks)")
+    ap.add_argument("--calib-samples", type=int, default=16)
+    ap.add_argument("--calib-seq", type=int, default=128)
+    ap.add_argument("--out", default="")
+    ap.add_argument("--rank-align", type=int, default=32)
+    # pipeline budget knobs (CPU smoke runs use tiny values)
+    ap.add_argument("--admm-iters", type=int, default=40)
+    ap.add_argument("--t-pre", type=int, default=40)
+    ap.add_argument("--t-post", type=int, default=60)
+    ap.add_argument("--t-glob", type=int, default=60)
+    # the JAX package's flags the port does not take yet (_REFUSED)
+    ap.add_argument("--teacher-steps", type=int, default=0)
+    ap.add_argument("--teacher-ckpt", default="")
+    ap.add_argument("--journal-dir", default="")
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--supervise", action="store_true")
+    ap.add_argument("--heartbeat", action="store_true")
+    ap.add_argument("--crash-at-block", type=int, default=-1)
+    args = ap.parse_args(argv)
+    for flag, needs, item in _REFUSED:
+        if getattr(args, flag) != ap.get_default(flag):
+            ap.error(f"--{flag.replace('_', '-')} needs {needs}, which the "
+                     f"port does not have yet (ROADMAP item {item})")
+
+    import torch
+    from repro_torch import resolve_device
+    from repro_torch.api import NanoQuantModel
+    from repro_torch.api.init_methods import list_init_methods
+    from repro_torch.core.pipeline import QuantConfig
+    from repro_torch.data.synthetic import SyntheticCorpus, calib_batches
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(args.arch) if args.full else get_smoke(args.arch)
+    if cfg.family != "dense":
+        ap.error(f"quantizing the {cfg.family} family is ROADMAP item 11b")
+    if args.init_method not in list_init_methods():
+        ap.error(f"unknown init method {args.init_method!r}; available: "
+                 f"{list_init_methods()}")
+    device = resolve_device(args.device)
+    params = T.init_params(
+        cfg, torch.Generator(device=device).manual_seed(0), device)
+    corpus = SyntheticCorpus(cfg.vocab_size)
+    calib = calib_batches(cfg, args.calib_samples, args.calib_seq,
+                          corpus=corpus)
+    evalb = calib_batches(cfg, 8, args.calib_seq, seed=99, corpus=corpus)
+    ppl_fp = NanoQuantModel.from_fp(params, cfg).perplexity(evalb)
+
+    qcfg = QuantConfig(target_bpw=args.bpw, rank_align=args.rank_align,
+                       init_method=args.init_method,
+                       fallback_inits=args.fallback_inits,
+                       admm_iters=args.admm_iters, t_pre=args.t_pre,
+                       t_post=args.t_post, t_glob=args.t_glob)
+    model = NanoQuantModel.quantize(params, cfg, calib, qcfg, device=device)
+    ppl_q = model.perplexity(evalb)
+
+    sizes = model.size_report()
+    print(f"\n[quantize] {cfg.name} target_bpw={args.bpw} on {device}")
+    print(f"  FP teacher ppl   : {ppl_fp:.3f}")
+    print(f"  NanoQuant ppl    : {ppl_q:.3f}")
+    print(f"  linears bpw      : {sizes['linears_bpw']:.3f}")
+    print(f"  wall time        : {model.report['wall_s']:.1f}s")
+    if args.out:
+        model.save(args.out)
+        with open(os.path.join(args.out, "report.json"), "w") as f:
+            json.dump({"ppl_fp": ppl_fp, "ppl_q": ppl_q, "sizes": sizes,
+                       "ranks": model.ranks,
+                       "wall_s": model.report["wall_s"],
+                       "quant_config": dataclasses.asdict(qcfg)},
+                      f, indent=1)
+        print(f"  saved to {args.out}")
+
+
+if __name__ == "__main__":
+    main()

@@ -10,7 +10,9 @@ the model config. Without one, the CLI serves ``--arch``'s smoke
 config (llama3.2-1b by default; any arch of ``repro_torch.configs``,
 qwen3-moe-235b-a22b's MoE, mamba2-370m's SSM, zamba2-1.2b's hybrid and
 llama-3.2-vision-90b's VLM and musicgen-medium's audio among them) with
-packed words drawn from seed 0 (the port cannot quantize). The pool line
+packed words drawn from seed 0 (``launch.quantize`` writes an artifact of
+the dense family; quantizing here without one is ROADMAP item 11b, as it
+waits for every family's quantization). The pool line
 gives the pool's bytes per token. A family with nothing to page (SSM) is
 served on its per-slot state cache, and the pool line reports that
 layout instead; the hybrid's line gives its ring pages per slot and its

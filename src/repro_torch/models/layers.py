@@ -10,6 +10,8 @@ engine owns one pool and every decode step writes into it.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Optional, Sequence
 
@@ -17,6 +19,54 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+
+# --------------------------------------------------------------------------
+# calibration taps (paper Alg. 1 Phase 1): while a StatCollector is
+# installed (:func:`taps`), every named dense() records its input's second
+# moments before the matmul ("in") and hooks its output tensor for the
+# output gradient's ("out") — the diagonal K-FAC statistics behind D̃_in /
+# D̃_out. With no collector installed a named dense() costs one contextvar
+# read.
+# --------------------------------------------------------------------------
+
+
+class _Tap:
+    def __init__(self, collector):
+        self.collector = collector
+        self.scope = ("", None)      # (stack, layer index), set per block
+
+    def record_in(self, name: str, x) -> None:
+        stack, idx = self.scope
+        self.collector.accumulate(stack, name, "in", idx, x)
+
+    def hook_out(self, name: str, y) -> None:
+        if y.requires_grad:
+            stack, idx = self.scope
+            c = self.collector
+            y.register_hook(
+                lambda g: c.accumulate(stack, name, "out", idx, g))
+
+
+_TAP: contextvars.ContextVar = contextvars.ContextVar(
+    "nanoquant_torch_tap", default=None)
+
+
+@contextlib.contextmanager
+def taps(collector):
+    """Install `collector` (``core.precond.StatCollector``) for a scope."""
+    token = _TAP.set(_Tap(collector))
+    try:
+        yield
+    finally:
+        _TAP.reset(token)
+
+
+def set_scope(stack: str, idx) -> None:
+    """Name the block the next taps belong to (no-op without taps)."""
+    tap = _TAP.get()
+    if tap is not None:
+        tap.scope = (stack, idx)
+
 
 # --------------------------------------------------------------------------
 # basics
@@ -33,15 +83,40 @@ def silu(x):
     return x * torch.sigmoid(x)
 
 
-def dense(p: dict, x):
-    """FP or packed-binary linear. x: (..., d_in) -> (..., d_out). A packed
-    dict of a draft view (``quant.surgery.rank_truncated_view``) carries
-    ``eff_rank``: the kernel then reads only the leading rank columns."""
+def sign_ste(u):
+    """sign with a straight-through gradient (paper Eq. 10); 0 -> +1."""
+    s = torch.sign(u)
+    s = torch.where(s == 0, torch.ones_like(s), s).to(u.dtype)
+    return u + (s - u).detach()
+
+
+def _ste_matmul(p, x):
+    """Latent STE linear (block reconstruction Step 3, paper Eq. 10):
+    W_eff = diag(s1)·sign(𝒰)·sign(𝒱)ᵀ·diag(s2) with straight-through
+    gradients to the continuous latents. lv: (d_in, r), lu: (d_out, r)."""
+    xs = x * p["s2"].to(x.dtype)
+    t = xs @ sign_ste(p["lv"]).to(x.dtype)
+    y = t @ sign_ste(p["lu"]).to(x.dtype).T
+    return y * p["s1"].to(x.dtype)
+
+
+def dense(p: dict, x, name: Optional[str] = None):
+    """FP, STE-latent or packed-binary linear. x: (..., d_in) -> (...,
+    d_out). A packed dict of a draft view (``quant.surgery.
+    rank_truncated_view``) carries ``eff_rank``: the kernel then reads only
+    the leading rank columns. `name` keys the calibration taps."""
+    tap = _TAP.get() if name is not None else None
+    if tap is not None:
+        tap.record_in(name, x)
     if "qu_t" in p:      # packed low-rank binary path (paper Eq. 1)
         y = kops.lowrank_binary_matmul(x, p["qv"], p["qu_t"], p["s1"],
                                        p["s2"], eff_rank=p.get("eff_rank"))
+    elif "lu" in p:      # continuous latents with STE (refinement phase)
+        y = _ste_matmul(p, x)
     else:
         y = x @ p["w"].to(x.dtype)
+    if tap is not None:
+        tap.hook_out(name, y)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
@@ -237,9 +312,9 @@ def attention(p, cfg, x, positions, cache=None, cache_pos=None,
         k = k.reshape(B, S, cfg.n_kv_heads, hd)
         v = v.reshape(B, S, cfg.n_kv_heads, hd)
     else:
-        q = dense(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
-        k = dense(p["wk"], x).reshape(B, S, cfg.n_kv_heads, hd)
-        v = dense(p["wv"], x).reshape(B, S, cfg.n_kv_heads, hd)
+        q = dense(p["wq"], x, "attn.wq").reshape(B, S, cfg.n_heads, hd)
+        k = dense(p["wk"], x, "attn.wk").reshape(B, S, cfg.n_kv_heads, hd)
+        v = dense(p["wv"], x, "attn.wv").reshape(B, S, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -264,7 +339,7 @@ def attention(p, cfg, x, positions, cache=None, cache_pos=None,
             cache["k"][:, :S] = k.to(cache["k"].dtype)
             cache["v"][:, :S] = v.to(cache["v"].dtype)
         o = sdpa(q, k, v, _mask(positions, positions, window), scale)
-    return dense(p["wo"], o.reshape(B, S, -1)), cache
+    return dense(p["wo"], o.reshape(B, S, -1), "attn.wo"), cache
 
 
 # --------------------------------------------------------------------------
@@ -380,9 +455,9 @@ def ffn(p, x):
         d_ff = p["wgu"]["qu_t"].shape[-1]   # gate/up share d_out
         g, u = dense_merged(p["wgu"], x, (d_ff, d_ff))
     else:
-        g = dense(p["w_gate"], x)
-        u = dense(p["w_up"], x)
-    return dense(p["w_down"], silu(g) * u)
+        g = dense(p["w_gate"], x, "ffn.w_gate")
+        u = dense(p["w_up"], x, "ffn.w_up")
+    return dense(p["w_down"], silu(g) * u, "ffn.w_down")
 
 
 # --------------------------------------------------------------------------

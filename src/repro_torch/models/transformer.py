@@ -41,6 +41,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.core.util import tree_index
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig, check_family
 
@@ -64,12 +65,6 @@ def lead_axes(stack: str) -> int:
     return LEAD_AXES.get(stack, 1)
 
 
-def _index(tree, i):
-    if isinstance(tree, dict):
-        return {k: _index(v, i) for k, v in tree.items()}
-    return tree[i]
-
-
 def _lead(tree, n: int) -> Tuple[int, ...]:
     """The `n` leading (layer) axes of a stacked block tree."""
     leaf = next(iter(tree.values()))
@@ -86,7 +81,7 @@ def split_layers(params) -> Dict:
             lead = _lead(stack, lead_axes(name))
             views = [stack]
             for n in lead:
-                views = [_index(v, i) for v in views for i in range(n)]
+                views = [tree_index(v, i) for v in views for i in range(n)]
             out[name] = views
     return out
 
@@ -183,8 +178,9 @@ def backbone(params, cfg: ModelConfig, tokens, image_embeds=None):
             x = _apply_cross_block(cp, cfg, x,
                                    L.image_kv(cp["xattn"], cfg, image_embeds))
         return L.rms_norm(x, params["ln_f"], cfg.norm_eps)
-    for _, layers in _stacks(params):
+    for name, layers in _stacks(params):
         for idx, lp in enumerate(layers):
+            L.set_scope(name, idx)
             if cfg.is_ssm_layer_stack:
                 x, _ = _apply_mamba_block(lp, cfg, x)
                 if shared_app(cfg, idx) is not None:
@@ -192,14 +188,18 @@ def backbone(params, cfg: ModelConfig, tokens, image_embeds=None):
                                           positions)
             else:
                 x = _apply_attn_block(lp, cfg, x, positions)
+    L.set_scope("", None)
     return L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+
+
+def _head_w(params, cfg):
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]["w"]
 
 
 def logits_fn(params, cfg, hidden):
     """The lm head stays a plain matmul (tied to the embedding or not);
     the audio family's logits come back as (..., n_codebooks, vocab)."""
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]["w"]
-    out = hidden @ w.to(hidden.dtype)
+    out = hidden @ _head_w(params, cfg).to(hidden.dtype)
     if cfg.family == "audio":
         out = out.unflatten(-1, (cfg.n_codebooks, cfg.vocab_size))
     return out
@@ -208,6 +208,96 @@ def logits_fn(params, cfg, hidden):
 def forward(params, cfg, tokens, image_embeds=None):
     return logits_fn(params, cfg, backbone(params, cfg, tokens,
                                            image_embeds))
+
+
+# ---------------------------------------------------------------------------
+# loss: sequence-chunked cross-entropy (the full (B, S, V) logits tensor is
+# never made at once)
+# ---------------------------------------------------------------------------
+
+
+def _xent(logits, labels):
+    """logits (..., V); labels (...) with -1 = masked. (sum, count)."""
+    lf = logits.float()
+    ll = lf.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return ((torch.logsumexp(lf, dim=-1) - ll) * mask).sum(), mask.sum()
+
+
+def loss_fn(params, cfg: ModelConfig, batch, training: bool = True):
+    """Mean token NLL of batch {'tokens', 'labels'[, 'image_embeds']},
+    the port of ``repro.models.transformer.loss_fn``; the batch moves to
+    the params' device. `training` is accepted for the reference's
+    signature (it selects rematerialization there)."""
+    dev = params["embed"].device
+    img = batch.get("image_embeds")
+    h = backbone(params, cfg, batch["tokens"].to(dev),
+                 None if img is None else img.to(dev))
+    labels = batch["labels"].to(dev)
+    w = _head_w(params, cfg).to(h.dtype)
+    S = h.shape[1]
+    chunk = min(cfg.loss_chunk or S, S)
+    if S % chunk:
+        chunk = S
+    tot = cnt = 0.0
+    for c in range(0, S, chunk):
+        logits = h[:, c:c + chunk] @ w
+        if cfg.family == "audio":
+            logits = logits.unflatten(-1, (cfg.n_codebooks, cfg.vocab_size))
+        t, n = _xent(logits, labels[:, c:c + chunk])
+        tot, cnt = tot + t, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# init: the FP teacher (the JAX package's init laws, drawn by torch)
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device="cuda"):
+    """FP params of a dense-family model under the JAX package's init
+    laws (``repro.models.transformer.init_params``): embedding N(0, 0.02),
+    an untied lm head and every linear N(0, 1/d_in), biases 0, norms 1;
+    each stack's leaves with a leading layer axis. `generator` lives on
+    `device`; the numbers differ from JAX's draws (another generator).
+    The other families' teachers wait for their quantization (ROADMAP
+    item 11b)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"init_params of the {cfg.family} family is ROADMAP item 11b")
+    dt, d, n, hd = torch_dtype(cfg), cfg.d_model, cfg.n_layers, cfg.head_dim
+
+    def normal(shape, std):
+        return (torch.randn(shape, generator=generator, device=device)
+                * std).to(dt)
+
+    def full(shape, value):
+        return torch.full(shape, value, dtype=dt, device=device)
+
+    def lin(d_in, d_out, bias=False):
+        p = {"w": normal((n, d_in, d_out), 1.0 / math.sqrt(d_in))}
+        if bias:
+            p["b"] = full((n, d_out), 0.0)
+        return p
+
+    attn = {"wq": lin(d, cfg.n_heads * hd, cfg.qkv_bias),
+            "wk": lin(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
+            "wv": lin(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
+            "wo": lin(cfg.n_heads * hd, d)}
+    if cfg.qk_norm:
+        attn["q_norm"] = full((n, hd), 1.0)
+        attn["k_norm"] = full((n, hd), 1.0)
+    p = {"embed": normal((cfg.vocab_size, d), 0.02),
+         "ln_f": full((d,), 1.0),
+         "layers": {"ln1": full((n, d), 1.0), "attn": attn,
+                    "ln2": full((n, d), 1.0),
+                    "ffn": {"w_gate": lin(d, cfg.d_ff),
+                            "w_up": lin(d, cfg.d_ff),
+                            "w_down": lin(cfg.d_ff, d)}}}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = {"w": normal((d, cfg.vocab_size), 1.0 / math.sqrt(d))}
+    return p
 
 
 def stack_lead(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:

@@ -10,7 +10,8 @@
   the grouped kernel launches read (padded rank + ``rmask``, padded s1
   columns set to 0);
 - :func:`rank_truncated_view` — the zero-copy rank-r' draft view that
-  self-speculative decoding reads (``serve.speculative``).
+  self-speculative decoding reads (``serve.speculative``);
+- :func:`packed_model_bytes` — the checkpoint's storage accounting.
 
 The selection rule is ``core.layout.quantizable_linear``, the copy of
 the JAX package's: every linear ``{"w": (d_in, d_out)}`` (or stacked
@@ -26,7 +27,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.bpw import rank_for_bpw
+from repro_torch.core.bpw import nanoquant_bits, rank_for_bpw
 from repro_torch.core.layout import BLOCK_STACKS, PACK_ALIGN, \
     quantizable_linear
 from repro_torch.models.config import ModelConfig, check_family
@@ -352,3 +353,53 @@ def rank_truncated_view(params, rank_frac: float, align: int = PACK_ALIGN):
         return node if all(out[k] is v for k, v in node.items()) else out
 
     return walk(params)
+
+
+# ---------------------------------------------------------------------------
+# storage accounting
+# ---------------------------------------------------------------------------
+
+
+def packed_model_bytes(cfg: ModelConfig, target_bpw: float = 1.0,
+                       min_dim: int = 48, rank_align: int = 32,
+                       k_align: int = 32) -> Dict[str, float]:
+    """Storage accounting of the quantized checkpoint (App. F style), the
+    port of ``repro.quant.surgery.packed_model_bytes``: packed linears
+    (scales counted fp16, as the paper stores them) plus the FP16 residue
+    (embeddings, norms, head, sub-min_dim linears). Padded qv rows and s2
+    columns of a ``k_align`` past 32 are real bytes and are counted."""
+    k_align = max(32, k_align)
+    q_bits = qw_bits = fp_bits = 0
+
+    def walk(node, in_stack):
+        nonlocal q_bits, qw_bits, fp_bits
+        for k in sorted(node):
+            v = node[k]
+            if isinstance(v, LeafSpec):
+                fp_bits += math.prod(v.shape) * 16
+            elif in_stack and isinstance(v.get("w"), LeafSpec) \
+                    and quantizable_linear(k, v["w"].shape, min_dim):
+                *lead, d_in, d_out = v["w"].shape
+                r = rank_for_bpw(d_out, d_in, target_bpw, rank_align)
+                pad_k = -(-d_in // k_align) * k_align - d_in
+                q_bits += math.prod(lead) * (nanoquant_bits(d_out, d_in, r)
+                                             + pad_k * r + 16 * pad_k)
+                qw_bits += math.prod(v["w"].shape) * 16
+                if "b" in v:
+                    fp_bits += math.prod(v["b"].shape) * 16
+            else:
+                walk(v, in_stack)
+
+    specs = param_specs(cfg)
+    for k in sorted(specs):
+        v = specs[k]
+        if isinstance(v, LeafSpec):
+            fp_bits += math.prod(v.shape) * 16
+        else:
+            walk({k: v} if k not in BLOCK_STACKS else v, k in BLOCK_STACKS)
+    return {
+        "fp16_total_gb": (fp_bits + qw_bits) / 8 / 1e9,
+        "quantized_gb": (q_bits + fp_bits) / 8 / 1e9,
+        "linears_bpw": q_bits / max(qw_bits / 16, 1),
+        "compression_x": (fp_bits + qw_bits) / max(q_bits + fp_bits, 1),
+    }

@@ -1357,3 +1357,41 @@ def test_audio_engine_and_generate_match_plain(dev, megakernel_on):
     assert tuple(got.shape) == (3, 5, K) and torch.equal(want, got)
     _close(wl, gl, 1e-4, "audio generate logits")
     assert [c.launches - b for c, b in zip(counters, n0)] == launches(1, 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+@pytest.mark.parametrize("K,R,N", [(2048, 1600, 8192),      # llama gate
+                                   (8192, 1600, 2048)])     # llama down
+def test_packed_linear_autograd_vs_plain(dev, dt, K, R, N):
+    """Kernel #1 under its autograd Function (``ops.lowrank_binary_matmul``,
+    the KD phase's student linear) against autograd through its plain
+    version at llama3.2-1b's gate and down shapes with M = 1024 rows: the
+    output and the gradients of x, s1 and s2 within the kernel
+    tolerances; the forward launches the kernel once."""
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(K + N)
+    x = torch.from_numpy(rng.standard_normal((4, 256, K), np.float32)
+                         ).to(dev, dt)
+    qv = _words(rng, K // 32, R).to(dev)
+    qu = _words(rng, R // 32, N).to(dev)
+    s1 = torch.from_numpy(rng.uniform(0.5, 1.5, N).astype(np.float32)
+                          / R ** 0.5).to(dev)
+    s2 = torch.from_numpy(rng.uniform(0.5, 1.5, K).astype(np.float32)
+                          / K ** 0.5).to(dev)
+    gy = torch.from_numpy(rng.standard_normal((4, 256, N), np.float32)
+                          ).to(dev, dt)
+    got_in = [t.clone().requires_grad_() for t in (x, s1, s2)]
+    n0 = binary_matmul.fused_lowrank_matmul_grouped.launches
+    y = ops.lowrank_binary_matmul(got_in[0], qv, qu, got_in[1], got_in[2])
+    got = torch.autograd.grad(y, got_in, gy)
+    torch.cuda.synchronize()
+    assert binary_matmul.fused_lowrank_matmul_grouped.launches == n0 + 1
+    want_in = [t.clone().requires_grad_() for t in (x, s1, s2)]
+    yp = ref.lowrank_binary_matmul_fused_ref(want_in[0], qv, qu, want_in[1],
+                                             want_in[2])
+    want = torch.autograd.grad(yp, want_in, gy)
+    _close(yp, y, TOL[dt], "packed linear forward")
+    for nm, a, b in zip(("x", "s1", "s2"), want, got):
+        assert b.dtype == a.dtype
+        _close(a, b, TOL[dt], f"d{nm}")
