@@ -33,6 +33,25 @@ Phases, each printing its own line(s); any failure exits non-zero:
    path ``llama3.2-1b-quantized`` (4 requests of the llama traffic,
    ``QUANT_SERVE``; #1 and #3), gated against the plain-oracle engine
    like the llama paths;
+2c. the other families' quantization — #1 under the same autograd
+   Function at deepseek-v2-lite-16b's expert grid
+   (``ops.lowrank_binary_matmul_expert``: G 64, x per group, K 2048 -> N
+   1408 at rank 800, the 120 capacity rows of a KD step), checked and
+   timed as the gate shape's; then the pipeline, as for llama3.2-1b, on
+   musicgen-medium (4 of its 48 layers; calibration frames of 4
+   codebooks), mamba2-370m (8 of 48) and deepseek-v2-lite-16b (its dense
+   layer and 2 of 26 MoE layers; ``QUANT_DEPTH``), each at full width in
+   bf16 on the path ``<arch>-quantize``: #1 launched once per packed
+   linear in each block's check forward and each KD step's student
+   forward (an expert stack: one launch of the grid over its 64 experts,
+   counted apart: 3 per MoE layer and forward) and nothing else, the
+   count equal to the template's; deepseek's expert scales' gradients of
+   one KD step (models cast to f32) non-zero on the kernel path and
+   within the bf16 tolerance of the plain path's. Each artifact is
+   saved, loaded, cast to f32 and served under 4 requests of its family's
+   traffic on ``<arch>-quantized`` (musicgen #1 and #3, mamba2 #1,
+   deepseek #1 with the G = 64 grid), gated against the plain-oracle
+   engine like its family's paths;
 3. llama3.2-1b kernels — kernels #1-#3 against their plain PyTorch
    versions on the card at the shapes the llama3.2-1b serving path gives
    them (decode M in {1, 8}, prefill M = 512; B = 8 slots, page_size 64,
@@ -152,14 +171,15 @@ Phases, each printing its own line(s); any failure exits non-zero:
    rank 384) at M 8, and at the 64-expert grid (x per group, rank 800;
    gate/up K 2048 -> N 1408, down K 1408 -> N 2048) at M 8 and 32, f32 and
    bf16, against its plain version beside its library call; then the
-   model at full width and full depth (27 layers: one dense, 26 MoE of 64
-   experts top-6 plus 2 shared; MLA attention over a paged pool of
-   compressed latents, kv_lora_rank 512 plus a 64-wide RoPE key per row)
-   at 1.0 bpw, weights and routers drawn on the card, under the llama
-   traffic on the path ``deepseek-v2-lite-16b``: #1 only, 240 launches
-   per forward (four per layer for wq, w_dkv, w_kr and wo, three at the
+   model at full width, cut to 9 of its 27 layers (``DEPTH``: one dense, 8
+   MoE of 64 experts top-6 plus 2 shared; MLA attention over a paged pool
+   of compressed latents, kv_lora_rank 512 plus a 64-wide RoPE key per
+   row) at 1.0 bpw, weights and routers drawn on the card, under the llama
+   traffic on the path ``deepseek-v2-lite-16b``: #1 only, 78 launches per
+   forward (four per layer for wq, w_dkv, w_kr and wo, three at the
    expert grid and two for the shared experts per MoE layer, two for the
-   dense block), 78 of them at the grid; #2, #3 and #4 never (MLA's read
+   dense block; 240 at full depth), 24 of them at the grid; #2, #3 and #4
+   never (MLA's read
    is plain torch ops, as the reference keeps it plain XLA). Its f32 gate
    is ``moe_gate``. Then one bf16 run (decode tok/s, TTFT, peak memory,
    the pool's bytes per token) and its decode window under the profiler,
@@ -170,12 +190,12 @@ Phases, each printing its own line(s); any failure exits non-zero:
    K 1024 -> N 2048 at rank 640, the shape of wx too; wB, -> 128 at rank
    96, a partial tile of the rank stage, the shape of wC too; out_proj,
    K 2048 -> 1024 at rank 640) at M 8 and 256, f32 and bf16, against its
-   plain version beside its library call; then the model at full width
-   and full depth (48 Mamba2 blocks, d 1024, d_inner 2048, 32 heads of
-   64, state 128, chunk 256, vocab 50280, tied head) at 1.0 bpw, weights
-   drawn on the card, on the per-slot state cache (no pool) under the
-   llama traffic with prompts of 17-520 tokens (``MAMBA``), on the path
-   ``mamba2-370m``: #1 only, 240 launches per forward (wz, wx, wB, wC
+   plain version beside its library call; then the model at full width,
+   cut to 16 of its 48 Mamba2 blocks (``DEPTH``; d 1024, d_inner 2048, 32
+   heads of 64, state 128, chunk 256, vocab 50280, tied head) at 1.0 bpw,
+   weights drawn on the card, on the per-slot state cache (no pool) under
+   the llama traffic with prompts of 17-520 tokens (``MAMBA``), on the
+   path ``mamba2-370m``: #1 only, 80 launches per forward (wz, wx, wB, wC
    and out_proj per layer; wdt stays FP), #2, #3 and #4 never; gated like
    the llama paths. Then one bf16 run (decode tok/s, TTFT, peak memory,
    the state cache's bytes per slot) and its decode window under the
@@ -189,10 +209,10 @@ Phases, each printing its own line(s); any failure exits non-zero:
    [4096, 4400), cache_pos = q_pos % 4096, window 4096) and an unwrapped
    one of 4 entries, each against its plain version beside SDPA (the
    ``ring`` records of #2 and #3 on the kernels line); then the model at
-   full width and full depth (38 Mamba2 blocks, d 2048, d_inner 4096, 64
-   heads of 64, state 64; the shared MHA + FFN block, d_ff 8192, after
-   every 6th block: 6 applications per forward over one pool of ring
-   pages) at 1.0 bpw, weights drawn on the card, on the paths
+   full width, cut to 12 of its 38 Mamba2 blocks (``DEPTH``; d 2048,
+   d_inner 4096, 64 heads of 64, state 64; the shared MHA + FFN block,
+   d_ff 8192, after every 6th block: 2 applications per forward over one
+   pool of ring pages) at 1.0 bpw, weights drawn on the card, on the paths
    ``zamba2-1.2b`` (the llama traffic, ``ZAMBA``: the window clamps to
    max_len 256, a ring of 4 pages that never wraps; megakernel on: #1
    and #3), ``zamba2-1.2b-unfused`` (megakernel off: #1 and #2) and
@@ -235,8 +255,9 @@ Phases, each printing its own line(s); any failure exits non-zero:
    its decode shape (B 8, 24 query heads over 24 kv heads: G 1, D 64, K
    1536, pages of 64) over 4 and 32 table entries, each against its
    plain version beside its library call (#3 also beside its unfused
-   chain), f32 and bf16. Then the model at full width and full depth (48
-   layers, d 1536, 4 codebooks of 2048; the reference's llama-style block)
+   chain), f32 and bf16. Then the model at full width, cut to 16 of its
+   48 layers (``DEPTH``; d 1536, 4 codebooks of 2048; the reference's
+   llama-style block)
    at 1.0 bpw, weights drawn on the card, under ``MUSICGEN``: 8 requests
    of 17-200 prompt frames of 4 codebook ids (about 0.3-4 s of audio at
    EnCodec's 50 frames per second), 32 new frames each, on the paths
@@ -246,7 +267,7 @@ Phases, each printing its own line(s); any failure exits non-zero:
    frame for frame (a divergence must fall at a plain-path near-tie of
    every codebook that differs). Then one bf16 run (decode frames/s and
    codebook tokens/s, TTFT, peak memory, the pool's bytes per token,
-   exactly 48 x 2 x 24 x 64 x 2) and its decode window under the profiler,
+   exactly layers x 2 x 24 x 64 x 2) and its decode window under the profiler,
    device ms per step split by op group (``audio_split``) beside the host
    ms per step, and the device's busy share of the decode steps;
 14. the seconds each phase took, the ``kernels`` JSON line (launches per
@@ -367,10 +388,12 @@ VISION_IMAGE = {"arch": "llama-3.2-vision-90b", "n": 4, "prompt": 32,
 # under the llama traffic: prompts of 17-200 frames, about 0.3-4 s of audio
 # at EnCodec's 50 frames per second (arXiv:2306.05284), 32 new frames
 MUSICGEN = dict(LLAMA, arch="musicgen-medium")
-# depth cuts that keep the script inside its time limit: the layers each
-# model is served at (width untouched; every other model at full depth)
+# depth cuts that keep the script inside its time limit with the quantize
+# phases: the layers each model is served at (width untouched; every other
+# model at full depth)
 DEPTH = {"qwen1.5-110b": 20, "qwen3-moe-235b-a22b": 24,
-         "llama-3.2-vision-90b": 50}
+         "llama-3.2-vision-90b": 50, "deepseek-v2-lite-16b": 9,
+         "mamba2-370m": 16, "zamba2-1.2b": 12, "musicgen-medium": 16}
 
 # the quantization pipeline on the card: llama3.2-1b at full width and
 # depth in its config's dtype (bf16), calibrated on `samples` sequences of
@@ -379,6 +402,20 @@ DEPTH = {"qwen1.5-110b": 20, "qwen3-moe-235b-a22b": 24,
 # llama traffic
 QUANT = {"arch": "llama3.2-1b", "samples": 16, "seq": 256}
 QUANT_SERVE = dict(LLAMA, n=4, up_front=2)
+# the audio, MoE and SSM families quantized at full width in the same way
+# (frames of 4 codebooks for the audio family), at cut depth: musicgen 4 of
+# its 48 layers, mamba2 8 of 48, deepseek its dense layer and 2 MoE layers
+# of 27; each artifact served in f32 under 4 requests of its family's
+# traffic
+QUANT_DEPTH = {"musicgen-medium": 4, "mamba2-370m": 8,
+               "deepseek-v2-lite-16b": 3}
+MUSICGEN_QUANT_SERVE = dict(MUSICGEN, n=4, up_front=2)
+MAMBA_QUANT_SERVE = dict(MAMBA, n=4, up_front=2)
+DEEPSEEK_QUANT_SERVE = dict(DEEPSEEK, n=4, up_front=2)
+QUANT_SERVES = {"llama3.2-1b": QUANT_SERVE,
+                "musicgen-medium": MUSICGEN_QUANT_SERVE,
+                "mamba2-370m": MAMBA_QUANT_SERVE,
+                "deepseek-v2-lite-16b": DEEPSEEK_QUANT_SERVE}
 # the autograd check's shape: llama3.2-1b's w_gate at M = 4 x 256 rows
 AUTOGRAD = {"M": 1024, "K": 2048, "R": 1600, "N": 8192}
 
@@ -444,8 +481,13 @@ PATHS = (
      (FUSED, PAGED), (MEGA, PACKED)),
     ("llama3.2-1b-quantized", QUANT_SERVE, {}, True, None, None,
      (FUSED, MEGA), (PACKED,)),
+    ("musicgen-medium-quantized", MUSICGEN_QUANT_SERVE, {}, True, None, None,
+     (FUSED, MEGA), (PAGED, PACKED)),
+    ("mamba2-370m-quantized", MAMBA_QUANT_SERVE, {}, None, None, None,
+     (FUSED,), (PAGED, MEGA, PACKED)),
+    ("deepseek-v2-lite-16b-quantized", DEEPSEEK_QUANT_SERVE, {}, None, None,
+     None, (FUSED,), (PAGED, MEGA, PACKED)),
 )
-QUANT_PATH = "llama3.2-1b-quantize"
 
 # the kernels' names in a profiler trace, and the lm head's matmul
 TRACE_NAMES = ((FUSED, "fused_lowrank_kernel"),
@@ -493,14 +535,26 @@ def main():
     # the quantization phase first: its KD step's profile is the process's
     # first profiler session
     autograd = check_autograd()
-    report[QUANT_PATH], artifact = quantize_path(launches)
+    report["llama3.2-1b-quantize"], artifact = quantize_path(
+        "llama3.2-1b", launches)
     phase("llama3.2-1b quantize")
-    report["llama3.2-1b-quantized"] = quantize_serve(artifact, launches)
+    report["llama3.2-1b-quantized"] = quantize_serve(
+        "llama3.2-1b", artifact, launches)
     phase("llama3.2-1b quantized artifact f32 engine path")
+    expert_autograd = check_autograd(expert=True)
+    phase("#1's expert autograd Function at deepseek's grid")
+    for arch, depth in QUANT_DEPTH.items():
+        report[f"{arch}-quantize"], artifact = quantize_path(
+            arch, launches, depth)
+        phase(f"{arch} quantize")
+        report[f"{arch}-quantized"] = quantize_serve(arch, artifact,
+                                                     launches)
+        phase(f"{arch} quantized artifact f32 engine path")
 
     llama = make_llama()
     lines = check_llama_kernels(llama, report)
     lines[FUSED]["autograd"] = autograd
+    lines[FUSED]["expert_autograd"] = expert_autograd
     phase("llama3.2-1b kernels")
     report["llama3.2-1b"] = serve_paths(llama, LLAMA, launches)
     report["llama3.2-1b-prefix"] = serve_paths(llama, PREFIX, launches)
@@ -716,7 +770,8 @@ def main():
                        "B", "pages", "dtype")},
             **{k: rec[k] for k in ("instruction", "plan", "bound_share",
                                    "chain_ms", "cold_l2_ms", "long_context",
-                                   "ring", "vision", "musicgen", "autograd")
+                                   "ring", "vision", "musicgen", "autograd",
+                                   "expert_autograd")
                if k in rec}})
     report["kernels"] = kernels
     report["script_s"] = time.perf_counter() - t_start
@@ -3310,8 +3365,8 @@ def vision_split(prof, cfg, steps):
 
 def audio_bytes(model, traffic):
     """The audio engine's pool bytes per token (every layer's k and v row
-    of one frame), checked against the shapes: 48 x 2 x 24 x 64 x 2 =
-    294,912 bytes in bf16."""
+    of one frame), checked against the shapes: layers x 2 x 24 x 64 x 2
+    bytes in bf16 (294,912 at full depth)."""
     from repro_torch.kernels.ops import KernelPolicy
     eng = _engine(model, traffic, KernelPolicy(mode="cuda"))
     kv, cfg = eng.kv, model.cfg
@@ -3486,92 +3541,143 @@ def profile_image_prefill(model):
 # the quantization pipeline on the card
 # ---------------------------------------------------------------------------
 
-QUANT_LINEARS = (("attn", ("wq", "wk", "wv", "wo")),
-                 ("ffn", ("w_gate", "w_up", "w_down")))
+def packed_per_forward(tree):
+    """Launches of #1 in one forward of a packed tree with no merged
+    groups (a params tree or its template): one per packed linear and
+    layer of its stack, a stack of experts being one launch over all of
+    them."""
+    if "qu_t" in tree:
+        return tree["qu_t"].shape[0]
+    return sum(packed_per_forward(v) for v in tree.values()
+               if isinstance(v, dict))
 
 
-def check_autograd():
-    """#1 under its autograd Function (``ops.lowrank_binary_matmul``)
-    against autograd through its plain version at ``AUTOGRAD``'s shape,
-    f32 and bf16: the output and the gradients of x, s1 and s2 within the
-    kernel tolerances; the forward and the forward + backward timed
-    (CUDA events, median of 21) beside the same forward + backward through
-    library matmuls over factors unpacked beforehand in x's dtype (a
-    yardstick). The bound of the forward + backward: its inputs read and
-    outputs written once, and the four products the function needs at the
-    bf16 tensor rate the exact ±1 factors allow: z = ((x ⊙ s2) @ V) @ Uᵀ
-    in the forward, ((g ⊙ s1) @ U) @ Vᵀ for ∂x and ∂s2, and ∂s1 =
+def check_autograd(expert=False):
+    """#1 under its autograd Function against autograd through its plain
+    version, f32 and bf16: ``ops.lowrank_binary_matmul`` (the KD phase's
+    student linear) at ``AUTOGRAD``'s shape, or with `expert`
+    ``ops.lowrank_binary_matmul_expert`` at deepseek-v2-lite-16b's expert
+    grid (G = 64, x per group; w_gate's K 2048 -> N 1408 at the 1.0 bpw
+    rank; the capacity rows a KD step's 4 x 256 tokens give). The output
+    and the gradients of x, s1 and s2 within the kernel tolerances, the
+    forward one launch; the forward and the forward + backward timed
+    (CUDA events, median of 21) beside the same forward + backward
+    through library matmuls over factors unpacked beforehand in x's dtype
+    (a yardstick). The bound of the forward + backward: its inputs read
+    and outputs written once, and the four products the function needs at
+    the bf16 tensor rate the exact ±1 factors allow: z = ((x ⊙ s2) @ V) @
+    Uᵀ in the forward, ((g ⊙ s1) @ U) @ Vᵀ for ∂x and ∂s2, and ∂s1 =
     Σ_rows g ⊙ z with no product (the Function's backward recomputes z,
     two products more than the bound counts). Returns the f32 and bf16
     records."""
     import torch
-    from repro_torch.kernels import ops, ref
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
-    M, K, R, N = (AUTOGRAD[k] for k in "MKRN")
+    from repro_torch.configs import get_config
+    from repro_torch.core.bpw import rank_for_bpw
+    from repro_torch.kernels import binary_matmul, ops, ref
+    if expert:
+        cfg = get_config("deepseek-v2-lite-16b")
+        G, K, N = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+        R = rank_for_bpw(N, K, 1.0, 32)
+        tokens = 4 * QUANT["seq"]  # a KD step's batch: 4 calibration rows
+        M = max(8, -(-math.ceil(tokens * cfg.n_experts_per_tok / G
+                                * cfg.capacity_factor) // 8) * 8)
+        lead, fn, label = (G,), ops.lowrank_binary_matmul_expert, "expert "
+    else:
+        (M, K, R, N), G = (AUTOGRAD[k] for k in "MKRN"), 1
+        lead, fn, label = (), ops.lowrank_binary_matmul, ""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30 + expert)
 
     def words(*shape):
-        return torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=gen,
-                             device="cuda", dtype=torch.int32)
+        return torch.randint(-2 ** 31, 2 ** 31 - 1, lead + shape,
+                             generator=gen, device="cuda", dtype=torch.int32)
+
+    def rand(*shape):
+        return torch.rand(lead + shape, generator=gen, device="cuda")
+
+    def per_row(t):                # a scale over the rows of its group
+        return t[:, None] if expert else t
+
+    def plain(xx, qv_, qu_, a, b):
+        if expert:
+            return binary_matmul.fused_lowrank_matmul_grouped_ref(
+                xx, qv_, qu_, a, b, x_shared=False)
+        return ref.lowrank_binary_matmul_fused_ref(xx, qv_, qu_, a, b)
     rows = []
     for dt, tdt in _dtypes():
-        x = torch.randn((M, K), generator=gen, device="cuda").to(tdt)
+        x = torch.randn(lead + (M, K), generator=gen, device="cuda").to(tdt)
         qv, qu = words(K // 32, R), words(R // 32, N)
-        s1 = (torch.rand(N, generator=gen, device="cuda") + 0.5) / R ** 0.5
-        s2 = (torch.rand(K, generator=gen, device="cuda") + 0.5) / K ** 0.5
-        gy = torch.randn((M, N), generator=gen, device="cuda").to(tdt)
+        s1 = (rand(N) + 0.5) / R ** 0.5
+        s2 = (rand(K) + 0.5) / K ** 0.5
+        gy = torch.randn(lead + (M, N), generator=gen, device="cuda").to(tdt)
         leaves = [t.clone().requires_grad_() for t in (x, s1, s2)]
 
-        def run(fn):
-            y = fn(leaves[0], qv, qu, leaves[1], leaves[2])
+        def run(f):
+            y = f(leaves[0], qv, qu, leaves[1], leaves[2])
             return (y, *torch.autograd.grad(y, leaves, gy))
-        kern = run(ops.lowrank_binary_matmul)
-        plain = run(ref.lowrank_binary_matmul_fused_ref)
-        errs = [compare(f"#1 autograd {dt} {nm}", a, b, TOL[dt])
-                for nm, a, b in zip(("y", "dx", "ds1", "ds2"), plain, kern)]
+        n0 = binary_matmul.fused_lowrank_matmul_grouped.launches
+        kern = run(fn)
+        if binary_matmul.fused_lowrank_matmul_grouped.launches != n0 + 1:
+            raise AssertionError(f"#1 {label}autograd: the forward is not "
+                                 f"one launch")
+        errs = [compare(f"#1 {label}autograd {dt} {nm}", a, b, TOL[dt])
+                for nm, a, b in zip(("y", "dx", "ds1", "ds2"), run(plain),
+                                    kern)]
         with torch.no_grad():
-            fwd_ms = time_ms(lambda: ops.lowrank_binary_matmul(
-                x, qv, qu, s1, s2))
-        v, u = ref.unpack_signs(qv).to(tdt), ref.unpack_signs(qu).to(tdt)
+            fwd_ms = time_ms(lambda: fn(x, qv, qu, s1, s2))
+        v, u = ref.unpack_signs(qv, tdt), ref.unpack_signs(qu, tdt)
 
         def library(xx, qv_, qu_, a, b):
-            return torch.matmul(torch.matmul(xx * b.to(tdt), v), u) \
-                * a.to(tdt)
+            return torch.matmul(torch.matmul(xx * per_row(b).to(tdt), v), u) \
+                * per_row(a).to(tdt)
         w_bytes, flops = lowrank_cost(K, ((R, N),), M)
         io = 2 * nbytes(x, gy) + nbytes(s1, s2)   # x, dx, gy, y; ds1, ds2
-        bound_ms, bound_by = bound(w_bytes + io,
-                                   (2 * flops, BF16_TC_FLOPS_S))
+        bound_ms, bound_by = bound(G * w_bytes + io,
+                                   (2 * G * flops, BF16_TC_FLOPS_S))
         rec = {"M": M, "K": K, "R": R, "N": N, "dtype": dt,
                "max_abs_err": max(e[0] for e in errs),
                "rel_err": max(e[1] for e in errs), "forward_ms": fwd_ms,
-               "ms": time_ms(lambda: run(ops.lowrank_binary_matmul)),
-               "plain_ms": time_ms(lambda: run(
-                   ref.lowrank_binary_matmul_fused_ref)),
+               "ms": time_ms(lambda: run(fn)),
+               "plain_ms": time_ms(lambda: run(plain)),
                "library_ms": time_ms(lambda: run(library)),
                "bound_ms": bound_ms, "bound_by": bound_by}
+        if expert:
+            rec["G"] = G
         del v, u
-        log(f"#1 autograd {dt} M {M} K {K} R {R} N {N}: output and dx, ds1, "
-            f"ds2 match the plain version (rel err {rec['rel_err']:.2e}); "
-            f"forward {fwd_ms:.3f} ms, forward + backward {rec['ms']:.3f} "
-            f"ms (plain {rec['plain_ms']:.3f}, library over unpacked factors "
+        log(f"#1 {label}autograd {dt} " + (f"G {G} " if expert else "")
+            + f"M {M} K {K} R {R} N {N}: output and dx, ds1, ds2 match the "
+            f"plain version (rel err {rec['rel_err']:.2e}); forward "
+            f"{fwd_ms:.3f} ms, forward + backward {rec['ms']:.3f} ms (plain "
+            f"{rec['plain_ms']:.3f}, library over unpacked factors "
             f"{rec['library_ms']:.3f}, bound {bound_ms:.4f} ms by "
             f"{bound_by})")
         rows.append(rec)
+    free()
     return rows
 
 
-def quantize_path(launches):
-    """The port's quantization pipeline on llama3.2-1b at full width and
-    depth (``QUANT``) with every launch count set to 0 just before it; see
-    phase 2b of the module docstring. Returns (its record, the saved
-    artifact's directory)."""
+def quantize_path(arch, launches, depth=None):
+    """The port's quantization pipeline on `arch` at full width, at full
+    depth or `depth` layers (``QUANT``'s calibration, ``QuantConfig()``),
+    with every launch count set to 0 just before it; see phase 2b of the
+    module docstring. #1 must launch once per packed linear (an expert
+    stack: once over its experts) in each block's check forward and in
+    each KD step's student forward, and nothing else; the MoE's expert
+    grids are counted apart, and one KD step's expert scale gradients are
+    held against the plain path's (:func:`kd_expert_grads`). Returns (its
+    record, the saved artifact's directory)."""
     import tempfile
     import torch
     from repro_torch.api import NanoQuantModel
     from repro_torch.configs import get_config
     from repro_torch.core.pipeline import QuantConfig
     from repro_torch.data.synthetic import calib_batches
+    from repro_torch.kernels import binary_matmul
     from repro_torch.models import transformer as T
-    cfg = get_config(QUANT["arch"])
+    from repro_torch.quant.surgery import abstract_quantized_params
+    name = f"{arch}-quantize"
+    cfg = get_config(arch)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
     t0 = time.perf_counter()
     teacher = T.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
@@ -3580,17 +3686,20 @@ def quantize_path(launches):
     setup_s = time.perf_counter() - t0
     qcfg = QuantConfig()
     counters = _counters()
+    grid = binary_matmul.fused_lowrank_matmul_grouped.grid_launches
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
         c.launches = 0
+    grid.clear()
     model = NanoQuantModel.quantize(teacher, cfg, calib, qcfg,
                                     verbose=False, device="cuda")
-    launches[QUANT_PATH] = [c.launches for c in counters]
+    launches[name] = n = [c.launches for c in counters]
+    grid = dict(grid)
     peak = _peak_gib()
     rep = model.report
     secs = rep["seconds"]
     for row, sec in zip(rep["blocks"], secs["blocks"]):
-        log(f"quantize {row['block']}: {sec:.2f} s, block_err "
+        log(f"quantize {arch} {row['block']}: {sec:.2f} s, block_err "
             f"{row['block_err']:.6g}, pre_loss {row['pre_loss']:.6g}, "
             f"ste_loss {row['ste_loss']:.6g}, init {row['init_method']}"
             + (f", fallbacks {row['fallbacks']}" if row["fallbacks"] else ""))
@@ -3605,10 +3714,8 @@ def quantize_path(launches):
     for key, r in model.ranks.items():      # the same in every block
         ranks.setdefault(key.split(".", 1)[1], set()).add(r)
     ranks = {k: sorted(v) for k, v in ranks.items()}
-    blocks = len(rep["blocks"])
-    per_step = sum(len(names) for _, names in QUANT_LINEARS) * cfg.n_layers
-    want = blocks * per_step // cfg.n_layers + qcfg.t_glob * per_step
-    n = launches[QUANT_PATH]
+    per_forward = packed_per_forward(model.params)
+    want = (1 + qcfg.t_glob) * per_forward
     log(f"quantize {cfg.name} {cfg.dtype} ({cfg.n_layers} layers, d "
         f"{cfg.d_model}, calibration {QUANT['samples']} x {QUANT['seq']}): "
         f"teacher and data {setup_s:.2f} s, calibration "
@@ -3619,44 +3726,112 @@ def quantize_path(launches):
         f"{n_cal} batches: {kd_pass[0]:.6g} -> {kd_pass[1]:.6g}); ranks "
         f"{ranks}; linears bpw "
         f"{sizes['linears_bpw']:.4f}; launches " + ", ".join(
-            f"{k[0]}={c}" for k, c in zip(KERNELS, n)))
+            f"{k[0]}={c}" for k, c in zip(KERNELS, n))
+        + f"; #1 by (groups, x shared) {grid}")
     bad = [r["block"] for r in rep["blocks"]
            if not math.isfinite(r["block_err"])]
     if bad or not kd or not all(math.isfinite(v) for v in kd):
-        raise AssertionError(f"quantize: non-finite block errors {bad} or "
-                             f"KD losses {kd}")
-    layers = model.params["layers"]
-    packed = sum(layers[g][nm]["qu_t"].shape[0] for g, names in QUANT_LINEARS
-                 for nm in names if "qu_t" in layers[g][nm])
-    if packed != per_step:
-        raise AssertionError(f"quantize: {packed} packed linears, expected "
-                             f"{per_step}")
+        raise AssertionError(f"quantize {arch}: non-finite block errors "
+                             f"{bad} or KD losses {kd}")
+    tmpl = packed_per_forward(abstract_quantized_params(
+        cfg, qcfg.target_bpw, qcfg.min_dim, qcfg.rank_align,
+        qcfg.pack_k_align))
+    if per_forward != tmpl:
+        raise AssertionError(f"quantize {arch}: {per_forward} packed "
+                             f"linears per forward, the template has {tmpl}")
     if n[FUSED] != want or any(n[i] for i in (PAGED, MEGA, PACKED)):
-        raise AssertionError(f"quantize: launches {n}, expected {want} of "
-                             f"#1 ({blocks} check forwards x "
-                             f"{per_step // cfg.n_layers} + {qcfg.t_glob} KD "
-                             f"steps x {per_step}) and none of the others")
+        raise AssertionError(f"quantize {arch}: launches {n}, expected "
+                             f"{want} of #1 ({per_forward} in the blocks' "
+                             f"check forwards + {qcfg.t_glob} KD steps x "
+                             f"{per_forward}) and none of the others")
+    res = {}
+    if cfg.family == "moe":
+        n_moe = cfg.n_layers - cfg.first_k_dense
+        want_grid = 3 * n_moe * (1 + qcfg.t_glob)
+        if grid.get((cfg.n_experts, False)) != want_grid:
+            raise AssertionError(f"quantize {arch}: #1 at the expert grid "
+                                 f"{grid}, expected {want_grid} launches")
+        res["kd_expert_grads"] = kd_expert_grads(teacher, model.params, cfg,
+                                                 calib[0], qcfg)
     fallbacks = {r["block"]: r["fallbacks"] for r in rep["blocks"]
                  if r["fallbacks"]}
     if fallbacks:
-        log(f"quantize: blocks off the lb_admm rung: {fallbacks}")
+        log(f"quantize {arch}: blocks off the lb_admm rung: {fallbacks}")
     split = kd_split(teacher, model.params, cfg, calib[0], qcfg)
     d = tempfile.mkdtemp(prefix="quantize-")
     art = os.path.join(d, "artifact")
     t0 = time.perf_counter()
     model.save(art)
     save_s = time.perf_counter() - t0
-    res = {"setup_s": setup_s, "seconds": secs, "wall_s": rep["wall_s"],
-           "peak_gib": peak, "blocks": rep["blocks"], "kd_losses": kd,
-           "kd_pass_means": kd_pass,
-           "kd_lowered_loss": kd_pass[1] < kd_pass[0], "ranks": ranks,
-           "sizes": sizes, "launches": n, "fallbacks": fallbacks,
-           "kd_step_split": split, "save_s": save_s,
-           "quant_config": dataclasses.asdict(qcfg),
-           "calibration": dict(QUANT)}
+    res.update({"setup_s": setup_s, "seconds": secs,
+                "wall_s": rep["wall_s"], "peak_gib": peak,
+                "blocks": rep["blocks"], "kd_losses": kd,
+                "kd_pass_means": kd_pass,
+                "kd_lowered_loss": kd_pass[1] < kd_pass[0], "ranks": ranks,
+                "sizes": sizes, "launches": n,
+                "grid_launches": {f"G={g} x_shared={x}": c
+                                  for (g, x), c in grid.items()},
+                "fallbacks": fallbacks, "kd_step_split": split,
+                "save_s": save_s, "n_layers": cfg.n_layers,
+                "quant_config": dataclasses.asdict(qcfg),
+                "calibration": dict(QUANT, arch=arch)})
     del model, teacher
     free()
     return res, art
+
+
+def kd_expert_grads(teacher, qparams, cfg, batch, qcfg):
+    """One KD step's loss (the pipeline's ``_kd_loss_chunked`` of the
+    student against the teacher) differentiated on the kernel path and on
+    the plain oracles, both models cast to f32 (in bf16 the oracles' rank
+    intermediate, rounded to bf16, moves the router's choices and with
+    them whole rows of an expert's gradient): every expert stack's s1 / s2
+    gradient must be non-zero on the kernel path (the experts' grid
+    launches carry a gradient) and within the bf16 tolerance of the plain
+    path's, relative to its largest entry."""
+    import torch
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core import pipeline as P
+    from repro_torch.core import util
+    from repro_torch.kernels.ops import KernelPolicy, kernel_policy
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    teacher, qparams = (params_from_numpy(t, "cuda", torch.float32)
+                        for t in (teacher, qparams))
+    toks = batch["tokens"].to("cuda")
+    with torch.no_grad():
+        hT = T.backbone(teacher, cfg, toks)
+    trainable, frozen = util.partition(qparams, P._is_scale_path)
+    grads = {}
+    for mode in ("cuda", "ref"):
+        tr = P._requires_grad(trainable)
+        with kernel_policy(KernelPolicy(mode=mode)), torch.enable_grad():
+            qp = util.combine(tr, frozen)
+            loss = P._kd_loss_chunked(T.backbone(qp, cfg, toks), hT, qp,
+                                      teacher, cfg, qcfg.kd_temp)
+            g = P._grads(loss, tr)
+        grads[mode] = {p: t for p, t in util.leaves_with_path(g)
+                       if "/moe/w_" in p}
+    out = {}
+    for path, got in grads["cuda"].items():
+        want = grads["ref"][path].float()
+        top = float(want.abs().max())
+        if not float(got.abs().max()) > 0 or not top > 0:
+            raise AssertionError(f"KD expert gradient {path}: zero")
+        rel = float((got.float() - want).abs().max()) / top
+        norm_rel = float((got.float() - want).norm() / want.norm())
+        out[path] = {"max_abs": float(got.abs().max()), "rel_err": rel,
+                     "norm_rel_err": norm_rel}
+        if rel > TOL["bf16"]:
+            raise AssertionError(f"KD expert gradient {path}: rel err "
+                                 f"{rel:.3e} > {TOL['bf16']} against the "
+                                 f"plain path")
+    log("quantize KD step: the expert scales' gradients on the kernel path "
+        "are non-zero and match the plain path's: " + ", ".join(
+            f"{p} max {r['max_abs']:.3e} rel err {r['rel_err']:.2e}"
+            for p, r in out.items()))
+    free()
+    return out
 
 
 # the profiler's range around each autograd node's backward
@@ -3728,18 +3903,19 @@ def kd_split(teacher, qparams, cfg, batch, qcfg):
             "packed_backward_ms": packed}
 
 
-def quantize_serve(art, launches):
-    """The quantized artifact loaded and cast to f32, served on the plain
-    oracles and on the path ``llama3.2-1b-quantized`` (#1 and #3) under
-    ``QUANT_SERVE``, gated like the llama paths."""
+def quantize_serve(arch, art, launches):
+    """The quantized artifact of `arch` loaded and cast to f32, served on
+    the plain oracles and on the path ``<arch>-quantized`` under its
+    ``QUANT_SERVES`` traffic, gated like its family's serving paths."""
     import shutil
     import torch
     from repro_torch.api import NanoQuantModel
     t0 = time.perf_counter()
     model = cast(NanoQuantModel.load(art), torch.float32)
     load_s = time.perf_counter() - t0
-    log(f"quantized artifact loaded in {load_s:.2f} s and cast to f32")
-    res = serve_paths(model, QUANT_SERVE, launches)
+    log(f"quantized {arch} artifact loaded in {load_s:.2f} s and cast to "
+        f"f32")
+    res = serve_paths(model, QUANT_SERVES[arch], launches)
     res["load_s"] = load_s
     del model
     free()

@@ -1,6 +1,6 @@
 """The NanoQuant model artifact, the port of ``repro.api.model.
-NanoQuantModel``: quantize (the dense family), save / load, serve,
-evaluate.
+NanoQuantModel``: quantize (the dense, audio, MoE and SSM families),
+save / load, serve, evaluate.
 
     model = NanoQuantModel.quantize(params, cfg, calib)  # on the card
     model.save("/ckpt/nq")                           # JAX's load reads it

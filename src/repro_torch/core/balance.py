@@ -12,18 +12,21 @@ import torch
 
 def magnitude_balance(p_u, p_v, d_out, d_in):
     """p_u: (m, r), p_v: (n, r) ADMM consensus proxies; d_out: (m,),
-    d_in: (n,) diagonal preconditioners. Returns (latent_u (m, r),
-    latent_v (n, r), s1 (m,), s2 (n,)) such that
+    d_in: (n,) diagonal preconditioners; a leading expert axis on all four
+    balances each expert alone. Returns (latent_u (m, r), latent_v (n, r),
+    s1 (m,), s2 (n,)) such that
     W ≈ diag(s1)·sign(latent_u)·sign(latent_v)ᵀ·diag(s2)."""
-    u_hat = p_u / d_out[:, None]            # D̃_out⁻¹ P_U
-    v_hat = p_v / d_in[:, None]             # D̃_in⁻¹ P_V
-    nu = torch.clamp(torch.linalg.vector_norm(u_hat), min=1e-12)
-    nv = torch.clamp(torch.linalg.vector_norm(v_hat), min=1e-12)
+    u_hat = p_u / d_out[..., :, None]       # D̃_out⁻¹ P_U
+    v_hat = p_v / d_in[..., :, None]        # D̃_in⁻¹ P_V
+    nu = torch.clamp(torch.linalg.vector_norm(u_hat, dim=(-2, -1),
+                                              keepdim=True), min=1e-12)
+    nv = torch.clamp(torch.linalg.vector_norm(v_hat, dim=(-2, -1),
+                                              keepdim=True), min=1e-12)
     eta = torch.sqrt(nv / nu)               # Eq. 7
     lat_u = eta * u_hat                     # Eq. 9
     lat_v = v_hat / eta
-    s1 = lat_u.abs().mean(dim=1)            # Eq. 8 (row means)
-    s2 = lat_v.abs().mean(dim=1)
+    s1 = lat_u.abs().mean(dim=-1)           # Eq. 8 (row means)
+    s2 = lat_v.abs().mean(dim=-1)
     return lat_u, lat_v, s1, s2
 
 

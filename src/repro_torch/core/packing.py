@@ -20,18 +20,20 @@ def pack_quantized(lat_u, lat_v, s1, s2, dtype=torch.float32,
 
     k_align: pad the packed d_in (reduction) dim up to this multiple at
     pack time; the padded rows pack to 0-bits and their s2 entries are 0,
-    so they contribute nothing. 32 (the packing word) pads nothing."""
+    so they contribute nothing. 32 (the packing word) pads nothing.
+    Stacked experts (a leading expert axis on all four) pack each expert
+    alike (the JAX package's ``vmap``)."""
     u = _signs(lat_u)                                  # (d_out, r)
     v = _signs(lat_v)                                  # (d_in, r)
     k_align = max(32, k_align)
-    d_in = v.shape[0]
+    d_in = v.shape[-2]
     kp = -(-d_in // k_align) * k_align
     s2 = s2.to(dtype)
     if kp != d_in:
         v = F.pad(v, (0, 0, 0, kp - d_in))
         s2 = F.pad(s2, (0, kp - d_in))
     return {
-        "qu_t": pack_signs(u.T),                       # (r//32, d_out)
+        "qu_t": pack_signs(u.mT),                       # (r//32, d_out)
         "qv": pack_signs(v),                           # (kp//32, r)
         "s1": s1.to(dtype),
         "s2": s2,

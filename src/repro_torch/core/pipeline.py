@@ -1,6 +1,6 @@
 """NanoQuant end-to-end pipeline (paper Alg. 1), the port of
-``repro.core.pipeline`` for the dense family (llama / qwen, GQA
-attention + SwiGLU FFN blocks).
+``repro.core.pipeline`` for the dense, audio, MoE (GQA or MLA attention,
+stacked experts) and SSM (Mamba2) families.
 
 Phase 1  global calibration      -> diagonal K-FAC stats via the layers'
          taps (``models.layers.taps``)
@@ -19,8 +19,11 @@ quantization error.
 Random draws are named by key paths (``core.admm``): block bi's linear li
 draws from ``(seed, bi, li)`` on the first rung of the init-method
 ladder and ``(seed, bi, 7919 + ai, li)`` on rung ai — the path along
-which the JAX package folds its PRNG keys. The other families' blocks,
-the crash-safe journal and fault injection are ROADMAP item 11b.
+which the JAX package folds its PRNG keys; stacked experts are one
+batched solve per linear at one rank, expert e drawing from the path
+plus ``(E, e)`` (``core.admm._rand_range_init``). The hybrid and VLM
+families' blocks, the crash-safe journal and fault injection are ROADMAP
+item 11b.
 """
 from __future__ import annotations
 
@@ -91,7 +94,7 @@ class BlockRef:
     stack: str                      # param-tree key
     idx: Any                        # index into the stack (int / None)
     tap_idx: Any                    # layer index in tap stats (None=aggregate)
-    kind: str                       # attn
+    kind: str                       # attn | mamba
 
     def get(self, params):
         bp = params[self.stack]
@@ -99,20 +102,33 @@ class BlockRef:
 
 
 def blocks_of(cfg) -> List[BlockRef]:
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"quantizing the {cfg.family} family's blocks is ROADMAP item "
-            f"11b; the port quantizes the dense family")
-    return [BlockRef("layers", i, i, "attn") for i in range(cfg.n_layers)]
+    """The blocks in quantization order: the MoE family's
+    ``first_k_dense`` blocks (``dense_layers``) before its MoE blocks."""
+    fam = cfg.family
+    if fam in ("dense", "audio", "ssm"):
+        kind = "mamba" if fam == "ssm" else "attn"
+        return [BlockRef("layers", i, i, kind) for i in range(cfg.n_layers)]
+    if fam == "moe":
+        n_dense = cfg.first_k_dense
+        return ([BlockRef("dense_layers", i, i, "attn")
+                 for i in range(n_dense)]
+                + [BlockRef("layers", i, i, "attn")
+                   for i in range(cfg.n_layers - n_dense)])
+    raise NotImplementedError(
+        f"quantizing the {fam} family's blocks is ROADMAP item 11b; the "
+        f"port quantizes the dense, audio, moe and ssm families")
 
 
 def make_apply(cfg, kind):
-    if kind != "attn":
+    if kind == "attn":
+        def f(bp, x, ctx):
+            return T._apply_attn_block(
+                bp, cfg, x, torch.arange(x.shape[1], device=x.device))
+    elif kind == "mamba":
+        def f(bp, x, ctx):
+            return T._apply_mamba_block(bp, cfg, x)[0]
+    else:
         raise NotImplementedError(f"{kind} blocks are ROADMAP item 11b")
-
-    def f(bp, x, ctx):
-        return T._apply_attn_block(
-            bp, cfg, x, torch.arange(x.shape[1], device=x.device))
     return f
 
 
@@ -231,12 +247,12 @@ def _is_scale_path(path: str) -> bool:
 
 
 def _init_latent(p, d_in, d_out, qcfg: QuantConfig, key):
+    """The init method's latents of one linear. Stacked experts (a 3-D
+    ``w`` and (E, d) preconditioners) share one rank and go to the method
+    as one stack, which the built-in methods solve batched over E."""
     from repro_torch.api.init_methods import get_init_method
     w = p["w"]
-    if w.dim() != 2:
-        raise NotImplementedError(
-            "quantizing stacked experts (3-D w) is ROADMAP item 11b")
-    din, dout = w.shape
+    din, dout = w.shape[-2:]
     r = rank_for_bpw(dout, din, qcfg.target_bpw, qcfg.rank_align)
     lat = dict(get_init_method(qcfg.init_method)(
         w, d_in, d_out, rank=r, admm=qcfg.admm(), key=key))
@@ -320,7 +336,9 @@ def _quantize_block(apply_fn, bp_fp, Xq_b, Y, ctx_b, stats, bref,
                 w = pdict["w"]
                 d_in, d_out = precond.preconditioners_for(
                     stats, bref.stack, name, bref.tap_idx,
-                    w.shape[-2], w.shape[-1], qcfg.gamma, device=w.device)
+                    w.shape[-2], w.shape[-1], qcfg.gamma,
+                    expert_shape=w.shape[0] if w.dim() == 3 else None,
+                    device=w.device)
                 lat, r = _init_latent(
                     pdict, d_in, d_out,
                     dataclasses.replace(qcfg, init_method=method),
@@ -396,7 +414,8 @@ def nanoquant_quantize(params, cfg, calib_batches, qcfg: QuantConfig,
     """Quantize `params` (an FP teacher on its device) to packed low-rank
     binary form; every phase runs on the params' device.
 
-    calib_batches: list of {'tokens', 'labels'} dicts. Returns
+    calib_batches: list of {'tokens', 'labels'} dicts (the audio
+    family's (B, S, K) frames). Returns
     (quantized params, report): per-block rows, the ranks, the KD losses,
     ``wall_s`` and ``seconds`` (calibration, each block, KD; each read
     after the device finished). `heartbeat` is called with a short

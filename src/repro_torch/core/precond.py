@@ -27,19 +27,24 @@ class StatCollector:
     """Accumulator the taps feed. Keys: (stack, name, field, layer_idx) ->
     {'sq': float64 tensor (d,) on the model's device, 'cnt': float}; each
     call adds the f32 sum of squares over every axis but the last, and
-    ``x.numel() // x.shape[-1]`` rows."""
+    ``x.numel() // x.shape[-1]`` rows. A stacked-expert linear's tensors
+    are (E, C, d): its sums reduce the capacity axis only, giving (E, d),
+    and count its C rows, padding and dropped slots included (the JAX
+    package's expert taps)."""
 
     def __init__(self):
         self.data: Dict[Tuple, dict] = {}
 
-    def accumulate(self, stack: str, name: str, field: str, idx, t) -> None:
-        sq = t.detach().float().square().sum(
-            dim=tuple(range(t.dim() - 1))).double()
+    def accumulate(self, stack: str, name: str, field: str, idx, t,
+                   expert: bool = False) -> None:
+        red = (1,) if expert else tuple(range(t.dim() - 1))
+        sq = t.detach().float().square().sum(dim=red).double()
         key = (stack, name, field, int(-1 if idx is None else idx))
         slot = self.data.setdefault(key, {"sq": torch.zeros_like(sq),
                                           "cnt": 0.0})
         slot["sq"] += sq
-        slot["cnt"] += float(t.numel() // t.shape[-1])
+        slot["cnt"] += float(t.shape[1] if expert
+                             else t.numel() // t.shape[-1])
 
     # ---- lookups -----------------------------------------------------------
 
@@ -92,18 +97,25 @@ def collect_stats(loss_fn, params, cfg, batches) -> StatCollector:
 
 def preconditioners_for(collector: StatCollector, stack: str, name: str,
                         idx, d_in_dim: int, d_out_dim: int, gamma: float,
-                        device="cpu"):
+                        expert_shape=None, device="cpu"):
     """(D_in, D_out) for one linear, identity where the stats are missing
     (a layer the calibration never activated). `idx` None aggregates over
-    every layer index."""
+    every layer index. With `expert_shape` E (stacked experts) each is
+    (E, d), one robust diagonal per expert."""
     if idx is None:
         a = collector.mean_sq_agg(stack, name, "in")
         g = collector.mean_sq_agg(stack, name, "out")
     else:
         a = collector.mean_sq(stack, name, "in", idx)
         g = collector.mean_sq(stack, name, "out", idx)
-    d_in = (torch.ones((d_in_dim,), dtype=torch.float32, device=device)
-            if a is None else robust_diag(a, gamma, device=device))
-    d_out = (torch.ones((d_out_dim,), dtype=torch.float32, device=device)
-             if g is None else robust_diag(g, gamma, device=device))
-    return d_in, d_out
+
+    def diag(ms, dim):
+        if expert_shape is None:
+            return (torch.ones((dim,), dtype=torch.float32, device=device)
+                    if ms is None else robust_diag(ms, gamma, device=device))
+        if ms is None:
+            return torch.ones((expert_shape, dim), dtype=torch.float32,
+                              device=device)
+        return torch.stack([robust_diag(ms[e], gamma, device=device)
+                            for e in range(expert_shape)])
+    return diag(a, d_in_dim), diag(g, d_out_dim)

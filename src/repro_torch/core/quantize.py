@@ -15,9 +15,11 @@ from repro_torch.core.bpw import rank_for_bpw
 
 def quantize_weight(w, d_in, d_out, rank: int, admm: ADMMConfig, key):
     """w: (d_in, d_out); d_in: (d_in,), d_out: (d_out,) preconditioners.
-    Returns (latent dict with lu (d_out, r), lv (d_in, r), s1, s2, info)."""
-    W = w.float().T                          # paper layout (dout, din)
-    Wt = d_out[:, None] * W * d_in[None, :]            # Alg. 1 line 15
+    Stacked experts (w (E, d_in, d_out), preconditioners (E, d)) run one
+    batched solve, expert e drawing from ``key + (E, e)``. Returns (latent
+    dict with lu (d_out, r), lv (d_in, r), s1, s2, info)."""
+    W = w.float().mT                         # paper layout (dout, din)
+    Wt = d_out[..., :, None] * W * d_in[..., None, :]  # Alg. 1 line 15
     res = lb_admm(Wt, admm._replace(rank=rank), key)
     lat_u, lat_v, s1, s2 = magnitude_balance(res["p_u"], res["p_v"],
                                              d_out, d_in)
@@ -28,14 +30,11 @@ def quantize_weight(w, d_in, d_out, rank: int, admm: ADMMConfig, key):
 
 def quantize_leaf(p: dict, d_in, d_out, target_bpw: float, admm: ADMMConfig,
                   key, rank_align: int = 32):
-    """Quantize one 2-D linear param dict ({'w': (d_in, d_out)}); a bias
-    is carried over in FP. Returns (latent dict, info). Stacked experts
-    (3-D ``w``) wait for the MoE family's quantization."""
+    """Quantize one linear param dict ({'w': (d_in, d_out)}, or stacked
+    experts' (E, d_in, d_out) at one rank for all); a bias is carried
+    over in FP. Returns (latent dict, info)."""
     w = p["w"]
-    if w.dim() != 2:
-        raise NotImplementedError(
-            "quantizing stacked experts (3-D w) is ROADMAP item 11b")
-    din, dout = w.shape
+    din, dout = w.shape[-2:]
     r = rank_for_bpw(dout, din, target_bpw, rank_align)
     lat, info = quantize_weight(w, d_in, d_out, r, admm, key)
     if "b" in p:

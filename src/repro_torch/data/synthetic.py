@@ -56,14 +56,20 @@ class SyntheticCorpus:
 
 def make_batch(cfg: ModelConfig, corpus: SyntheticCorpus, seed: int,
                step: int, batch: int, seq: int) -> Dict[str, torch.Tensor]:
-    """Pure function of (seed, step) -> {'tokens', 'labels'} of the token
-    families. The audio family's frames and the VLM's image embeddings
-    wait for their quantization (ROADMAP item 11b)."""
-    if cfg.family in ("audio", "vlm"):
+    """Pure function of (seed, step) -> {'tokens', 'labels'}: (B, S) for
+    the token families; the audio family's (B, S, K) frames, K streams
+    drawn one after another from the step's generator. The VLM's image
+    embeddings wait for its quantization (ROADMAP item 11b)."""
+    if cfg.family == "vlm":
         raise NotImplementedError(
-            f"{cfg.family} calibration batches are ROADMAP item 11b")
+            "vlm calibration batches are ROADMAP item 11b")
     rng = np.random.default_rng(np.random.SeedSequence([seed, step]))
-    full = torch.from_numpy(corpus.sample(rng, batch, seq)).long()
+    if cfg.family == "audio":
+        full = np.stack([corpus.sample(rng, batch, seq)
+                         for _ in range(cfg.n_codebooks)], axis=-1)
+    else:
+        full = corpus.sample(rng, batch, seq)
+    full = torch.from_numpy(full).long()
     return {"tokens": full[:, :-1], "labels": full[:, 1:]}
 
 

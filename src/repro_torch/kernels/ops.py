@@ -129,42 +129,59 @@ def _lowrank_forward(x, qv, qu_t, s1, s2, p: KernelPolicy,
 
 
 class _LowrankBinaryMatmul(torch.autograd.Function):
-    """The packed linear with a gradient for x, s1 and s2 (the packed words
-    get none). Forward: the dispatch of :func:`lowrank_binary_matmul`,
+    """The packed linear, or a stack of experts' (``expert``: x (E, C, K),
+    words and scales with a leading E), with a gradient for x, s1 and s2
+    (the packed words get none). Forward: the dispatch of
+    :func:`lowrank_binary_matmul` or :func:`lowrank_binary_matmul_expert`,
     whatever the grad mode. Backward: plain f32 ops over the unpacked ±1
-    factors — with t = (x ⊙ s2) @ V and g the output gradient,
-    ∂s1 = Σ_rows g ⊙ (t @ Uᵀ), ∂(x ⊙ s2) = ((g ⊙ s1) @ U) @ Vᵀ, then
-    ∂x and ∂s2 by the product rule — the JAX package's autodiff of its
-    packed ``dense`` path, without its roundings to x's dtype."""
+    factors, each expert's alone — with t = (x ⊙ s2) @ V and g the output
+    gradient, ∂s1 = Σ_rows g ⊙ (t @ Uᵀ), ∂(x ⊙ s2) = ((g ⊙ s1) @ U) @ Vᵀ,
+    then ∂x and ∂s2 by the product rule — the JAX package's autodiff of
+    its packed ``dense`` / ``dense_expert`` path, without its roundings to
+    x's dtype."""
 
     @staticmethod
-    def forward(ctx, x, qv, qu_t, s1, s2, policy, eff_rank):
+    def forward(ctx, x, qv, qu_t, s1, s2, policy, eff_rank, expert):
         ctx.save_for_backward(x, qv, qu_t, s1, s2)
-        ctx.eff_rank = eff_rank
-        return _lowrank_forward(x, qv, qu_t, s1, s2, policy, eff_rank)
+        ctx.eff_rank, ctx.expert = eff_rank, expert
+        fwd = _expert_forward if expert else _lowrank_forward
+        return fwd(x, qv, qu_t, s1, s2, policy, eff_rank)
 
     @staticmethod
     def backward(ctx, g):
         x, qv, qu_t, s1, s2 = ctx.saved_tensors
         if ctx.eff_rank is not None:
             qv, qu_t = _slice_rank(qv, qu_t, ctx.eff_rank)
-        v = ref.unpack_signs(qv)                        # (K, r)
-        u_t = ref.unpack_signs(qu_t)                    # (r, N)
-        gf = g.float().reshape(-1, g.shape[-1])
-        xf = x.float().reshape(-1, x.shape[-1])
+        v = ref.unpack_signs(qv)                        # ([E,] K, r)
+        u_t = ref.unpack_signs(qu_t)                    # ([E,] r, N)
+        if ctx.expert:                                  # rows: axis 1
+            gf, xf = g.float(), x.float()
+            s1f, s2f = s1.float()[:, None], s2.float()[:, None]
+        else:                                           # rows: all leading
+            gf = g.float().reshape(-1, g.shape[-1])
+            xf = x.float().reshape(-1, x.shape[-1])
+            s1f, s2f = s1.float(), s2.float()
         need_x, need_s1, need_s2 = (ctx.needs_input_grad[i]
                                     for i in (0, 3, 4))
         grad_x = grad_s1 = grad_s2 = None
         if need_s1:
-            t = (xf * s2.float()) @ v
-            grad_s1 = (gf * (t @ u_t)).sum(0).to(s1.dtype)
+            t = (xf * s2f) @ v
+            grad_s1 = (gf * (t @ u_t)).sum(-2).to(s1.dtype)
         if need_x or need_s2:
-            gxs = ((gf * s1.float()) @ u_t.T) @ v.T     # ∂(x ⊙ s2)
+            gxs = ((gf * s1f) @ u_t.mT) @ v.mT          # ∂(x ⊙ s2)
             if need_x:
-                grad_x = (gxs * s2.float()).to(x.dtype).reshape(x.shape)
+                grad_x = (gxs * s2f).to(x.dtype).reshape(x.shape)
             if need_s2:
-                grad_s2 = (gxs * xf).sum(0).to(s2.dtype)
-        return grad_x, None, None, grad_s1, grad_s2, None, None
+                grad_s2 = (gxs * xf).sum(-2).to(s2.dtype)
+        return grad_x, None, None, grad_s1, grad_s2, None, None, None
+
+
+def _wants_grad(x, s1, s2) -> bool:
+    """Whether a packed linear's call takes a gradient: with none to take
+    the forward runs without the Function's per-call bookkeeping, which
+    serving would pay per linear and step."""
+    return torch.is_grad_enabled() and (x.requires_grad or s1.requires_grad
+                                        or s2.requires_grad)
 
 
 def lowrank_binary_matmul(x, qv, qu_t, s1, s2,
@@ -178,13 +195,12 @@ def lowrank_binary_matmul(x, qv, qu_t, s1, s2,
     s2 (:class:`_LowrankBinaryMatmul`), which the quantization pipeline's
     scale-only distillation needs. With no gradient to take (grad mode
     off, or none of x, s1, s2 requiring one) the same forward runs without
-    the Function's per-call bookkeeping, which serving would pay per
-    linear and step."""
+    the Function."""
     p = policy if policy is not None else current_kernel_policy()
     x = _match_packed_k(x, qv)
-    if torch.is_grad_enabled() and (x.requires_grad or s1.requires_grad
-                                    or s2.requires_grad):
-        return _LowrankBinaryMatmul.apply(x, qv, qu_t, s1, s2, p, eff_rank)
+    if _wants_grad(x, s1, s2):
+        return _LowrankBinaryMatmul.apply(x, qv, qu_t, s1, s2, p, eff_rank,
+                                          False)
     return _lowrank_forward(x, qv, qu_t, s1, s2, p, eff_rank)
 
 
@@ -244,20 +260,8 @@ def _merged_twocall(x, mp, rmask, eff_rank: Optional[int]):
     return ys
 
 
-def lowrank_binary_matmul_expert(x, qv, qu_t, s1, s2,
-                                 policy: Optional[KernelPolicy] = None,
-                                 eff_rank: Optional[int] = None):
-    """Stacked-expert NanoQuant linear: x (E, C, d_in) with per-expert
-    packed operands (E, ...) -> (E, C, d_out). On the kernel path the
-    expert axis is the grid's group axis of the fused kernel: ONE launch
-    for all E experts, x given per group, f32 rank intermediate. Past
-    MAX_FUSED_RANK or with ``fused=False`` each expert runs the two-call
-    chain (the JAX package vmaps ``lowrank_binary_matmul_twocall``). The
-    ref path is the two-stage oracle for every expert, its intermediate
-    rounded to x's dtype. eff_rank truncates every expert to the leading
-    R' components (all experts share one packed rank)."""
-    p = policy if policy is not None else current_kernel_policy()
-    x = _match_packed_k(x, qv)
+def _expert_forward(x, qv, qu_t, s1, s2, p: KernelPolicy,
+                    eff_rank: Optional[int]):
     if p.use_kernels(x.device) and _fits_fused(p, qv.shape[-1]):
         return binary_matmul.fused_lowrank_matmul_grouped(
             x.contiguous(), qv, qu_t, s1.float(), s2.float(),
@@ -271,6 +275,28 @@ def lowrank_binary_matmul_expert(x, qv, qu_t, s1, s2,
     # the two-stage oracle of every expert at once (batched matmuls)
     return ref.lowrank_binary_matmul_ref(x, qv, qu_t, s1[:, None],
                                          s2[:, None])
+
+
+def lowrank_binary_matmul_expert(x, qv, qu_t, s1, s2,
+                                 policy: Optional[KernelPolicy] = None,
+                                 eff_rank: Optional[int] = None):
+    """Stacked-expert NanoQuant linear: x (E, C, d_in) with per-expert
+    packed operands (E, ...) -> (E, C, d_out). On the kernel path the
+    expert axis is the grid's group axis of the fused kernel: ONE launch
+    for all E experts, x given per group, f32 rank intermediate. Past
+    MAX_FUSED_RANK or with ``fused=False`` each expert runs the two-call
+    chain (the JAX package vmaps ``lowrank_binary_matmul_twocall``). The
+    ref path is the two-stage oracle for every expert, its intermediate
+    rounded to x's dtype. eff_rank truncates every expert to the leading
+    R' components (all experts share one packed rank). Differentiable in
+    x, s1 and s2 through :class:`_LowrankBinaryMatmul`, taken only when a
+    gradient is (as for :func:`lowrank_binary_matmul`)."""
+    p = policy if policy is not None else current_kernel_policy()
+    x = _match_packed_k(x, qv)
+    if _wants_grad(x, s1, s2):
+        return _LowrankBinaryMatmul.apply(x, qv, qu_t, s1, s2, p, eff_rank,
+                                          True)
+    return _expert_forward(x, qv, qu_t, s1, s2, p, eff_rank)
 
 
 def paged_attention(q, k_pool, v_pool, block_table, q_pos, cache_pos, *,

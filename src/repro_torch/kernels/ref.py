@@ -18,14 +18,15 @@ import torch
 
 
 def pack_signs(a: torch.Tensor) -> torch.Tensor:
-    """(K, N) ±1/float -> (K//32, N) int32 words. K must be a multiple
-    of 32."""
-    K, N = a.shape
+    """(..., K, N) ±1/float -> (..., K//32, N) int32 words; leading dims
+    (stacked experts) pack each matrix alike. K must be a multiple of
+    32."""
+    *lead, K, N = a.shape
     if K % 32:
         raise ValueError(f"pack dim {K} not a multiple of 32")
-    bits = (a > 0).to(torch.int64).reshape(K // 32, 32, N)
+    bits = (a > 0).to(torch.int64).reshape(*lead, K // 32, 32, N)
     shifts = torch.arange(32, dtype=torch.int64, device=a.device)
-    words = (bits << shifts[None, :, None]).sum(dim=1)      # < 2**32
+    words = (bits << shifts[:, None]).sum(dim=-2)           # < 2**32
     words = words - ((words >> 31) & 1) * (1 << 32)         # wrap to int32
     return words.to(torch.int32)
 

@@ -1,5 +1,6 @@
 """Quantization CLI, the port of ``repro.launch.quantize`` for the
-dense family: build the FP teacher, run the NanoQuant pipeline through
+dense, audio, MoE and SSM families: build the FP teacher, run the
+NanoQuant pipeline through
 ``NanoQuantModel.quantize``, save the packed artifact and report sizes
 and perplexities.
 
@@ -14,8 +15,8 @@ config by default, the published one with ``--full``. The run is on
 Teacher training (``--teacher-steps`` > 0, ``--teacher-ckpt``) waits for
 the trainer (ROADMAP item 13); the crash-safe journal and its supervisor
 (``--journal-dir``, ``--resume``, ``--supervise``, ``--heartbeat``,
-``--crash-at-block``) and the other families wait for item 11b. Those
-flags exit non-zero.
+``--crash-at-block``) and the hybrid and VLM families wait for item
+11b. Those flags exit non-zero.
 """
 from __future__ import annotations
 
@@ -83,7 +84,7 @@ def main(argv=None):
     from repro_torch.models import transformer as T
 
     cfg = get_config(args.arch) if args.full else get_smoke(args.arch)
-    if cfg.family != "dense":
+    if cfg.family in ("hybrid", "vlm"):
         ap.error(f"quantizing the {cfg.family} family is ROADMAP item 11b")
     if args.init_method not in list_init_methods():
         ap.error(f"unknown init method {args.init_method!r}; available: "

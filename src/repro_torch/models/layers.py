@@ -35,16 +35,16 @@ class _Tap:
         self.collector = collector
         self.scope = ("", None)      # (stack, layer index), set per block
 
-    def record_in(self, name: str, x) -> None:
+    def record_in(self, name: str, x, expert: bool = False) -> None:
         stack, idx = self.scope
-        self.collector.accumulate(stack, name, "in", idx, x)
+        self.collector.accumulate(stack, name, "in", idx, x, expert)
 
-    def hook_out(self, name: str, y) -> None:
+    def hook_out(self, name: str, y, expert: bool = False) -> None:
         if y.requires_grad:
             stack, idx = self.scope
             c = self.collector
             y.register_hook(
-                lambda g: c.accumulate(stack, name, "out", idx, g))
+                lambda g: c.accumulate(stack, name, "out", idx, g, expert))
 
 
 _TAP: contextvars.ContextVar = contextvars.ContextVar(
@@ -93,10 +93,12 @@ def sign_ste(u):
 def _ste_matmul(p, x):
     """Latent STE linear (block reconstruction Step 3, paper Eq. 10):
     W_eff = diag(s1)·sign(𝒰)·sign(𝒱)ᵀ·diag(s2) with straight-through
-    gradients to the continuous latents. lv: (d_in, r), lu: (d_out, r)."""
+    gradients to the continuous latents. lv: (d_in, r), lu: (d_out, r);
+    stacked experts carry a leading expert axis on every leaf and on x,
+    their scales (E, 1, d)."""
     xs = x * p["s2"].to(x.dtype)
     t = xs @ sign_ste(p["lv"]).to(x.dtype)
-    y = t @ sign_ste(p["lu"]).to(x.dtype).T
+    y = t @ sign_ste(p["lu"]).to(x.dtype).mT
     return y * p["s1"].to(x.dtype)
 
 
@@ -135,15 +137,28 @@ def dense_merged(mp: dict, x, dims: Sequence[int]):
     return ys
 
 
-def dense_expert(p: dict, x):
+def dense_expert(p: dict, x, name: Optional[str] = None):
     """Batched-expert linear: x (E, C, d_in) with stacked weights (E, ...)
     -> (E, C, d_out). Packed experts are one launch of kernel #1 with the
-    expert axis as its group axis (``ops.lowrank_binary_matmul_expert``)."""
+    expert axis as its group axis (``ops.lowrank_binary_matmul_expert``);
+    latents run the STE linear of every expert at once (the JAX package's
+    ``vmap(_ste_matmul)``). `name` keys the calibration taps, which reduce
+    over the capacity rows only: one moment per expert and channel."""
+    tap = _TAP.get() if name is not None else None
+    if tap is not None:
+        tap.record_in(name, x, expert=True)
     if "qu_t" in p:
-        return kops.lowrank_binary_matmul_expert(
+        y = kops.lowrank_binary_matmul_expert(
             x, p["qv"], p["qu_t"], p["s1"], p["s2"],
             eff_rank=p.get("eff_rank"))
-    return torch.einsum("ecd,edf->ecf", x, p["w"].to(x.dtype))
+    elif "lu" in p:
+        y = _ste_matmul({"lu": p["lu"], "lv": p["lv"],
+                         "s1": p["s1"][:, None], "s2": p["s2"][:, None]}, x)
+    else:
+        y = torch.einsum("ecd,edf->ecf", x, p["w"].to(x.dtype))
+    if tap is not None:
+        tap.hook_out(name, y, expert=True)
+    return y
 
 
 def _use_merged(p: dict, key: str, x) -> bool:
@@ -373,12 +388,13 @@ def mla_attention(p, cfg, x, positions, cache=None, cache_pos=None,
     H = cfg.n_heads
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
     dv, dc = cfg.v_head_dim, cfg.kv_lora_rank
-    q = dense(p["wq"], x).reshape(B, S, H, dn + dr)
+    q = dense(p["wq"], x, "attn.wq").reshape(B, S, H, dn + dr)
     q_nope = q[..., :dn]
     q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
-    c_kv = rms_norm(dense(p["w_dkv"], x), p["kv_norm"], cfg.norm_eps)
-    k_rope = apply_rope(dense(p["w_kr"], x)[:, :, None, :], positions,
-                        cfg.rope_theta)                         # (B, S, 1, dr)
+    c_kv = rms_norm(dense(p["w_dkv"], x, "attn.w_dkv"), p["kv_norm"],
+                   cfg.norm_eps)
+    k_rope = apply_rope(dense(p["w_kr"], x, "attn.w_kr")[:, :, None, :],
+                        positions, cfg.rope_theta)              # (B, S, 1, dr)
     if block_table is not None:
         paged_cache_write(cache["c_kv"], c_kv, block_table, cache_pos)
         paged_cache_write(cache["k_rope"], k_rope, block_table, cache_pos)
@@ -406,7 +422,7 @@ def mla_attention(p, cfg, x, positions, cache=None, cache_pos=None,
     prob = torch.softmax(s, dim=-1).to(x.dtype)
     o_lat = torch.einsum("bhst,btc->bshc", prob, c_kv)          # (B, S, H, dc)
     o = torch.einsum("bshc,chd->bshd", o_lat, w_uv)
-    return dense(p["wo"], o.reshape(B, S, H * dv)), cache
+    return dense(p["wo"], o.reshape(B, S, H * dv), "attn.wo"), cache
 
 
 # --------------------------------------------------------------------------
@@ -450,14 +466,16 @@ def image_kv(p, cfg, image_embeds):
 # --------------------------------------------------------------------------
 
 
-def ffn(p, x):
+def ffn(p, x, prefix: str = "ffn"):
+    """SwiGLU FFN; `prefix` names its taps (the MoE's shared experts tap
+    under ``moe.shared``)."""
     if _use_merged(p, "wgu", x):
         d_ff = p["wgu"]["qu_t"].shape[-1]   # gate/up share d_out
         g, u = dense_merged(p["wgu"], x, (d_ff, d_ff))
     else:
-        g = dense(p["w_gate"], x, "ffn.w_gate")
-        u = dense(p["w_up"], x, "ffn.w_up")
-    return dense(p["w_down"], silu(g) * u, "ffn.w_down")
+        g = dense(p["w_gate"], x, prefix + ".w_gate")
+        u = dense(p["w_up"], x, prefix + ".w_up")
+    return dense(p["w_down"], silu(g) * u, prefix + ".w_down")
 
 
 # --------------------------------------------------------------------------
@@ -543,12 +561,13 @@ def moe(p, cfg, x, capacity: Optional[int] = None):
                                  * cfg.capacity_factor))
         capacity = max(8, -(-capacity // 8) * 8)
     eb, dest, st, sw, keep = _dispatch(xf, topw, topi, E, capacity)
-    h = silu(dense_expert(p["w_gate"], eb)) * dense_expert(p["w_up"], eb)
-    ob = dense_expert(p["w_down"], h)                    # (E, capacity, d)
+    h = silu(dense_expert(p["w_gate"], eb, "moe.w_gate")) \
+        * dense_expert(p["w_up"], eb, "moe.w_up")
+    ob = dense_expert(p["w_down"], h, "moe.w_down")      # (E, capacity, d)
     y = _combine(ob.reshape(E * capacity, d), dest, st, sw, keep, T)
     y = y.reshape(B, S, d).to(x.dtype)
     if cfg.n_shared_experts:
-        y = y + ffn(p["shared"], x)
+        y = y + ffn(p["shared"], x, "moe.shared")
     return y
 
 
@@ -620,11 +639,15 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int):
     Cc = Cm.reshape(Bsz, nc, L, G, N).repeat_interleave(rep, 3).float()
 
     dA_cs = torch.cumsum(dtc * A, dim=2)                        # (B,nc,L,H)
-    # intra-chunk: decay exp(dA_cs[i] - dA_cs[j]) for j <= i
+    # intra-chunk: decay exp(dA_cs[i] - dA_cs[j]) for j <= i. The upper
+    # triangle is masked before the exp, not after: there diff > 0 and
+    # exp(diff) overflows at a long chunk (mamba2-370m's 256), and the
+    # reference's where-after-exp then gives 0 · inf = NaN gradients (its
+    # values equal these)
     diff = dA_cs[:, :, :, None, :] - dA_cs[:, :, None, :, :]    # (B,nc,L,L,H)
     tri = torch.ones((L, L), dtype=torch.bool, device=xh.device).tril()
-    decay = torch.where(tri[None, None, :, :, None], torch.exp(diff),
-                        torch.zeros_like(diff))
+    decay = torch.exp(torch.where(tri[None, None, :, :, None], diff,
+                                  torch.full_like(diff, float("-inf"))))
     scores = torch.einsum("bclhn,bcmhn->bclmh", Cc, Bc)
     w_ij = scores * decay * dtc[:, :, None, :, :]               # dt_j factor
     y_intra = torch.einsum("bclmh,bcmhp->bclhp", w_ij, xc)
@@ -652,8 +675,9 @@ def _mamba_streams(p, x):
     projection is packed is the selection rule's call: at mamba2-370m's
     width it stays FP (1024 -> 32, under min_dim 48), at zamba2-1.2b's it
     is packed (2048 -> 64), like the other five."""
-    return (dense(p["wz"], x), dense(p["wx"], x), dense(p["wB"], x),
-            dense(p["wC"], x), dense(p["wdt"], x))
+    return (dense(p["wz"], x, "mixer.wz"), dense(p["wx"], x, "mixer.wx"),
+            dense(p["wB"], x, "mixer.wB"), dense(p["wC"], x, "mixer.wC"),
+            dense(p["wdt"], x, "mixer.wdt"))
 
 
 def _conv_step(buf, new, w, b):
@@ -715,4 +739,4 @@ def mamba2(p, cfg, x, state=None):
         new_state = {"ssm": ssm, "conv_x": cx, "conv_B": cB, "conv_C": cC}
     y = y.reshape(B, S, di).to(x.dtype)
     y = rms_norm(y * silu(z), p["norm_w"], cfg.norm_eps)
-    return dense(p["out_proj"], y), new_state
+    return dense(p["out_proj"], y, "mixer.out_proj"), new_state

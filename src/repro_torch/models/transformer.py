@@ -256,47 +256,113 @@ def loss_fn(params, cfg: ModelConfig, batch, training: bool = True):
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda"):
-    """FP params of a dense-family model under the JAX package's init
-    laws (``repro.models.transformer.init_params``): embedding N(0, 0.02),
-    an untied lm head and every linear N(0, 1/d_in), biases 0, norms 1;
-    each stack's leaves with a leading layer axis. `generator` lives on
-    `device`; the numbers differ from JAX's draws (another generator).
-    The other families' teachers wait for their quantization (ROADMAP
-    item 11b)."""
-    if cfg.family != "dense":
+    """FP params of a dense-, audio-, MoE- or SSM-family model under the
+    JAX package's init laws (``repro.models.transformer.init_params`` and
+    ``layers.init_*``): embedding N(0, 0.02) (audio: one (V, d) table per
+    codebook), an untied lm head (audio: (d, K·V)) and every linear N(0,
+    1/d_in), biases 0, norms 1; the MoE's f32 router, stacked experts (E,
+    d, f) / (E, f, d) and shared experts at ``n_shared_experts · f``, its
+    ``first_k_dense`` blocks at ``dense_d_ff``; MLA's six projections; the
+    Mamba2 mixer's convs N(0, 0.2), ``A_log`` = log linspace(1, 16),
+    ``D`` = 1, ``dt_bias`` uniform on [log 1e-3, log 1e-1] (those three
+    f32). Each stack's leaves carry a leading layer axis. `generator`
+    lives on `device`; the numbers differ from JAX's draws (another
+    generator). The hybrid and VLM teachers wait for their quantization
+    (ROADMAP item 11b)."""
+    if cfg.family in ("hybrid", "vlm"):
         raise NotImplementedError(
             f"init_params of the {cfg.family} family is ROADMAP item 11b")
-    dt, d, n, hd = torch_dtype(cfg), cfg.d_model, cfg.n_layers, cfg.head_dim
+    dt, d = torch_dtype(cfg), cfg.d_model
+    f32 = torch.float32
 
-    def normal(shape, std):
+    def normal(shape, std, dtype=dt):
         return (torch.randn(shape, generator=generator, device=device)
-                * std).to(dt)
+                * std).to(dtype)
 
-    def full(shape, value):
-        return torch.full(shape, value, dtype=dt, device=device)
+    def full(shape, value, dtype=dt):
+        return torch.full(shape, value, dtype=dtype, device=device)
 
-    def lin(d_in, d_out, bias=False):
+    def lin(n, d_in, d_out, bias=False):
         p = {"w": normal((n, d_in, d_out), 1.0 / math.sqrt(d_in))}
         if bias:
             p["b"] = full((n, d_out), 0.0)
         return p
 
-    attn = {"wq": lin(d, cfg.n_heads * hd, cfg.qkv_bias),
-            "wk": lin(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
-            "wv": lin(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
-            "wo": lin(cfg.n_heads * hd, d)}
-    if cfg.qk_norm:
-        attn["q_norm"] = full((n, hd), 1.0)
-        attn["k_norm"] = full((n, hd), 1.0)
-    p = {"embed": normal((cfg.vocab_size, d), 0.02),
-         "ln_f": full((d,), 1.0),
-         "layers": {"ln1": full((n, d), 1.0), "attn": attn,
-                    "ln2": full((n, d), 1.0),
-                    "ffn": {"w_gate": lin(d, cfg.d_ff),
-                            "w_up": lin(d, cfg.d_ff),
-                            "w_down": lin(cfg.d_ff, d)}}}
-    if not cfg.tie_embeddings:
-        p["lm_head"] = {"w": normal((d, cfg.vocab_size), 1.0 / math.sqrt(d))}
+    def ffn(n, d_ff):
+        return {"w_gate": lin(n, d, d_ff), "w_up": lin(n, d, d_ff),
+                "w_down": lin(n, d_ff, d)}
+
+    def attn(n):
+        if cfg.is_mla:
+            H, dc = cfg.n_heads, cfg.kv_lora_rank
+            return {"wq": lin(n, d, H * cfg.qk_head_dim),
+                    "w_dkv": lin(n, d, dc),
+                    "w_kr": lin(n, d, cfg.qk_rope_dim),
+                    "w_uk": lin(n, dc, H * cfg.qk_nope_dim),
+                    "w_uv": lin(n, dc, H * cfg.v_head_dim),
+                    "wo": lin(n, H * cfg.v_head_dim, d),
+                    "kv_norm": full((n, dc), 1.0)}
+        hd = cfg.head_dim
+        a = {"wq": lin(n, d, cfg.n_heads * hd, cfg.qkv_bias),
+             "wk": lin(n, d, cfg.n_kv_heads * hd, cfg.qkv_bias),
+             "wv": lin(n, d, cfg.n_kv_heads * hd, cfg.qkv_bias),
+             "wo": lin(n, cfg.n_heads * hd, d)}
+        if cfg.qk_norm:
+            a["q_norm"] = full((n, hd), 1.0)
+            a["k_norm"] = full((n, hd), 1.0)
+        return a
+
+    def moe(n):
+        E, f = cfg.n_experts, cfg.moe_d_ff
+        p = {"router": {"w": normal((n, d, E), 1.0 / math.sqrt(d), f32)},
+             "w_gate": {"w": normal((n, E, d, f), 1.0 / math.sqrt(d))},
+             "w_up": {"w": normal((n, E, d, f), 1.0 / math.sqrt(d))},
+             "w_down": {"w": normal((n, E, f, d), 1.0 / math.sqrt(f))}}
+        if cfg.n_shared_experts:
+            p["shared"] = ffn(n, cfg.n_shared_experts * f)
+        return p
+
+    def attn_block(n, mlp_key, mlp):
+        return {"ln1": full((n, d), 1.0), "attn": attn(n),
+                "ln2": full((n, d), 1.0), mlp_key: mlp(n)}
+
+    def mamba_block(n):
+        di, H, K = cfg.d_inner, cfg.ssm_heads, cfg.ssm_conv
+        gn = cfg.ssm_groups * cfg.ssm_state
+        dt_lo, dt_hi = math.log(1e-3), math.log(1e-1)
+        mixer = {"wz": lin(n, d, di), "wx": lin(n, d, di),
+                 "wB": lin(n, d, gn), "wC": lin(n, d, gn),
+                 "wdt": lin(n, d, H), "out_proj": lin(n, di, d),
+                 "A_log": torch.log(torch.linspace(
+                     1.0, 16.0, H, device=device)).expand(n, H).clone(),
+                 "D": full((n, H), 1.0, f32),
+                 "dt_bias": (torch.rand((n, H), generator=generator,
+                                        device=device)
+                             * (dt_hi - dt_lo) + dt_lo),
+                 "norm_w": full((n, di), 1.0)}
+        for s, width in (("x", di), ("B", gn), ("C", gn)):
+            mixer["conv_" + s] = normal((n, K, width), 0.2)
+            mixer["conv_b" + s] = full((n, width), 0.0)
+        return {"ln": full((n, d), 1.0), "mixer": mixer}
+
+    n = cfg.n_layers
+    audio = cfg.family == "audio"
+    vocab = cfg.n_codebooks * cfg.vocab_size if audio else cfg.vocab_size
+    p = {"embed": normal((cfg.n_codebooks, cfg.vocab_size, d) if audio
+                         else (cfg.vocab_size, d), 0.02),
+         "ln_f": full((d,), 1.0)}
+    if cfg.family == "ssm":
+        p["layers"] = mamba_block(n)
+    elif cfg.family == "moe":
+        k = cfg.first_k_dense
+        if k:
+            p["dense_layers"] = attn_block(
+                k, "ffn", lambda m: ffn(m, cfg.dense_d_ff or cfg.d_ff))
+        p["layers"] = attn_block(n - k, "moe", moe)
+    else:
+        p["layers"] = attn_block(n, "ffn", lambda m: ffn(m, cfg.d_ff))
+    if audio or not cfg.tie_embeddings:
+        p["lm_head"] = {"w": normal((d, vocab), 1.0 / math.sqrt(d))}
     return p
 
 

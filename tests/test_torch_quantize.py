@@ -38,8 +38,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_common import (assert_close, draw_prompts, jax_engine,
-                           same_tokens, serve_engine, tol)
+from _torch_common import (assert_close, draw_prompts, jax_draws, jax_engine,
+                           jkey, jpath, one_torch_thread,  # noqa: F401
+                           same_tokens, serve_engine, t_np, tol)
 from repro import api as japi
 from repro.core import admm as jadmm
 from repro.core import balance as jbalance
@@ -105,29 +106,6 @@ def _np(a):
         else np.asarray(jnp.asarray(a, jnp.float32))
 
 
-def _t(a):
-    return torch.from_numpy(np.array(a))
-
-
-def _jkey(path):
-    """JAX's PRNG key at a port key path: PRNGKey(seed) folded along it."""
-    k = jax.random.PRNGKey(path[0])
-    for x in path[1:]:
-        k = jax.random.fold_in(k, x)
-    return k
-
-
-def _jax_draws(key, w, r):
-    """``core.admm._rand_range_init`` taking JAX's draws at the same path."""
-    u, v = jadmm._rand_range_init(_jkey(key), jnp.asarray(_np(w)), r)
-    return _t(u).to(w.device), _t(v).to(w.device)
-
-
-def _jpath(kp) -> str:
-    """A JAX key path as the port's leaf path ("layers/attn/wq/s1")."""
-    return "/".join(str(k.key) for k in kp)
-
-
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -135,18 +113,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # fixtures: the tiny teacher and its calibration set in both packages, and
 # one quantization of each (the JAX run is the file's one JAX pipeline)
 # ---------------------------------------------------------------------------
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread while this module runs: the pipeline is many
-    small ops, and with several pytest-xdist workers sharing the cores,
-    torch's default of a thread per core oversubscribes them (its tests
-    ran up to 100x slower than alone); restored afterwards."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -172,7 +138,7 @@ def port_model(tiny):
     """The port's NanoQuantModel.quantize under JAX's draws."""
     _, ct, _, tparams, _, tcal = tiny
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tadmm, "_rand_range_init", _jax_draws)
+        mp.setattr(tadmm, "_rand_range_init", jax_draws)
         return NanoQuantModel.quantize(
             tparams, ct, tcal, TP.QuantConfig(target_bpw=1.0, **_FAST),
             verbose=False, device="cpu")
@@ -190,13 +156,13 @@ def test_svid_matches_jax(m, n, iters):
         np.float32)
     p[0, :3] = 0.0                                   # sign(0) -> +1
     ja, jb = jsvid_factors(jnp.asarray(p), iters)
-    ta, tb = tsvid.svid_factors(_t(p), iters)
+    ta, tb = tsvid.svid_factors(t_np(p), iters)
     assert_close(ja, ta, F32, "svid a")
     assert_close(jb, tb, F32, "svid b")
     assert_close(jsvid(jnp.asarray(p), iters),
-                 tsvid.svid(_t(p), iters), F32, "svid")
+                 tsvid.svid(t_np(p), iters), F32, "svid")
     assert_close(jbaselines.svid_rank1(jnp.asarray(p)),
-                 tbaselines.svid_rank1(_t(p)), F32, "svid_rank1")
+                 tbaselines.svid_rank1(t_np(p)), F32, "svid_rank1")
 
 
 def test_magnitude_balance_matches_jax():
@@ -206,7 +172,7 @@ def test_magnitude_balance_matches_jax():
     do, di = (rng.uniform(0.5, 2.0, s).astype(np.float32) for s in (96, 48))
     want = jbalance.magnitude_balance(*(jnp.asarray(a)
                                         for a in (pu, pv, do, di)))
-    got = tbalance.magnitude_balance(*(_t(a) for a in (pu, pv, do, di)))
+    got = tbalance.magnitude_balance(*(t_np(a) for a in (pu, pv, do, di)))
     for nm, a, b in zip(("lu", "lv", "s1", "s2"), want, got):
         assert_close(a, b, F32, nm)
     assert_close(jbalance.reconstruct(*want), tbalance.reconstruct(*got),
@@ -230,7 +196,7 @@ def test_robust_diag_and_preconditioners_match_jax():
                 col._accumulate(("layers", "ffn.w_up", field), 3, sq,
                                 arr.size // arr.shape[-1])
             else:
-                col.accumulate("layers", "ffn.w_up", field, 3, _t(arr))
+                col.accumulate("layers", "ffn.w_up", field, 3, t_np(arr))
     for name in ("ffn.w_up", "ffn.w_down"):            # w_down: no stats
         for idx in (3, None):
             want = jprecond.preconditioners_for(jc, "layers", name, idx,
@@ -250,10 +216,10 @@ def test_chol_solve_ridge_matches_jax(r, shift):
     rhs = rng.standard_normal((r, 40)).astype(np.float32)
     want = jadmm._chol_solve_ridge(jnp.asarray(gram), jnp.asarray(rhs),
                                    shift)
-    got = tadmm._chol_solve_ridge(_t(gram), _t(rhs), torch.tensor(shift))
+    got = tadmm._chol_solve_ridge(t_np(gram), t_np(rhs), torch.tensor(shift))
     assert_close(want, got, F32, "ridge solve")
     # not positive definite: NaN, as JAX's cholesky gives, for the guards
-    bad = tadmm._chol_solve_ridge(_t(-gram), _t(rhs), torch.tensor(shift))
+    bad = tadmm._chol_solve_ridge(t_np(-gram), t_np(rhs), torch.tensor(shift))
     assert torch.isnan(bad).all()
 
 
@@ -268,7 +234,7 @@ def test_pack_quantized_identical_words(d_in, k_align):
     want = jpacking.pack_quantized(*(jnp.asarray(a) for a in (lu, lv, s1,
                                                                s2)),
                                    k_align=k_align)
-    got = tpacking.pack_quantized(*(_t(a) for a in (lu, lv, s1, s2)),
+    got = tpacking.pack_quantized(*(t_np(a) for a in (lu, lv, s1, s2)),
                                   k_align=k_align)
     for k in ("qu_t", "qv"):
         np.testing.assert_array_equal(np.asarray(want[k]).view(np.int32),
@@ -289,7 +255,7 @@ def test_calib_batches_identical_arrays():
         for k in a:
             np.testing.assert_array_equal(np.asarray(a[k]), b[k].numpy())
     with pytest.raises(NotImplementedError, match="11b"):
-        tdata.calib_batches(tconfigs.get_smoke("musicgen-medium"), 4, 8)
+        tdata.calib_batches(tconfigs.get_smoke("llama-3.2-vision-90b"), 4, 8)
 
 
 def test_adamw_cosine_matches_jax_on_mixed_tree():
@@ -310,7 +276,7 @@ def test_adamw_cosine_matches_jax_on_mixed_tree():
 
     jp = tree(lambda a, d: jnp.asarray(a).astype(d),
               (jnp.bfloat16, jnp.float32))
-    tp = tree(lambda a, d: _t(a).to(d), (torch.bfloat16, torch.float32))
+    tp = tree(lambda a, d: t_np(a).to(d), (torch.bfloat16, torch.float32))
     jopt = joptim.AdamW(joptim.cosine_schedule(1e-2, 5), clip_norm=1.0,
                         weight_decay=0.01)
     topt = toptim.AdamW(toptim.cosine_schedule(1e-2, 5), clip_norm=1.0,
@@ -321,7 +287,7 @@ def test_adamw_cosine_matches_jax_on_mixed_tree():
                    "s1": rng.standard_normal(5)},
              "b": rng.standard_normal(7), "c": None}
         jg = jax.tree.map(lambda a, p: jnp.asarray(a).astype(p.dtype), g, jp)
-        tg = tutil.tree_map(lambda a, p: _t(a).to(p.dtype), g, tp)
+        tg = tutil.tree_map(lambda a, p: t_np(a).to(p.dtype), g, tp)
         jp, js, jinfo = jopt.update(jg, js, jp)
         tp, ts, tinfo = topt.update(tg, ts, tp)
         assert ts.step == int(js.step) == step + 1
@@ -374,10 +340,10 @@ def test_lb_admm_from_jax_start_matches_jax(m, n, r):
     rng = np.random.default_rng(m * n + r)
     w = (rng.standard_normal((m, n)) / np.sqrt(n)).astype(np.float32)
     cfg = jadmm.ADMMConfig(rank=r, iters=8)
-    want = jadmm.lb_admm(jnp.asarray(w), cfg, _jkey((0, 1, r)))
+    want = jadmm.lb_admm(jnp.asarray(w), cfg, jkey((0, 1, r)))
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tadmm, "_rand_range_init", _jax_draws)
-        got = tadmm.lb_admm(_t(w), tadmm.ADMMConfig(rank=r, iters=8),
+        mp.setattr(tadmm, "_rand_range_init", jax_draws)
+        got = tadmm.lb_admm(t_np(w), tadmm.ADMMConfig(rank=r, iters=8),
                             (0, 1, r))
     assert_close(want["residual_trace"], got["residual_trace"], F32,
                  "residual trace")
@@ -424,7 +390,7 @@ def test_loss_and_ste_linear_match_jax(tiny):
         c2 = dataclasses.replace(ct, loss_chunk=chunk)
         b = dict(jcal[0], labels=jnp.asarray(jcal[0]["labels"]).at[0, :5]
                  .set(-1))                                   # masked labels
-        tb = {k: _t(np.asarray(v)).long() for k, v in b.items()}
+        tb = {k: t_np(np.asarray(v)).long() for k, v in b.items()}
         assert_close(JT.loss_fn(jparams, c1, b), TT.loss_fn(tparams, c2, tb),
                      F32, f"loss chunk {chunk}")
     rng = np.random.default_rng(4)
@@ -440,8 +406,8 @@ def test_loss_and_ste_linear_match_jax(tiny):
     jg = jax.grad(jloss, argnums=(0, 1))({k: jnp.asarray(v)
                                           for k, v in p.items()},
                                          jnp.asarray(x))
-    tp = {k: _t(v).requires_grad_() for k, v in p.items()}
-    tx = _t(x).requires_grad_()
+    tp = {k: t_np(v).requires_grad_() for k, v in p.items()}
+    tx = t_np(x).requires_grad_()
     torch.sin(TL.dense(tp, tx)).sum().backward()
     for k in p:
         assert_close(jg[0][k], tp[k].grad, F32, f"d{k}")
@@ -470,20 +436,20 @@ def test_packed_linear_grad_matches_oracle_and_jax(lead, K, r, N, eff):
     s1 = rng.uniform(0.1, 1, N).astype(np.float32)
     s2 = rng.uniform(0.1, 1, K).astype(np.float32)
     gy = rng.standard_normal(lead + (N,)).astype(np.float32)
-    tqv, tqu = (_t(a.view(np.int32)) for a in (qv, qu))
-    leaves = [_t(a).requires_grad_() for a in (x, s1, s2)]
+    tqv, tqu = (t_np(a.view(np.int32)) for a in (qv, qu))
+    leaves = [t_np(a).requires_grad_() for a in (x, s1, s2)]
     y = ops.lowrank_binary_matmul(leaves[0], tqv, tqu, leaves[1], leaves[2],
                                   eff_rank=eff)
-    got = torch.autograd.grad(y, leaves, _t(gy))
+    got = torch.autograd.grad(y, leaves, t_np(gy))
     with torch.no_grad():
-        y0 = ops.lowrank_binary_matmul(_t(x), tqv, tqu, _t(s1), _t(s2),
+        y0 = ops.lowrank_binary_matmul(t_np(x), tqv, tqu, t_np(s1), t_np(s2),
                                        eff_rank=eff)
     assert torch.equal(y.detach(), y0)
     rv, ru = (tqv[:, :eff], tqu[:eff // 32]) if eff else (tqv, tqu)
-    plain = [_t(a).requires_grad_() for a in (x, s1, s2)]
+    plain = [t_np(a).requires_grad_() for a in (x, s1, s2)]
     yp = ref.lowrank_binary_matmul_ref(plain[0], rv, ru, plain[1], plain[2])
     assert_close(yp, y, F32, "forward")
-    want = torch.autograd.grad(yp, plain, _t(gy))
+    want = torch.autograd.grad(yp, plain, t_np(gy))
     jv, ju = (qv[:, :eff], qu[:eff // 32]) if eff else (qv, qu)
 
     def jloss(xx, a, b):
@@ -505,13 +471,13 @@ def test_packed_linear_takes_function_only_for_a_gradient(monkeypatch,
     when grad mode is on and x, s1 or s2 requires a gradient; otherwise it
     runs the same forward directly, with an identical result."""
     rng = np.random.default_rng(7)
-    x = _t(rng.standard_normal((6, 64)).astype(np.float32))
-    qv = _t(rng.integers(0, 2 ** 32, (2, 32), dtype=np.uint32)
+    x = t_np(rng.standard_normal((6, 64)).astype(np.float32))
+    qv = t_np(rng.integers(0, 2 ** 32, (2, 32), dtype=np.uint32)
             .view(np.int32))
-    qu = _t(rng.integers(0, 2 ** 32, (1, 40), dtype=np.uint32)
+    qu = t_np(rng.integers(0, 2 ** 32, (1, 40), dtype=np.uint32)
             .view(np.int32))
-    s1 = _t(rng.uniform(0.1, 1, 40).astype(np.float32))
-    s2 = _t(rng.uniform(0.1, 1, 64).astype(np.float32))
+    s1 = t_np(rng.uniform(0.1, 1, 40).astype(np.float32))
+    s2 = t_np(rng.uniform(0.1, 1, 64).astype(np.float32))
     want = ref.lowrank_binary_matmul_ref(x, qv, qu, s1, s2)
     calls = []
     apply = ops._LowrankBinaryMatmul.apply
@@ -540,7 +506,7 @@ def test_block_tune_fp_and_ste_match_jax(tiny):
     bp = jutil.tree_index(jparams["layers"], 1)
     japply, tapply = JP.make_apply(cj, "attn"), TP.make_apply(ct, "attn")
     Xq, Y = x0 * 1.25, japply(bp, x0, {})
-    tX, tY = _t(Xq), _t(Y)
+    tX, tY = t_np(Xq), t_np(Y)
     to_t = lambda tree: params_from_numpy(jax.tree.map(np.asarray, tree),
                                           "cpu")
     jb, jl = JP._tune(japply, bp, lambda p: True, Xq, Y, {}, 4, 1e-4, 4,
@@ -566,7 +532,7 @@ def test_block_tune_fp_and_ste_match_jax(tiny):
     np.testing.assert_allclose(tl2, jl2, rtol=F32, err_msg="STE losses")
     for (path, a), b in zip(jax.tree_util.tree_leaves_with_path(jb2),
                             tutil.leaves(tb2)):
-        assert_close(a, b, F32, _jpath(path))
+        assert_close(a, b, F32, jpath(path))
 
 
 def test_kd_matches_jax(tiny, jax_run):
@@ -583,7 +549,7 @@ def test_kd_matches_jax(tiny, jax_run):
     np.testing.assert_allclose(tl, jl, rtol=F32, err_msg="KD losses")
     flat_j = jax.tree_util.tree_leaves_with_path(jout)
     flat_t = tutil.leaves_with_path(tout)
-    assert [_jpath(k) for k, _ in flat_j] == [p for p, _ in flat_t]
+    assert [jpath(k) for k, _ in flat_j] == [p for p, _ in flat_t]
     for (_, a), (path, b) in zip(flat_j, flat_t):
         if path.rsplit("/", 1)[-1] in ("s1", "s2"):
             assert_close(a, b, F32, path)
@@ -642,7 +608,7 @@ def test_port_artifact_loads_in_jax(port_model, tiny, tmp_path):
     assert j.ranks == port_model.ranks
     toks = np.asarray(jcal[0]["tokens"])
     want = JT.forward(j.params, cj, toks)
-    got = TT.forward(port_model.params, ct, _t(toks).long())
+    got = TT.forward(port_model.params, ct, t_np(toks).long())
     assert_close(want, got, F32, "logits")
     prompts = draw_prompts(ct, [5, 9, 3], seed=2)
     budgets = [6, 4, 7]
@@ -675,7 +641,7 @@ def test_quantized_beats_inplace_binarization(tiny, port_model):
                     (tbaselines.xnor_binarize, jbaselines.xnor_binarize)):
         w = np.random.default_rng(5).standard_normal((64, 48)).astype(
             np.float32)
-        assert_close(jfn(jnp.asarray(w)), fn(_t(w)), F32, fn.__name__)
+        assert_close(jfn(jnp.asarray(w)), fn(t_np(w)), F32, fn.__name__)
 
 
 def test_quantized_structure_matches_template(port_model):
@@ -770,16 +736,16 @@ def test_dual_svid_and_dbf_inits_match_jax():
     w = np.random.default_rng(6).standard_normal((64, 48)).astype(
         np.float32)
     want = jbaselines.dual_svid_init(jnp.asarray(w), 32)
-    got = tbaselines.dual_svid_init(_t(w), 32)
+    got = tbaselines.dual_svid_init(t_np(w), 32)
     assert_close(jnp.asarray(want["lu"]) @ jnp.asarray(want["lv"]).T,
                  got["lu"] @ got["lv"].T, F32, "dual_svid")
     for k in ("s1", "s2"):
         assert_close(want[k], got[k], F32, f"dual_svid {k}")
     want = jbaselines.dbf_admm_init(jnp.asarray(w), 32, iters=6,
-                                    key=_jkey((0, 2)))
+                                    key=jkey((0, 2)))
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(tadmm, "_rand_range_init", _jax_draws)
-        got = tbaselines.dbf_admm_init(_t(w), 32, iters=6, key=(0, 2))
+        mp.setattr(tadmm, "_rand_range_init", jax_draws)
+        got = tbaselines.dbf_admm_init(t_np(w), 32, iters=6, key=(0, 2))
     for k in ("lu", "lv", "s1", "s2"):
         assert_close(want[k], got[k], F32, f"dbf_admm {k}")
 
@@ -820,40 +786,64 @@ def test_size_accounting_matches_jax(arch):
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen1.5-0.5b",
-                                  "qwen3-4b"])
+                                  "qwen3-4b", "musicgen-medium",
+                                  "qwen3-moe-235b-a22b",
+                                  "deepseek-v2-lite-16b", "mamba2-370m"])
 def test_init_params_follows_jax_laws(arch):
     """The teacher's tree has JAX's structure, shapes and dtypes (qkv
-    biases and qk_norm included), and its draws JAX's laws."""
+    biases, qk_norm, audio's (K, V, d) tables and (d, K·V) head, the MoE's
+    f32 router, stacked experts and shared experts, the leading dense
+    blocks, MLA's projections and the Mamba2 mixer included), and its
+    draws JAX's laws."""
     ct = tconfigs.get_smoke(arch)
     want = JT.init_params(jax.random.PRNGKey(0), japi.get_smoke(arch))
     got = TT.init_params(ct, torch.Generator().manual_seed(0), "cpu")
     flat_w = jax.tree_util.tree_leaves_with_path(want)
     flat_g = tutil.leaves_with_path(got)
-    assert [_jpath(k) for k, _ in flat_w] == [p for p, _ in flat_g]
+    assert [jpath(k) for k, _ in flat_w] == [p for p, _ in flat_g]
     for (_, a), (path, b) in zip(flat_w, flat_g):
         assert tuple(a.shape) == tuple(b.shape), path
         assert str(a.dtype) == str(b.dtype).removeprefix("torch."), path
-        bf = b.float()
-        if path.endswith("/w"):
+        bf, leaf = b.float(), path.rsplit("/", 1)[-1]
+        if leaf == "w":
             assert float(bf.std()) == pytest.approx(
                 1 / np.sqrt(b.shape[-2]), rel=0.15), path
         elif path == "embed":
             assert float(bf.std()) == pytest.approx(0.02, rel=0.05)
-        else:                                     # norms 1, biases 0
+        elif leaf in ("conv_x", "conv_B", "conv_C"):
+            assert float(bf.std()) == pytest.approx(0.2, rel=0.15), path
+        elif leaf == "dt_bias":
+            lo, hi = np.log(1e-3), np.log(1e-1)
+            assert lo <= float(bf.min()) < float(bf.max()) <= hi, path
+        elif leaf == "A_log":                     # log linspace(1, 16)
+            assert_close(a, b, F32, path)
+        else:                                     # norms and D 1, biases 0
             assert torch.equal(bf, torch.full_like(bf, float(bf.flatten()[0])))
+            assert float(bf.flatten()[0]) == float(np.asarray(a).flat[0])
     with pytest.raises(NotImplementedError, match="11b"):
-        TT.init_params(tconfigs.get_smoke("mamba2-370m"),
+        TT.init_params(tconfigs.get_smoke("zamba2-1.2b"),
                        torch.Generator(), "cpu")
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "mamba2-370m",
-                                  "zamba2-1.2b", "llama-3.2-vision-90b",
-                                  "musicgen-medium", "deepseek-v2-lite-16b"])
-def test_blocks_of_refuses_other_families(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11b"):
-        TP.blocks_of(tconfigs.get_smoke(arch))
-    with pytest.raises(NotImplementedError, match="11b"):
-        TP.make_apply(tconfigs.get_smoke(arch), "mamba")
+@pytest.mark.parametrize("arch", tconfigs.list_archs())
+def test_blocks_of_matches_jax(arch):
+    """The blocks in JAX's order, stacks, indices, tap indices and kinds
+    (the MoE's leading dense blocks first, "mamba" for the SSM family);
+    the hybrid and the VLM still refuse (item 11b)."""
+    ct = tconfigs.get_smoke(arch)
+    if ct.family in ("hybrid", "vlm"):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 11b"):
+            TP.blocks_of(ct)
+        with pytest.raises(NotImplementedError, match="11b"):
+            TP.make_apply(ct, "cross")
+        return
+    fields = ("stack", "idx", "tap_idx", "kind")
+    want = [tuple(getattr(b, f) for f in fields)
+            for b in JP.blocks_of(japi.get_smoke(arch))]
+    assert [tuple(getattr(b, f) for f in fields)
+            for b in TP.blocks_of(ct)] == want
+    for kind in {k for *_, k in want}:
+        assert callable(TP.make_apply(ct, kind))
 
 
 @pytest.mark.parametrize("kwarg", [{"journal_dir": "/nonexistent"},
@@ -881,7 +871,7 @@ def test_quantize_entry_points_default_to_the_card(tiny):
     (["--teacher-steps", "5"], "13"), (["--teacher-ckpt", "x"], "13"),
     (["--journal-dir", "j"], "11b"), (["--resume"], "11b"),
     (["--supervise"], "11b"), (["--heartbeat"], "11b"),
-    (["--crash-at-block", "0"], "11b"), (["--arch", "mamba2-370m"], "11b")])
+    (["--crash-at-block", "0"], "11b"), (["--arch", "zamba2-1.2b"], "11b")])
 def test_quantize_cli_refuses_unported_flags(flags, item, capsys):
     from repro_torch.launch import quantize as cli
     with pytest.raises(SystemExit) as ei:
@@ -890,17 +880,21 @@ def test_quantize_cli_refuses_unported_flags(flags, item, capsys):
     assert f"ROADMAP item {item}" in capsys.readouterr().err
 
 
-def test_quantize_cli_then_serve(tmp_path):
+@pytest.mark.parametrize("arch", [None, "musicgen-medium",
+                                  "qwen3-moe-235b-a22b", "mamba2-370m"])
+def test_quantize_cli_then_serve(tmp_path, arch):
     """``launch.quantize --device cpu`` writes an artifact of the smoke
-    config that ``launch.serve --quantized-ckpt`` serves, and JAX loads."""
+    config (llama3.2-1b's by default; one arch of each other family the
+    port quantizes) that ``launch.serve --quantized-ckpt`` serves, and JAX
+    loads."""
     out = str(tmp_path / "nq")
     env = dict(os.environ, PYTHONPATH="src", OMP_NUM_THREADS="1")
     q = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.quantize", "--device",
          "cpu", "--calib-samples", "4", "--calib-seq", "32", "--admm-iters",
          "4", "--t-pre", "2", "--t-post", "2", "--t-glob", "2", "--out",
-         out], capture_output=True, text=True, env=env, timeout=300,
-        cwd=ROOT)
+         out] + (["--arch", arch] if arch else []),
+        capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
     assert q.returncode == 0, q.stderr
     for line in ("FP teacher ppl", "NanoQuant ppl", "linears bpw",
                  "wall time", f"saved to {out}"):
@@ -911,7 +905,7 @@ def test_quantize_cli_then_serve(tmp_path):
          "--max-new", "4", "--max-batch", "2"],
         capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
     assert s.returncode == 0, s.stderr
-    assert "loaded artifact" in s.stdout and "arch=llama3.2-1b-smoke" \
-        in s.stdout
+    name = tconfigs.get_smoke(arch or "llama3.2-1b").name
+    assert "loaded artifact" in s.stdout and f"arch={name}" in s.stdout
     j = japi.NanoQuantModel.load(out)
-    assert j.quantized and j.cfg.name == "llama3.2-1b-smoke"
+    assert j.quantized and j.cfg.name == name
