@@ -15,18 +15,19 @@ Phases, each printing its own line(s); any failure exits non-zero:
    version at the gate shape (K 2048 -> N 8192 at rank 1600) with M =
    1024, f32 and bf16: output and the gradients of x, s1 and s2, forward
    and forward + backward timed. Then the port's quantization pipeline
-   (``NanoQuantModel.quantize``) on llama3.2-1b at full width and full
-   depth in bf16, the teacher drawn on the card by
+   (``NanoQuantModel.quantize``) on llama3.2-1b at full width, cut to 4
+   of its 16 layers (``QUANT_DEPTH``), in bf16, the teacher drawn on the
+   card by
    ``models.transformer.init_params`` from the seed, calibrated on
    ``QUANT``'s 16 samples of 256 tokens (cut from the paper's 128 x
    2048), ``QuantConfig()`` at its defaults (1.0 bpw, ADMM 40, TuneFP 40,
    STE 60, KD 60), on the path ``llama3.2-1b-quantize``: #1 only, 7
-   launches per block's check forward and 112 per KD step; the seconds of
+   launches per block's check forward and 28 per KD step; the seconds of
    calibration, of each block and of KD, each block's error and init
    method, the KD loss at its first and last step and over its first and
    last pass of the batches, the ranks and the linears' bpw, peak memory;
    gated on finite block errors and KD losses and a packed leaf for every
-   one of the 112 linears. One more KD step of the pipeline's own
+   one of the 28 linears. One more KD step of the pipeline's own
    (``tune_scales_kd``) under the profiler gives its device ms by group
    (#1's forward, the backward's plain ops with the packed linears' share,
    the other ops). The artifact is saved, loaded and cast to f32 and served on the
@@ -38,19 +39,36 @@ Phases, each printing its own line(s); any failure exits non-zero:
    (``ops.lowrank_binary_matmul_expert``: G 64, x per group, K 2048 -> N
    1408 at rank 800, the 120 capacity rows of a KD step), checked and
    timed as the gate shape's; then the pipeline, as for llama3.2-1b, on
-   musicgen-medium (4 of its 48 layers; calibration frames of 4
-   codebooks), mamba2-370m (8 of 48) and deepseek-v2-lite-16b (its dense
-   layer and 2 of 26 MoE layers; ``QUANT_DEPTH``), each at full width in
-   bf16 on the path ``<arch>-quantize``: #1 launched once per packed
-   linear in each block's check forward and each KD step's student
-   forward (an expert stack: one launch of the grid over its 64 experts,
-   counted apart: 3 per MoE layer and forward) and nothing else, the
+   musicgen-medium (2 of its 48 layers; calibration frames of 4
+   codebooks), mamba2-370m (4 of 48), deepseek-v2-lite-16b (its dense
+   layer and 2 of 26 MoE layers) and zamba2-1.2b (12 of its 38 Mamba2
+   layers, so two applications of the shared attention block, which is
+   quantized first on its inputs gathered from the teacher stream;
+   ``QUANT_DEPTH``), each at full width in bf16 on the path
+   ``<arch>-quantize``: #1 launched once per packed linear in each block's
+   check forward and each KD step's student forward (an expert stack: one
+   launch of the grid over its 64 experts, counted apart: 3 per MoE layer
+   and forward; the shared block once per application, and once more for
+   its check forward over the gathered inputs) and nothing else, the
    count equal to the template's; deepseek's expert scales' gradients of
    one KD step (models cast to f32) non-zero on the kernel path and
-   within the bf16 tolerance of the plain path's. Each artifact is
-   saved, loaded, cast to f32 and served under 4 requests of its family's
-   traffic on ``<arch>-quantized`` (musicgen #1 and #3, mamba2 #1,
-   deepseek #1 with the G = 64 grid), gated against the plain-oracle
+   within the bf16 tolerance of the plain path's. zamba2-1.2b runs with
+   the crash-safe journal on (a temporary directory) and then drills it
+   in the same process on the path ``zamba2-1.2b-quantize-drill``
+   (``DRILL``): a second journaled run with a crash planned when block 7
+   starts (Mamba2 layer 6, the first block after the shared block's first
+   application), which must fire exactly once; the resume of that
+   journal, whose blocks 0-6 must come back resumed (no LB-ADMM, TuneFP
+   or STE for them) and whose quantized params (``_crc_leaves``, all of
+   them and the packed words alone) and report rows, ranks and KD losses
+   must equal the uninterrupted run's bit for bit; a copy of the crashed
+   journal with its last line corrupted, which ``entries_for_resume``
+   must refuse naming ``layers[5]`` (block 6); and a resume under
+   ``QuantConfig(seed=1)``, which must be refused as another run. Only the
+   planned crash is caught. Each artifact is saved, loaded, cast to f32
+   and served under 4 requests of its family's traffic on
+   ``<arch>-quantized`` (musicgen #1 and #3, mamba2 #1, deepseek #1 with
+   the G = 64 grid, zamba2 #1 and #3), gated against the plain-oracle
    engine like its family's paths;
 3. llama3.2-1b kernels — kernels #1-#3 against their plain PyTorch
    versions on the card at the shapes the llama3.2-1b serving path gives
@@ -75,8 +93,9 @@ Phases, each printing its own line(s); any failure exits non-zero:
    of wo's 992), #2 as the verify reads it (5 queries per slot through
    ``ops.paged_attention`` over a pool with stale rows past the
    frontier);
-4. llama3.2-1b engine — full-width, full-depth llama3.2-1b at 1.0 bpw
-   with packed weights drawn from a seed, served by the
+4. llama3.2-1b engine — llama3.2-1b at full width, cut to 8 of its 16
+   layers (``DEPTH``), at 1.0 bpw with packed weights drawn from a seed,
+   served by the
    continuous-batching engine (8 slots, max_len 256, 8 requests of
    17-200 prompt tokens and 32 new tokens, admitted mid-flight) on four
    paths: ``megakernel``, ``unfused`` (megakernel off), ``twocall``
@@ -138,7 +157,7 @@ Phases, each printing its own line(s); any failure exits non-zero:
    kv head; then the speculative path's shapes: #4's two launches of the
    draft's gate (rank 3488 of 6976, read in place) at M = 4 and #1's
    merged QKV at the verify's M = 20;
-6. qwen1.5-110b engine — full width, cut to 20 of its 80 layers
+6. qwen1.5-110b engine — full width, cut to 10 of its 80 layers
    (``DEPTH``, so that the script keeps inside its time limit), at 1.0
    bpw, weights drawn on the card from the seed: 4 slots, max_len 128,
    4 requests of 16-64 prompt tokens and 16 new tokens, 2 admitted after
@@ -147,8 +166,8 @@ Phases, each printing its own line(s); any failure exits non-zero:
    speculative decoding in bf16 as for llama (the first plain run gives
    decode tok/s, TTFT and peak memory; the plain decode window's profile
    is the ``bf16_decode_profile``);
-7. qwen3-4b — full width and depth (36 layers, per-head qk_norm, which
-   rules out #3) at 1.0 bpw, weights drawn on the card, under the llama
+7. qwen3-4b — full width, cut to 18 of its 36 layers (``DEPTH``; per-head
+   qk_norm, which rules out #3) at 1.0 bpw, weights drawn on the card, under the llama
    traffic on the path ``qwen3-4b`` (#1 and #2 only), gated like the
    llama paths; then one bf16 run (decode tok/s, TTFT, peak memory);
 8. qwen3-moe-235b-a22b — kernel #1 at its expert grid (G = 128 experts,
@@ -156,7 +175,7 @@ Phases, each printing its own line(s); any failure exits non-zero:
    4096; M 8, the capacity of a decode step and of a prefill of up to 64
    tokens, and M 40, a 256-token prefill's; f32 and bf16) against its
    plain version, timed beside the batched library call over unpacked
-   bf16 factors; then the model at full width, cut to 24 of its 94
+   bf16 factors; then the model at full width, cut to 12 of its 94
    layers (``DEPTH``; 128 experts, top-8), at 1.0 bpw, weights and
    routers drawn on the card, under the qwen1.5-110b traffic on the path
    ``qwen3-moe-235b-a22b`` (#1 and #2 only, #1 launched at the expert
@@ -171,14 +190,14 @@ Phases, each printing its own line(s); any failure exits non-zero:
    rank 384) at M 8, and at the 64-expert grid (x per group, rank 800;
    gate/up K 2048 -> N 1408, down K 1408 -> N 2048) at M 8 and 32, f32 and
    bf16, against its plain version beside its library call; then the
-   model at full width, cut to 9 of its 27 layers (``DEPTH``: one dense, 8
+   model at full width, cut to 5 of its 27 layers (``DEPTH``: one dense, 4
    MoE of 64 experts top-6 plus 2 shared; MLA attention over a paged pool
    of compressed latents, kv_lora_rank 512 plus a 64-wide RoPE key per
    row) at 1.0 bpw, weights and routers drawn on the card, under the llama
-   traffic on the path ``deepseek-v2-lite-16b``: #1 only, 78 launches per
+   traffic on the path ``deepseek-v2-lite-16b``: #1 only, 42 launches per
    forward (four per layer for wq, w_dkv, w_kr and wo, three at the
    expert grid and two for the shared experts per MoE layer, two for the
-   dense block; 240 at full depth), 24 of them at the grid; #2, #3 and #4
+   dense block; 240 at full depth), 12 of them at the grid; #2, #3 and #4
    never (MLA's read
    is plain torch ops, as the reference keeps it plain XLA). Its f32 gate
    is ``moe_gate``. Then one bf16 run (decode tok/s, TTFT, peak memory,
@@ -191,11 +210,11 @@ Phases, each printing its own line(s); any failure exits non-zero:
    96, a partial tile of the rank stage, the shape of wC too; out_proj,
    K 2048 -> 1024 at rank 640) at M 8 and 256, f32 and bf16, against its
    plain version beside its library call; then the model at full width,
-   cut to 16 of its 48 Mamba2 blocks (``DEPTH``; d 1024, d_inner 2048, 32
+   cut to 8 of its 48 Mamba2 blocks (``DEPTH``; d 1024, d_inner 2048, 32
    heads of 64, state 128, chunk 256, vocab 50280, tied head) at 1.0 bpw,
    weights drawn on the card, on the per-slot state cache (no pool) under
    the llama traffic with prompts of 17-520 tokens (``MAMBA``), on the
-   path ``mamba2-370m``: #1 only, 80 launches per forward (wz, wx, wB, wC
+   path ``mamba2-370m``: #1 only, 40 launches per forward (wz, wx, wB, wC
    and out_proj per layer; wdt stays FP), #2, #3 and #4 never; gated like
    the llama paths. Then one bf16 run (decode tok/s, TTFT, peak memory,
    the state cache's bytes per slot) and its decode window under the
@@ -232,7 +251,7 @@ Phases, each printing its own line(s); any failure exits non-zero:
    K 8192 -> N 1024 at rank 864, M = 4 images x 1024 patches = 4096) and
    at the cross block's wq at M 4; #4 at the vision FFN's four two-call
    stages (rank 6336) at M 4; f32 and bf16. Then the model at full width,
-   cut to 50 of its 100 layers (``DEPTH``: 10 groups of 4 self-attention
+   cut to 25 of its 100 layers (``DEPTH``: 5 groups of 4 self-attention
    blocks over the paged pool and one gated cross-attention block over
    per-slot image K/V) at 1.0 bpw, weights drawn on the card, on the paths
    ``llama-3.2-vision-90b`` (the engine under the qwen1.5-110b traffic,
@@ -255,7 +274,7 @@ Phases, each printing its own line(s); any failure exits non-zero:
    its decode shape (B 8, 24 query heads over 24 kv heads: G 1, D 64, K
    1536, pages of 64) over 4 and 32 table entries, each against its
    plain version beside its library call (#3 also beside its unfused
-   chain), f32 and bf16. Then the model at full width, cut to 16 of its
+   chain), f32 and bf16. Then the model at full width, cut to 8 of its
    48 layers (``DEPTH``; d 1536, 4 codebooks of 2048; the reference's
    llama-style block)
    at 1.0 bpw, weights drawn on the card, under ``MUSICGEN``: 8 requests
@@ -389,33 +408,43 @@ VISION_IMAGE = {"arch": "llama-3.2-vision-90b", "n": 4, "prompt": 32,
 # at EnCodec's 50 frames per second (arXiv:2306.05284), 32 new frames
 MUSICGEN = dict(LLAMA, arch="musicgen-medium")
 # depth cuts that keep the script inside its time limit with the quantize
-# phases: the layers each model is served at (width untouched; every other
-# model at full depth)
-DEPTH = {"qwen1.5-110b": 20, "qwen3-moe-235b-a22b": 24,
-         "llama-3.2-vision-90b": 50, "deepseek-v2-lite-16b": 9,
-         "mamba2-370m": 16, "zamba2-1.2b": 12, "musicgen-medium": 16}
+# phases, on a slow host too: the layers each model is served at (width
+# untouched; every other model at full depth)
+DEPTH = {"llama3.2-1b": 8, "qwen1.5-110b": 10, "qwen3-4b": 18,
+         "qwen3-moe-235b-a22b": 12, "llama-3.2-vision-90b": 25,
+         "deepseek-v2-lite-16b": 5, "mamba2-370m": 8, "zamba2-1.2b": 12,
+         "musicgen-medium": 8}
 
-# the quantization pipeline on the card: llama3.2-1b at full width and
-# depth in its config's dtype (bf16), calibrated on `samples` sequences of
-# `seq` tokens (the paper's 128 x 2048 cut to 16 x 256), QuantConfig() at
-# its defaults; the artifact is served in f32 under 4 requests of the
-# llama traffic
+# the quantization pipeline on the card: llama3.2-1b at full width in its
+# config's dtype (bf16), calibrated on `samples` sequences of `seq` tokens
+# (the paper's 128 x 2048 cut to 16 x 256), QuantConfig() at its defaults;
+# the artifact is served in f32 under 4 requests of the llama traffic
 QUANT = {"arch": "llama3.2-1b", "samples": 16, "seq": 256}
 QUANT_SERVE = dict(LLAMA, n=4, up_front=2)
-# the audio, MoE and SSM families quantized at full width in the same way
-# (frames of 4 codebooks for the audio family), at cut depth: musicgen 4 of
-# its 48 layers, mamba2 8 of 48, deepseek its dense layer and 2 MoE layers
-# of 27; each artifact served in f32 under 4 requests of its family's
-# traffic
-QUANT_DEPTH = {"musicgen-medium": 4, "mamba2-370m": 8,
-               "deepseek-v2-lite-16b": 3}
+# the depths quantized, each at full width (width untouched), cut to keep
+# the script inside its time limit: llama3.2-1b 4 of its 16 layers,
+# musicgen 2 of its 48 layers (frames of 4 codebooks), mamba2 4 of 48,
+# deepseek its dense layer and 2 MoE layers of 27 (every block kind twice),
+# zamba2 12 of its 38 Mamba2 layers (two applications of the shared block,
+# the drill's crash after the first); each artifact served in f32 under 4
+# requests of its family's traffic
+QUANT_DEPTH = {"llama3.2-1b": 4, "musicgen-medium": 2, "mamba2-370m": 4,
+               "deepseek-v2-lite-16b": 3, "zamba2-1.2b": 12}
 MUSICGEN_QUANT_SERVE = dict(MUSICGEN, n=4, up_front=2)
 MAMBA_QUANT_SERVE = dict(MAMBA, n=4, up_front=2)
 DEEPSEEK_QUANT_SERVE = dict(DEEPSEEK, n=4, up_front=2)
+ZAMBA_QUANT_SERVE = dict(ZAMBA, n=4, up_front=2)
 QUANT_SERVES = {"llama3.2-1b": QUANT_SERVE,
                 "musicgen-medium": MUSICGEN_QUANT_SERVE,
                 "mamba2-370m": MAMBA_QUANT_SERVE,
-                "deepseek-v2-lite-16b": DEEPSEEK_QUANT_SERVE}
+                "deepseek-v2-lite-16b": DEEPSEEK_QUANT_SERVE,
+                "zamba2-1.2b": ZAMBA_QUANT_SERVE}
+# the crash-safe pipeline's drill: the arch quantized with its journal on,
+# crashed when block `crash_at` starts (zamba2's Mamba2 layer 6, the first
+# block after the shared block's first application, so that the resume
+# replays the reloaded shared block in the stream) and resumed. The MoE
+# stays out: its dispatch's index_add_ sums in no fixed order on the card
+DRILL = {"arch": "zamba2-1.2b", "crash_at": 7}
 # the autograd check's shape: llama3.2-1b's w_gate at M = 4 x 256 rows
 AUTOGRAD = {"M": 1024, "K": 2048, "R": 1600, "N": 8192}
 
@@ -487,6 +516,8 @@ PATHS = (
      (FUSED,), (PAGED, MEGA, PACKED)),
     ("deepseek-v2-lite-16b-quantized", DEEPSEEK_QUANT_SERVE, {}, None, None,
      None, (FUSED,), (PAGED, MEGA, PACKED)),
+    ("zamba2-1.2b-quantized", ZAMBA_QUANT_SERVE, {}, None, None, None,
+     (FUSED, MEGA), (PAGED, PACKED)),
 )
 
 # the kernels' names in a profiler trace, and the lm head's matmul
@@ -536,7 +567,7 @@ def main():
     # first profiler session
     autograd = check_autograd()
     report["llama3.2-1b-quantize"], artifact = quantize_path(
-        "llama3.2-1b", launches)
+        "llama3.2-1b", launches, QUANT_DEPTH["llama3.2-1b"])
     phase("llama3.2-1b quantize")
     report["llama3.2-1b-quantized"] = quantize_serve(
         "llama3.2-1b", artifact, launches)
@@ -544,9 +575,15 @@ def main():
     expert_autograd = check_autograd(expert=True)
     phase("#1's expert autograd Function at deepseek's grid")
     for arch, depth in QUANT_DEPTH.items():
+        if arch == QUANT["arch"]:
+            continue
         report[f"{arch}-quantize"], artifact = quantize_path(
             arch, launches, depth)
         phase(f"{arch} quantize")
+        if arch == DRILL["arch"]:
+            report[f"{arch}-quantize-drill"] = quantize_drill(
+                arch, depth, report[f"{arch}-quantize"], launches)
+            phase(f"{arch} quantize drill (crash, resume, refusals)")
         report[f"{arch}-quantized"] = quantize_serve(arch, artifact,
                                                      launches)
         phase(f"{arch} quantized artifact f32 engine path")
@@ -794,14 +831,15 @@ def main():
 
 
 def make_llama():
-    """llama3.2-1b at 1.0 bpw in f32, packed words and scales drawn on the
-    host from the seed."""
+    """llama3.2-1b at 1.0 bpw in f32 at its :data:`DEPTH`, packed words and
+    scales drawn on the host from the seed."""
     import torch
     from repro_torch.api import NanoQuantModel
     from repro_torch.configs import get_config
     from repro_torch.quant.surgery import abstract_quantized_params
     from repro_torch.testing import random_packed_params
-    cfg = dataclasses.replace(get_config("llama3.2-1b"), dtype="float32")
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), dtype="float32",
+                              n_layers=DEPTH["llama3.2-1b"])
     tree = random_packed_params(abstract_quantized_params(cfg, 1.0), SEED)
     return NanoQuantModel.from_numpy(tree, cfg, device="cuda",
                                      dtype=torch.float32,
@@ -3541,14 +3579,16 @@ def profile_image_prefill(model):
 # the quantization pipeline on the card
 # ---------------------------------------------------------------------------
 
-def packed_per_forward(tree):
+def packed_per_forward(tree, apps=1):
     """Launches of #1 in one forward of a packed tree with no merged
     groups (a params tree or its template): one per packed linear and
     layer of its stack, a stack of experts being one launch over all of
-    them."""
+    them; an unstacked linear (the hybrid's shared block, two-dimensional
+    words) once per application, `apps`."""
     if "qu_t" in tree:
-        return tree["qu_t"].shape[0]
-    return sum(packed_per_forward(v) for v in tree.values()
+        shape = tree["qu_t"].shape
+        return shape[0] if len(shape) > 2 else apps
+    return sum(packed_per_forward(v, apps) for v in tree.values()
                if isinstance(v, dict))
 
 
@@ -3658,33 +3698,28 @@ def check_autograd(expert=False):
 def quantize_path(arch, launches, depth=None):
     """The port's quantization pipeline on `arch` at full width, at full
     depth or `depth` layers (``QUANT``'s calibration, ``QuantConfig()``),
-    with every launch count set to 0 just before it; see phase 2b of the
-    module docstring. #1 must launch once per packed linear (an expert
-    stack: once over its experts) in each block's check forward and in
-    each KD step's student forward, and nothing else; the MoE's expert
-    grids are counted apart, and one KD step's expert scale gradients are
-    held against the plain path's (:func:`kd_expert_grads`). Returns (its
-    record, the saved artifact's directory)."""
+    with every launch count set to 0 just before it; see phases 2b and 2c
+    of the module docstring. #1 must launch once per packed linear (an
+    expert stack: once over its experts; the hybrid's shared block once
+    per application) in each block's check forward and in each KD step's
+    student forward, and nothing else; the MoE's expert grids are counted
+    apart, and one KD step's expert scale gradients are held against the
+    plain path's (:func:`kd_expert_grads`). ``DRILL``'s arch runs with the
+    journal on (a temporary directory). Returns (its record, the saved
+    artifact's directory)."""
     import tempfile
     import torch
     from repro_torch.api import NanoQuantModel
-    from repro_torch.configs import get_config
-    from repro_torch.core.pipeline import QuantConfig
-    from repro_torch.data.synthetic import calib_batches
+    from repro_torch.checkpoint.journal import _crc_leaves
     from repro_torch.kernels import binary_matmul
-    from repro_torch.models import transformer as T
+    from repro_torch.models.transformer import n_shared_apps
     from repro_torch.quant.surgery import abstract_quantized_params
     name = f"{arch}-quantize"
-    cfg = get_config(arch)
-    if depth is not None:
-        cfg = dataclasses.replace(cfg, n_layers=depth)
     t0 = time.perf_counter()
-    teacher = T.init_params(
-        cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
-    calib = calib_batches(cfg, QUANT["samples"], QUANT["seq"])
-    torch.cuda.synchronize()
+    cfg, teacher, calib, qcfg = quantize_inputs(arch, depth)
     setup_s = time.perf_counter() - t0
-    qcfg = QuantConfig()
+    d = tempfile.mkdtemp(prefix="quantize-")
+    journal = os.path.join(d, "journal") if arch == DRILL["arch"] else None
     counters = _counters()
     grid = binary_matmul.fused_lowrank_matmul_grouped.grid_launches
     torch.cuda.reset_peak_memory_stats()
@@ -3692,7 +3727,8 @@ def quantize_path(arch, launches, depth=None):
         c.launches = 0
     grid.clear()
     model = NanoQuantModel.quantize(teacher, cfg, calib, qcfg,
-                                    verbose=False, device="cuda")
+                                    verbose=False, journal_dir=journal,
+                                    device="cuda")
     launches[name] = n = [c.launches for c in counters]
     grid = dict(grid)
     peak = _peak_gib()
@@ -3714,12 +3750,20 @@ def quantize_path(arch, launches, depth=None):
     for key, r in model.ranks.items():      # the same in every block
         ranks.setdefault(key.split(".", 1)[1], set()).add(r)
     ranks = {k: sorted(v) for k, v in ranks.items()}
-    per_forward = packed_per_forward(model.params)
-    want = (1 + qcfg.t_glob) * per_forward
+    apps = n_shared_apps(cfg)
+    per_forward = packed_per_forward(model.params, apps)
+    # the hybrid's shared block also runs one check forward of its own,
+    # over its gathered inputs
+    shared = packed_per_forward(model.params["shared_attn"]) if apps else 0
+    want = (1 + qcfg.t_glob) * per_forward + shared
     log(f"quantize {cfg.name} {cfg.dtype} ({cfg.n_layers} layers, d "
-        f"{cfg.d_model}, calibration {QUANT['samples']} x {QUANT['seq']}): "
+        f"{cfg.d_model}, calibration {QUANT['samples']} x {QUANT['seq']}"
+        + (", journaled" if journal else "") + "): "
         f"teacher and data {setup_s:.2f} s, calibration "
-        f"{secs['calibration']:.2f} s, blocks {sum(secs['blocks']):.2f} s, "
+        f"{secs['calibration']:.2f} s, "
+        + (f"journal {secs['journal']:.2f} s, " if journal else "")
+        + (f"gather {secs['gather']:.2f} s, " if "gather" in secs else "")
+        + f"blocks {sum(secs['blocks']):.2f} s, "
         f"KD {secs['kd']:.2f} s ({qcfg.t_glob} steps), wall "
         f"{rep['wall_s']:.2f} s, peak {peak:.2f} GiB; KD loss "
         f"{kd[0]:.6g} -> {kd[-1]:.6g} (first and last pass over the "
@@ -3735,15 +3779,16 @@ def quantize_path(arch, launches, depth=None):
                              f"{bad} or KD losses {kd}")
     tmpl = packed_per_forward(abstract_quantized_params(
         cfg, qcfg.target_bpw, qcfg.min_dim, qcfg.rank_align,
-        qcfg.pack_k_align))
+        qcfg.pack_k_align), apps)
     if per_forward != tmpl:
         raise AssertionError(f"quantize {arch}: {per_forward} packed "
                              f"linears per forward, the template has {tmpl}")
     if n[FUSED] != want or any(n[i] for i in (PAGED, MEGA, PACKED)):
         raise AssertionError(f"quantize {arch}: launches {n}, expected "
-                             f"{want} of #1 ({per_forward} in the blocks' "
-                             f"check forwards + {qcfg.t_glob} KD steps x "
-                             f"{per_forward}) and none of the others")
+                             f"{want} of #1 ({per_forward + shared} in the "
+                             f"blocks' check forwards + {qcfg.t_glob} KD "
+                             f"steps x {per_forward}) and none of the "
+                             f"others")
     res = {}
     if cfg.family == "moe":
         n_moe = cfg.n_layers - cfg.first_k_dense
@@ -3757,8 +3802,14 @@ def quantize_path(arch, launches, depth=None):
                  if r["fallbacks"]}
     if fallbacks:
         log(f"quantize {arch}: blocks off the lb_admm rung: {fallbacks}")
+    if journal:
+        res.update(crc=_crc_leaves(model.params),
+                   packed_crc=_crc_leaves(packed_words(model.params)),
+                   ranks_by_block=model.ranks)
+        log(f"quantize {arch}: journal of {len(rep['blocks'])} blocks in "
+            f"{journal}; quantized params crc32 {res['crc']:#010x}, packed "
+            f"words {res['packed_crc']:#010x}")
     split = kd_split(teacher, model.params, cfg, calib[0], qcfg)
-    d = tempfile.mkdtemp(prefix="quantize-")
     art = os.path.join(d, "artifact")
     t0 = time.perf_counter()
     model.save(art)
@@ -3901,6 +3952,166 @@ def kd_split(teacher, qparams, cfg, batch, qcfg):
         f"{host_ms:.1f} ms")
     return {"host_ms": host_ms, "device_ms": total, "by_group_ms": groups,
             "packed_backward_ms": packed}
+
+
+def quantize_inputs(arch, depth=None):
+    """(cfg, FP teacher on the card, calibration batches, QuantConfig()) of
+    `arch` at full width and full depth or `depth` layers, the teacher
+    drawn from ``SEED`` (the same tensors at every call)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import QuantConfig
+    from repro_torch.data.synthetic import calib_batches
+    from repro_torch.models import transformer as T
+    cfg = get_config(arch)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    teacher = T.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    calib = calib_batches(cfg, QUANT["samples"], QUANT["seq"])
+    torch.cuda.synchronize()
+    return cfg, teacher, calib, QuantConfig()
+
+
+def packed_words(tree):
+    """The packed ±1 words (qv, qu_t) of a params tree, keyed as in it."""
+    if not isinstance(tree, dict):
+        return None
+    out = {k: (v if k in ("qv", "qu_t") else packed_words(v))
+           for k, v in tree.items()}
+    return {k: v for k, v in out.items() if v is not None} or None
+
+
+def quantize_drill(arch, depth, base, launches):
+    """The crash-safe pipeline's drill (phase 2c of the module docstring)
+    on ``DRILL``'s arch at `depth` layers, against `base`, the record of
+    its uninterrupted journaled run: a journaled run crashed when block
+    ``DRILL["crash_at"]`` starts, its resume, a corrupted copy of the
+    crashed journal and a resume under another QuantConfig. Only the one
+    planned ``InjectedPipelineCrash`` is caught; every check that fails
+    raises. The launch counts are set to 0 before the crashed run and read
+    after the resume (path ``<arch>-quantize-drill``). Returns its
+    record."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint.journal import (JournalError, QuantJournal,
+                                                _crc_leaves, run_fingerprint)
+    from repro_torch.core.pipeline import blocks_of, nanoquant_quantize
+    from repro_torch.quant.faults import (InjectedPipelineCrash, QuantFault,
+                                          QuantFaultPlan, _corrupt_last_line)
+    name, at = f"{arch}-quantize-drill", DRILL["crash_at"]
+    cfg, teacher, calib, qcfg = quantize_inputs(arch, depth)
+    labels = [f"{b.stack}[{b.idx}]" for b in blocks_of(cfg)]
+    n_blocks = len(labels)
+    d = tempfile.mkdtemp(prefix="quantize-drill-")
+    journal = os.path.join(d, "journal")
+    counters = _counters()
+    for c in counters:
+        c.launches = 0
+    plan = QuantFaultPlan([QuantFault(block=at, kind="crash_block")])
+    crashed = []
+    t0 = time.perf_counter()
+    try:
+        nanoquant_quantize(teacher, cfg, calib, qcfg, verbose=False,
+                           journal_dir=journal, faults=plan,
+                           heartbeat=crashed.append)
+        raise AssertionError(f"drill {arch}: the crash planned at block "
+                             f"{at} never fired")
+    except InjectedPipelineCrash as e:
+        if e.block != at:
+            raise AssertionError(f"drill {arch}: crashed at block {e.block}, "
+                                 f"planned at {at}") from e
+    crash_s = time.perf_counter() - t0
+    crash_launches = [c.launches for c in counters]
+    journaled = QuantJournal(journal).n_completed_blocks()
+    if plan.fired != [(at, "crash_block")] or journaled != at:
+        raise AssertionError(f"drill {arch}: fired {plan.fired}, {journaled} "
+                             f"blocks journaled; expected one crash at "
+                             f"block {at} after {at} blocks")
+    shutil.copytree(journal, os.path.join(d, "corrupt"))
+    resumed = []
+    t0 = time.perf_counter()
+    qp, rep = nanoquant_quantize(teacher, cfg, calib, qcfg, verbose=False,
+                                 journal_dir=journal, resume=True,
+                                 heartbeat=resumed.append)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    launches[name] = n = [c.launches for c in counters]
+    blocks = [b for b in resumed if b.startswith("block=")]
+    want = ([f"block={i}/{n_blocks} {labels[i]} resumed" for i in range(at)]
+            + [f"block={i}/{n_blocks} {labels[i]} start"
+               for i in range(at, n_blocks)])
+    if [b for b in blocks if b.endswith((" resumed", " start"))] != want:
+        raise AssertionError(f"drill {arch}: the resume's blocks {blocks}, "
+                             f"expected {at} resumed and the rest computed")
+    crc, packed_crc = _crc_leaves(qp), _crc_leaves(packed_words(qp))
+    same = {"crc": crc == base["crc"],
+            "packed_crc": packed_crc == base["packed_crc"],
+            "blocks": rep["blocks"] == base["blocks"],
+            "ranks": rep["ranks"] == base["ranks_by_block"],
+            "kd_losses": rep.get("kd_losses") == base["kd_losses"]}
+    if not all(same.values()):
+        diff = [i for i, (a, b) in enumerate(zip(rep["blocks"],
+                                                  base["blocks"])) if a != b]
+        raise AssertionError(f"drill {arch}: the resumed run differs from "
+                             f"the uninterrupted one: {same}; rows differ at "
+                             f"blocks {diff}; crc {crc:#010x} vs "
+                             f"{base['crc']:#010x}")
+    del qp
+    fingerprint = run_fingerprint(teacher, cfg, qcfg, calib, n_blocks)
+    corrupt = os.path.join(d, "corrupt")
+    _corrupt_last_line(os.path.join(corrupt, "journal.jsonl"))
+    want_block = labels[at - 1]
+    try:
+        QuantJournal(corrupt).entries_for_resume(fingerprint)
+        raise AssertionError(f"drill {arch}: a corrupted journal was "
+                             f"accepted")
+    except JournalError as e:
+        if e.block != want_block:
+            raise AssertionError(f"drill {arch}: the corrupted journal was "
+                                 f"refused naming {e.block!r}, not "
+                                 f"{want_block!r}: {e}") from e
+        corrupt_msg = str(e)
+    t0 = time.perf_counter()
+    try:
+        nanoquant_quantize(teacher, cfg, calib,
+                           dataclasses.replace(qcfg, seed=1), verbose=False,
+                           journal_dir=journal, resume=True)
+        raise AssertionError(f"drill {arch}: a resume under another "
+                             f"QuantConfig was accepted")
+    except JournalError as e:
+        if "quant_config" not in str(e):
+            raise AssertionError(f"drill {arch}: refused for {e}") from e
+        other_msg = str(e)
+    other_s = time.perf_counter() - t0
+    secs = rep["seconds"]
+    log(f"drill {arch}: the crash planned at block {at} ({labels[at]}) "
+        f"fired once after {at} journaled blocks, {crash_s:.2f} s; the "
+        f"resume reloaded blocks 0-{at - 1} and computed {at}-"
+        f"{n_blocks - 1}, {resume_s:.2f} s (calibration "
+        f"{secs['calibration']:.2f} s, journal {secs['journal']:.2f} s, "
+        f"gather {secs['gather']:.2f} s, blocks {sum(secs['blocks']):.2f} "
+        f"s, KD {secs['kd']:.2f} s); quantized params crc32 {crc:#010x} "
+        f"and packed words {packed_crc:#010x} equal the uninterrupted "
+        f"run's, and so do its {n_blocks} report rows, ranks and "
+        f"{len(rep['kd_losses'])} KD losses; the corrupted journal refused "
+        f"naming {want_block}; a resume under QuantConfig(seed=1) refused "
+        f"in {other_s:.2f} s; launches " + ", ".join(
+            f"{k[0]}={c}" for k, c in zip(KERNELS, n))
+        + f" (the crashed run's {crash_launches[FUSED]} of #1)")
+    if any(n[i] for i in (PAGED, MEGA, PACKED)) or not n[FUSED]:
+        raise AssertionError(f"drill {arch}: launches {n}")
+    shutil.rmtree(d)
+    del teacher
+    free()
+    return {"crash_at": at, "crash_block": labels[at], "fired": plan.fired,
+            "crash_s": crash_s, "resume_s": resume_s, "other_run_s": other_s,
+            "resume_seconds": secs, "crc": crc, "packed_crc": packed_crc,
+            "equal": same, "resumed_blocks": at,
+            "computed_blocks": n_blocks - at, "launches": n,
+            "crash_launches": crash_launches,
+            "corrupt_refusal": corrupt_msg, "other_run_refusal": other_msg}
 
 
 def quantize_serve(arch, art, launches):

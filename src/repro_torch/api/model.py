@@ -1,6 +1,6 @@
 """The NanoQuant model artifact, the port of ``repro.api.model.
-NanoQuantModel``: quantize (the dense, audio, MoE and SSM families),
-save / load, serve, evaluate.
+NanoQuantModel``: quantize (the dense, audio, MoE, SSM and hybrid
+families; crash-safe with a journal), save / load, serve, evaluate.
 
     model = NanoQuantModel.quantize(params, cfg, calib)  # on the card
     model.save("/ckpt/nq")                           # JAX's load reads it
@@ -62,9 +62,13 @@ class NanoQuantModel:
         """Run the full pipeline (paper Alg. 1) on an FP teacher (tensors,
         or the JAX package's numpy tree), moved to `device` first. The
         manifest's quant config is ``dataclasses.asdict(qcfg)``, which the
-        JAX package's ``load`` rebuilds with ``QuantConfig(**...)``. The
-        journal, resume and fault arguments are ROADMAP item 11b and
-        raise when set (``core.pipeline.nanoquant_quantize``)."""
+        JAX package's ``load`` rebuilds with ``QuantConfig(**...)``.
+        `journal_dir` journals every finished block, `resume` picks a
+        killed run up from its journal (a bit-identical artifact),
+        `faults` (a ``quant.faults.QuantFaultPlan``) injects a fault
+        schedule and `heartbeat` is called at block and KD boundaries
+        (``core.pipeline.nanoquant_quantize``). The VLM's quantization is
+        ROADMAP item 11b-1 (the VLM half)."""
         qcfg = qcfg or QuantConfig()
         params = params_from_numpy(params, resolve_device(device))
         qparams, report = nanoquant_quantize(

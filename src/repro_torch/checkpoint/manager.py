@@ -1,16 +1,23 @@
-"""Checkpoints in the JAX package's layout: the port of the save and
-restore of ``repro.checkpoint.manager`` for parameter trees.
+"""Atomic checkpoints in the JAX package's layout: the port of the save,
+restore and keyed save / restore of ``repro.checkpoint.manager`` for
+parameter trees.
 
 Layout written by the JAX package: ``<dir>/step_00000123/{arrays-<k>.npz,
 meta.json}``. Leaves are stored in the order JAX flattens the parameter
 dict (keys sorted at every level), striped across numbered npz shards as
 ``leaf_000000``...; ``meta.json`` records each leaf's shape, dtype name
-and crc32. Extended floats (bfloat16) are stored as same-width unsigned
-bit views. A restore verifies every leaf against ``meta.json`` and names
-the bad leaf on a missing shard or leaf, a shape mismatch or a checksum
-mismatch. numpy reads and writes the shards; leaves come back as CPU
-tensors. A save is written into ``<dir>/.tmp-<step>-<pid>`` and renamed
-into place, so a reader never sees a partial step.
+and crc32 (and, for a keyed save, each leaf's key path joined by ``/``).
+Extended floats (bfloat16) are stored as same-width unsigned bit views;
+packed words (int32 in the port) as uint32. A restore verifies every leaf
+against ``meta.json`` and names the bad leaf on a missing shard or leaf, a
+shape mismatch or a checksum mismatch. numpy reads and writes the shards;
+leaves come back as CPU tensors.
+
+A save is written into ``<dir>/.tmp-<step>-<pid>``, every file flushed and
+fsynced, and the directory renamed into place with directory fsyncs
+around the rename, so neither a reader nor a crash (or a power loss) ever
+sees a partial step. ``keep`` bounds the steps kept; the sweep after a
+save also removes the temporary directories of crashed saves.
 """
 from __future__ import annotations
 
@@ -25,6 +32,18 @@ import numpy as np
 from repro_torch.convert import numpy_from_tensor, tensor_from_numpy
 
 SHARD_BYTES = 512 << 20        # leaves striped into npz shards of ~this size
+# the leaves of a packed linear that hold its ±1 words (uint32 on disk)
+PACKED_WORDS = frozenset({"qv", "qu_t"})
+
+
+def _fsync_path(path: str) -> None:
+    """fsync a file or directory by path (a directory's fsync commits its
+    entries: a rename alone is not durable across a power loss)."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
 
 
 def _flatten(tree, prefix=()) -> List[Tuple[Tuple[str, ...], Any]]:
@@ -48,8 +67,9 @@ def _unflatten(items) -> Dict:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str):
+    def __init__(self, directory: str, keep: int = 3):
         self.dir = directory
+        self.keep = keep
 
     def _step_dir(self, step: int) -> str:
         return os.path.join(self.dir, f"step_{step:08d}")
@@ -69,18 +89,31 @@ class CheckpointManager:
         return s[-1] if s else None
 
     def meta(self, step: int) -> dict:
+        """The saved meta.json of `step` (shapes, dtypes, per-leaf crc32s):
+        integrity checks without loading arrays."""
         with open(os.path.join(self._step_dir(step), "meta.json")) as f:
             return json.load(f)
 
-    def save(self, step: int, tree: Any, template: Any) -> str:
+    # ---- save --------------------------------------------------------------
+
+    def save(self, step: int, tree: Any, template: Any = None,
+             keyed: bool = False) -> str:
         """Write nested dict `tree` of tensors as step `step`, in the
-        layout and leaf order the JAX package writes and reads; a leaf
-        whose `template` spec says ``uint32`` (packed words, int32 in the
-        port) is stored as uint32. Atomic: written beside the step and
-        renamed into place. Returns the step directory."""
-        flat, specs = _flatten(tree), _flatten(template)
-        if [p for p, _ in flat] != [p for p, _ in specs]:
-            raise ValueError("tree and template differ in structure")
+        layout and leaf order the JAX package writes and reads. A leaf
+        stored as uint32 (packed words, int32 in the port) is one whose
+        `template` spec says ``uint32``, or without a template one named
+        ``qv`` / ``qu_t``. With ``keyed=True`` meta.json also records each
+        leaf's key path, so :meth:`restore_keyed` (and the JAX package's)
+        rebuilds the tree without a template. Durable and atomic. Returns
+        the step directory."""
+        flat = _flatten(tree)
+        if template is not None:
+            specs = _flatten(template)
+            if [p for p, _ in flat] != [p for p, _ in specs]:
+                raise ValueError("tree and template differ in structure")
+            words = [str(s.dtype) == "uint32" for _, s in specs]
+        else:
+            words = [bool(p) and p[-1] in PACKED_WORDS for p, _ in flat]
         os.makedirs(self.dir, exist_ok=True)
         tmp = os.path.join(self.dir, f".tmp-{step}-{os.getpid()}")
         if os.path.exists(tmp):
@@ -88,9 +121,8 @@ class CheckpointManager:
         os.makedirs(tmp)
         shards, cur, cur_bytes = [], {}, 0
         shapes, dtypes, checksums = [], [], []
-        for i, ((_, leaf), (_, spec)) in enumerate(zip(flat, specs)):
-            arr, name = numpy_from_tensor(
-                leaf, "uint32" if str(spec.dtype) == "uint32" else None)
+        for i, ((_, leaf), word) in enumerate(zip(flat, words)):
+            arr, name = numpy_from_tensor(leaf, "uint32" if word else None)
             shapes.append(list(arr.shape))
             dtypes.append(name)
             checksums.append(zlib.crc32(np.ascontiguousarray(arr).tobytes()))
@@ -106,29 +138,39 @@ class CheckpointManager:
                 np.savez(f, **shard)
                 f.flush()
                 os.fsync(f.fileno())
+        meta = {"step": step, "n_leaves": len(flat), "n_shards": len(shards),
+                "shapes": shapes, "dtypes": dtypes, "checksums": checksums}
+        if keyed:
+            meta["keypaths"] = ["/".join(p) for p, _ in flat]
         with open(os.path.join(tmp, "meta.json"), "w") as f:
-            json.dump({"step": step, "n_leaves": len(flat),
-                       "n_shards": len(shards), "shapes": shapes,
-                       "dtypes": dtypes, "checksums": checksums}, f)
+            json.dump(meta, f)
             f.flush()
             os.fsync(f.fileno())
+        _fsync_path(tmp)
         final = self._step_dir(step)
         if os.path.exists(final):
             shutil.rmtree(final)
-        os.replace(tmp, final)
+        os.replace(tmp, final)                       # the atomic commit
+        _fsync_path(self.dir)
+        self._retain()
         return final
 
-    def restore(self, step: int, template: Any) -> Dict:
-        """Load `step` into the structure of `template` (a nested dict
-        whose leaves carry ``.shape``). Returns a nested dict of CPU
-        tensors, bit-exact (packed uint32 words as int32)."""
+    def _retain(self) -> None:
+        steps = self.steps()
+        for s in steps[: max(0, len(steps) - self.keep)]:
+            shutil.rmtree(self._step_dir(s), ignore_errors=True)
+        for name in os.listdir(self.dir):            # crashed saves
+            if name.startswith(".tmp-"):
+                shutil.rmtree(os.path.join(self.dir, name),
+                              ignore_errors=True)
+
+    # ---- restore -----------------------------------------------------------
+
+    def _leaves(self, step: int, meta: dict, names: List[str]) -> List:
+        """The stored leaves of `step`, each verified against meta.json
+        (shard present, leaf present, shape, crc32), as CPU tensors.
+        `names` names each leaf in the errors."""
         d = self._step_dir(step)
-        meta = self.meta(step)
-        flat = _flatten(template)
-        if meta["n_leaves"] != len(flat):
-            raise ValueError(
-                f"checkpoint has {meta['n_leaves']} leaves, template has "
-                f"{len(flat)} — structure mismatch")
         arrays: dict = {}
         for k in range(meta["n_shards"]):
             shard_path = os.path.join(d, f"arrays-{k}.npz")
@@ -139,9 +181,9 @@ class CheckpointManager:
                 arrays.update({n: z[n] for n in z.files})
         checksums = meta.get("checksums")  # absent in pre-crc artifacts
         shapes = meta.get("shapes")
-        leaves = []
-        for i, (path, spec) in enumerate(flat):
-            where = f"leaf {i} ({'/'.join(path)})"
+        out = []
+        for i, name in enumerate(names):
+            where = f"leaf {i} ({name})"
             key = f"leaf_{i:06d}"
             if key not in arrays:
                 raise ValueError(f"corrupt/truncated checkpoint {d!r}: "
@@ -159,12 +201,41 @@ class CheckpointManager:
                         f"corrupt/truncated checkpoint {d!r}: {where} "
                         f"checksum mismatch (stored crc32 "
                         f"{checksums[i]:#010x}, loaded {got:#010x})")
-            if tuple(raw.shape) != tuple(spec.shape):
-                raise ValueError(f"{where}: checkpoint shape "
-                                 f"{tuple(raw.shape)} != template "
+            out.append(tensor_from_numpy(raw, meta["dtypes"][i]))
+        return out
+
+    def restore(self, step: int, template: Any) -> Dict:
+        """Load `step` into the structure of `template` (a nested dict
+        whose leaves carry ``.shape``). Returns a nested dict of CPU
+        tensors, bit-exact (packed uint32 words as int32)."""
+        meta = self.meta(step)
+        flat = _flatten(template)
+        if meta["n_leaves"] != len(flat):
+            raise ValueError(
+                f"checkpoint has {meta['n_leaves']} leaves, template has "
+                f"{len(flat)} — structure mismatch")
+        leaves = self._leaves(step, meta, ["/".join(p) for p, _ in flat])
+        for i, ((path, spec), leaf) in enumerate(zip(flat, leaves)):
+            if tuple(leaf.shape) != tuple(spec.shape):
+                raise ValueError(f"leaf {i} ({'/'.join(path)}): checkpoint "
+                                 f"shape {tuple(leaf.shape)} != template "
                                  f"{tuple(spec.shape)}")
-            leaves.append((path, tensor_from_numpy(raw, meta["dtypes"][i])))
-        return _unflatten(leaves)
+        return _unflatten([(p, l) for (p, _), l in zip(flat, leaves)])
+
+    def restore_keyed(self, step: int) -> Dict:
+        """Template-free restore of a checkpoint written with
+        ``save(..., keyed=True)`` (by either package): the nested dict
+        rebuilt from the recorded key paths, with the same per-leaf
+        checks as :meth:`restore`."""
+        meta = self.meta(step)
+        keypaths = meta.get("keypaths")
+        if keypaths is None:
+            raise ValueError(
+                f"checkpoint {self._step_dir(step)!r} was not saved keyed "
+                f"(no keypaths in meta) — use restore(template=...)")
+        leaves = self._leaves(step, meta, keypaths)
+        return _unflatten([(tuple(kp.split("/")), l)
+                           for kp, l in zip(keypaths, leaves)])
 
     def restore_latest(self, template: Any) -> Optional[Tuple[int, Dict]]:
         step = self.latest_step()

@@ -1,6 +1,7 @@
 """NanoQuant end-to-end pipeline (paper Alg. 1), the port of
 ``repro.core.pipeline`` for the dense, audio, MoE (GQA or MLA attention,
-stacked experts) and SSM (Mamba2) families.
+stacked experts), SSM (Mamba2) and hybrid (Mamba2 with a shared
+attention block) families.
 
 Phase 1  global calibration      -> diagonal K-FAC stats via the layers'
          taps (``models.layers.taps``)
@@ -14,16 +15,27 @@ Phase 3  model reconstruction    -> KL distillation of the packed model,
 Two activation streams are kept (paper §3.2 Step 1): X_q flows through
 the already-compressed prefix, X_fp through the FP teacher; the block
 target is always Y = B_fp(X_fp), so TuneFP absorbs accumulated
-quantization error.
+quantization error. The hybrid's shared block is quantized first, on
+its inputs gathered from the teacher stream at every application; after
+each Mamba2 block that it follows, X_q goes through the quantized shared
+block and X_fp through the FP one.
 
 Random draws are named by key paths (``core.admm``): block bi's linear li
 draws from ``(seed, bi, li)`` on the first rung of the init-method
 ladder and ``(seed, bi, 7919 + ai, li)`` on rung ai — the path along
 which the JAX package folds its PRNG keys; stacked experts are one
 batched solve per linear at one rank, expert e drawing from the path
-plus ``(E, e)`` (``core.admm._rand_range_init``). The hybrid and VLM
-families' blocks, the crash-safe journal and fault injection are ROADMAP
-item 11b.
+plus ``(E, e)`` (``core.admm._rand_range_init``). So a block's result
+depends on nothing but its inputs, which is what makes a resumed run
+bit-identical.
+
+Crash safety: with a journal directory every finished block's packed
+leaves and a crc32'd journal line are written as the run goes
+(``checkpoint.journal.QuantJournal``, the JAX package's format); a resume
+recomputes the calibration and the streams, reloads the finished blocks
+and quantizes the rest. ``quant.faults.QuantFaultPlan`` injects crashes,
+divergence and journal damage at the pipeline's seams. The VLM's blocks
+wait for ROADMAP item 11b-1 (the VLM half).
 """
 from __future__ import annotations
 
@@ -103,7 +115,9 @@ class BlockRef:
 
 def blocks_of(cfg) -> List[BlockRef]:
     """The blocks in quantization order: the MoE family's
-    ``first_k_dense`` blocks (``dense_layers``) before its MoE blocks."""
+    ``first_k_dense`` blocks (``dense_layers``) before its MoE blocks; the
+    hybrid's shared attention block (unstacked, its taps aggregated over
+    its applications) before its Mamba2 layers."""
     fam = cfg.family
     if fam in ("dense", "audio", "ssm"):
         kind = "mamba" if fam == "ssm" else "attn"
@@ -114,9 +128,14 @@ def blocks_of(cfg) -> List[BlockRef]:
                  for i in range(n_dense)]
                 + [BlockRef("layers", i, i, "attn")
                    for i in range(cfg.n_layers - n_dense)])
+    if fam == "hybrid":
+        return ([BlockRef("shared_attn", None, None, "attn")]
+                + [BlockRef("layers", i, i, "mamba")
+                   for i in range(cfg.n_layers)])
     raise NotImplementedError(
-        f"quantizing the {fam} family's blocks is ROADMAP item 11b; the "
-        f"port quantizes the dense, audio, moe and ssm families")
+        f"quantizing the {fam} family's blocks is ROADMAP item 11b-1 (the "
+        f"VLM half); the port quantizes the dense, audio, moe, ssm and "
+        f"hybrid families")
 
 
 def make_apply(cfg, kind):
@@ -128,7 +147,8 @@ def make_apply(cfg, kind):
         def f(bp, x, ctx):
             return T._apply_mamba_block(bp, cfg, x)[0]
     else:
-        raise NotImplementedError(f"{kind} blocks are ROADMAP item 11b")
+        raise NotImplementedError(
+            f"{kind} blocks are ROADMAP item 11b-1 (the VLM half)")
     return f
 
 
@@ -304,7 +324,8 @@ def _attempt_key(kb, ai: int, li: int):
 
 
 def _quantize_block(apply_fn, bp_fp, Xq_b, Y, ctx_b, stats, bref,
-                    label: str, qcfg: QuantConfig, kb, log):
+                    label: str, qcfg: QuantConfig, kb, faults, bi: int,
+                    log):
     """Steps 1-3 + packing for one block, with divergence detection and
     the init-method fallback ladder. Returns (packed bp, out_q, report
     row, {rank-key: rank})."""
@@ -343,9 +364,15 @@ def _quantize_block(apply_fn, bp_fp, Xq_b, Y, ctx_b, stats, bref,
                     pdict, d_in, d_out,
                     dataclasses.replace(qcfg, init_method=method),
                     _attempt_key(kb, ai, li))
+                fault = (faults.poison_init(bi, li)
+                         if faults is not None else None)
+                if fault is not None:
+                    lat = dict(lat, lu=torch.full_like(lat["lu"],
+                                                       float("nan")))
                 _check_finite(
                     {k: lat[k] for k in _LATENT_KEYS}, label, name,
-                    f"init method {method!r} produced non-finite latents")
+                    f"init method {method!r} produced non-finite latents",
+                    iteration=fault.iteration if fault is not None else None)
                 ranks_b[f"{bref.stack}[{bref.idx}].{name}"] = r
                 bp = _set_path(bp, path, lat)
 
@@ -417,17 +444,24 @@ def nanoquant_quantize(params, cfg, calib_batches, qcfg: QuantConfig,
     calib_batches: list of {'tokens', 'labels'} dicts (the audio
     family's (B, S, K) frames). Returns
     (quantized params, report): per-block rows, the ranks, the KD losses,
-    ``wall_s`` and ``seconds`` (calibration, each block, KD; each read
-    after the device finished). `heartbeat` is called with a short
-    progress string at block and KD boundaries. The crash-safe journal
-    (`journal_dir`, `resume`) and fault injection (`faults`) are ROADMAP
-    item 11b: setting them raises."""
-    for name, val in (("journal_dir", journal_dir), ("resume", resume),
-                      ("faults", faults)):
-        if val:
-            raise NotImplementedError(
-                f"nanoquant_quantize({name}=...) — the crash-safe journal "
-                f"and fault injection are ROADMAP item 11b")
+    ``wall_s`` and ``seconds`` (calibration, the hybrid's gather of the
+    shared block's inputs, each block, KD; each read after the device
+    finished). `heartbeat` is called with a short progress string at
+    block and KD boundaries (what ``launch.quantize --supervise`` watches).
+
+    Crash safety: with `journal_dir`, every finished block's packed
+    leaves and a crc32'd journal entry are written as the run goes
+    (``checkpoint.journal.QuantJournal``); ``resume=True`` validates the
+    journal against this run's fingerprint (model and quant configs,
+    params, calibration), reloads the finished blocks and quantizes the
+    rest: the artifact and the report rows are bit-identical to an
+    uninterrupted run's. Calibration and the streams are recomputed; only
+    blocks are skipped. A diverged block retries down the
+    ``QuantConfig.fallback_inits`` ladder; every decision lands in the
+    journal and the report. `faults` (a ``quant.faults.QuantFaultPlan``)
+    injects a deterministic fault schedule."""
+    if resume and not journal_dir:
+        raise ValueError("resume=True requires journal_dir")
     blocks = blocks_of(cfg)
     dev = params["embed"].device
     t0 = _clock(dev)
@@ -444,9 +478,30 @@ def nanoquant_quantize(params, cfg, calib_batches, qcfg: QuantConfig,
 
     # ---- Phase 1: global calibration -------------------------------------
     stats = precond.collect_stats(T.loss_fn, params, cfg, calib_batches)
-    t_blocks = _clock(dev)
-    secs["calibration"] = t_blocks - t0
+    t_cal = _clock(dev)
+    secs["calibration"] = t_cal - t0
 
+    # ---- journal / resume --------------------------------------------------
+    journal, done = None, {}
+    if journal_dir:
+        from repro_torch.checkpoint.journal import (QuantJournal,
+                                                    run_fingerprint)
+        journal = QuantJournal(journal_dir)
+        fingerprint = run_fingerprint(params, cfg, qcfg, calib_batches,
+                                      len(blocks))
+        if resume:
+            done = journal.entries_for_resume(fingerprint)
+            if done is None:                # no journal yet: a fresh start
+                done = {}
+                journal.start(fingerprint)
+            elif done:
+                log(f"[nanoquant] resuming: {len(done)}/{len(blocks)} "
+                    f"blocks journaled in {journal_dir}")
+        else:
+            journal.start(fingerprint)
+        secs["journal"] = time.perf_counter() - t_cal
+
+    hybrid_boundary = (lambda i: T.shared_app(cfg, i) is not None)
     with torch.no_grad():
         # ---- activation streams ------------------------------------------
         toks = torch.cat([b["tokens"] for b in calib_batches], 0).to(dev)
@@ -456,22 +511,73 @@ def nanoquant_quantize(params, cfg, calib_batches, qcfg: QuantConfig,
         applies = {b.kind: make_apply(cfg, b.kind) for b in blocks}
         quantized: Dict[Tuple, Any] = {}
 
+        # the hybrid's shared block is quantized first: its application
+        # inputs are gathered from the teacher stream up front
+        shared_inputs = None
+        if cfg.family == "hybrid":
+            t_g = _clock(dev)
+            xs, gathered = x0, []
+            for b in blocks:
+                if b.stack != "layers":
+                    continue
+                xs = applies["mamba"](b.get(params), xs, ctx)
+                if hybrid_boundary(b.idx):
+                    gathered.append(xs)
+                    xs = applies["attn"](params["shared_attn"], xs, ctx)
+            shared_inputs = torch.cat(gathered, 0)
+            del xs, gathered
+            secs["gather"] = _clock(dev) - t_g
+
         # ---- Phase 2: block reconstruction -------------------------------
         for bi, bref in enumerate(blocks):
             t_b = time.perf_counter()
             label = f"{bref.stack}[{bref.idx}]"
             kb = (qcfg.seed, bi)
+            bp_fp = bref.get(params)
             apply_fn = applies[bref.kind]
-            Y = apply_fn(bref.get(params), Xfp, ctx)
-            beat(f"block={bi}/{len(blocks)} {label} start")
-            bp, out_q, row, ranks_b = _quantize_block(
-                apply_fn, bref.get(params), Xq, Y, ctx, stats, bref, label,
-                qcfg, kb, log)
-            report["ranks"].update(ranks_b)
-            beat(f"block={bi}/{len(blocks)} {label} done "
-                 f"err={row['block_err']:.5f}")
+            if bref.stack == "shared_attn":
+                Xq_b = Xfp_b = shared_inputs
+            else:
+                Xq_b, Xfp_b = Xq, Xfp
+            Y = apply_fn(bp_fp, Xfp_b, ctx)
+            if bi in done:
+                # resumed: reload the packed block and replay its report
+                # row; the recomputation it stands for is deterministic
+                entry = done[bi]
+                bp = util.tree_map(lambda t: t.to(dev),
+                                   journal.load_block(bi))
+                report["ranks"].update(entry["ranks"])
+                row = dict(entry["row"])
+                out_q = apply_fn(bp, Xq_b, ctx)
+                beat(f"block={bi}/{len(blocks)} {label} resumed")
+            else:
+                if faults is not None:
+                    faults.on_block_start(bi)
+                beat(f"block={bi}/{len(blocks)} {label} start")
+                bp, out_q, row, ranks_b = _quantize_block(
+                    apply_fn, bp_fp, Xq_b, Y, ctx, stats, bref, label,
+                    qcfg, kb, faults, bi, log)
+                report["ranks"].update(ranks_b)
+                if journal is not None:
+                    extra = journal.save_block(bi, label, bp)
+                    if faults is not None:
+                        faults.after_block_save(bi)
+                    journal.append_block({"bi": bi, "block": label,
+                                          "ranks": ranks_b, "row": row,
+                                          **extra})
+                    if faults is not None:
+                        faults.on_journal_append(bi, journal)
+                beat(f"block={bi}/{len(blocks)} {label} done "
+                     f"err={row['block_err']:.5f}")
             quantized[(bref.stack, bref.idx)] = bp
-            Xq, Xfp = out_q, Y                    # advance the streams
+
+            # advance the streams
+            if bref.stack != "shared_attn":
+                Xq, Xfp = out_q, Y
+                if hybrid_boundary(bref.idx):
+                    Xq = applies["attn"](quantized[("shared_attn", None)],
+                                         Xq, ctx)
+                    Xfp = applies["attn"](params["shared_attn"], Xfp, ctx)
             report["blocks"].append(row)
             log(f"[nanoquant] {label} err={row['block_err']:.5f}"
                 + (f" init={row['init_method']}" if row["fallbacks"] else ""))

@@ -59,10 +59,11 @@ def make_batch(cfg: ModelConfig, corpus: SyntheticCorpus, seed: int,
     """Pure function of (seed, step) -> {'tokens', 'labels'}: (B, S) for
     the token families; the audio family's (B, S, K) frames, K streams
     drawn one after another from the step's generator. The VLM's image
-    embeddings wait for its quantization (ROADMAP item 11b)."""
+    embeddings wait for its quantization (ROADMAP item 11b-1, the VLM
+    half)."""
     if cfg.family == "vlm":
         raise NotImplementedError(
-            "vlm calibration batches are ROADMAP item 11b")
+            "vlm calibration batches are ROADMAP item 11b-1 (the VLM half)")
     rng = np.random.default_rng(np.random.SeedSequence([seed, step]))
     if cfg.family == "audio":
         full = np.stack([corpus.sample(rng, batch, seq)

@@ -1,8 +1,8 @@
 """Quantization CLI, the port of ``repro.launch.quantize`` for the
-dense, audio, MoE and SSM families: build the FP teacher, run the
-NanoQuant pipeline through
-``NanoQuantModel.quantize``, save the packed artifact and report sizes
-and perplexities.
+dense, audio, MoE, SSM and hybrid families: build the FP teacher, check
+the inputs (``quant.preflight``), run the NanoQuant pipeline through
+``NanoQuantModel.quantize``, save the packed artifact and report sizes and
+perplexities.
 
     PYTHONPATH=src python -m repro_torch.launch.quantize --arch llama3.2-1b \
         --bpw 1.0 --out /tmp/nq
@@ -12,11 +12,18 @@ The teacher is ``models.transformer.init_params`` from seed 0 (what the
 JAX package's CLI quantizes with ``--teacher-steps 0``): the smoke
 config by default, the published one with ``--full``. The run is on
 ``--device`` (``cuda`` by default; nothing falls back to the CPU).
+
+Fault tolerance: ``--journal-dir`` makes the run crash-safe (a per-block
+journal, ``checkpoint.journal``); ``--resume`` picks a killed run up from
+its journal and gives a bit-identical artifact. ``--supervise`` re-runs
+this CLI under ``launch/supervisor.py``, restarting it on a crash and
+on missing ``[quant] heartbeat`` lines; a restarted child gets
+``--resume``. ``--crash-at-block N`` injects one crash when block N
+starts, on the first attempt only (a restart drill).
+
 Teacher training (``--teacher-steps`` > 0, ``--teacher-ckpt``) waits for
-the trainer (ROADMAP item 13); the crash-safe journal and its supervisor
-(``--journal-dir``, ``--resume``, ``--supervise``, ``--heartbeat``,
-``--crash-at-block``) and the hybrid and VLM families wait for item
-11b. Those flags exit non-zero.
+the trainer (ROADMAP item 13) and the VLM's quantization for item 11b-1
+(the VLM half); both exit non-zero.
 """
 from __future__ import annotations
 
@@ -24,23 +31,21 @@ import argparse
 import dataclasses
 import json
 import os
+import sys
 
 # flags of the JAX package's CLI the port refuses: (flag, what it
 # needs, the ROADMAP item that brings it)
 _REFUSED = (
     ("teacher_steps", "a trained teacher", "13 (the trainer)"),
     ("teacher_ckpt", "a trained teacher", "13 (the trainer)"),
-    ("journal_dir", "the crash-safe journal", "11b"),
-    ("resume", "the crash-safe journal", "11b"),
-    ("supervise", "the crash-safe journal", "11b"),
-    ("heartbeat", "the crash-safe journal's supervisor", "11b"),
-    ("crash_at_block", "quantization fault injection", "11b"),
 )
+HEARTBEAT_RE = r"\[quant\] heartbeat"
 
 
 def main(argv=None):
     from repro_torch.configs import get_config, get_smoke, list_archs
 
+    argv = sys.argv[1:] if argv is None else list(argv)
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-1b", choices=list_archs())
     ap.add_argument("--full", action="store_true",
@@ -61,31 +66,71 @@ def main(argv=None):
     ap.add_argument("--t-pre", type=int, default=40)
     ap.add_argument("--t-post", type=int, default=60)
     ap.add_argument("--t-glob", type=int, default=60)
+    # fault tolerance
+    ap.add_argument("--journal-dir", default="",
+                    help="per-block progress journal dir (enables "
+                         "--resume and supervised restarts)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume a killed run from --journal-dir "
+                         "(bit-identical artifact)")
+    ap.add_argument("--no-preflight", action="store_true",
+                    help="skip input validation (calib/params/memory)")
+    ap.add_argument("--heartbeat", action="store_true",
+                    help="print '[quant] heartbeat ...' per block (what "
+                         "--supervise hang detection watches)")
+    ap.add_argument("--supervise", action="store_true",
+                    help="run under launch/supervisor.py: restart on "
+                         "crash, kill+restart on missing heartbeats, "
+                         "children resume from --journal-dir")
+    ap.add_argument("--hang-timeout", type=float, default=600.0,
+                    help="--supervise: seconds without a heartbeat "
+                         "before the child is declared hung")
+    ap.add_argument("--max-restarts", type=int, default=3,
+                    help="--supervise: restart budget")
+    ap.add_argument("--crash-at-block", type=int, default=-1,
+                    help="inject one crash when this block starts, "
+                         "first attempt only (restart drill)")
     # the JAX package's flags the port does not take yet (_REFUSED)
     ap.add_argument("--teacher-steps", type=int, default=0)
     ap.add_argument("--teacher-ckpt", default="")
-    ap.add_argument("--journal-dir", default="")
-    ap.add_argument("--resume", action="store_true")
-    ap.add_argument("--supervise", action="store_true")
-    ap.add_argument("--heartbeat", action="store_true")
-    ap.add_argument("--crash-at-block", type=int, default=-1)
     args = ap.parse_args(argv)
     for flag, needs, item in _REFUSED:
         if getattr(args, flag) != ap.get_default(flag):
             ap.error(f"--{flag.replace('_', '-')} needs {needs}, which the "
                      f"port does not have yet (ROADMAP item {item})")
+    cfg = get_config(args.arch) if args.full else get_smoke(args.arch)
+    if cfg.family == "vlm":
+        ap.error("quantizing the vlm family is ROADMAP item 11b-1 (the VLM "
+                 "half)")
+    if args.resume and not args.journal_dir:
+        ap.error("--resume needs --journal-dir")
+
+    if args.supervise:
+        from repro_torch.launch import supervisor
+        if not args.journal_dir:
+            ap.error("--supervise needs --journal-dir so restarted "
+                     "children can resume instead of redoing everything")
+        child = [a for a in argv if a != "--supervise"]
+        for extra in ("--resume", "--heartbeat"):
+            if extra not in child:
+                child.append(extra)
+        raise SystemExit(supervisor.supervise(
+            [sys.executable, "-m", "repro_torch.launch.quantize"] + child,
+            max_restarts=args.max_restarts,
+            hang_timeout=args.hang_timeout,
+            heartbeat_pattern=HEARTBEAT_RE))
 
     import torch
     from repro_torch import resolve_device
     from repro_torch.api import NanoQuantModel
     from repro_torch.api.init_methods import list_init_methods
+    from repro_torch.checkpoint.journal import QuantJournal
     from repro_torch.core.pipeline import QuantConfig
     from repro_torch.data.synthetic import SyntheticCorpus, calib_batches
     from repro_torch.models import transformer as T
+    from repro_torch.quant.faults import QuantFault, QuantFaultPlan
+    from repro_torch.quant.preflight import preflight
 
-    cfg = get_config(args.arch) if args.full else get_smoke(args.arch)
-    if cfg.family in ("hybrid", "vlm"):
-        ap.error(f"quantizing the {cfg.family} family is ROADMAP item 11b")
     if args.init_method not in list_init_methods():
         ap.error(f"unknown init method {args.init_method!r}; available: "
                  f"{list_init_methods()}")
@@ -96,14 +141,43 @@ def main(argv=None):
     calib = calib_batches(cfg, args.calib_samples, args.calib_seq,
                           corpus=corpus)
     evalb = calib_batches(cfg, 8, args.calib_seq, seed=99, corpus=corpus)
+
+    # ---- preflight (fail fast, not at block 17) ----------------------------
+    if not args.no_preflight:
+        pf = preflight(params, cfg, calib)
+        print(f"[quantize] preflight ok: {pf['n_batches']} batches, "
+              f"{pf['n_calib_tokens']} calib tokens, "
+              f"~{pf['est_block_bytes'] / 2**20:.0f} MiB/block of "
+              f"{pf['available_bytes'] / 2**20:.0f} MiB free on "
+              f"{pf['device']}", flush=True)
+
     ppl_fp = NanoQuantModel.from_fp(params, cfg).perplexity(evalb)
+
+    # ---- fault injection drill ---------------------------------------------
+    faults = None
+    if args.crash_at_block >= 0:
+        # fire only on the first attempt (journal still empty), so that a
+        # supervised restart makes progress instead of crashing again
+        already = (QuantJournal(args.journal_dir).n_completed_blocks()
+                   if args.journal_dir else 0)
+        if already == 0:
+            faults = QuantFaultPlan([QuantFault(block=args.crash_at_block,
+                                                kind="crash_block")])
+
+    heartbeat = None
+    if args.heartbeat:
+        def heartbeat(msg):
+            print(f"[quant] heartbeat {msg}", flush=True)
 
     qcfg = QuantConfig(target_bpw=args.bpw, rank_align=args.rank_align,
                        init_method=args.init_method,
                        fallback_inits=args.fallback_inits,
                        admm_iters=args.admm_iters, t_pre=args.t_pre,
                        t_post=args.t_post, t_glob=args.t_glob)
-    model = NanoQuantModel.quantize(params, cfg, calib, qcfg, device=device)
+    model = NanoQuantModel.quantize(
+        params, cfg, calib, qcfg, device=device,
+        journal_dir=args.journal_dir or None, resume=args.resume,
+        faults=faults, heartbeat=heartbeat)
     ppl_q = model.perplexity(evalb)
 
     sizes = model.size_report()

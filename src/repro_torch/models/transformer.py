@@ -183,9 +183,15 @@ def backbone(params, cfg: ModelConfig, tokens, image_embeds=None):
             L.set_scope(name, idx)
             if cfg.is_ssm_layer_stack:
                 x, _ = _apply_mamba_block(lp, cfg, x)
-                if shared_app(cfg, idx) is not None:
+                app = shared_app(cfg, idx)
+                if app is not None:
+                    # the shared block's taps go under its application,
+                    # as the reference files them; the next layer sets
+                    # its own scope again
+                    L.set_scope("shared_attn", app)
                     x = _apply_attn_block(params["shared_attn"], cfg, x,
                                           positions)
+                    L.set_scope("", None)
             else:
                 x = _apply_attn_block(lp, cfg, x, positions)
     L.set_scope("", None)
@@ -265,13 +271,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     ``first_k_dense`` blocks at ``dense_d_ff``; MLA's six projections; the
     Mamba2 mixer's convs N(0, 0.2), ``A_log`` = log linspace(1, 16),
     ``D`` = 1, ``dt_bias`` uniform on [log 1e-3, log 1e-1] (those three
-    f32). Each stack's leaves carry a leading layer axis. `generator`
-    lives on `device`; the numbers differ from JAX's draws (another
-    generator). The hybrid and VLM teachers wait for their quantization
-    (ROADMAP item 11b)."""
-    if cfg.family in ("hybrid", "vlm"):
+    f32); the hybrid's Mamba2 stack and its one shared attention + FFN
+    block (``shared_attn``, no leading axis). Each stack's leaves carry a
+    leading layer axis. `generator` lives on `device`; the numbers differ
+    from JAX's draws (another generator). The VLM's teacher waits for its
+    quantization (ROADMAP item 11b-1, the VLM half)."""
+    if cfg.family == "vlm":
         raise NotImplementedError(
-            f"init_params of the {cfg.family} family is ROADMAP item 11b")
+            "init_params of the vlm family is ROADMAP item 11b-1 (the VLM "
+            "half)")
     dt, d = torch_dtype(cfg), cfg.d_model
     f32 = torch.float32
 
@@ -351,8 +359,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     p = {"embed": normal((cfg.n_codebooks, cfg.vocab_size, d) if audio
                          else (cfg.vocab_size, d), 0.02),
          "ln_f": full((d,), 1.0)}
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         p["layers"] = mamba_block(n)
+        if cfg.family == "hybrid":
+            p["shared_attn"] = tree_index(
+                attn_block(1, "ffn", lambda m: ffn(m, cfg.d_ff)), 0)
     elif cfg.family == "moe":
         k = cfg.first_k_dense
         if k:

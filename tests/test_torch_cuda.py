@@ -1488,3 +1488,49 @@ def test_stacked_lb_admm_on_the_card_vs_cpu(dev, monkeypatch):
     for k in ("resets", "diverged"):
         assert torch.equal(res["cpu"]["health"][k],
                            res["cuda"]["health"][k].cpu()), k
+
+
+@pytest.mark.cuda
+def test_journaled_drill_on_the_card_is_bit_identical(dev, tmp_path):
+    """The crash-safe pipeline on the card at the quantization chaos
+    benchmark's size (2 dense layers, d 64, bf16): a journaled run, then a
+    run crashed when block 1 starts and resumed from its journal. The
+    resume reloads block 0 and gives the uninterrupted run's packed leaves
+    and report rows bit for bit (the block steps are deterministic on the
+    card: #1 has no float atomics and the rest are plain ops). Preflight
+    reads the card's free memory."""
+    from repro_torch.checkpoint.journal import _crc_leaves
+    from repro_torch.core import pipeline
+    from repro_torch.data.synthetic import SyntheticCorpus, calib_batches
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.quant.faults import (InjectedPipelineCrash, QuantFault,
+                                          QuantFaultPlan)
+    from repro_torch.quant.preflight import preflight
+    cfg = ModelConfig(name="chaos-tiny", family="dense", n_layers=2,
+                      d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+                      vocab_size=256, loss_chunk=0, remat=False)
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+    calib = calib_batches(cfg, 8, 32, batch=4,
+                          corpus=SyntheticCorpus(cfg.vocab_size))
+    qcfg = pipeline.QuantConfig(min_dim=32, admm_iters=6, t_pre=2, t_post=4,
+                                t_glob=2)
+    info = preflight(params, cfg, calib)
+    assert info["device"].startswith("cuda")
+    assert 0 < info["available_bytes"] <= torch.cuda.mem_get_info(dev)[1]
+
+    def run(d, **kw):
+        return pipeline.nanoquant_quantize(params, cfg, calib, qcfg,
+                                           verbose=False, journal_dir=d,
+                                           **kw)
+    qp0, rep0 = run(str(tmp_path / "a"))
+    plan = QuantFaultPlan([QuantFault(1, "crash_block")])
+    with pytest.raises(InjectedPipelineCrash):
+        run(str(tmp_path / "b"), faults=plan)
+    assert plan.fired == [(1, "crash_block")]
+    qp1, rep1 = run(str(tmp_path / "b"), resume=True)
+    assert qp1["layers"]["attn"]["wq"]["qu_t"].is_cuda
+    assert _crc_leaves(qp1) == _crc_leaves(qp0)
+    assert rep1["blocks"] == rep0["blocks"]
+    assert rep1["kd_losses"] == rep0["kd_losses"]

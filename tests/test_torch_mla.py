@@ -39,6 +39,7 @@ from _torch_common import (assert_close, cast_jax, check_forward,
                            check_paged_decode, check_prefill, drained,
                            draw_prompts, f32, flat_templates, jax_engine,
                            jax_tree, leaves_equal, packed_model, pair,
+                           one_torch_thread,  # noqa: F401
                            same_tokens, serve_engine, shared_prompts, tol,
                            torch_params)
 from repro import api as japi

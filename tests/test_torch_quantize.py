@@ -17,7 +17,9 @@ JAX's random draws (``core.admm._rand_range_init`` swapped for JAX's,
 keyed by the same fold-in path) — report rows and packed sign bits; the
 artifact read by JAX's ``NanoQuantModel.load`` (logits, engine tokens);
 the paper's ordering against in-place binarization; the fallback ladder;
-the refusals of what is ROADMAP item 11b; the CLI quantizing and serving.
+the refusals of what is still to come (the VLM: ROADMAP item 11b-1; a
+trained teacher: item 13) and of misused journal arguments; the CLI
+quantizing and serving.
 
 Tolerances, each measured first and written beside its gate: 1e-5
 relative max-abs (``_torch_common.tol("f32")``) where both packages do the
@@ -788,13 +790,15 @@ def test_size_accounting_matches_jax(arch):
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "qwen1.5-0.5b",
                                   "qwen3-4b", "musicgen-medium",
                                   "qwen3-moe-235b-a22b",
-                                  "deepseek-v2-lite-16b", "mamba2-370m"])
+                                  "deepseek-v2-lite-16b", "mamba2-370m",
+                                  "zamba2-1.2b"])
 def test_init_params_follows_jax_laws(arch):
     """The teacher's tree has JAX's structure, shapes and dtypes (qkv
     biases, qk_norm, audio's (K, V, d) tables and (d, K·V) head, the MoE's
     f32 router, stacked experts and shared experts, the leading dense
-    blocks, MLA's projections and the Mamba2 mixer included), and its
-    draws JAX's laws."""
+    blocks, MLA's projections, the Mamba2 mixer and the hybrid's unstacked
+    shared block included), and its draws JAX's laws; the VLM's teacher
+    still refuses (ROADMAP item 11b-1)."""
     ct = tconfigs.get_smoke(arch)
     want = JT.init_params(jax.random.PRNGKey(0), japi.get_smoke(arch))
     got = TT.init_params(ct, torch.Generator().manual_seed(0), "cpu")
@@ -820,21 +824,22 @@ def test_init_params_follows_jax_laws(arch):
         else:                                     # norms and D 1, biases 0
             assert torch.equal(bf, torch.full_like(bf, float(bf.flatten()[0])))
             assert float(bf.flatten()[0]) == float(np.asarray(a).flat[0])
-    with pytest.raises(NotImplementedError, match="11b"):
-        TT.init_params(tconfigs.get_smoke("zamba2-1.2b"),
+    with pytest.raises(NotImplementedError, match="11b-1"):
+        TT.init_params(tconfigs.get_smoke("llama-3.2-vision-90b"),
                        torch.Generator(), "cpu")
 
 
 @pytest.mark.parametrize("arch", tconfigs.list_archs())
 def test_blocks_of_matches_jax(arch):
     """The blocks in JAX's order, stacks, indices, tap indices and kinds
-    (the MoE's leading dense blocks first, "mamba" for the SSM family);
-    the hybrid and the VLM still refuse (item 11b)."""
+    (the MoE's leading dense blocks first, "mamba" for the SSM family, the
+    hybrid's shared block first with an aggregate tap index); the VLM
+    still refuses (item 11b-1)."""
     ct = tconfigs.get_smoke(arch)
-    if ct.family in ("hybrid", "vlm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 11b"):
+    if ct.family == "vlm":
+        with pytest.raises(NotImplementedError, match="ROADMAP item 11b-1"):
             TP.blocks_of(ct)
-        with pytest.raises(NotImplementedError, match="11b"):
+        with pytest.raises(NotImplementedError, match="11b-1"):
             TP.make_apply(ct, "cross")
         return
     fields = ("stack", "idx", "tap_idx", "kind")
@@ -846,14 +851,35 @@ def test_blocks_of_matches_jax(arch):
         assert callable(TP.make_apply(ct, kind))
 
 
-@pytest.mark.parametrize("kwarg", [{"journal_dir": "/nonexistent"},
-                                   {"resume": True}, {"faults": object()}])
-def test_unported_pipeline_kwargs_refuse(tiny, kwarg):
+@pytest.mark.parametrize("kwarg", [
+    {"journal_dir": "OTHER_RUN", "resume": True}, {"resume": True},
+    {"faults": "CRASH_AT_0"}])
+def test_unported_pipeline_kwargs_refuse(tiny, kwarg, tmp_path):
+    """The journal and fault arguments, ported now, refuse their misuse
+    at both entry points: a resume against another run's journal
+    (``JournalError`` naming what differs), ``resume`` without a journal
+    (``ValueError``); a planned crash fires (``InjectedPipelineCrash``)."""
+    from repro_torch.checkpoint.journal import JournalError, QuantJournal
+    from repro_torch.quant.faults import (InjectedPipelineCrash, QuantFault,
+                                          QuantFaultPlan)
     _, ct, _, tparams, _, tcal = tiny
-    with pytest.raises(NotImplementedError, match="11b"):
-        TP.nanoquant_quantize(tparams, ct, tcal, TP.QuantConfig(), **kwarg)
-    with pytest.raises(NotImplementedError, match="11b"):
-        NanoQuantModel.quantize(tparams, ct, tcal, device="cpu", **kwarg)
+    qc = TP.QuantConfig(**_SHORT)
+    if "journal_dir" in kwarg:
+        QuantJournal(str(tmp_path)).start({"version": 1})
+        kwarg, err = dict(kwarg, journal_dir=str(tmp_path)), \
+            (JournalError, "different run")
+    elif "faults" in kwarg:
+        kwarg, err = {}, (InjectedPipelineCrash, "block 0")
+    else:
+        err = (ValueError, "journal_dir")
+    for quantize in (TP.nanoquant_quantize,
+                     lambda *a, **k: NanoQuantModel.quantize(
+                         *a, device="cpu", **k)):
+        if err[0] is InjectedPipelineCrash:
+            kwarg = {"faults": QuantFaultPlan([QuantFault(0,
+                                                          "crash_block")])}
+        with pytest.raises(err[0], match=err[1]):
+            quantize(tparams, ct, tcal, qc, verbose=False, **kwarg)
 
 
 def test_quantize_entry_points_default_to_the_card(tiny):
@@ -868,16 +894,24 @@ def test_quantize_entry_points_default_to_the_card(tiny):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--teacher-steps", "5"], "13"), (["--teacher-ckpt", "x"], "13"),
-    (["--journal-dir", "j"], "11b"), (["--resume"], "11b"),
-    (["--supervise"], "11b"), (["--heartbeat"], "11b"),
-    (["--crash-at-block", "0"], "11b"), (["--arch", "zamba2-1.2b"], "11b")])
+    (["--teacher-steps", "5"], "ROADMAP item 13"),
+    (["--teacher-ckpt", "x"], "ROADMAP item 13"),
+    (["--arch", "llama-3.2-vision-90b"], "ROADMAP item 11b-1"),
+    (["--arch", "llama-3.2-vision-90b", "--full"], "ROADMAP item 11b-1"),
+    (["--resume"], "--resume needs --journal-dir"),
+    (["--supervise"], "--supervise needs --journal-dir"),
+    (["--supervise", "--crash-at-block", "0"],
+     "--supervise needs --journal-dir"),
+    (["--init-method", "nope"], "unknown init method")])
 def test_quantize_cli_refuses_unported_flags(flags, item, capsys):
+    """What the port's CLI still refuses (a trained teacher, the VLM),
+    naming its ROADMAP item, and the journal flags' misuse, before any
+    work: each exits non-zero with `item` in its message."""
     from repro_torch.launch import quantize as cli
     with pytest.raises(SystemExit) as ei:
         cli.main(flags + ["--device", "cpu"])
     assert ei.value.code != 0
-    assert f"ROADMAP item {item}" in capsys.readouterr().err
+    assert item in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("arch", [None, "musicgen-medium",

@@ -1,0 +1,231 @@
+"""The port's quantization pipeline on the hybrid family against the JAX
+reference: zamba2-1.2b's smoke config (4 Mamba2 blocks, d 64, d_inner 128
+in 8 heads of 16, state 16, chunk 16, the shared attention + FFN block of
+4 heads of 16 and d_ff 128 applied after every second Mamba2 block) in
+float32, packed at ``min_dim`` 16 (the mixer's wz, wx, wB, wC and
+out_proj and all seven of the shared block's linears pack; wdt, 64 -> 8,
+stays FP), with the ``_FAST`` budget of ``tests/test_torch_quantize.py``.
+Calibration sequences of 40 tokens, so the SSD scan pads its last chunk
+and JAX's gradients stay finite (its scan masks after the exp).
+
+Covered, each against the JAX package on the same numpy inputs: the
+calibration taps (every key, the shared block's under
+``("shared_attn", application)``), the block order, the shared block's
+inputs gathered from the teacher stream, its aggregate preconditioners,
+its TuneFP and STE, the KD loss sequence, the whole pipeline under JAX's
+random draws, the port's artifact in JAX's ``NanoQuantModel.load`` and
+``launch.quantize --arch zamba2-1.2b`` on the CPU.
+
+Gates. 1e-5 relative where both packages do the same f32 arithmetic. The
+whole pipeline runs with TuneFP skipped in both packages (as
+``tests/test_torch_quantize_moe.py`` does) and TuneFP is held block by
+block instead (:func:`test_block_tune_fp_and_ste_match_jax`, the shared
+block and a Mamba2 block, at 1e-5). Why: two of the hybrid's blocks see
+X_q == X_fp (the shared block on its gathered inputs, and layers[0],
+which no quantized shared application precedes), where the port's TuneFP
+loss is exactly 0 and JAX's jit noise (1.2e-6 and 1.8e-6) becomes AdamW
+steps; the dense family's gate exempts block 0 only. Measured with
+TuneFP on: the later rows within 7.3 %, sign bits 85.2 % per leaf at the
+least. With it skipped: every row within 3e-4 relative, the KD losses
+within 6.5e-4, sign bits 98.9 % per leaf at the least and 99.9 % on
+average — gated at 2e-3, 5e-3, 95 % and 98 %, beside the dense family's
+looser gates (``check_rows``, ``check_sign_bits``).
+"""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from _torch_common import (assert_close, check_artifact_in_jax,
+                           check_block_tune, check_collect_stats, check_kd,
+                           check_rows, check_sign_bits, jax_pipeline,
+                           one_torch_thread, port_pipeline,  # noqa: F401
+                           sign_shares, tol)
+from repro import api as japi
+from repro.core import pipeline as JP
+from repro.core import precond as jprecond
+from repro.data import synthetic as jdata
+from repro.models import transformer as JT
+from repro_torch import configs as tconfigs
+from repro_torch.convert import params_from_numpy
+from repro_torch.core import pipeline as TP
+from repro_torch.core import precond as tprecond
+from repro_torch.data import synthetic as tdata
+from repro_torch.models import transformer as TT
+
+ARCH = "zamba2-1.2b"
+QC = dict(target_bpw=1.0, admm_iters=8, t_pre=4, t_post=6, t_glob=4,
+          rank_align=32, min_dim=16)
+# the whole pipeline's budget: TuneFP skipped (module docstring)
+QC_PIPE = dict(QC, skip_tune_fp=True)
+ROW_REL, KD_REL, SIGN_FLOOR, SIGN_MEAN = 2e-3, 5e-3, 0.95, 0.98
+SHARED = ("attn.wq", "attn.wk", "attn.wv", "attn.wo", "ffn.w_gate",
+          "ffn.w_up", "ffn.w_down")
+
+
+def _spy(mp, module, inputs):
+    """Record each ``_quantize_block`` call's block input (X_q_b)."""
+    quantize_block = module._quantize_block
+
+    def spy(apply_fn, bp_fp, Xq_b, *a, **k):
+        inputs.append(Xq_b)
+        return quantize_block(apply_fn, bp_fp, Xq_b, *a, **k)
+    mp.setattr(module, "_quantize_block", spy)
+
+
+@pytest.fixture(scope="module")
+def fam():
+    cj = dataclasses.replace(japi.get_smoke(ARCH), dtype="float32")
+    ct = dataclasses.replace(tconfigs.get_smoke(ARCH), dtype="float32")
+    jparams = JT.init_params(jax.random.PRNGKey(0), cj)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    jcal = jdata.calib_batches(cj, n_samples=8, seq=40, batch=4)
+    tcal = tdata.calib_batches(ct, n_samples=8, seq=40, batch=4)
+    return cj, ct, jparams, tparams, jcal, tcal
+
+
+@pytest.fixture(scope="module")
+def jax_run(fam):
+    """JAX's pipeline (``jax_pipeline``) with each block's input kept."""
+    cj, _, jparams, _, jcal, _ = fam
+    inputs = []
+    with pytest.MonkeyPatch.context() as mp:
+        _spy(mp, JP, inputs)
+        run = jax_pipeline(cj, jparams, jcal, QC_PIPE)
+    return run + (inputs,)
+
+
+@pytest.fixture(scope="module")
+def port_run(fam):
+    _, ct, _, tparams, _, tcal = fam
+    inputs = []
+    with pytest.MonkeyPatch.context() as mp:
+        _spy(mp, TP, inputs)
+        model = port_pipeline(ct, tparams, tcal, QC_PIPE)
+    return model, inputs
+
+
+def test_taps_match_jax(fam, jax_run):
+    """Every tap key of JAX's calibration, the shared block's under
+    ``("shared_attn", 0)`` and ``("shared_attn", 1)`` (its two
+    applications) and none of them under a Mamba2 layer's index."""
+    _, ct, _, tparams, _, tcal = fam
+    want, _ = check_collect_stats(jax_run[4], ct, tparams, tcal)
+    shared = {(k[0], k[3]) for k in want.data if k[1] in SHARED}
+    assert shared == {("shared_attn", 0), ("shared_attn", 1)}
+    assert len(want.data) == 4 * 6 * 2 + 2 * 7 * 2
+
+
+def test_blocks_of_matches_jax(fam):
+    cj, ct = fam[:2]
+    fields = ("stack", "idx", "tap_idx", "kind")
+    want = [tuple(getattr(b, f) for f in fields) for b in JP.blocks_of(cj)]
+    assert [tuple(getattr(b, f) for f in fields)
+            for b in TP.blocks_of(ct)] == want
+    assert want[0] == ("shared_attn", None, None, "attn")
+    assert want[1:] == [("layers", i, i, "mamba") for i in range(4)]
+
+
+def test_shared_inputs_match_jax(fam, jax_run, port_run):
+    """The shared block's inputs, gathered from the teacher stream at its
+    two applications and concatenated along the batch (2 x 8 rows), and
+    the first Mamba2 block's (the embeddings) as both pipelines hand them
+    to their block steps."""
+    jin, tin = jax_run[5], port_run[1]
+    assert len(jin) == len(tin) == 5
+    assert tuple(tin[0].shape) == (16, 40, fam[1].d_model)
+    for i in (0, 1):
+        assert_close(jin[i], tin[i], tol("f32"), f"block {i} input")
+
+
+def test_shared_preconditioners_match_jax(fam, jax_run):
+    """The shared block's (D_in, D_out) aggregate its two applications'
+    moments (``tap_idx`` None): each of its seven linears' equals JAX's,
+    and none is the identity a missing tap would give."""
+    _, ct, _, tparams, _, tcal = fam
+    jstats = jax_run[4]
+    tstats = tprecond.collect_stats(TT.loss_fn, tparams, ct, tcal)
+    bp = jax_run[0]["shared_attn"]
+    for name in SHARED:
+        node = bp
+        for k in name.split("."):
+            node = node[k]
+        d_in, d_out = node["s2"].shape[-1], node["s1"].shape[-1]
+        want = jprecond.preconditioners_for(jstats, "shared_attn", name,
+                                            None, d_in, d_out, 0.2)
+        got = tprecond.preconditioners_for(tstats, "shared_attn", name,
+                                           None, d_in, d_out, 0.2)
+        for w, g, side in zip(want, got, ("D_in", "D_out")):
+            assert_close(w, g, tol("f32"), f"{name} {side}")
+            assert not torch.allclose(g, torch.ones_like(g)), (name, side)
+
+
+@pytest.mark.parametrize("stack", ["shared_attn", "layers"])
+def test_block_tune_fp_and_ste_match_jax(fam, stack):
+    """TuneFP then STE of the shared block and of Mamba2 layer 1 from the
+    same inputs, at 1e-5 (``check_block_tune``)."""
+    cj, ct, jparams, _, _, _ = fam
+    if stack == "shared_attn":
+        bp, kind = jparams["shared_attn"], "attn"
+    else:
+        bp, kind = jax.tree.map(lambda l: l[1], jparams["layers"]), "mamba"
+    pre, ste = check_block_tune(cj, ct, bp, kind, QC, seq=40)
+    assert len(pre) == QC["t_pre"] and len(ste) == QC["t_post"]
+
+
+def test_kd_matches_jax(fam, jax_run):
+    cj, ct, jparams, tparams, jcal, tcal = fam
+    check_kd(cj, ct, jparams, tparams, jcal, tcal, jax_run[0], jax_run[3], QC)
+
+
+def test_pipeline_matches_jax(jax_run, port_run):
+    """Report rows, KD losses and packed sign bits under JAX's draws, TuneFP
+    skipped (the gates of the module docstring); the shared block comes
+    back unstacked."""
+    _, jrep, jq, jkd = jax_run[:4]
+    model = port_run[0]
+    check_rows(jrep, jkd, model.report, kd_rel=KD_REL)
+    check_sign_bits(jq, model.params)
+    for a, b in zip(jrep["blocks"], model.report["blocks"]):
+        assert a["pre_loss"] is None and b["pre_loss"] is None
+        for k in ("ste_loss", "block_err"):
+            assert b[k] == pytest.approx(a[k], rel=ROW_REL), (a["block"], k)
+    shares = sign_shares(jq, model.params)
+    assert min(shares.values()) >= SIGN_FLOOR, shares
+    assert np.mean(list(shares.values())) >= SIGN_MEAN, shares
+    assert model.report["blocks"][0]["block"] == "shared_attn[None]"
+    assert model.params["shared_attn"]["attn"]["wq"]["qu_t"].dim() == 2
+    assert "w" in model.params["layers"]["mixer"]["wdt"]
+    assert set(model.report["seconds"]) >= {"calibration", "gather",
+                                             "blocks", "kd"}
+
+
+def test_port_artifact_loads_in_jax(fam, port_run, tmp_path):
+    cj, ct, _, _, jcal, _ = fam
+    check_artifact_in_jax(port_run[0], cj, ct, np.asarray(jcal[0]["tokens"]),
+                          str(tmp_path / "art"))
+
+
+def test_quantize_cli_hybrid(tmp_path, capsys):
+    """``launch.quantize --arch zamba2-1.2b --device cpu`` at smoke size
+    (preflight on, journaled): the artifact loads in both packages and
+    its forward is finite."""
+    from repro_torch.api import NanoQuantModel
+    from repro_torch.launch import quantize as cli
+    out = str(tmp_path / "nq")
+    cli.main(["--arch", ARCH, "--device", "cpu", "--calib-samples", "4",
+              "--calib-seq", "32", "--admm-iters", "4", "--t-pre", "2",
+              "--t-post", "2", "--t-glob", "2", "--journal-dir",
+              str(tmp_path / "j"), "--out", out])
+    text = capsys.readouterr().out
+    for line in ("preflight ok", "FP teacher ppl", "NanoQuant ppl",
+                 f"saved to {out}"):
+        assert line in text, line
+    model = NanoQuantModel.load(out, device="cpu")
+    assert model.cfg.family == "hybrid" and model.quantized
+    toks = torch.from_numpy(np.arange(16).reshape(2, 8) % 256)
+    assert torch.isfinite(TT.forward(model.params, model.cfg, toks)).all()
+    j = japi.NanoQuantModel.load(out)
+    assert j.quantized and j.cfg.name == model.cfg.name
