@@ -37,20 +37,30 @@ Phases, each printing its own line(s); any failure exits non-zero:
 2c. the other families' quantization — #1 under the same autograd
    Function at deepseek-v2-lite-16b's expert grid
    (``ops.lowrank_binary_matmul_expert``: G 64, x per group, K 2048 -> N
-   1408 at rank 800, the 120 capacity rows of a KD step), checked and
-   timed as the gate shape's; then the pipeline, as for llama3.2-1b, on
-   musicgen-medium (2 of its 48 layers; calibration frames of 4
-   codebooks), mamba2-370m (4 of 48), deepseek-v2-lite-16b (its dense
-   layer and 2 of 26 MoE layers) and zamba2-1.2b (12 of its 38 Mamba2
-   layers, so two applications of the shared attention block, which is
-   quantized first on its inputs gathered from the teacher stream;
-   ``QUANT_DEPTH``), each at full width in bf16 on the path
-   ``<arch>-quantize``: #1 launched once per packed linear in each block's
-   check forward and each KD step's student forward (an expert stack: one
-   launch of the grid over its 64 experts, counted apart: 3 per MoE layer
-   and forward; the shared block once per application, and once more for
-   its check forward over the gathered inputs) and nothing else, the
-   count equal to the template's; deepseek's expert scales' gradients of
+   1408 at rank 800, the 120 capacity rows of a KD step), and #4 under it
+   on the two-call route at llama-3.2-vision-90b's FFN (K 8192 -> N 28672
+   at rank 6336, past #1's 4096, M 1024: #4 twice per forward, its rank
+   intermediate rounded to x's dtype, held against the two-stage oracle),
+   checked and timed as the gate shape's; then the pipeline, as for
+   llama3.2-1b, on musicgen-medium (2 of its 48 layers; calibration frames
+   of 4 codebooks), mamba2-370m (4 of 48), deepseek-v2-lite-16b (its dense
+   layer and 2 of 26 MoE layers), zamba2-1.2b (7 of its 38 Mamba2 layers,
+   so one application of the shared attention block, which is quantized
+   first on its inputs gathered from the teacher stream) and
+   llama-3.2-vision-90b (2 of its 100 layers grouped as one, a self block
+   then the cross block, cut from its smallest group of 5 by the script's
+   time limit; its teacher's gates drawn under ``GATE_LAWS``, JAX's zeros
+   making each cross block the identity, and 1024 seeded image tokens per
+   calibration sample; each block's seconds by part, ``block_parts``:
+   TuneFP, LB-ADMM per linear, STE, packing, the rest) (``QUANT_DEPTH``),
+   each at full width in bf16 on the path ``<arch>-quantize``: #1
+   launched once per packed linear up to rank 4096 and #4 twice per one
+   past it (the VLM's FFN) in each block's check forward and each KD
+   step's student forward (an expert stack: one launch of the grid over
+   its 64 experts, counted apart: 3 per MoE layer and forward; the shared
+   block once per application, and once more for its check forward over
+   the gathered inputs) and nothing else, the counts equal to the
+   template's; deepseek's expert scales' gradients of
    one KD step (models cast to f32) non-zero on the kernel path and
    within the bf16 tolerance of the plain path's. zamba2-1.2b runs with
    the crash-safe journal on (a temporary directory) and then drills it
@@ -68,8 +78,14 @@ Phases, each printing its own line(s); any failure exits non-zero:
    planned crash is caught. Each artifact is saved, loaded, cast to f32
    and served under 4 requests of its family's traffic on
    ``<arch>-quantized`` (musicgen #1 and #3, mamba2 #1, deepseek #1 with
-   the G = 64 grid, zamba2 #1 and #3), gated against the plain-oracle
-   engine like its family's paths;
+   the G = 64 grid, zamba2 #1 and #3, the VLM #1, #3 and #4), gated
+   against the plain-oracle engine like its family's paths; the VLM's
+   also through ``generate`` of 4 prompts with 1024 seeded image tokens
+   each (``llama-3.2-vision-90b-quantized-image``), gated likewise. Then
+   ``python -m repro_torch.launch.serve --arch llama-3.2-vision-90b``
+   twice (``SERVE_DEMO``): without an artifact (the smoke teacher
+   quantized on the card, the reference CLI's demo) and with ``--fp``;
+   each must exit 0 and print its serve lines;
 3. llama3.2-1b kernels — kernels #1-#3 against their plain PyTorch
    versions on the card at the shapes the llama3.2-1b serving path gives
    them (decode M in {1, 8}, prefill M = 512; B = 8 slots, page_size 64,
@@ -93,7 +109,7 @@ Phases, each printing its own line(s); any failure exits non-zero:
    of wo's 992), #2 as the verify reads it (5 queries per slot through
    ``ops.paged_attention`` over a pool with stale rows past the
    frontier);
-4. llama3.2-1b engine — llama3.2-1b at full width, cut to 8 of its 16
+4. llama3.2-1b engine — llama3.2-1b at full width, cut to 4 of its 16
    layers (``DEPTH``), at 1.0 bpw with packed weights drawn from a seed,
    served by the
    continuous-batching engine (8 slots, max_len 256, 8 requests of
@@ -157,7 +173,7 @@ Phases, each printing its own line(s); any failure exits non-zero:
    kv head; then the speculative path's shapes: #4's two launches of the
    draft's gate (rank 3488 of 6976, read in place) at M = 4 and #1's
    merged QKV at the verify's M = 20;
-6. qwen1.5-110b engine — full width, cut to 10 of its 80 layers
+6. qwen1.5-110b engine — full width, cut to 5 of its 80 layers
    (``DEPTH``, so that the script keeps inside its time limit), at 1.0
    bpw, weights drawn on the card from the seed: 4 slots, max_len 128,
    4 requests of 16-64 prompt tokens and 16 new tokens, 2 admitted after
@@ -166,7 +182,7 @@ Phases, each printing its own line(s); any failure exits non-zero:
    speculative decoding in bf16 as for llama (the first plain run gives
    decode tok/s, TTFT and peak memory; the plain decode window's profile
    is the ``bf16_decode_profile``);
-7. qwen3-4b — full width, cut to 18 of its 36 layers (``DEPTH``; per-head
+7. qwen3-4b — full width, cut to 9 of its 36 layers (``DEPTH``; per-head
    qk_norm, which rules out #3) at 1.0 bpw, weights drawn on the card, under the llama
    traffic on the path ``qwen3-4b`` (#1 and #2 only), gated like the
    llama paths; then one bf16 run (decode tok/s, TTFT, peak memory);
@@ -175,7 +191,7 @@ Phases, each printing its own line(s); any failure exits non-zero:
    4096; M 8, the capacity of a decode step and of a prefill of up to 64
    tokens, and M 40, a 256-token prefill's; f32 and bf16) against its
    plain version, timed beside the batched library call over unpacked
-   bf16 factors; then the model at full width, cut to 12 of its 94
+   bf16 factors; then the model at full width, cut to 6 of its 94
    layers (``DEPTH``; 128 experts, top-8), at 1.0 bpw, weights and
    routers drawn on the card, under the qwen1.5-110b traffic on the path
    ``qwen3-moe-235b-a22b`` (#1 and #2 only, #1 launched at the expert
@@ -190,14 +206,14 @@ Phases, each printing its own line(s); any failure exits non-zero:
    rank 384) at M 8, and at the 64-expert grid (x per group, rank 800;
    gate/up K 2048 -> N 1408, down K 1408 -> N 2048) at M 8 and 32, f32 and
    bf16, against its plain version beside its library call; then the
-   model at full width, cut to 5 of its 27 layers (``DEPTH``: one dense, 4
+   model at full width, cut to 3 of its 27 layers (``DEPTH``: one dense, 2
    MoE of 64 experts top-6 plus 2 shared; MLA attention over a paged pool
    of compressed latents, kv_lora_rank 512 plus a 64-wide RoPE key per
    row) at 1.0 bpw, weights and routers drawn on the card, under the llama
-   traffic on the path ``deepseek-v2-lite-16b``: #1 only, 42 launches per
+   traffic on the path ``deepseek-v2-lite-16b``: #1 only, 24 launches per
    forward (four per layer for wq, w_dkv, w_kr and wo, three at the
    expert grid and two for the shared experts per MoE layer, two for the
-   dense block; 240 at full depth), 12 of them at the grid; #2, #3 and #4
+   dense block; 240 at full depth), 6 of them at the grid; #2, #3 and #4
    never (MLA's read
    is plain torch ops, as the reference keeps it plain XLA). Its f32 gate
    is ``moe_gate``. Then one bf16 run (decode tok/s, TTFT, peak memory,
@@ -210,11 +226,11 @@ Phases, each printing its own line(s); any failure exits non-zero:
    96, a partial tile of the rank stage, the shape of wC too; out_proj,
    K 2048 -> 1024 at rank 640) at M 8 and 256, f32 and bf16, against its
    plain version beside its library call; then the model at full width,
-   cut to 8 of its 48 Mamba2 blocks (``DEPTH``; d 1024, d_inner 2048, 32
+   cut to 4 of its 48 Mamba2 blocks (``DEPTH``; d 1024, d_inner 2048, 32
    heads of 64, state 128, chunk 256, vocab 50280, tied head) at 1.0 bpw,
    weights drawn on the card, on the per-slot state cache (no pool) under
    the llama traffic with prompts of 17-520 tokens (``MAMBA``), on the
-   path ``mamba2-370m``: #1 only, 40 launches per forward (wz, wx, wB, wC
+   path ``mamba2-370m``: #1 only, 20 launches per forward (wz, wx, wB, wC
    and out_proj per layer; wdt stays FP), #2, #3 and #4 never; gated like
    the llama paths. Then one bf16 run (decode tok/s, TTFT, peak memory,
    the state cache's bytes per slot) and its decode window under the
@@ -228,9 +244,9 @@ Phases, each printing its own line(s); any failure exits non-zero:
    [4096, 4400), cache_pos = q_pos % 4096, window 4096) and an unwrapped
    one of 4 entries, each against its plain version beside SDPA (the
    ``ring`` records of #2 and #3 on the kernels line); then the model at
-   full width, cut to 12 of its 38 Mamba2 blocks (``DEPTH``; d 2048,
+   full width, cut to 6 of its 38 Mamba2 blocks (``DEPTH``; d 2048,
    d_inner 4096, 64 heads of 64, state 64; the shared MHA + FFN block,
-   d_ff 8192, after every 6th block: 2 applications per forward over one
+   d_ff 8192, after every 6th block: 1 application per forward over one
    pool of ring pages) at 1.0 bpw, weights drawn on the card, on the paths
    ``zamba2-1.2b`` (the llama traffic, ``ZAMBA``: the window clamps to
    max_len 256, a ring of 4 pages that never wraps; megakernel on: #1
@@ -251,7 +267,7 @@ Phases, each printing its own line(s); any failure exits non-zero:
    K 8192 -> N 1024 at rank 864, M = 4 images x 1024 patches = 4096) and
    at the cross block's wq at M 4; #4 at the vision FFN's four two-call
    stages (rank 6336) at M 4; f32 and bf16. Then the model at full width,
-   cut to 25 of its 100 layers (``DEPTH``: 5 groups of 4 self-attention
+   cut to 10 of its 100 layers (``DEPTH``: 2 groups of 4 self-attention
    blocks over the paged pool and one gated cross-attention block over
    per-slot image K/V) at 1.0 bpw, weights drawn on the card, on the paths
    ``llama-3.2-vision-90b`` (the engine under the qwen1.5-110b traffic,
@@ -274,7 +290,7 @@ Phases, each printing its own line(s); any failure exits non-zero:
    its decode shape (B 8, 24 query heads over 24 kv heads: G 1, D 64, K
    1536, pages of 64) over 4 and 32 table entries, each against its
    plain version beside its library call (#3 also beside its unfused
-   chain), f32 and bf16. Then the model at full width, cut to 8 of its
+   chain), f32 and bf16. Then the model at full width, cut to 4 of its
    48 layers (``DEPTH``; d 1536, 4 codebooks of 2048; the reference's
    llama-style block)
    at 1.0 bpw, weights drawn on the card, under ``MUSICGEN``: 8 requests
@@ -296,6 +312,7 @@ Phases, each printing its own line(s); any failure exits non-zero:
 
 Details go to ``chiprun_out/chip_smoke.json``.
 """
+import contextlib
 import dataclasses
 import gc
 import json
@@ -393,7 +410,7 @@ ZAMBA_WRAP = {"arch": "zamba2-1.2b", "n": 4, "lens": (4000, 4081),
               "up_front": 4, "after": 0, "new": 128, "max_batch": 4,
               "max_len": 4224}
 
-# llama-3.2-vision-90b (VLM: 20 groups of 4 self-attention blocks, each
+# llama-3.2-vision-90b (VLM: groups of 4 self-attention blocks, each
 # followed by one gated cross-attention block over per-slot image K/V)
 # under the qwen1.5-110b traffic. A request carries no image, as in the
 # reference's engine, so every cross layer reads zero image K/V
@@ -408,12 +425,13 @@ VISION_IMAGE = {"arch": "llama-3.2-vision-90b", "n": 4, "prompt": 32,
 # at EnCodec's 50 frames per second (arXiv:2306.05284), 32 new frames
 MUSICGEN = dict(LLAMA, arch="musicgen-medium")
 # depth cuts that keep the script inside its time limit with the quantize
-# phases, on a slow host too: the layers each model is served at (width
-# untouched; every other model at full depth)
-DEPTH = {"llama3.2-1b": 8, "qwen1.5-110b": 10, "qwen3-4b": 18,
-         "qwen3-moe-235b-a22b": 12, "llama-3.2-vision-90b": 25,
-         "deepseek-v2-lite-16b": 5, "mamba2-370m": 8, "zamba2-1.2b": 12,
-         "musicgen-medium": 8}
+# phases, on a slow host too (halved again when the VLM's quantization came
+# in): the layers each model is served at (width untouched; every other
+# model at full depth)
+DEPTH = {"llama3.2-1b": 4, "qwen1.5-110b": 5, "qwen3-4b": 9,
+         "qwen3-moe-235b-a22b": 6, "llama-3.2-vision-90b": 10,
+         "deepseek-v2-lite-16b": 3, "mamba2-370m": 4, "zamba2-1.2b": 6,
+         "musicgen-medium": 4}
 
 # the quantization pipeline on the card: llama3.2-1b at full width in its
 # config's dtype (bf16), calibrated on `samples` sequences of `seq` tokens
@@ -425,20 +443,26 @@ QUANT_SERVE = dict(LLAMA, n=4, up_front=2)
 # the script inside its time limit: llama3.2-1b 4 of its 16 layers,
 # musicgen 2 of its 48 layers (frames of 4 codebooks), mamba2 4 of 48,
 # deepseek its dense layer and 2 MoE layers of 27 (every block kind twice),
-# zamba2 12 of its 38 Mamba2 layers (two applications of the shared block,
-# the drill's crash after the first); each artifact served in f32 under 4
-# requests of its family's traffic
+# zamba2 7 of its 38 Mamba2 layers (one application of the shared block
+# after layer 5, the drill's crash after it), llama-3.2-vision-90b 2 of its
+# 100 layers (one self block, then the cross block: a block takes ≈ 58 s
+# on an NVIDIA H100 80GB HBM3 at 700 W, so one group of its published 5
+# would not fit the script); each artifact served in f32 under 4 requests
+# of its family's traffic
 QUANT_DEPTH = {"llama3.2-1b": 4, "musicgen-medium": 2, "mamba2-370m": 4,
-               "deepseek-v2-lite-16b": 3, "zamba2-1.2b": 12}
+               "deepseek-v2-lite-16b": 3, "zamba2-1.2b": 7,
+               "llama-3.2-vision-90b": 2}
 MUSICGEN_QUANT_SERVE = dict(MUSICGEN, n=4, up_front=2)
 MAMBA_QUANT_SERVE = dict(MAMBA, n=4, up_front=2)
 DEEPSEEK_QUANT_SERVE = dict(DEEPSEEK, n=4, up_front=2)
 ZAMBA_QUANT_SERVE = dict(ZAMBA, n=4, up_front=2)
+VISION_QUANT_SERVE = dict(VISION, n=4, up_front=2)
 QUANT_SERVES = {"llama3.2-1b": QUANT_SERVE,
                 "musicgen-medium": MUSICGEN_QUANT_SERVE,
                 "mamba2-370m": MAMBA_QUANT_SERVE,
                 "deepseek-v2-lite-16b": DEEPSEEK_QUANT_SERVE,
-                "zamba2-1.2b": ZAMBA_QUANT_SERVE}
+                "zamba2-1.2b": ZAMBA_QUANT_SERVE,
+                "llama-3.2-vision-90b": VISION_QUANT_SERVE}
 # the crash-safe pipeline's drill: the arch quantized with its journal on,
 # crashed when block `crash_at` starts (zamba2's Mamba2 layer 6, the first
 # block after the shared block's first application, so that the resume
@@ -447,6 +471,10 @@ QUANT_SERVES = {"llama3.2-1b": QUANT_SERVE,
 DRILL = {"arch": "zamba2-1.2b", "crash_at": 7}
 # the autograd check's shape: llama3.2-1b's w_gate at M = 4 x 256 rows
 AUTOGRAD = {"M": 1024, "K": 2048, "R": 1600, "N": 8192}
+# the two-call route's (#4 twice) under the same Function: the VLM's FFN
+# w_gate (K 8192 -> N 28672 at the 1.0 bpw rank 6336, past #1's 4096) at
+# a KD step's M = 4 x 256 rows
+TWOCALL_AUTOGRAD = {"M": 1024, "K": 8192, "R": 6336, "N": 28672}
 
 # self-speculative decoding: the draft reads half of every packed rank
 SPEC = {"spec_rank_frac": 0.5, "spec_k": 4}
@@ -471,6 +499,12 @@ RESTART = ["--requests", "8", "--prompt-len", "64", "--max-new", "32",
            "--heartbeat-every", "1", "--crash-at-step", "6", "--supervise",
            "--hang-timeout", "120"]
 RESTART_TIMEOUT_S = 600
+# the serving CLI without an artifact on the card: ``python -m
+# repro_torch.launch.serve --arch`` quantizes the arch's smoke teacher (the
+# reference CLI's demo) or, with ``--fp``, serves that FP teacher
+SERVE_DEMO = ["--arch", "llama-3.2-vision-90b", "--requests", "4",
+              "--prompt-len", "16", "--max-new", "8", "--max-batch", "4"]
+SERVE_DEMO_TIMEOUT_S = 300
 
 # serving paths: (name, traffic, KernelPolicy fields, ServeConfig.megakernel,
 # speculative settings, the path whose tokens gate it (None: the engine on
@@ -518,6 +552,8 @@ PATHS = (
      None, (FUSED,), (PAGED, MEGA, PACKED)),
     ("zamba2-1.2b-quantized", ZAMBA_QUANT_SERVE, {}, None, None, None,
      (FUSED, MEGA), (PAGED, PACKED)),
+    ("llama-3.2-vision-90b-quantized", VISION_QUANT_SERVE, {}, None, None,
+     None, (FUSED, MEGA, PACKED), (PAGED,)),
 )
 
 # the kernels' names in a profiler trace, and the lm head's matmul
@@ -574,6 +610,8 @@ def main():
     phase("llama3.2-1b quantized artifact f32 engine path")
     expert_autograd = check_autograd(expert=True)
     phase("#1's expert autograd Function at deepseek's grid")
+    twocall_autograd = check_autograd(twocall=True)
+    phase("#4 under the autograd Function at the VLM's FFN")
     for arch, depth in QUANT_DEPTH.items():
         if arch == QUANT["arch"]:
             continue
@@ -587,6 +625,8 @@ def main():
         report[f"{arch}-quantized"] = quantize_serve(arch, artifact,
                                                      launches)
         phase(f"{arch} quantized artifact f32 engine path")
+    report["serve-demo"] = serve_demo_paths()
+    phase("launch.serve demo quantization and --fp")
 
     llama = make_llama()
     lines = check_llama_kernels(llama, report)
@@ -623,6 +663,7 @@ def main():
 
     qwen = make_on_card("qwen1.5-110b")
     lines[PACKED] = check_qwen_kernels(qwen, report)
+    lines[PACKED]["autograd"] = twocall_autograd
     phase("qwen1.5-110b kernels")
     report["qwen1.5-110b"] = serve_paths(qwen, QWEN, launches)
     phase("qwen1.5-110b f32 engine paths")
@@ -2317,8 +2358,9 @@ def _vision_image_inputs(cfg, dtype):
     return toks, image_embeds_device(cfg, t["n"], SEED + 21, "cuda", dtype)
 
 
-def vision_image_path(model, launches):
-    """The ``llama-3.2-vision-90b-image`` path: the port's ``generate`` of
+def vision_image_path(model, launches, name="llama-3.2-vision-90b-image"):
+    """The ``llama-3.2-vision-90b-image`` path (or `name`, the quantized
+    artifact's): the port's ``generate`` of
     ``VISION_IMAGE`` (4 prompts, each with its own 1024 seeded patch
     embeddings: one batched prefill projecting every cross layer's image
     K/V once, #1 at M 4096, then decode steps over a pool of 4 slots), in
@@ -2329,7 +2371,6 @@ def vision_image_path(model, launches):
     import torch
     from repro_torch.kernels.ops import KernelPolicy
     from repro_torch.serve.engine import ServeConfig, generate
-    name = "llama-3.2-vision-90b-image"
     cfg = model.cfg
     toks, img = _vision_image_inputs(cfg, torch.float32)
     scfg = ServeConfig(greedy=True, max_new_tokens=VISION_IMAGE["new"],
@@ -2717,6 +2758,51 @@ def restart_path(model):
         f"{res['resume_line_to_first_heartbeat_s']:.2f} s, time to recover "
         f"less backoff {res['time_to_recover_s']:.2f} s, resume line to end "
         f"{res['resume_line_to_end_s']:.2f} s, wall {end:.2f} s")
+    return res
+
+
+def serve_demo_paths():
+    """``python -m repro_torch.launch.serve`` with ``SERVE_DEMO`` on the
+    card, twice: without an artifact (the smoke teacher quantized on the
+    card, the reference CLI's demo) and with ``--fp`` (the FP teacher
+    served). Each must exit 0 and print its model line and its serve
+    lines; their launches happen in the child processes and are not
+    counted. The output goes to ``serve_demo.log`` in ``OUT_DIR``."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               PYTHONUNBUFFERED="1")
+    n, new = int(SERVE_DEMO[3]), int(SERVE_DEMO[7])
+    res, logs = {}, []
+    for kind, extra, line in (
+            ("demo", [], "[serve] quantized random-init teacher (demo)"),
+            ("fp", ["--fp"], "[serve] FP random-init teacher (--fp)")):
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve",
+               *SERVE_DEMO, *extra]
+        t0 = time.perf_counter()
+        try:
+            out = subprocess.run(cmd, capture_output=True, text=True,
+                                 env=env, cwd=ROOT,
+                                 timeout=SERVE_DEMO_TIMEOUT_S)
+        except subprocess.TimeoutExpired as e:
+            raise AssertionError(f"launch.serve {kind}: no exit within "
+                                 f"{SERVE_DEMO_TIMEOUT_S} s") from e
+        wall = time.perf_counter() - t0
+        logs.append(f"$ {' '.join(cmd[1:])}\n{out.stdout}{out.stderr}")
+        served = f"requests, {n * new} tokens"
+        if out.returncode != 0 or line not in out.stdout \
+                or "[serve] engine=continuous on cuda" not in out.stdout \
+                or f"{n} {served}" not in out.stdout:
+            raise AssertionError(f"launch.serve {kind}: rc "
+                                 f"{out.returncode}:\n{out.stdout[-2000:]}"
+                                 f"{out.stderr[-2000:]}")
+        res[kind] = {"rc": out.returncode, "wall_s": wall,
+                     "lines": [x for x in out.stdout.splitlines()
+                               if x.startswith("[serve]")
+                               and "heartbeat" not in x]}
+        log(f"launch.serve {' '.join(SERVE_DEMO + extra)}: exit 0 in "
+            f"{wall:.2f} s; " + "; ".join(res[kind]["lines"][:3]))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "serve_demo.log"), "w") as f:
+        f.write("\n".join(logs))
     return res
 
 
@@ -3579,28 +3665,46 @@ def profile_image_prefill(model):
 # the quantization pipeline on the card
 # ---------------------------------------------------------------------------
 
-def packed_per_forward(tree, apps=1):
-    """Launches of #1 in one forward of a packed tree with no merged
-    groups (a params tree or its template): one per packed linear and
-    layer of its stack, a stack of experts being one launch over all of
-    them; an unstacked linear (the hybrid's shared block, two-dimensional
-    words) once per application, `apps`."""
+def packed_per_forward(tree, apps=1, lead=None):
+    """Launches of (#1, #4) in one forward of a packed tree with no merged
+    groups (a params tree or its template): a packed linear of rank up to
+    ``MAX_FUSED_RANK`` launches #1 once per layer of its stack (the
+    stack's leading axes, :func:`lead_axes`: the VLM's self layers have
+    two), a stack of experts being one launch over all of them, an
+    unstacked linear (the hybrid's shared block, two-dimensional words)
+    once per application, `apps`; one past that rank launches #4 twice
+    per layer (the two-call route)."""
+    from repro_torch.kernels.binary_matmul import MAX_FUSED_RANK
+    from repro_torch.models.transformer import lead_axes
     if "qu_t" in tree:
         shape = tree["qu_t"].shape
-        return shape[0] if len(shape) > 2 else apps
-    return sum(packed_per_forward(v, apps) for v in tree.values()
-               if isinstance(v, dict))
+        n = math.prod(shape[:lead]) if len(shape) > 2 else apps
+        return (n, 0) if tree["qv"].shape[-1] <= MAX_FUSED_RANK \
+            else (0, 2 * n)
+    out = [0, 0]
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            sub = packed_per_forward(v, apps,
+                                     lead_axes(k) if lead is None else lead)
+            out = [a + b for a, b in zip(out, sub)]
+    return tuple(out)
 
 
-def check_autograd(expert=False):
-    """#1 under its autograd Function against autograd through its plain
-    version, f32 and bf16: ``ops.lowrank_binary_matmul`` (the KD phase's
-    student linear) at ``AUTOGRAD``'s shape, or with `expert`
+def check_autograd(expert=False, twocall=False):
+    """The packed linear's autograd Function (#1's; #4's past rank 4096)
+    against autograd through its plain version, f32 and bf16:
+    ``ops.lowrank_binary_matmul`` (the KD phase's student linear) at
+    ``AUTOGRAD``'s shape, or with `expert`
     ``ops.lowrank_binary_matmul_expert`` at deepseek-v2-lite-16b's expert
     grid (G = 64, x per group; w_gate's K 2048 -> N 1408 at the 1.0 bpw
-    rank; the capacity rows a KD step's 4 x 256 tokens give). The output
+    rank; the capacity rows a KD step's 4 x 256 tokens give), or with
+    `twocall` the same Function on the two-call route at
+    ``TWOCALL_AUTOGRAD``'s shape, past #1's rank: #4 twice, its rank
+    intermediate rounded to x's dtype, held against the two-stage oracle
+    (``ref.lowrank_binary_matmul_ref``) that rounds it likewise. The output
     and the gradients of x, s1 and s2 within the kernel tolerances, the
-    forward one launch; the forward and the forward + backward timed
+    forward one launch (two of #4 on the two-call route, none of #1); the
+    forward and the forward + backward timed
     (CUDA events, median of 21) beside the same forward + backward
     through library matmuls over factors unpacked beforehand in x's dtype
     (a yardstick). The bound of the forward + backward: its inputs read
@@ -3614,6 +3718,7 @@ def check_autograd(expert=False):
     from repro_torch.configs import get_config
     from repro_torch.core.bpw import rank_for_bpw
     from repro_torch.kernels import binary_matmul, ops, ref
+    kern_i, n_fwd = (PACKED, 2) if twocall else (FUSED, 1)
     if expert:
         cfg = get_config("deepseek-v2-lite-16b")
         G, K, N = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
@@ -3623,9 +3728,13 @@ def check_autograd(expert=False):
                                 * cfg.capacity_factor) // 8) * 8)
         lead, fn, label = (G,), ops.lowrank_binary_matmul_expert, "expert "
     else:
-        (M, K, R, N), G = (AUTOGRAD[k] for k in "MKRN"), 1
-        lead, fn, label = (), ops.lowrank_binary_matmul, ""
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 30 + expert)
+        shape = TWOCALL_AUTOGRAD if twocall else AUTOGRAD
+        (M, K, R, N), G = (shape[k] for k in "MKRN"), 1
+        lead, fn = (), ops.lowrank_binary_matmul
+        label = "two-call " if twocall else ""
+    kern_name = "#4" if twocall else "#1"
+    gen = torch.Generator(device="cuda").manual_seed(
+        SEED + 30 + expert + 2 * twocall)
 
     def words(*shape):
         return torch.randint(-2 ** 31, 2 ** 31 - 1, lead + shape,
@@ -3641,6 +3750,8 @@ def check_autograd(expert=False):
         if expert:
             return binary_matmul.fused_lowrank_matmul_grouped_ref(
                 xx, qv_, qu_, a, b, x_shared=False)
+        if twocall:
+            return ref.lowrank_binary_matmul_ref(xx, qv_, qu_, a, b)
         return ref.lowrank_binary_matmul_fused_ref(xx, qv_, qu_, a, b)
     rows = []
     for dt, tdt in _dtypes():
@@ -3654,12 +3765,15 @@ def check_autograd(expert=False):
         def run(f):
             y = f(leaves[0], qv, qu, leaves[1], leaves[2])
             return (y, *torch.autograd.grad(y, leaves, gy))
-        n0 = binary_matmul.fused_lowrank_matmul_grouped.launches
+        n0 = [c.launches for c in _counters()]
         kern = run(fn)
-        if binary_matmul.fused_lowrank_matmul_grouped.launches != n0 + 1:
-            raise AssertionError(f"#1 {label}autograd: the forward is not "
-                                 f"one launch")
-        errs = [compare(f"#1 {label}autograd {dt} {nm}", a, b, TOL[dt])
+        n1 = [c.launches for c in _counters()]
+        if n1[kern_i] - n0[kern_i] != n_fwd or sum(n1) - sum(n0) != n_fwd:
+            raise AssertionError(f"{kern_name} {label}autograd: the forward "
+                                 f"is not {n_fwd} launch(es) of "
+                                 f"{kern_name} alone: {n0} -> {n1}")
+        errs = [compare(f"{kern_name} {label}autograd {dt} {nm}", a, b,
+                        TOL[dt])
                 for nm, a, b in zip(("y", "dx", "ds1", "ds2"), run(plain),
                                     kern)]
         with torch.no_grad():
@@ -3683,7 +3797,8 @@ def check_autograd(expert=False):
         if expert:
             rec["G"] = G
         del v, u
-        log(f"#1 {label}autograd {dt} " + (f"G {G} " if expert else "")
+        log(f"{kern_name} {label}autograd {dt} "
+            + (f"G {G} " if expert else "")
             + f"M {M} K {K} R {R} N {N}: output and dx, ds1, ds2 match the "
             f"plain version (rel err {rec['rel_err']:.2e}); forward "
             f"{fwd_ms:.3f} ms, forward + backward {rec['ms']:.3f} ms (plain "
@@ -3699,14 +3814,16 @@ def quantize_path(arch, launches, depth=None):
     """The port's quantization pipeline on `arch` at full width, at full
     depth or `depth` layers (``QUANT``'s calibration, ``QuantConfig()``),
     with every launch count set to 0 just before it; see phases 2b and 2c
-    of the module docstring. #1 must launch once per packed linear (an
-    expert stack: once over its experts; the hybrid's shared block once
-    per application) in each block's check forward and in each KD step's
+    of the module docstring. #1 must launch once per packed linear of rank
+    up to 4096 (an expert stack: once over its experts; the hybrid's
+    shared block once per application) and #4 twice per packed linear past
+    it (the VLM's FFN) in each block's check forward and in each KD step's
     student forward, and nothing else; the MoE's expert grids are counted
     apart, and one KD step's expert scale gradients are held against the
     plain path's (:func:`kd_expert_grads`). ``DRILL``'s arch runs with the
-    journal on (a temporary directory). Returns (its record, the saved
-    artifact's directory)."""
+    journal on (a temporary directory). The VLM's blocks are timed by part
+    (:func:`block_parts`). Returns (its record, the saved artifact's
+    directory)."""
     import tempfile
     import torch
     from repro_torch.api import NanoQuantModel
@@ -3726,9 +3843,12 @@ def quantize_path(arch, launches, depth=None):
     for c in counters:
         c.launches = 0
     grid.clear()
-    model = NanoQuantModel.quantize(teacher, cfg, calib, qcfg,
-                                    verbose=False, journal_dir=journal,
-                                    device="cuda")
+    parts = []
+    with (block_parts(parts) if cfg.family == "vlm"
+          else contextlib.nullcontext()):
+        model = NanoQuantModel.quantize(teacher, cfg, calib, qcfg,
+                                        verbose=False, journal_dir=journal,
+                                        device="cuda")
     launches[name] = n = [c.launches for c in counters]
     grid = dict(grid)
     peak = _peak_gib()
@@ -3739,6 +3859,19 @@ def quantize_path(arch, launches, depth=None):
             f"{row['block_err']:.6g}, pre_loss {row['pre_loss']:.6g}, "
             f"ste_loss {row['ste_loss']:.6g}, init {row['init_method']}"
             + (f", fallbacks {row['fallbacks']}" if row["fallbacks"] else ""))
+    for rec, sec in zip(parts, secs["blocks"]):
+        rec["block_s"] = sec
+        rec["target_and_stream_s"] = sec - rec["quantize_block_s"]
+        log(f"quantize {arch} {rec['block']} by part: TuneFP "
+            f"{rec['tunefp_s']:.2f} s ({qcfg.t_pre} steps), LB-ADMM "
+            f"{sum(a['s'] for a in rec['admm']):.2f} s ("
+            + ", ".join(f"{a['linear']} {a['s']:.2f} s at rank {a['rank']}"
+                        for a in rec["admm"])
+            + f"; {qcfg.admm_iters} iterations each), STE "
+            f"{rec['ste_s']:.2f} s ({qcfg.t_post} steps), packing "
+            f"{rec['pack_s']:.2f} s, preconditioners, check forward and the "
+            f"rest {rec['rest_s']:.2f} s, target forward "
+            f"{rec['target_and_stream_s']:.2f} s")
     kd = rep.get("kd_losses", [])
     # KD's steps cycle over the calibration batches: its first and last
     # pass read the same batches
@@ -3754,8 +3887,9 @@ def quantize_path(arch, launches, depth=None):
     per_forward = packed_per_forward(model.params, apps)
     # the hybrid's shared block also runs one check forward of its own,
     # over its gathered inputs
-    shared = packed_per_forward(model.params["shared_attn"]) if apps else 0
-    want = (1 + qcfg.t_glob) * per_forward + shared
+    shared = packed_per_forward(model.params["shared_attn"]) if apps \
+        else (0, 0)
+    want = [(1 + qcfg.t_glob) * f + g for f, g in zip(per_forward, shared)]
     log(f"quantize {cfg.name} {cfg.dtype} ({cfg.n_layers} layers, d "
         f"{cfg.d_model}, calibration {QUANT['samples']} x {QUANT['seq']}"
         + (", journaled" if journal else "") + "): "
@@ -3781,15 +3915,17 @@ def quantize_path(arch, launches, depth=None):
         cfg, qcfg.target_bpw, qcfg.min_dim, qcfg.rank_align,
         qcfg.pack_k_align), apps)
     if per_forward != tmpl:
-        raise AssertionError(f"quantize {arch}: {per_forward} packed "
-                             f"linears per forward, the template has {tmpl}")
-    if n[FUSED] != want or any(n[i] for i in (PAGED, MEGA, PACKED)):
-        raise AssertionError(f"quantize {arch}: launches {n}, expected "
-                             f"{want} of #1 ({per_forward + shared} in the "
-                             f"blocks' check forwards + {qcfg.t_glob} KD "
-                             f"steps x {per_forward}) and none of the "
-                             f"others")
-    res = {}
+        raise AssertionError(f"quantize {arch}: (#1, #4) launches per "
+                             f"forward {per_forward}, the template's {tmpl}")
+    if [n[FUSED], n[PACKED]] != want or n[PAGED] or n[MEGA]:
+        raise AssertionError(
+            f"quantize {arch}: launches {n}, expected {want} of (#1, #4) "
+            f"({[f + g for f, g in zip(per_forward, shared)]} in the blocks' "
+            f"check forwards + {qcfg.t_glob} KD steps x {per_forward}) and "
+            f"none of the others")
+    res = {"launches_per_forward": per_forward}
+    if parts:
+        res["block_parts"] = parts
     if cfg.family == "moe":
         n_moe = cfg.n_layers - cfg.first_k_dense
         want_grid = 3 * n_moe * (1 + qcfg.t_glob)
@@ -3885,6 +4021,77 @@ def kd_expert_grads(teacher, qparams, cfg, batch, qcfg):
     return out
 
 
+@contextlib.contextmanager
+def block_parts(rows):
+    """Time each quantized block's parts on the card from outside the
+    pipeline: ``core.pipeline``'s ``_quantize_block``, ``_tune`` (TuneFP,
+    or STE when it tunes the latents), ``_init_latent`` (LB-ADMM and
+    balancing of one linear), ``_pack_latent`` and ``linear_paths`` are
+    wrapped for the scope, each call ended by a device sync; nothing is
+    added to the pipeline's report. Appends one record per block to
+    `rows`: the seconds of TuneFP, of each linear's LB-ADMM (with its
+    rank), of STE and of packing, and the rest of ``_quantize_block``
+    (preconditioners, the check forward, the guards)."""
+    import torch
+    from repro_torch.core import pipeline as P
+    saved = {n: getattr(P, n) for n in ("_quantize_block", "_tune",
+                                         "_init_latent", "_pack_latent",
+                                         "linear_paths")}
+
+    def clock():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def quantize_block(apply_fn, bp_fp, Xq_b, Y, ctx_b, stats, bref, label,
+                       *a, **k):
+        rec = {"block": label, "tunefp_s": 0.0, "ste_s": 0.0, "pack_s": 0.0,
+               "admm": [], "linears": []}
+        rows.append(rec)
+        t0 = clock()
+        out = saved["_quantize_block"](apply_fn, bp_fp, Xq_b, Y, ctx_b,
+                                       stats, bref, label, *a, **k)
+        rec["quantize_block_s"] = clock() - t0
+        rec["rest_s"] = rec["quantize_block_s"] - rec["tunefp_s"] \
+            - rec["ste_s"] - rec["pack_s"] - sum(x["s"] for x in rec["admm"])
+        return out
+
+    def tune(apply_fn, bp, pred, *a, **k):
+        t0 = clock()
+        out = saved["_tune"](apply_fn, bp, pred, *a, **k)
+        key = "ste_s" if pred is P._is_latent_path else "tunefp_s"
+        rows[-1][key] += clock() - t0
+        return out
+
+    def init_latent(*a, **k):
+        t0 = clock()
+        lat, r = saved["_init_latent"](*a, **k)
+        rec = rows[-1]
+        names = rec["linears"]              # a fallback rung starts over
+        rec["admm"].append({"linear": names[len(rec["admm"]) % len(names)],
+                            "rank": r, "s": clock() - t0})
+        return lat, r
+
+    def pack_latent(*a, **k):
+        t0 = clock()
+        out = saved["_pack_latent"](*a, **k)
+        rows[-1]["pack_s"] += clock() - t0
+        return out
+
+    def paths(*a, **k):
+        out = saved["linear_paths"](*a, **k)
+        rows[-1]["linears"] = [".".join(p) for p in out]
+        return out
+    for name, fn in (("_quantize_block", quantize_block), ("_tune", tune),
+                     ("_init_latent", init_latent),
+                     ("_pack_latent", pack_latent), ("linear_paths", paths)):
+        setattr(P, name, fn)
+    try:
+        yield rows
+    finally:
+        for name, fn in saved.items():
+            setattr(P, name, fn)
+
+
 # the profiler's range around each autograd node's backward
 BACKWARD_RANGE = "autograd::engine::evaluate_function: "
 
@@ -3892,12 +4099,12 @@ BACKWARD_RANGE = "autograd::engine::evaluate_function: "
 def kd_split(teacher, qparams, cfg, batch, qcfg):
     """One more KD step, the pipeline's own (``tune_scales_kd`` over one
     batch with ``t_glob`` 1), under the profiler: its device ms split into
-    #1's forward (the student's packed linears, by the kernel's name), the
-    backward's plain ops (kernels launched by ATen ops under the autograd
-    engine's ``evaluate_function`` ranges; the packed linears' share of
-    them, under ``_LowrankBinaryMatmulBackward``, beside) and the other ops
-    (teacher forward, the student's other ops and the loss, the
-    optimizer), with the step's host ms."""
+    #1's and #4's forwards (the student's packed linears, by the kernels'
+    names), the backward's plain ops (kernels launched by ATen ops under
+    the autograd engine's ``evaluate_function`` ranges; the packed
+    linears' share of them, under ``_LowrankBinaryMatmulBackward``,
+    beside) and the other ops (teacher forward, the student's other ops
+    and the loss, the optimizer), with the step's host ms."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3916,13 +4123,14 @@ def kd_split(teacher, qparams, cfg, batch, qcfg):
         host_ms = step()
         _settle()
     events = prof.events()
-    fused = TRACE_NAMES[FUSED][1]
-    total = first = 0.0
+    fused, packed_mm = TRACE_NAMES[FUSED][1], TRACE_NAMES[PACKED][1]
+    total = first = two = 0.0
     for e in events:
         if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
             ms = e.time_range.elapsed_us() * 1e-3
             total += ms
             first += ms if fused in e.name else 0.0
+            two += ms if packed_mm in e.name else 0.0
 
     def backward_fn(e):
         """The autograd node whose backward launched e's kernels, or
@@ -3938,14 +4146,17 @@ def kd_split(teacher, qparams, cfg, batch, qcfg):
                 and e.kernels else None)
         if node is not None:
             ms = sum(k.duration for k in e.kernels
-                     if fused not in k.name) * 1e-3
+                     if fused not in k.name and packed_mm not in k.name) \
+                * 1e-3
             backward += ms
             packed += ms if node == "_LowrankBinaryMatmulBackward" else 0.0
     if total == 0:
         log("quantize KD step profile: device time not measured")
         return {"host_ms": host_ms, "device_ms": None}
     groups = {"#1 forward": first, "backward plain ops": backward,
-              "other ops": total - first - backward}
+              "other ops": total - first - two - backward}
+    if two:
+        groups["#4 forward"] = two
     log(f"quantize KD step: device {total:.1f} ms: " + ", ".join(
         f"{k} {v:.1f} ms ({100 * v / total:.1f}%)" for k, v in groups.items())
         + f" (of the backward, the packed linears' {packed:.1f} ms); host "
@@ -3957,17 +4168,27 @@ def kd_split(teacher, qparams, cfg, batch, qcfg):
 def quantize_inputs(arch, depth=None):
     """(cfg, FP teacher on the card, calibration batches, QuantConfig()) of
     `arch` at full width and full depth or `depth` layers, the teacher
-    drawn from ``SEED`` (the same tensors at every call)."""
+    drawn from ``SEED`` (the same tensors at every call). A VLM cut below
+    one group of ``cross_attn_every`` layers groups its `depth` layers as
+    one (the repo's SMOKE grouping: self blocks, then the cross block);
+    its teacher's gates are redrawn under ``GATE_LAWS`` (JAX's zeros make
+    every cross block the identity) and its calibration batches carry
+    ``n_image_tokens`` seeded image embeddings per sample."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.pipeline import QuantConfig
     from repro_torch.data.synthetic import calib_batches
     from repro_torch.models import transformer as T
+    from repro_torch.testing import with_gates
     cfg = get_config(arch)
     if depth is not None:
         cfg = dataclasses.replace(cfg, n_layers=depth)
+        if cfg.family == "vlm" and depth < cfg.cross_attn_every:
+            cfg = dataclasses.replace(cfg, cross_attn_every=depth)
     teacher = T.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    if cfg.family == "vlm":
+        teacher = with_gates(teacher, SEED + 50)
     calib = calib_batches(cfg, QUANT["samples"], QUANT["seq"])
     torch.cuda.synchronize()
     return cfg, teacher, calib, QuantConfig()
@@ -4128,6 +4349,9 @@ def quantize_serve(arch, art, launches):
         f"f32")
     res = serve_paths(model, QUANT_SERVES[arch], launches)
     res["load_s"] = load_s
+    if model.cfg.family == "vlm":
+        res["image"] = vision_image_path(model, launches,
+                                         f"{arch}-quantized-image")
     del model
     free()
     shutil.rmtree(os.path.dirname(art))

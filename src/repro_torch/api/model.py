@@ -1,6 +1,6 @@
 """The NanoQuant model artifact, the port of ``repro.api.model.
-NanoQuantModel``: quantize (the dense, audio, MoE, SSM and hybrid
-families; crash-safe with a journal), save / load, serve, evaluate.
+NanoQuantModel``: quantize (every family; crash-safe with a journal),
+save / load, serve, evaluate.
 
     model = NanoQuantModel.quantize(params, cfg, calib)  # on the card
     model.save("/ckpt/nq")                           # JAX's load reads it
@@ -67,8 +67,8 @@ class NanoQuantModel:
         killed run up from its journal (a bit-identical artifact),
         `faults` (a ``quant.faults.QuantFaultPlan``) injects a fault
         schedule and `heartbeat` is called at block and KD boundaries
-        (``core.pipeline.nanoquant_quantize``). The VLM's quantization is
-        ROADMAP item 11b-1 (the VLM half)."""
+        (``core.pipeline.nanoquant_quantize``). The VLM's calibration
+        batches carry ``image_embeds``."""
         qcfg = qcfg or QuantConfig()
         params = params_from_numpy(params, resolve_device(device))
         qparams, report = nanoquant_quantize(

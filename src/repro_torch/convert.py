@@ -28,7 +28,9 @@ def tensor_from_numpy(arr: np.ndarray,
     `arr` holds raw bits of a dtype numpy lacks (how the checkpoint
     stores bfloat16); by default it is ``arr.dtype.name``."""
     name = dtype_name or arr.dtype.name
-    arr = np.ascontiguousarray(arr)
+    # ascontiguousarray returns at least one dimension: keep a 0-d leaf
+    # (a VLM cross block's gates, alone in a journaled block) 0-d
+    arr = np.ascontiguousarray(arr).reshape(arr.shape)
     if name in _EXTENDED:
         bits = arr.view(np.int16) if arr.dtype.itemsize == 2 else arr
         return torch.from_numpy(bits.copy()).view(_EXTENDED[name])

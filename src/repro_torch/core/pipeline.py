@@ -1,7 +1,8 @@
 """NanoQuant end-to-end pipeline (paper Alg. 1), the port of
-``repro.core.pipeline`` for the dense, audio, MoE (GQA or MLA attention,
-stacked experts), SSM (Mamba2) and hybrid (Mamba2 with a shared
-attention block) families.
+``repro.core.pipeline`` for every family: dense, audio, MoE (GQA or MLA
+attention, stacked experts), SSM (Mamba2), hybrid (Mamba2 with a shared
+attention block) and VLM (self-attention blocks and gated cross-attention
+blocks over image embeddings).
 
 Phase 1  global calibration      -> diagonal K-FAC stats via the layers'
          taps (``models.layers.taps``)
@@ -18,7 +19,10 @@ target is always Y = B_fp(X_fp), so TuneFP absorbs accumulated
 quantization error. The hybrid's shared block is quantized first, on
 its inputs gathered from the teacher stream at every application; after
 each Mamba2 block that it follows, X_q goes through the quantized shared
-block and X_fp through the FP one.
+block and X_fp through the FP one. The VLM's cross blocks read a second
+input, the calibration's image embeddings (``ctx["image_embeds"]``, the
+batches' concatenated, sliced with each microbatch): their ``xattn.wk``
+and ``xattn.wv`` are tapped over the image rows.
 
 Random draws are named by key paths (``core.admm``): block bi's linear li
 draws from ``(seed, bi, li)`` on the first rung of the init-method
@@ -34,8 +38,7 @@ leaves and a crc32'd journal line are written as the run goes
 (``checkpoint.journal.QuantJournal``, the JAX package's format); a resume
 recomputes the calibration and the streams, reloads the finished blocks
 and quantizes the rest. ``quant.faults.QuantFaultPlan`` injects crashes,
-divergence and journal damage at the pipeline's seams. The VLM's blocks
-wait for ROADMAP item 11b-1 (the VLM half).
+divergence and journal damage at the pipeline's seams.
 """
 from __future__ import annotations
 
@@ -50,6 +53,7 @@ from repro_torch.core import packing, precond, util
 from repro_torch.core.admm import ADMMConfig, QuantizationError
 from repro_torch.core.bpw import rank_for_bpw
 from repro_torch.core.layout import quantizable_linear
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.train.optim import AdamW, cosine_schedule
 
@@ -104,20 +108,28 @@ class QuantConfig:
 @dataclasses.dataclass
 class BlockRef:
     stack: str                      # param-tree key
-    idx: Any                        # index into the stack (int / None)
+    idx: Any                        # index into the stack (int / tuple /
+                                    # None)
     tap_idx: Any                    # layer index in tap stats (None=aggregate)
-    kind: str                       # attn | mamba
+    kind: str                       # attn | mamba | cross
 
     def get(self, params):
         bp = params[self.stack]
-        return bp if self.idx is None else util.tree_index(bp, self.idx)
+        if self.idx is None:
+            return bp
+        for i in (self.idx if isinstance(self.idx, tuple) else (self.idx,)):
+            bp = util.tree_index(bp, i)
+        return bp
 
 
 def blocks_of(cfg) -> List[BlockRef]:
     """The blocks in quantization order: the MoE family's
     ``first_k_dense`` blocks (``dense_layers``) before its MoE blocks; the
     hybrid's shared attention block (unstacked, its taps aggregated over
-    its applications) before its Mamba2 layers."""
+    its applications) before its Mamba2 layers; the VLM's groups in order,
+    each its self blocks (``self_layers`` at (group, i), tapped under the
+    flat index ``group · (cross_attn_every - 1) + i``) then its cross
+    block (``cross_layers`` at the group)."""
     fam = cfg.family
     if fam in ("dense", "audio", "ssm"):
         kind = "mamba" if fam == "ssm" else "attn"
@@ -132,10 +144,15 @@ def blocks_of(cfg) -> List[BlockRef]:
         return ([BlockRef("shared_attn", None, None, "attn")]
                 + [BlockRef("layers", i, i, "mamba")
                    for i in range(cfg.n_layers)])
-    raise NotImplementedError(
-        f"quantizing the {fam} family's blocks is ROADMAP item 11b-1 (the "
-        f"VLM half); the port quantizes the dense, audio, moe, ssm and "
-        f"hybrid families")
+    if fam == "vlm":
+        per = cfg.cross_attn_every - 1
+        out: List[BlockRef] = []
+        for g in range(cfg.n_layers // cfg.cross_attn_every):
+            out += [BlockRef("self_layers", (g, i), g * per + i, "attn")
+                    for i in range(per)]
+            out.append(BlockRef("cross_layers", g, g, "cross"))
+        return out
+    raise ValueError(fam)
 
 
 def make_apply(cfg, kind):
@@ -146,9 +163,12 @@ def make_apply(cfg, kind):
     elif kind == "mamba":
         def f(bp, x, ctx):
             return T._apply_mamba_block(bp, cfg, x)[0]
+    elif kind == "cross":
+        def f(bp, x, ctx):
+            kv = L.image_kv(bp["xattn"], cfg, ctx["image_embeds"])
+            return T._apply_cross_block(bp, cfg, x, kv)
     else:
-        raise NotImplementedError(
-            f"{kind} blocks are ROADMAP item 11b-1 (the VLM half)")
+        raise ValueError(kind)
     return f
 
 
@@ -442,7 +462,7 @@ def nanoquant_quantize(params, cfg, calib_batches, qcfg: QuantConfig,
     binary form; every phase runs on the params' device.
 
     calib_batches: list of {'tokens', 'labels'} dicts (the audio
-    family's (B, S, K) frames). Returns
+    family's (B, S, K) frames; the VLM's with 'image_embeds'). Returns
     (quantized params, report): per-block rows, the ranks, the KD losses,
     ``wall_s`` and ``seconds`` (calibration, the hybrid's gather of the
     shared block's inputs, each block, KD; each read after the device
@@ -506,6 +526,9 @@ def nanoquant_quantize(params, cfg, calib_batches, qcfg: QuantConfig,
         # ---- activation streams ------------------------------------------
         toks = torch.cat([b["tokens"] for b in calib_batches], 0).to(dev)
         ctx: Dict[str, torch.Tensor] = {}
+        if cfg.family == "vlm":
+            ctx["image_embeds"] = torch.cat(
+                [b["image_embeds"] for b in calib_batches], 0).to(dev)
         x0 = T.embed_tokens(params, cfg, toks)
         Xq, Xfp = x0, x0
         applies = {b.kind: make_apply(cfg, b.kind) for b in blocks}
@@ -605,8 +628,15 @@ def _assemble(params, cfg, quantized):
     for (stack, idx), bp in quantized.items():
         stacks.setdefault(stack, {})[idx] = bp
     for stack, items in stacks.items():
-        out[stack] = items[None] if None in items else \
-            util.tree_stack([items[i] for i in sorted(items)])
+        if None in items:                       # unstacked (shared_attn)
+            out[stack] = items[None]
+        elif isinstance(next(iter(items)), tuple):   # (g, i): vlm self
+            gs = sorted({g for g, _ in items})
+            per = sorted({i for _, i in items})
+            out[stack] = util.tree_stack(
+                [util.tree_stack([items[(g, i)] for i in per]) for g in gs])
+        else:
+            out[stack] = util.tree_stack([items[i] for i in sorted(items)])
     return out
 
 
@@ -640,13 +670,16 @@ def _tune_scales_kd(teacher, qparams, cfg, calib_batches, qcfg: QuantConfig,
     dev = teacher["embed"].device
     losses = []
     for s in range(qcfg.t_glob):
-        toks = calib_batches[s % len(calib_batches)]["tokens"].to(dev)
+        batch = calib_batches[s % len(calib_batches)]
+        toks = batch["tokens"].to(dev)
+        img = batch.get("image_embeds")
+        img = None if img is None else img.to(dev)
         with torch.no_grad():
-            hT = T.backbone(teacher, cfg, toks)
+            hT = T.backbone(teacher, cfg, toks, img)
         tr = _requires_grad(trainable)
         with torch.enable_grad():
             qp = util.combine(tr, frozen)
-            hS = T.backbone(qp, cfg, toks)
+            hS = T.backbone(qp, cfg, toks, img)
             lval = _kd_loss_chunked(hS, hT, qp, teacher, cfg, qcfg.kd_temp)
             grads = _grads(lval, tr)
         trainable, state, _ = opt.update(grads, state, trainable)

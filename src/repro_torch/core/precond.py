@@ -82,16 +82,24 @@ def robust_diag(mean_sq: np.ndarray, gamma: float, eps: float = 1e-6,
 def collect_stats(loss_fn, params, cfg, batches) -> StatCollector:
     """Run the calibration batches through the FP model with the taps
     installed: a forward and a backward per batch. The backward runs to
-    the embedding table only (a detached copy), so no parameter gradient
-    is kept; the taps read the gradient of every linear's output."""
+    the embedding table (a detached copy) and to the VLM's image
+    embeddings (likewise), so no parameter gradient is kept; the taps
+    read the gradient of every linear's output, the image K/V
+    projections' (``xattn.wk`` / ``xattn.wv``, fed by the images alone)
+    included."""
     from repro_torch.models import layers as L
 
     collector = StatCollector()
     with L.taps(collector), torch.enable_grad():
         for b in batches:
             p = dict(params, embed=params["embed"].detach().requires_grad_())
+            inputs = [p["embed"]]
+            if "image_embeds" in b:
+                img = b["image_embeds"].to(p["embed"].device).detach()
+                b = dict(b, image_embeds=img.requires_grad_())
+                inputs.append(img)
             loss = loss_fn(p, cfg, b, training=False)
-            torch.autograd.grad(loss, p["embed"])
+            torch.autograd.grad(loss, inputs)
     return collector
 
 

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import torch_dtype
 
 
 @dataclasses.dataclass
@@ -58,12 +59,11 @@ def make_batch(cfg: ModelConfig, corpus: SyntheticCorpus, seed: int,
                step: int, batch: int, seq: int) -> Dict[str, torch.Tensor]:
     """Pure function of (seed, step) -> {'tokens', 'labels'}: (B, S) for
     the token families; the audio family's (B, S, K) frames, K streams
-    drawn one after another from the step's generator. The VLM's image
-    embeddings wait for its quantization (ROADMAP item 11b-1, the VLM
-    half)."""
-    if cfg.family == "vlm":
-        raise NotImplementedError(
-            "vlm calibration batches are ROADMAP item 11b-1 (the VLM half)")
+    drawn one after another from the step's generator. The VLM's batch
+    adds 'image_embeds' (B, n_image_tokens, d_model), the stubbed patch
+    embeddings drawn standard normal from the same generator after the
+    tokens and cast to the model dtype (the JAX package's arrays, bit for
+    bit)."""
     rng = np.random.default_rng(np.random.SeedSequence([seed, step]))
     if cfg.family == "audio":
         full = np.stack([corpus.sample(rng, batch, seq)
@@ -71,7 +71,12 @@ def make_batch(cfg: ModelConfig, corpus: SyntheticCorpus, seed: int,
     else:
         full = corpus.sample(rng, batch, seq)
     full = torch.from_numpy(full).long()
-    return {"tokens": full[:, :-1], "labels": full[:, 1:]}
+    b = {"tokens": full[:, :-1], "labels": full[:, 1:]}
+    if cfg.family == "vlm":
+        img = rng.standard_normal(
+            (batch, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+        b["image_embeds"] = torch.from_numpy(img).to(torch_dtype(cfg))
+    return b
 
 
 def calib_batches(cfg: ModelConfig, n_samples: int = 16, seq: int = 128,

@@ -1,8 +1,7 @@
-"""Quantization CLI, the port of ``repro.launch.quantize`` for the
-dense, audio, MoE, SSM and hybrid families: build the FP teacher, check
-the inputs (``quant.preflight``), run the NanoQuant pipeline through
-``NanoQuantModel.quantize``, save the packed artifact and report sizes and
-perplexities.
+"""Quantization CLI, the port of ``repro.launch.quantize`` for every
+family: build the FP teacher, check the inputs (``quant.preflight``), run
+the NanoQuant pipeline through ``NanoQuantModel.quantize``, save the
+packed artifact and report sizes and perplexities.
 
     PYTHONPATH=src python -m repro_torch.launch.quantize --arch llama3.2-1b \
         --bpw 1.0 --out /tmp/nq
@@ -22,8 +21,9 @@ on missing ``[quant] heartbeat`` lines; a restarted child gets
 starts, on the first attempt only (a restart drill).
 
 Teacher training (``--teacher-steps`` > 0, ``--teacher-ckpt``) waits for
-the trainer (ROADMAP item 13) and the VLM's quantization for item 11b-1
-(the VLM half); both exit non-zero.
+the trainer (ROADMAP item 13) and exits non-zero. The VLM's calibration
+and evaluation batches carry seeded image embeddings
+(``data.synthetic.make_batch``).
 """
 from __future__ import annotations
 
@@ -99,9 +99,6 @@ def main(argv=None):
             ap.error(f"--{flag.replace('_', '-')} needs {needs}, which the "
                      f"port does not have yet (ROADMAP item {item})")
     cfg = get_config(args.arch) if args.full else get_smoke(args.arch)
-    if cfg.family == "vlm":
-        ap.error("quantizing the vlm family is ROADMAP item 11b-1 (the VLM "
-                 "half)")
     if args.resume and not args.journal_dir:
         ap.error("--resume needs --journal-dir")
 

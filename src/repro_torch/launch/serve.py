@@ -6,21 +6,22 @@ port of ``repro.launch.serve`` on the paged pool.
 
 A ``--quantized-ckpt`` directory (a ``NanoQuantModel`` artifact, written
 by either package's ``save``) is self-describing: its manifest carries
-the model config. Without one, the CLI serves ``--arch``'s smoke
-config (llama3.2-1b by default; any arch of ``repro_torch.configs``,
-qwen3-moe-235b-a22b's MoE, mamba2-370m's SSM, zamba2-1.2b's hybrid and
-llama-3.2-vision-90b's VLM and musicgen-medium's audio among them) with
-packed words drawn from seed 0 (``launch.quantize`` writes an artifact of
-the dense family; quantizing here without one is ROADMAP item 11b, as it
-waits for every family's quantization). The pool line
-gives the pool's bytes per token. A family with nothing to page (SSM) is
-served on its per-slot state cache, and the pool line reports that
-layout instead; the hybrid's line gives its ring pages per slot and its
-per-slot state beside the pool, the VLM's its image K/V bytes per slot
-beside the pool (a request carries no image: they stay zero, as in the
-reference's engine). The audio family's prompts are ``--prompt-len``
-frames of ``n_codebooks`` ids; ``--shared-prefix`` refuses them, as the
-reference's CLI does.
+the model config. Without one, the CLI quantizes a demo teacher, as the
+reference's does (:func:`demo_model`): ``--arch``'s smoke config
+(llama3.2-1b by default; any arch of ``repro_torch.configs``,
+qwen3-moe-235b-a22b's MoE, deepseek-v2-lite-16b's MLA, mamba2-370m's SSM,
+zamba2-1.2b's hybrid, llama-3.2-vision-90b's VLM and musicgen-medium's
+audio among them) in its own dtype, drawn by ``init_params`` from seed 0
+and quantized on 8 calibration sequences of 64 tokens at a short budget;
+``--fp`` serves that FP teacher instead (and ignores any artifact). The
+pool line gives the pool's bytes per token. A family with nothing to
+page (SSM) is served on its per-slot state cache, and the pool line
+reports that layout instead; the hybrid's line gives its ring pages per
+slot and its per-slot state beside the pool, the VLM's its image K/V
+bytes per slot beside the pool (a request carries no image: they stay
+zero, as in the reference's engine). The audio family's prompts are
+``--prompt-len`` frames of ``n_codebooks`` ids; ``--shared-prefix``
+refuses them, as the reference's CLI does.
 The engine runs on ``--device`` (``cuda`` by default; nothing falls back
 to the CPU).
 
@@ -38,7 +39,6 @@ code 7 at tick N, to exercise the loop.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import os
 import sys
 import time
@@ -46,14 +46,43 @@ import time
 import numpy as np
 
 
-def main():
+def demo_model(arch: str, fp: bool = False, device="cuda"):
+    """The reference CLI's demo model: `arch`'s smoke config, its teacher
+    ``init_params`` from seed 0, quantized on ``calib_batches(cfg, 8,
+    64)`` under ``QuantConfig(admm_iters=10, t_pre=5, t_post=5, t_glob=5,
+    rank_align=32)``; with `fp` the teacher itself (``from_fp``)."""
+    import torch
+    from repro_torch import resolve_device
+    from repro_torch.api import NanoQuantModel
+    from repro_torch.configs import get_smoke
+    from repro_torch.core.pipeline import QuantConfig
+    from repro_torch.data.synthetic import calib_batches
+    from repro_torch.models import transformer as T
+    cfg = get_smoke(arch)
+    device = resolve_device(device)
+    params = T.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                           device)
+    if fp:
+        return NanoQuantModel.from_fp(params, cfg)
+    qcfg = QuantConfig(admm_iters=10, t_pre=5, t_post=5, t_glob=5,
+                       rank_align=32)
+    return NanoQuantModel.quantize(params, cfg, calib_batches(cfg, 8, 64),
+                                   qcfg, verbose=False, device=device)
+
+
+def main(argv=None):
+    """Run the CLI on `argv` (default ``sys.argv[1:]``); returns the
+    finished requests' output tokens by uid."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     ap = argparse.ArgumentParser()
     ap.add_argument("--quantized-ckpt", default="",
-                    help="NanoQuantModel artifact; if empty, serves "
-                         "--arch's smoke config packed from a seed")
+                    help="NanoQuantModel artifact; if empty, quantizes "
+                         "--arch's smoke teacher (demo)")
+    ap.add_argument("--fp", action="store_true",
+                    help="serve the FP teacher instead (baseline)")
     ap.add_argument("--arch", default="llama3.2-1b",
-                    help="without an artifact: the arch whose smoke config "
-                         "is served")
+                    help="without an artifact: the arch whose smoke "
+                         "teacher is quantized (or, with --fp, served)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu")
     ap.add_argument("--requests", type=int, default=8)
@@ -103,7 +132,7 @@ def main():
                          "the child is declared hung")
     ap.add_argument("--max-restarts", type=int, default=3,
                     help="--supervise: restart budget")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     if args.supervise:
         from repro_torch.launch import supervisor
@@ -111,7 +140,7 @@ def main():
             ap.error("--supervise needs --snapshot to resume across "
                      "restarts")
         cmd = [sys.executable, "-m", "repro_torch.launch.serve"] \
-            + [a for a in sys.argv[1:] if a != "--supervise"]
+            + [a for a in argv if a != "--supervise"]
         raise SystemExit(supervisor.supervise(
             cmd, max_restarts=args.max_restarts,
             hang_timeout=args.hang_timeout,
@@ -122,21 +151,17 @@ def main():
     from repro_torch.serve.engine import ServeConfig
     from repro_torch.serve.scheduler import Request
 
-    if args.quantized_ckpt:
+    if args.quantized_ckpt and not args.fp:
         model = NanoQuantModel.load(args.quantized_ckpt, device=args.device)
         bpw = model.quant.get("target_bpw", 1.0) if model.quantized else 16
         print(f"[serve] loaded artifact {args.quantized_ckpt} "
               f"(arch={model.cfg.name}, bpw={bpw})", flush=True)
     else:
-        from repro_torch.configs import get_smoke
-        from repro_torch.quant.surgery import abstract_quantized_params
-        from repro_torch.testing import random_packed_params
-        cfg = dataclasses.replace(get_smoke(args.arch), dtype="float32")
-        tree = random_packed_params(
-            abstract_quantized_params(cfg, 1.0, min_dim=16), 0)
-        model = NanoQuantModel.from_numpy(tree, cfg, device=args.device)
-        print(f"[serve] {cfg.name} packed from seed 0 at 1.0 bpw (demo)",
-              flush=True)
+        model = demo_model(args.arch, args.fp, args.device)
+        print(f"[serve] {model.cfg.name} ({model.cfg.dtype}) teacher from "
+              f"seed 0", flush=True)
+        print("[serve] FP random-init teacher (--fp)" if args.fp else
+              "[serve] quantized random-init teacher (demo)", flush=True)
 
     cfg = model.cfg
     spec = args.spec_rank_frac or None
@@ -227,6 +252,7 @@ def main():
         first = min(done)
         print(f"[serve] sample output for request {first}: "
               f"{done[first].output[:16]}", flush=True)
+    return {uid: r.output for uid, r in done.items()}
 
 
 def _print_pool_stats(eng) -> None:

@@ -440,13 +440,13 @@ def cross_attention(p, cfg, x, image_kv):
     ops here: no kernel serves it."""
     B, S, _ = x.shape
     hd = cfg.head_dim
-    q = dense(p["wq"], x).reshape(B, S, cfg.n_heads, hd)
+    q = dense(p["wq"], x, "xattn.wq").reshape(B, S, cfg.n_heads, hd)
     q = rms_norm(q, p["q_norm"], cfg.norm_eps)
     k, v = image_kv
     msk = torch.ones((S, k.shape[1]), dtype=torch.bool, device=x.device)
     o = sdpa(q, k, v, msk, 1.0 / math.sqrt(hd))
-    return torch.tanh(p["gate"]).to(x.dtype) * dense(p["wo"],
-                                                     o.reshape(B, S, -1))
+    return torch.tanh(p["gate"]).to(x.dtype) * dense(
+        p["wo"], o.reshape(B, S, -1), "xattn.wo")
 
 
 def image_kv(p, cfg, image_embeds):
@@ -455,9 +455,11 @@ def image_kv(p, cfg, image_embeds):
     v as projected."""
     B, n_img, _ = image_embeds.shape
     hd = cfg.head_dim
-    k = dense(p["wk"], image_embeds).reshape(B, n_img, cfg.n_kv_heads, hd)
+    k = dense(p["wk"], image_embeds, "xattn.wk").reshape(
+        B, n_img, cfg.n_kv_heads, hd)
     k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    v = dense(p["wv"], image_embeds).reshape(B, n_img, cfg.n_kv_heads, hd)
+    v = dense(p["wv"], image_embeds, "xattn.wv").reshape(
+        B, n_img, cfg.n_kv_heads, hd)
     return k, v
 
 

@@ -41,6 +41,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.core import util
 from repro_torch.core.util import tree_index
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig, check_family
@@ -172,11 +173,16 @@ def backbone(params, cfg: ModelConfig, tokens, image_embeds=None):
     if cfg.family == "vlm":
         if image_embeds is None:
             raise ValueError("the VLM's forward needs image_embeds")
-        for _, selfs, cp in _vlm_groups(params, cfg):
-            for lp in selfs:
+        # taps: a self layer under its flat index g · per + i, a cross
+        # layer (its image K/V projection included) under its group
+        for g, selfs, cp in _vlm_groups(params, cfg):
+            for i, lp in enumerate(selfs):
+                L.set_scope("self_layers", g * len(selfs) + i)
                 x = _apply_attn_block(lp, cfg, x, positions)
+            L.set_scope("cross_layers", g)
             x = _apply_cross_block(cp, cfg, x,
                                    L.image_kv(cp["xattn"], cfg, image_embeds))
+        L.set_scope("", None)
         return L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     for name, layers in _stacks(params):
         for idx, lp in enumerate(layers):
@@ -262,8 +268,8 @@ def loss_fn(params, cfg: ModelConfig, batch, training: bool = True):
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda"):
-    """FP params of a dense-, audio-, MoE- or SSM-family model under the
-    JAX package's init laws (``repro.models.transformer.init_params`` and
+    """FP params of a model of any family under the JAX package's init
+    laws (``repro.models.transformer.init_params`` and
     ``layers.init_*``): embedding N(0, 0.02) (audio: one (V, d) table per
     codebook), an untied lm head (audio: (d, K·V)) and every linear N(0,
     1/d_in), biases 0, norms 1; the MoE's f32 router, stacked experts (E,
@@ -273,13 +279,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     ``D`` = 1, ``dt_bias`` uniform on [log 1e-3, log 1e-1] (those three
     f32); the hybrid's Mamba2 stack and its one shared attention + FFN
     block (``shared_attn``, no leading axis). Each stack's leaves carry a
-    leading layer axis. `generator` lives on `device`; the numbers differ
-    from JAX's draws (another generator). The VLM's teacher waits for its
-    quantization (ROADMAP item 11b-1, the VLM half)."""
-    if cfg.family == "vlm":
-        raise NotImplementedError(
-            "init_params of the vlm family is ROADMAP item 11b-1 (the VLM "
-            "half)")
+    leading layer axis; the VLM's ``self_layers`` two, (groups,
+    cross_attn_every - 1), and its gated ``cross_layers`` (``xattn``: wq,
+    wk, wv, wo, per-head q / k norms; ``ffn``) one, their ``gate`` and
+    ``ffn_gate`` 0 as JAX sets them (so each cross block starts as the
+    identity). `generator` lives on `device`; the numbers differ from
+    JAX's draws (another generator)."""
     dt, d = torch_dtype(cfg), cfg.d_model
     f32 = torch.float32
 
@@ -334,6 +339,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         return {"ln1": full((n, d), 1.0), "attn": attn(n),
                 "ln2": full((n, d), 1.0), mlp_key: mlp(n)}
 
+    def cross_block(n):
+        hd = cfg.head_dim
+        xattn = {"wq": lin(n, d, cfg.n_heads * hd),
+                 "wk": lin(n, d, cfg.n_kv_heads * hd),
+                 "wv": lin(n, d, cfg.n_kv_heads * hd),
+                 "wo": lin(n, cfg.n_heads * hd, d), "gate": full((n,), 0.0),
+                 "q_norm": full((n, hd), 1.0), "k_norm": full((n, hd), 1.0)}
+        return {"ln1": full((n, d), 1.0), "xattn": xattn,
+                "ln2": full((n, d), 1.0), "ffn": ffn(n, cfg.d_ff),
+                "ffn_gate": full((n,), 0.0)}
+
     def mamba_block(n):
         di, H, K = cfg.d_inner, cfg.ssm_heads, cfg.ssm_conv
         gn = cfg.ssm_groups * cfg.ssm_state
@@ -364,6 +380,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         if cfg.family == "hybrid":
             p["shared_attn"] = tree_index(
                 attn_block(1, "ffn", lambda m: ffn(m, cfg.d_ff)), 0)
+    elif cfg.family == "vlm":
+        groups, per = stack_lead(cfg)["self_layers"]
+        p["self_layers"] = util.tree_map(
+            lambda t: t.unflatten(0, (groups, per)),
+            attn_block(groups * per, "ffn", lambda m: ffn(m, cfg.d_ff)))
+        p["cross_layers"] = cross_block(groups)
     elif cfg.family == "moe":
         k = cfg.first_k_dense
         if k:

@@ -8,14 +8,16 @@ order:
 1. calibration batches — present, integer ``tokens`` of shape (batch,
    seq) (the audio family's (batch, seq, n_codebooks) frames) with one
    sequence length, every id inside ``[0, vocab_size)``, ``labels`` (when
-   present) shaped like the tokens;
+   present) shaped like the tokens, and for the VLM ``image_embeds`` in
+   every batch, finite;
 2. teacher params — every float leaf finite; a failure names the leaf
    path (a NaN teacher poisons every block downstream);
-3. a per-block working-set estimate (activation streams, the largest
-   block's params, LB-ADMM's factor state) against the free memory of the
-   device the params live on: on a CUDA card ``torch.cuda.mem_get_info``
-   (the pipeline's working set lives there), on the CPU the host's
-   ``MemAvailable``, as the reference reads.
+3. a per-block working-set estimate (activation streams, the VLM's
+   image embeddings, the largest block's params, LB-ADMM's factor state)
+   against the free memory of the device the params live on: on a CUDA
+   card ``torch.cuda.mem_get_info`` (the pipeline's working set lives
+   there), on the CPU the host's ``MemAvailable``, as the reference
+   reads.
 
 Every failure raises :class:`PreflightError`.
 """
@@ -70,6 +72,16 @@ def _check_calib(cfg, calib_batches) -> int:
                     f"calibration batch {i}: labels shape "
                     f"{tuple(lab.shape)} != tokens shape "
                     f"{tuple(toks.shape)}")
+        if cfg.family == "vlm":
+            if "image_embeds" not in b:
+                raise PreflightError(
+                    f"calibration batch {i}: vlm family needs "
+                    f"'image_embeds' in every batch")
+            if not bool(torch.isfinite(
+                    torch.as_tensor(b["image_embeds"]).float()).all()):
+                raise PreflightError(
+                    f"calibration batch {i}: image_embeds contain "
+                    f"non-finite values")
     if len(seqs) != 1:
         raise PreflightError(
             f"calibration batches mix sequence lengths {sorted(seqs)} — "
@@ -115,11 +127,16 @@ def _available_bytes(device) -> int:
 
 def estimate_block_bytes(cfg, calib_batches) -> int:
     """Rough per-block working set: the three activation streams (X_q,
-    X_fp, Y) in f32, the largest block's params twice (FP and the tuned
-    copy) and LB-ADMM's factor state (about 3x the largest linear)."""
+    X_fp, Y) in f32, the VLM's image embeddings (the cross blocks' second
+    input, held beside the streams in their own dtype), the largest
+    block's params twice (FP and the tuned copy) and LB-ADMM's factor
+    state (about 3x the largest linear)."""
     n_rows = sum(int(b["tokens"].shape[0]) for b in calib_batches)
     seq = int(calib_batches[0]["tokens"].shape[1])
     acts = 3 * n_rows * seq * cfg.d_model * 4
+    acts += sum(int(b["image_embeds"].numel())
+                * b["image_embeds"].element_size()
+                for b in calib_batches if "image_embeds" in b)
     # the largest linear of any block: d_model x max(d_ff, d_model)
     widest = max(getattr(cfg, "d_ff", cfg.d_model), cfg.d_model)
     block_params = 4 * cfg.d_model * widest * 4        # a few big linears

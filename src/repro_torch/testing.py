@@ -2,8 +2,8 @@
 fault schedule, for the tests and ``chip_smoke.py``: the repo holds no
 weights, so a model of a published shape is built from
 :func:`repro_torch.quant.surgery.abstract_quantized_params` filled with
-random words and scales. The engine never uses this module;
-``launch.serve`` draws its demo model from it when given no artifact.
+random words and scales. Neither the engine nor the CLIs use this
+module.
 
 Both fillers draw from the same distributions, scaled so activations
 stay O(1) through any depth: packed words uniform; s2 ≈ 1/√K and s1 ≈
@@ -25,7 +25,9 @@ GB and minutes. The two give different numbers from one seed.
 JAX package's chaos benchmark (``benchmarks/serve_bench.py``) for either
 package's engine; :func:`image_embeds` and :func:`image_embeds_device`
 the VLM's stubbed patch embeddings under the JAX package's law
-(``repro.data.synthetic``: standard normal)."""
+(``repro.data.synthetic``: standard normal); :func:`with_gates` redraws
+an FP VLM teacher's zero gates under :data:`GATE_LAWS`, so that quantizing
+it exercises the cross blocks."""
 import numpy as np
 import torch
 
@@ -112,6 +114,30 @@ def random_packed_params_device(template, seed: int, device="cuda"):
                            ).mul_(float(std)).add_(float(mean))
 
     return _walk(template, fill)
+
+
+def with_gates(params, seed: int):
+    """`params` (a VLM teacher: numpy arrays or tensors) with its cross
+    blocks' ``xattn.gate`` and ``ffn_gate`` drawn under :data:`GATE_LAWS`
+    from ``numpy.random.default_rng(seed)``, each in its leaf's type,
+    dtype and device; every other leaf shared. The JAX package's teacher
+    has them 0: each cross block the identity, its linears given zero
+    output gradients and so identity preconditioners."""
+    rng = np.random.default_rng(seed)
+    cross = dict(params["cross_layers"])
+    xattn = dict(cross["xattn"])
+
+    def draw(name, leaf):
+        mean, std = GATE_LAWS[name]
+        val = (mean + std * rng.standard_normal(tuple(leaf.shape))
+               ).astype(np.float32)
+        if isinstance(leaf, torch.Tensor):
+            return torch.from_numpy(val).to(leaf.device, leaf.dtype)
+        return val.astype(leaf.dtype)
+    xattn["gate"] = draw("gate", xattn["gate"])
+    cross["xattn"] = xattn
+    cross["ffn_gate"] = draw("ffn_gate", cross["ffn_gate"])
+    return dict(params, cross_layers=cross)
 
 
 def image_embeds(cfg, batch: int, seed: int) -> np.ndarray:

@@ -392,12 +392,13 @@ def check_collect_stats(want, ct, tparams, tcal):
 
 
 def check_block_tune(cj, ct, bp, kind, qc: dict, seed=0, rows=8, seq=32,
-                     scale=1.25):
+                     scale=1.25, ctx=None):
     """TuneFP then STE on one block from the same inputs (X_fp drawn
     N(0, 1) from `seed`, X_q = `scale` · X_fp; STE from the port's LB-ADMM
     of JAX's TuneFP output, its own draws), on microbatches of
-    ``qc["microbatch"]`` (default 4) rows: each loss within 1e-5
-    relative, the tuned leaves within 1e-5."""
+    ``qc["microbatch"]`` (default 4) rows, `ctx` (numpy arrays: the VLM's
+    ``image_embeds``, one row per block row) sliced with them: each loss
+    within 1e-5 relative, the tuned leaves within 1e-5."""
     import jax
     from repro.core import pipeline as JP
     from repro_torch.convert import params_from_numpy
@@ -406,15 +407,17 @@ def check_block_tune(cj, ct, bp, kind, qc: dict, seed=0, rows=8, seq=32,
     japply, tapply = JP.make_apply(cj, kind), TP.make_apply(ct, kind)
     x0 = jnp.asarray(np.random.default_rng(seed).standard_normal(
         (rows, seq, cj.d_model)).astype(np.float32))
-    Xq, Y = x0 * scale, japply(bp, x0, {})
+    jctx = {k: jnp.asarray(v) for k, v in (ctx or {}).items()}
+    tctx = {k: t_np(v) for k, v in (ctx or {}).items()}
+    Xq, Y = x0 * scale, japply(bp, x0, jctx)
     tX, tY = t_np(Xq), t_np(Y)
 
     def to_t(tree):
         return params_from_numpy(jax.tree.map(np.asarray, tree), "cpu")
     mb = qc.get("microbatch", 4)
-    jb, jl = JP._tune(japply, bp, lambda p: True, Xq, Y, {}, qc["t_pre"],
+    jb, jl = JP._tune(japply, bp, lambda p: True, Xq, Y, jctx, qc["t_pre"],
                       1e-4, mb, True, None)
-    tb, tl = TP._tune(tapply, to_t(bp), lambda p: True, tX, tY, {},
+    tb, tl = TP._tune(tapply, to_t(bp), lambda p: True, tX, tY, tctx,
                       qc["t_pre"], 1e-4, mb, True, None)
     np.testing.assert_allclose(tl, jl, rtol=tol("f32"),
                                err_msg="TuneFP losses")
@@ -428,9 +431,9 @@ def check_block_tune(cj, ct, bp, kind, qc: dict, seed=0, rows=8, seq=32,
         lp, _ = TP._init_latent(p, *ones, tq, (0, li))
         lat = TP._set_path(lat, path, lp)
     jlat = tutil.tree_map(lambda t: jnp.asarray(to_np(t)), lat)
-    jb2, jl2 = JP._tune(japply, jlat, JP._is_latent_path, Xq, Y, {},
+    jb2, jl2 = JP._tune(japply, jlat, JP._is_latent_path, Xq, Y, jctx,
                         qc["t_post"], 1e-5, mb, True, None)
-    tb2, tl2 = TP._tune(tapply, lat, TP._is_latent_path, tX, tY, {},
+    tb2, tl2 = TP._tune(tapply, lat, TP._is_latent_path, tX, tY, tctx,
                         qc["t_post"], 1e-5, mb, True, None)
     np.testing.assert_allclose(tl2, jl2, rtol=tol("f32"),
                                err_msg="STE losses")
@@ -520,10 +523,11 @@ def check_sign_bits(jq, tq):
     assert np.mean(list(shares.values())) >= SIGN_MEAN_FLOOR, shares
 
 
-def check_artifact_in_jax(model, cj, ct, toks, directory):
+def check_artifact_in_jax(model, cj, ct, toks, directory, image=None):
     """The port's artifact read by JAX's ``NanoQuantModel.load``: the same
     manifest, the same leaves bit for bit, JAX's f32 logits of one
-    forward within 1e-5 of the port's."""
+    forward (with the VLM's `image`, numpy embeddings) within 1e-5 of the
+    port's."""
     from repro import api as japi
     from repro.models import transformer as JT
     from repro_torch.models import transformer as TT
@@ -532,8 +536,9 @@ def check_artifact_in_jax(model, cj, ct, toks, directory):
     assert j.quantized and dataclasses.asdict(j.qcfg) == model.quant
     assert j.ranks == model.ranks and j.cfg.name == ct.name
     leaves_equal(j.params, model.params)
-    want = JT.forward(j.params, cj, jnp.asarray(toks))
+    want = JT.forward(j.params, cj, jnp.asarray(toks),
+                      None if image is None else jnp.asarray(image))
     got = TT.forward(model.params, ct, torch.from_numpy(np.array(toks))
-                     .long())
+                     .long(), None if image is None else t_np(image))
     assert_close(want, got, tol("f32"), "logits")
     return j

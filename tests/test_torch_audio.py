@@ -522,7 +522,9 @@ def test_artifacts_cross_the_packages(tmp_path, dtype):
 
 
 def _cli(*args):
-    env = dict(os.environ, PYTHONPATH="src")
+    # the CLI quantizes its demo teacher first: one thread, as the
+    # test workers share the cores
+    env = dict(os.environ, PYTHONPATH="src", OMP_NUM_THREADS="1")
     return subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
          "--arch", ARCH, *args], capture_output=True, text=True, env=env,
@@ -531,16 +533,19 @@ def _cli(*args):
 
 
 def test_serve_cli_serves_audio():
-    """``python -m repro_torch.launch.serve --arch musicgen-medium`` serves
-    the smoke config packed from a seed on the CPU: prompts of 6 frames,
-    4 frames each, a pool of 2 layers x 2 leaves x 4 kv heads x 16 x 4
-    bytes = 1024 bytes per token."""
+    """``python -m repro_torch.launch.serve --arch musicgen-medium``
+    quantizes the smoke teacher on the CPU (the demo, in the config's
+    bf16) and serves it: prompts of 6 frames, 4 frames each, a pool of 2
+    layers x 2 leaves x 4 kv heads x 16 x 2 bytes = 512 bytes per
+    token."""
     out = _cli("--requests", "3", "--prompt-len", "6", "--max-new", "4",
                "--max-batch", "2", "--page-size", "4")
     assert out.returncode == 0, out.stderr[-2000:]
-    assert "musicgen-medium-smoke packed from seed 0" in out.stdout
+    assert "musicgen-medium-smoke (bfloat16) teacher from seed 0" in \
+        out.stdout
+    assert "[serve] quantized random-init teacher (demo)" in out.stdout
     assert "3 requests, 12 tokens" in out.stdout
-    assert "1024 bytes per token" in out.stdout
+    assert "512 bytes per token" in out.stdout
 
 
 def test_serve_cli_refuses_a_shared_prefix_for_audio():

@@ -1534,3 +1534,104 @@ def test_journaled_drill_on_the_card_is_bit_identical(dev, tmp_path):
     assert _crc_leaves(qp1) == _crc_leaves(qp0)
     assert rep1["blocks"] == rep0["blocks"]
     assert rep1["kd_losses"] == rep0["kd_losses"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", DTYPES)
+def test_twocall_linear_autograd_vs_plain(dev, dt):
+    """The packed linear's autograd Function on the two-call route (rank
+    past #1's 4096: #4 twice, the rank intermediate rounded to x's dtype)
+    at the VLM's FFN shape, llama-3.2-vision-90b's w_gate (K 8192 -> N
+    28672 at rank 6336) with a KD step's M = 4 x 256 rows, against
+    autograd through the two-stage oracle: the output and the gradients
+    of x, s1 and s2 within the kernel tolerances; the forward launches #4
+    twice and #1 never."""
+    from repro_torch.kernels import ops
+    K, R, N = 8192, 6336, 28672
+    rng = np.random.default_rng(R)
+    x = torch.from_numpy(rng.standard_normal((4, 256, K), np.float32)
+                         ).to(dev, dt)
+    qv = _words(rng, K // 32, R).to(dev)
+    qu = _words(rng, R // 32, N).to(dev)
+    s1 = torch.from_numpy(rng.uniform(0.5, 1.5, N).astype(np.float32)
+                          / R ** 0.5).to(dev)
+    s2 = torch.from_numpy(rng.uniform(0.5, 1.5, K).astype(np.float32)
+                          / K ** 0.5).to(dev)
+    gy = torch.from_numpy(rng.standard_normal((4, 256, N), np.float32)
+                          ).to(dev, dt)
+    got_in = [t.clone().requires_grad_() for t in (x, s1, s2)]
+    n1 = binary_matmul.fused_lowrank_matmul_grouped.launches
+    n4 = binary_matmul.packed_matmul.launches
+    y = ops.lowrank_binary_matmul(got_in[0], qv, qu, got_in[1], got_in[2])
+    got = torch.autograd.grad(y, got_in, gy)
+    torch.cuda.synchronize()
+    assert binary_matmul.packed_matmul.launches == n4 + 2
+    assert binary_matmul.fused_lowrank_matmul_grouped.launches == n1
+    want_in = [t.clone().requires_grad_() for t in (x, s1, s2)]
+    yp = ref.lowrank_binary_matmul_ref(want_in[0], qv, qu, want_in[1],
+                                       want_in[2])
+    want = torch.autograd.grad(yp, want_in, gy)
+    _close(yp, y, TOL[dt], "two-call linear forward")
+    for nm, a, b in zip(("x", "s1", "s2"), want, got):
+        assert b.dtype == a.dtype
+        _close(a, b, TOL[dt], f"d{nm}")
+
+
+def _launches_per_forward(tree, lead=None):
+    """(#1, #4) launches of one forward of a packed tree with no merged
+    groups: per layer of its stack (the VLM's self layers have two leading
+    axes), #1 once for a linear up to ``MAX_FUSED_RANK``, #4 twice past
+    it."""
+    from repro_torch.models.transformer import lead_axes
+    if "qu_t" in tree:
+        n = int(np.prod(tree["qu_t"].shape[:lead]))
+        fused = tree["qv"].shape[-1] <= binary_matmul.MAX_FUSED_RANK
+        return (n, 0) if fused else (0, 2 * n)
+    out = (0, 0)
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            sub = _launches_per_forward(v, lead_axes(k) if lead is None
+                                        else lead)
+            out = (out[0] + sub[0], out[1] + sub[1])
+    return out
+
+
+@pytest.mark.cuda
+def test_vlm_quantized_on_the_card_launches(dev, monkeypatch):
+    """The VLM's smoke config quantized on the card in bf16 (gates under
+    ``GATE_LAWS``, seeded image embeddings in the calibration) at 2.0 bpw,
+    with #1's rank limit lowered to 32 so that the FFN's rank-64 linears
+    take the two-call route, as the full-width FFN's rank 6336 does: the
+    block errors and KD losses finite, and the launches of #1 and #4 those
+    of the template over the blocks' check forwards and the KD steps'
+    student forwards (KD's gradients through the Function on both
+    routes)."""
+    from repro_torch.core import pipeline
+    from repro_torch.data.synthetic import calib_batches
+    from repro_torch.models import transformer as T
+    from repro_torch.testing import with_gates
+    monkeypatch.setattr(binary_matmul, "MAX_FUSED_RANK", 32)
+    cfg = get_smoke("llama-3.2-vision-90b")
+    params = with_gates(T.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev), 5)
+    calib = calib_batches(cfg, 8, 32)
+    qcfg = pipeline.QuantConfig(target_bpw=2.0, rank_align=16, min_dim=16,
+                                admm_iters=6, t_pre=2, t_post=4, t_glob=3)
+    n1 = binary_matmul.fused_lowrank_matmul_grouped.launches
+    n4 = binary_matmul.packed_matmul.launches
+    model = NanoQuantModel.quantize(params, cfg, calib, qcfg, verbose=False,
+                                    device=dev)
+    torch.cuda.synchronize()
+    per = _launches_per_forward(abstract_quantized_params(
+        cfg, 2.0, min_dim=16, rank_align=16))
+    assert per == _launches_per_forward(model.params) and min(per) > 0
+    assert binary_matmul.fused_lowrank_matmul_grouped.launches - n1 == \
+        (1 + qcfg.t_glob) * per[0]
+    assert binary_matmul.packed_matmul.launches - n4 == \
+        (1 + qcfg.t_glob) * per[1]
+    rep = model.report
+    assert [r["block"] for r in rep["blocks"]] == [
+        "self_layers[(0, 0)]", "cross_layers[0]", "self_layers[(1, 0)]",
+        "cross_layers[1]"]
+    assert all(np.isfinite(r["block_err"]) for r in rep["blocks"])
+    assert len(rep["kd_losses"]) == 3 and np.isfinite(rep["kd_losses"]).all()

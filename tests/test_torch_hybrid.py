@@ -955,10 +955,12 @@ def test_artifacts_cross_the_packages(tmp_path, dtype):
 
 
 def test_serve_cli_serves_zamba():
-    """``python -m repro_torch.launch.serve --arch zamba2-1.2b`` serves the
-    smoke config packed from a seed on the CPU, over the ring pool beside
-    the per-slot state."""
-    env = dict(os.environ, PYTHONPATH="src")
+    """``python -m repro_torch.launch.serve --arch zamba2-1.2b`` quantizes
+    the smoke teacher on the CPU (the demo) and serves it over the ring
+    pool beside the per-slot state."""
+    # the CLI quantizes its demo teacher first: one thread, as the
+    # test workers share the cores
+    env = dict(os.environ, PYTHONPATH="src", OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
          "--arch", ARCH, "--requests", "3", "--prompt-len", "6",
@@ -966,7 +968,8 @@ def test_serve_cli_serves_zamba():
         capture_output=True, text=True, env=env, timeout=120,
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     assert out.returncode == 0, out.stderr[-2000:]
-    assert "zamba2-1.2b-smoke packed from seed 0" in out.stdout
+    assert "zamba2-1.2b-smoke (bfloat16) teacher from seed 0" in out.stdout
+    assert "[serve] quantized random-init teacher (demo)" in out.stdout
     assert "3 ring pages per slot" in out.stdout
     assert "per-slot state" in out.stdout
     assert "3 requests, 12 tokens" in out.stdout

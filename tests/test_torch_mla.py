@@ -566,8 +566,10 @@ def test_seeded_filler_laws():
 
 def test_serve_cli_serves_deepseek(tmp_path):
     """``python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b``
-    serves the smoke config packed from a seed on the CPU."""
-    env = dict(os.environ, PYTHONPATH="src")
+    quantizes the smoke teacher on the CPU (the demo) and serves it."""
+    # the CLI quantizes its demo teacher first: one thread, as the
+    # test workers share the cores
+    env = dict(os.environ, PYTHONPATH="src", OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
          "--arch", ARCH, "--requests", "2", "--prompt-len", "8",
@@ -575,4 +577,6 @@ def test_serve_cli_serves_deepseek(tmp_path):
         capture_output=True, text=True, env=env, timeout=120,
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     assert out.returncode == 0, out.stderr[-2000:]
-    assert "deepseek-v2-lite-smoke packed from seed 0" in out.stdout
+    assert "deepseek-v2-lite-smoke (bfloat16) teacher from seed 0" in \
+        out.stdout
+    assert "[serve] quantized random-init teacher (demo)" in out.stdout

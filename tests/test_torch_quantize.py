@@ -17,9 +17,8 @@ JAX's random draws (``core.admm._rand_range_init`` swapped for JAX's,
 keyed by the same fold-in path) — report rows and packed sign bits; the
 artifact read by JAX's ``NanoQuantModel.load`` (logits, engine tokens);
 the paper's ordering against in-place binarization; the fallback ladder;
-the refusals of what is still to come (the VLM: ROADMAP item 11b-1; a
-trained teacher: item 13) and of misused journal arguments; the CLI
-quantizing and serving.
+the refusals of what is still to come (a trained teacher: ROADMAP item
+13) and of misused journal arguments; the CLI quantizing and serving.
 
 Tolerances, each measured first and written beside its gate: 1e-5
 relative max-abs (``_torch_common.tol("f32")``) where both packages do the
@@ -40,8 +39,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_common import (assert_close, draw_prompts, jax_draws, jax_engine,
-                           jkey, jpath, one_torch_thread,  # noqa: F401
+from _torch_common import (assert_close, bits, draw_prompts, jax_draws,
+                           jax_engine, jkey, jpath,
+                           one_torch_thread,  # noqa: F401
                            same_tokens, serve_engine, t_np, tol)
 from repro import api as japi
 from repro.core import admm as jadmm
@@ -247,6 +247,9 @@ def test_pack_quantized_identical_words(d_in, k_align):
 
 
 def test_calib_batches_identical_arrays():
+    """The batches hold JAX's arrays from the same seed: the tokens and
+    labels, and the VLM's image embeddings (drawn after the tokens, in the
+    config's bf16) bit for bit."""
     cfg = tconfigs.get_smoke("qwen1.5-0.5b")
     want = jdata.calib_batches(japi.get_smoke("qwen1.5-0.5b"), 12, 40,
                                batch=3, seed=5)
@@ -256,8 +259,16 @@ def test_calib_batches_identical_arrays():
         assert sorted(a) == sorted(b) == ["labels", "tokens"]
         for k in a:
             np.testing.assert_array_equal(np.asarray(a[k]), b[k].numpy())
-    with pytest.raises(NotImplementedError, match="11b"):
-        tdata.calib_batches(tconfigs.get_smoke("llama-3.2-vision-90b"), 4, 8)
+    vlm = "llama-3.2-vision-90b"
+    want = jdata.calib_batches(japi.get_smoke(vlm), 4, 8)
+    got = tdata.calib_batches(tconfigs.get_smoke(vlm), 4, 8)
+    assert sorted(got[0]) == ["image_embeds", "labels", "tokens"]
+    assert got[0]["image_embeds"].dtype == torch.bfloat16
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(bits(a["image_embeds"]),
+                                      bits(b["image_embeds"]))
+        for k in ("tokens", "labels"):
+            np.testing.assert_array_equal(np.asarray(a[k]), b[k].numpy())
 
 
 def test_adamw_cosine_matches_jax_on_mixed_tree():
@@ -791,14 +802,14 @@ def test_size_accounting_matches_jax(arch):
                                   "qwen3-4b", "musicgen-medium",
                                   "qwen3-moe-235b-a22b",
                                   "deepseek-v2-lite-16b", "mamba2-370m",
-                                  "zamba2-1.2b"])
+                                  "zamba2-1.2b", "llama-3.2-vision-90b"])
 def test_init_params_follows_jax_laws(arch):
     """The teacher's tree has JAX's structure, shapes and dtypes (qkv
     biases, qk_norm, audio's (K, V, d) tables and (d, K·V) head, the MoE's
     f32 router, stacked experts and shared experts, the leading dense
     blocks, MLA's projections, the Mamba2 mixer and the hybrid's unstacked
-    shared block included), and its draws JAX's laws; the VLM's teacher
-    still refuses (ROADMAP item 11b-1)."""
+    shared block included, the VLM's two-axis self layers and its cross
+    blocks with zero gates), and its draws JAX's laws."""
     ct = tconfigs.get_smoke(arch)
     want = JT.init_params(jax.random.PRNGKey(0), japi.get_smoke(arch))
     got = TT.init_params(ct, torch.Generator().manual_seed(0), "cpu")
@@ -824,24 +835,15 @@ def test_init_params_follows_jax_laws(arch):
         else:                                     # norms and D 1, biases 0
             assert torch.equal(bf, torch.full_like(bf, float(bf.flatten()[0])))
             assert float(bf.flatten()[0]) == float(np.asarray(a).flat[0])
-    with pytest.raises(NotImplementedError, match="11b-1"):
-        TT.init_params(tconfigs.get_smoke("llama-3.2-vision-90b"),
-                       torch.Generator(), "cpu")
 
 
 @pytest.mark.parametrize("arch", tconfigs.list_archs())
 def test_blocks_of_matches_jax(arch):
     """The blocks in JAX's order, stacks, indices, tap indices and kinds
     (the MoE's leading dense blocks first, "mamba" for the SSM family, the
-    hybrid's shared block first with an aggregate tap index); the VLM
-    still refuses (item 11b-1)."""
+    hybrid's shared block first with an aggregate tap index; the VLM's
+    self blocks at (group, i) before each group's cross block)."""
     ct = tconfigs.get_smoke(arch)
-    if ct.family == "vlm":
-        with pytest.raises(NotImplementedError, match="ROADMAP item 11b-1"):
-            TP.blocks_of(ct)
-        with pytest.raises(NotImplementedError, match="11b-1"):
-            TP.make_apply(ct, "cross")
-        return
     fields = ("stack", "idx", "tap_idx", "kind")
     want = [tuple(getattr(b, f) for f in fields)
             for b in JP.blocks_of(japi.get_smoke(arch))]
@@ -896,16 +898,14 @@ def test_quantize_entry_points_default_to_the_card(tiny):
 @pytest.mark.parametrize("flags,item", [
     (["--teacher-steps", "5"], "ROADMAP item 13"),
     (["--teacher-ckpt", "x"], "ROADMAP item 13"),
-    (["--arch", "llama-3.2-vision-90b"], "ROADMAP item 11b-1"),
-    (["--arch", "llama-3.2-vision-90b", "--full"], "ROADMAP item 11b-1"),
     (["--resume"], "--resume needs --journal-dir"),
     (["--supervise"], "--supervise needs --journal-dir"),
     (["--supervise", "--crash-at-block", "0"],
      "--supervise needs --journal-dir"),
     (["--init-method", "nope"], "unknown init method")])
 def test_quantize_cli_refuses_unported_flags(flags, item, capsys):
-    """What the port's CLI still refuses (a trained teacher, the VLM),
-    naming its ROADMAP item, and the journal flags' misuse, before any
+    """What the port's CLI still refuses (a trained teacher), naming its
+    ROADMAP item, and the journal flags' misuse, before any
     work: each exits non-zero with `item` in its message."""
     from repro_torch.launch import quantize as cli
     with pytest.raises(SystemExit) as ei:

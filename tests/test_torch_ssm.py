@@ -596,9 +596,12 @@ def test_artifacts_cross_the_packages(tmp_path, dtype):
 
 
 def test_serve_cli_serves_mamba(tmp_path):
-    """``python -m repro_torch.launch.serve --arch mamba2-370m`` serves the
-    smoke config packed from a seed on the CPU, on the state cache."""
-    env = dict(os.environ, PYTHONPATH="src")
+    """``python -m repro_torch.launch.serve --arch mamba2-370m`` quantizes
+    the smoke teacher on the CPU (the demo) and serves it on the state
+    cache."""
+    # the CLI quantizes its demo teacher first: one thread, as the
+    # test workers share the cores
+    env = dict(os.environ, PYTHONPATH="src", OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
          "--arch", ARCH, "--requests", "3", "--prompt-len", "6",
@@ -606,6 +609,7 @@ def test_serve_cli_serves_mamba(tmp_path):
         capture_output=True, text=True, env=env, timeout=120,
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     assert out.returncode == 0, out.stderr[-2000:]
-    assert "mamba2-370m-smoke packed from seed 0" in out.stdout
+    assert "mamba2-370m-smoke (bfloat16) teacher from seed 0" in out.stdout
+    assert "[serve] quantized random-init teacher (demo)" in out.stdout
     assert "per-slot state cache of 2 slots" in out.stdout
     assert "3 requests, 12 tokens" in out.stdout

@@ -103,7 +103,10 @@ def test_serve_cli_crash_restart_resumes(tmp_path):
     the new child resumes the in-flight requests from the snapshot, runs
     them to the end, exits 0 and removes the snapshot."""
     snap = tmp_path / "snap.json"
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    # the CLI quantizes its demo teacher first: one thread, as the
+    # test workers share the cores
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
     r = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
          "--requests", "3", "--prompt-len", "8", "--max-new", "6",

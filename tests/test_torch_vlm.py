@@ -767,10 +767,13 @@ def test_artifacts_cross_the_packages(tmp_path, dtype):
 
 def test_serve_cli_serves_vision():
     """``python -m repro_torch.launch.serve --arch llama-3.2-vision-90b``
-    serves the smoke config packed from a seed on the CPU, over the pool
-    beside the per-slot image K/V (2 groups x 16 patches x 2 kv heads x
-    16 x 2 leaves x 4 bytes = 8192 bytes per slot)."""
-    env = dict(os.environ, PYTHONPATH="src")
+    quantizes the smoke teacher on the CPU (the demo, in the config's
+    bf16) and serves it over the pool beside the per-slot image K/V (2
+    groups x 16 patches x 2 kv heads x 16 x 2 leaves x 2 bytes = 4096
+    bytes per slot)."""
+    # the CLI quantizes its demo teacher first: one thread, as the
+    # test workers share the cores
+    env = dict(os.environ, PYTHONPATH="src", OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
          "--arch", ARCH, "--requests", "3", "--prompt-len", "6",
@@ -778,7 +781,8 @@ def test_serve_cli_serves_vision():
         capture_output=True, text=True, env=env, timeout=120,
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     assert out.returncode == 0, out.stderr[-2000:]
-    assert "llama-vision-smoke packed from seed 0" in out.stdout
-    assert "image K/V of 2 slots beside it (8192 bytes per slot)" in \
+    assert "llama-vision-smoke (bfloat16) teacher from seed 0" in out.stdout
+    assert "[serve] quantized random-init teacher (demo)" in out.stdout
+    assert "image K/V of 2 slots beside it (4096 bytes per slot)" in \
         out.stdout
     assert "3 requests, 12 tokens" in out.stdout
