@@ -8,7 +8,23 @@ Phases, each printing its own line(s); any failure exits non-zero:
 1. device — the card's name and power limit, as nvidia-smi reports them;
 2. build  — the four CUDA kernels of ``src/repro_torch/csrc`` built with
    nvcc for sm_90a (one process per source, started together);
-2b. llama3.2-1b quantize (right after the build, so that its KD profile
+2a. llama3.2-1b train (right after the build; it opens no profiler
+   session) — the port's trainer (``train.Trainer``) on llama3.2-1b at
+   full width, cut to 4 of its 16 layers, in bf16 with f32 AdamW moments,
+   under the quantize CLI's teacher recipe (``TrainConfig(lr=1e-3,
+   warmup=20, total_steps=150)``, 8 x 256 tokens a step; ``TRAIN``): a
+   drill checkpointing every 50 steps under
+   ``launch.supervisor.run_with_restarts``, crashed by an exception at
+   step 120 and resumed from step 100 to 150, then an uninterrupted
+   150-step run with no manager. Step ms (median, the first 3 apart),
+   tokens/s, peak GiB, each save's seconds and bytes, the restore's
+   seconds, the loss over the first and last 10 steps; gated on finite
+   losses, a fall between those means, the resumed state equal to the
+   uninterrupted one bit for bit (crc32 of the leaves) and no kernel
+   launched (path ``llama3.2-1b-train``); and the reference's
+   ``test_loss_decreases`` on the card (its tiny config, 30 steps), its
+   loss 0.2 lower. The step-150 checkpoint is phase 2b's teacher;
+2b. llama3.2-1b quantize (after the trainer, so that its KD profile
    is the process's first profiler session) — kernel #1 under its
    autograd Function (the KD phase's student linear,
    ``ops.lowrank_binary_matmul``) against autograd through its plain
@@ -16,9 +32,9 @@ Phases, each printing its own line(s); any failure exits non-zero:
    1024, f32 and bf16: output and the gradients of x, s1 and s2, forward
    and forward + backward timed. Then the port's quantization pipeline
    (``NanoQuantModel.quantize``) on llama3.2-1b at full width, cut to 4
-   of its 16 layers (``QUANT_DEPTH``), in bf16, the teacher drawn on the
-   card by
-   ``models.transformer.init_params`` from the seed, calibrated on
+   of its 16 layers (``QUANT_DEPTH``), in bf16, the teacher phase 2a
+   trained, restored from its step-150 checkpoint by the code of
+   ``launch.quantize --teacher-ckpt`` (no further step), calibrated on
    ``QUANT``'s 16 samples of 256 tokens (cut from the paper's 128 x
    2048), ``QuantConfig()`` at its defaults (1.0 bpw, ADMM 40, TuneFP 40,
    STE 60, KD 60), on the path ``llama3.2-1b-quantize``: #1 only, 7
@@ -27,7 +43,10 @@ Phases, each printing its own line(s); any failure exits non-zero:
    method, the KD loss at its first and last step and over its first and
    last pass of the batches, the ranks and the linears' bpw, peak memory;
    gated on finite block errors and KD losses and a packed leaf for every
-   one of the 28 linears. One more KD step of the pipeline's own
+   one of the 28 linears; the FP perplexity of that teacher and of the
+   init teacher (``init_params`` from the seed) and the quantized
+   model's on the quantize CLI's evaluation batches (8 x 256, seed 99),
+   ``ppl_fp`` / ``ppl_fp_init`` / ``ppl_q``. One more KD step of the pipeline's own
    (``tune_scales_kd``) under the profiler gives its device ms by group
    (#1's forward, the backward's plain ops with the packed linears' share,
    the other ops). The artifact is saved, loaded and cast to f32 and served on the
@@ -86,6 +105,16 @@ Phases, each printing its own line(s); any failure exits non-zero:
    twice (``SERVE_DEMO``): without an artifact (the smoke teacher
    quantized on the card, the reference CLI's demo) and with ``--fp``;
    each must exit 0 and print its serve lines;
+2d. ``python -m repro_torch.launch.train --arch llama3.2-1b --steps 3
+   --batch 1 --seq 4096`` (``TRAIN_CLI``: the published config, all 16
+   layers, remat, loss_chunk 2048, sdpa_flash at train_4k's length) as a
+   subprocess, gated on exit 0 and finite losses, its step seconds and
+   peak GiB reported; one layer's attention at S 4096 in f32
+   (``FLASH``), sdpa_flash against the plain sdpa: output and q / k / v
+   gradients within 1e-5; then ``python -m repro_torch.launch.quantize
+   --teacher-steps 20 --teacher-ckpt DIR`` at smoke size twice
+   (``QUANT_CLI``): the second run trains no step and quantizes the first
+   run's step-20 teacher (crc32 of its leaves);
 3. llama3.2-1b kernels — kernels #1-#3 against their plain PyTorch
    versions on the card at the shapes the llama3.2-1b serving path gives
    them (decode M in {1, 8}, prefill M = 512; B = 8 slots, page_size 64,
@@ -318,6 +347,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -469,6 +499,31 @@ QUANT_SERVES = {"llama3.2-1b": QUANT_SERVE,
 # replays the reloaded shared block in the stream) and resumed. The MoE
 # stays out: its dispatch's index_add_ sums in no fixed order on the card
 DRILL = {"arch": "zamba2-1.2b", "crash_at": 7}
+# the trainer on the card (phase 2a): llama3.2-1b at full width, cut to its
+# QUANT_DEPTH, in its config's bf16 with f32 AdamW moments, under the
+# quantize CLI's teacher recipe (TrainConfig(lr=1e-3, warmup=20,
+# total_steps=150), `batch` sequences of QUANT["seq"] tokens a step). The
+# drill checkpoints every `ckpt_every` steps, crashes at `crash_at` and
+# resumes from the checkpoint before it; an uninterrupted run with no
+# checkpoints gives the state the resumed run must equal bit for bit and
+# the step times (the first `first_steps` apart). Its step-150 checkpoint is
+# the teacher that phase 2b quantizes
+TRAIN = {"arch": "llama3.2-1b", "steps": 150, "batch": 8, "ckpt_every": 50,
+         "crash_at": 120, "first_steps": 3}
+# ``python -m repro_torch.launch.train`` at the published config: all 16
+# layers, remat on, loss_chunk 2048, and sdpa_flash at train_4k's length
+TRAIN_CLI = ["--arch", "llama3.2-1b", "--steps", "3", "--batch", "1",
+             "--seq", "4096", "--log-every", "1"]
+TRAIN_CLI_TIMEOUT_S = 600
+# sdpa_flash against the plain sdpa at that length: one llama3.2-1b layer's
+# attention (32 query heads over 8 K/V heads, D 64) in f32
+FLASH = {"S": 4096, "Hq": 32, "Hkv": 8, "D": 64}
+# ``python -m repro_torch.launch.quantize`` with the teacher flags at smoke
+# size, twice over one --teacher-ckpt directory (the pipeline's budget cut)
+QUANT_CLI = ["--arch", "llama3.2-1b", "--teacher-steps", "20",
+             "--calib-samples", "4", "--calib-seq", "32", "--admm-iters", "4",
+             "--t-pre", "2", "--t-post", "2", "--t-glob", "2"]
+QUANT_CLI_TIMEOUT_S = 300
 # the autograd check's shape: llama3.2-1b's w_gate at M = 4 x 256 rows
 AUTOGRAD = {"M": 1024, "K": 2048, "R": 1600, "N": 8192}
 # the two-call route's (#4 twice) under the same Function: the VLM's FFN
@@ -599,11 +654,17 @@ def main():
     phase("build")
 
     launches = {}                     # path -> launches of each kernel
-    # the quantization phase first: its KD step's profile is the process's
-    # first profiler session
+    # the trainer first (it opens no profiler session), then the
+    # quantization phase, whose KD step's profile is the process's first
+    # profiler session, on the teacher it trained
+    report[f"{TRAIN['arch']}-train"], teacher_ckpt = train_path(launches,
+                                                                smi)
+    phase(f"{TRAIN['arch']} train (drill and uninterrupted run)")
     autograd = check_autograd()
     report["llama3.2-1b-quantize"], artifact = quantize_path(
-        "llama3.2-1b", launches, QUANT_DEPTH["llama3.2-1b"])
+        "llama3.2-1b", launches, QUANT_DEPTH["llama3.2-1b"],
+        teacher_ckpt=teacher_ckpt)
+    shutil.rmtree(os.path.dirname(teacher_ckpt), ignore_errors=True)
     phase("llama3.2-1b quantize")
     report["llama3.2-1b-quantized"] = quantize_serve(
         "llama3.2-1b", artifact, launches)
@@ -627,6 +688,10 @@ def main():
         phase(f"{arch} quantized artifact f32 engine path")
     report["serve-demo"] = serve_demo_paths()
     phase("launch.serve demo quantization and --fp")
+    report["launch-train"] = train_cli_path(smi)
+    phase("launch.train at the full config and sdpa_flash at S 4096")
+    report["launch-quantize-teacher"] = quantize_cli_path(smi)
+    phase("launch.quantize --teacher-steps / --teacher-ckpt, twice")
 
     llama = make_llama()
     lines = check_llama_kernels(llama, report)
@@ -3810,7 +3875,7 @@ def check_autograd(expert=False, twocall=False):
     return rows
 
 
-def quantize_path(arch, launches, depth=None):
+def quantize_path(arch, launches, depth=None, teacher_ckpt=None):
     """The port's quantization pipeline on `arch` at full width, at full
     depth or `depth` layers (``QUANT``'s calibration, ``QuantConfig()``),
     with every launch count set to 0 just before it; see phases 2b and 2c
@@ -3822,8 +3887,11 @@ def quantize_path(arch, launches, depth=None):
     apart, and one KD step's expert scale gradients are held against the
     plain path's (:func:`kd_expert_grads`). ``DRILL``'s arch runs with the
     journal on (a temporary directory). The VLM's blocks are timed by part
-    (:func:`block_parts`). Returns (its record, the saved artifact's
-    directory)."""
+    (:func:`block_parts`). With `teacher_ckpt` the teacher is the one
+    trained there (:func:`trained_teacher`), and the record adds its FP
+    perplexity, the init teacher's and the quantized model's on the
+    quantize CLI's evaluation batches. Returns (its record, the saved
+    artifact's directory)."""
     import tempfile
     import torch
     from repro_torch.api import NanoQuantModel
@@ -3834,6 +3902,9 @@ def quantize_path(arch, launches, depth=None):
     name = f"{arch}-quantize"
     t0 = time.perf_counter()
     cfg, teacher, calib, qcfg = quantize_inputs(arch, depth)
+    trained = None
+    if teacher_ckpt:
+        teacher, trained, evalb = trained_teacher(cfg, teacher, teacher_ckpt)
     setup_s = time.perf_counter() - t0
     d = tempfile.mkdtemp(prefix="quantize-")
     journal = os.path.join(d, "journal") if arch == DRILL["arch"] else None
@@ -3924,6 +3995,18 @@ def quantize_path(arch, launches, depth=None):
             f"check forwards + {qcfg.t_glob} KD steps x {per_forward}) and "
             f"none of the others")
     res = {"launches_per_forward": per_forward}
+    if trained is not None:
+        # on the artifact's kernel path, after the path's counts were read
+        trained["ppl_q"] = model.perplexity(evalb)
+        res.update(trained)
+        log(f"quantize {arch}: teacher trained {trained['teacher']['step']} "
+            f"steps (crc32 {trained['teacher']['crc32']:#010x}); ppl_fp "
+            f"{trained['ppl_fp']:.4f} (init teacher "
+            f"{trained['ppl_fp_init']:.4f}), ppl_q {trained['ppl_q']:.4f} "
+            f"on 8 x {QUANT['seq']} evaluation tokens (seed 99)")
+        if not all(math.isfinite(trained[k]) for k in
+                   ("ppl_fp", "ppl_fp_init", "ppl_q")):
+            raise AssertionError(f"quantize {arch}: perplexities {trained}")
     if parts:
         res["block_parts"] = parts
     if cfg.family == "moe":
@@ -4163,6 +4246,369 @@ def kd_split(teacher, qparams, cfg, batch, qcfg):
         f"{host_ms:.1f} ms")
     return {"host_ms": host_ms, "device_ms": total, "by_group_ms": groups,
             "packed_backward_ms": packed}
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(path) for f in fs)
+
+
+def _timed_step(step_fn, ms, losses):
+    """`step_fn` timed between device syncs, each step's ms and loss kept."""
+    import torch
+
+    def run(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(*a)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(out[3]["loss"]))
+        return out
+    return run
+
+
+def train_path(launches, smi):
+    """The trainer on ``TRAIN``'s arch at full width, cut to its
+    ``QUANT_DEPTH`` (phase 2a of the module docstring), with every launch
+    count set to 0 just before it: the drill (a run checkpointing every
+    ``ckpt_every`` steps under ``launch.supervisor.run_with_restarts``,
+    crashed by an exception at ``crash_at`` and resumed from the last
+    checkpoint to the end), then an uninterrupted run with no manager.
+    Gated on finite losses, the uninterrupted run's last-10 mean loss
+    below its first-10 mean, the reference's 0.2 margin on its tiny config
+    (:func:`train_learns`), the resumed state (params, AdamW moments and
+    step) equal to the uninterrupted one's bit for bit, the planned crash
+    alone caught, and no kernel launched. Returns (its record, the
+    checkpoint directory, whose last step is the trained teacher)."""
+    import tempfile
+    import torch
+    from repro_torch.checkpoint.journal import _crc_leaves
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import train_iterator
+    from repro_torch.launch.supervisor import run_with_restarts
+    from repro_torch.train import TrainConfig, Trainer, make_train_step
+    arch = TRAIN["arch"]
+    name = f"{arch}-train"
+    cfg = dataclasses.replace(get_config(arch), n_layers=QUANT_DEPTH[arch])
+    tcfg = TrainConfig(lr=1e-3, warmup=20, total_steps=TRAIN["steps"])
+    B, seq = TRAIN["batch"], QUANT["seq"]
+    ckpt = os.path.join(tempfile.mkdtemp(prefix="train-"), "ckpt")
+    saves, restores, attempts, said = [], [], [], []
+
+    class TimedManager(CheckpointManager):
+        def save(self, step, tree, **kw):
+            t0 = time.perf_counter()
+            path = super().save(step, tree, **kw)
+            saves.append({"step": step, "s": time.perf_counter() - t0,
+                          "bytes": _dir_bytes(path)})
+            return path
+
+        def restore_latest(self, template):
+            t0 = time.perf_counter()
+            out = super().restore_latest(template)
+            if out is not None:
+                restores.append({"step": out[0],
+                                 "s": time.perf_counter() - t0})
+            return out
+
+    counters = _counters()
+    for c in counters:
+        c.launches = 0
+    drill_ms, drill_losses = [], []
+
+    def attempt(n):
+        mgr = TimedManager(ckpt)
+        start = mgr.latest_step() or 0
+        tr = Trainer(cfg, tcfg, train_iterator(cfg, B, seq,
+                                               start_step=start),
+                     mgr, ckpt_every=TRAIN["ckpt_every"],
+                     step_fn=_timed_step(make_train_step(cfg, tcfg),
+                                         drill_ms, drill_losses),
+                     log_every=TRAIN["ckpt_every"], log_fn=log,
+                     device="cuda")
+        t0 = time.perf_counter()
+        tr.restore_or_init()
+        torch.cuda.synchronize()
+        attempts.append({"attempt": n, "start_step": tr.step,
+                         "restore_or_init_s": time.perf_counter() - t0})
+        budget = TRAIN["steps"] - tr.step
+        if n == 0:
+            budget = min(budget, TRAIN["crash_at"] - tr.step)
+        tr.run(budget)
+        if n == 0:
+            raise RuntimeError(f"injected trainer crash at step {tr.step}")
+        attempt.state = tr.state
+
+    t0 = time.perf_counter()
+    restarts = run_with_restarts(attempt, max_restarts=1,
+                                 log=lambda m: (said.append(m), log(m)))
+    drill_s = time.perf_counter() - t0
+    want = f"injected trainer crash at step {TRAIN['crash_at']}"
+    resume_at = TRAIN["crash_at"] // TRAIN["ckpt_every"] * TRAIN["ckpt_every"]
+    if restarts != 1 or not any(want in m for m in said) \
+            or [a["start_step"] for a in attempts] != [0, resume_at]:
+        raise AssertionError(f"train drill: restarts {restarts}, attempts "
+                             f"{attempts}, supervisor said {said}")
+    resumed = attempt.state
+    del attempt.state
+
+    plain_ms, plain_losses = [], []
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, tcfg, train_iterator(cfg, B, seq),
+                 step_fn=_timed_step(make_train_step(cfg, tcfg), plain_ms,
+                                     plain_losses),
+                 log_every=TRAIN["ckpt_every"], log_fn=log, device="cuda")
+    t0 = time.perf_counter()
+    tr.run(TRAIN["steps"])
+    plain_s = time.perf_counter() - t0
+    peak = _peak_gib()
+    launches[name] = n = [c.launches for c in counters]
+
+    crc = {"resumed": _crc_leaves(resumed), "uninterrupted":
+           _crc_leaves(tr.state)}
+    # the state's parts apart only when the whole differs (a 5 GB read each)
+    crc_parts = None if crc["resumed"] == crc["uninterrupted"] else {
+        part: [_crc_leaves(st[i]) for st in (resumed, tr.state)]
+        for i, part in enumerate(("params", "adamw", "eff"))}
+    k = TRAIN["first_steps"]
+    step_ms = sorted(plain_ms[k:])[len(plain_ms[k:]) // 2]
+    first10, last10 = (sum(plain_losses[:10]) / 10,
+                       sum(plain_losses[-10:]) / 10)
+    rec = {"n_layers": cfg.n_layers, "dtype": cfg.dtype, "batch": B,
+           "seq": seq, "steps": TRAIN["steps"],
+           "train_config": dataclasses.asdict(tcfg),
+           "step_ms_median": step_ms, "first_step_ms": plain_ms[:k],
+           "tokens_per_s": B * seq / (step_ms / 1e3), "peak_gib": peak,
+           "uninterrupted_s": plain_s, "drill_s": drill_s,
+           "saves": saves, "restores": restores, "attempts": attempts,
+           "loss_first10": first10, "loss_last10": last10,
+           "losses": plain_losses, "drill_losses": drill_losses,
+           "crc32": crc, "crc32_parts": crc_parts,
+           "bit_identical": crc["resumed"] == crc["uninterrupted"],
+           "launches": n, "device": smi}
+    log(f"train {cfg.name} {cfg.dtype} ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {B} x {seq} tokens a step, remat {cfg.remat}) on "
+        f"{smi}: step {step_ms:.2f} ms median (first {k}: "
+        + ", ".join(f"{x:.1f}" for x in plain_ms[:k]) + " ms), "
+        f"{rec['tokens_per_s']:.0f} tokens/s, peak {peak:.2f} GiB; loss "
+        f"{first10:.4f} -> {last10:.4f} (first and last 10 steps); saves "
+        + ", ".join(f"step {x['step']} {x['s']:.2f} s {x['bytes'] / 1e9:.2f}"
+                    f" GB" for x in saves)
+        + "; restore " + ", ".join(f"step {x['step']} {x['s']:.2f} s"
+                                   for x in restores)
+        + f"; drill {drill_s:.2f} s, uninterrupted {plain_s:.2f} s; "
+        f"resumed crc32 {crc['resumed']:#010x}, uninterrupted "
+        f"{crc['uninterrupted']:#010x}; launches {n}")
+    rec["tiny"] = tiny = train_learns()
+    bad = [x for x in plain_losses + drill_losses if not math.isfinite(x)]
+    if bad:
+        raise AssertionError(f"train: non-finite losses {bad[:5]}")
+    # the synthetic chain over 128256 tokens gives no transition to learn
+    # in 150 steps (PERF.md §6): the full-width loss must fall, the
+    # reference's 0.2 margin is held on its own tiny config (train_learns)
+    if not last10 < first10:
+        raise AssertionError(f"train: loss {first10} -> {last10} did not "
+                             f"fall")
+    if not rec["bit_identical"]:
+        raise AssertionError(f"train drill: the resumed state differs from "
+                             f"the uninterrupted run's: {crc_parts}")
+    if any(n):
+        raise AssertionError(f"train: kernels launched {n}")
+    del resumed, tr
+    free()
+    return rec, ckpt
+
+
+def train_learns():
+    """The reference's ``tests/test_train.py::test_loss_decreases`` on the
+    card through the port's train step: its tiny dense config (d 64,
+    vocab 256, bf16, untied head), ``TrainConfig(lr=2e-3, warmup=5,
+    total_steps=40)``, 30 steps of 8 x 32 tokens; the last 5 losses' mean
+    must be 0.2 below the first 5's. Returns (first-5 mean, last-5
+    mean)."""
+    from repro_torch.data import train_iterator
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+    cfg = ModelConfig(name="tiny", family="dense", n_layers=2, d_model=64,
+                      n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=256,
+                      loss_chunk=0, remat=False)
+    tcfg = TrainConfig(lr=2e-3, warmup=5, total_steps=40)
+    state = init_train_state(cfg, tcfg, device="cuda")
+    step = make_train_step(cfg, tcfg)
+    it = train_iterator(cfg, batch=8, seq=32)
+    losses = []
+    for _ in range(30):
+        *state, m = step(*state, next(it))
+        losses.append(m["loss"])
+    losses = [float(x) for x in losses]
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    log(f"train the reference's tiny config (tests/test_train.py): loss "
+        f"{first:.4f} -> {last:.4f} over 30 steps")
+    if not all(math.isfinite(x) for x in losses) or not last < first - 0.2:
+        raise AssertionError(f"train tiny: loss {losses}")
+    return {"first5": first, "last5": last}
+
+
+def trained_teacher(cfg, init_teacher, ckpt):
+    """The teacher ``launch.quantize --teacher-ckpt`` takes from `ckpt`
+    (``train_teacher``: ``Trainer.restore_or_init`` over the directory, no
+    further step), checked at ``TRAIN``'s last step, and the FP
+    perplexities of it and of `init_teacher` on the CLI's evaluation
+    batches (8 x ``QUANT["seq"]``, seed 99). Returns (teacher, record,
+    the evaluation batches)."""
+    from repro_torch.api import NanoQuantModel
+    from repro_torch.data.synthetic import calib_batches
+    from repro_torch.launch.quantize import train_teacher
+    evalb = calib_batches(cfg, 8, QUANT["seq"], seed=99)
+    ppl_init = NanoQuantModel.from_fp(init_teacher, cfg).perplexity(evalb)
+    teacher, info = train_teacher(cfg, TRAIN["steps"], QUANT["seq"], ckpt,
+                                  "cuda", log=log)
+    if info["step"] != TRAIN["steps"] or info["trained_steps"]:
+        raise AssertionError(f"quantize: the teacher checkpoint gave {info}")
+    ppl_fp = NanoQuantModel.from_fp(teacher, cfg).perplexity(evalb)
+    return teacher, {"teacher": info, "ppl_fp_init": ppl_init,
+                     "ppl_fp": ppl_fp}, evalb
+
+
+def train_cli_path(smi):
+    """``python -m repro_torch.launch.train`` with ``TRAIN_CLI`` (the
+    published llama3.2-1b config: 16 layers, remat, loss_chunk 2048 and
+    sdpa_flash at S 4096) as a subprocess with no checkpoint directory,
+    gated on exit 0 and finite losses; then one layer's attention at S
+    4096 in f32 (``FLASH``), ``sdpa_flash`` (after the dispatch's GQA head
+    repeat) against the plain ``sdpa``: the output and the q / k / v
+    gradients of a seeded cotangent within the f32 tolerance, each timed
+    forward + backward. Output in ``OUT_DIR/launch_train.log``."""
+    import torch
+    from repro_torch.models import layers as L
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               PYTHONUNBUFFERED="1")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_CLI]
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                             cwd=ROOT, timeout=TRAIN_CLI_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        raise AssertionError(f"launch.train: no exit within "
+                             f"{TRAIN_CLI_TIMEOUT_S} s") from e
+    wall = time.perf_counter() - t0
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "launch_train.log"), "w") as f:
+        f.write(f"$ {' '.join(cmd[1:])}\n{out.stdout}{out.stderr}")
+    steps = [ln for ln in out.stdout.splitlines()
+             if ln.startswith("[trainer] step=")]
+    losses = [float(ln.split("loss=")[1].split()[0]) for ln in steps]
+    step_s = [float(ln.split("(")[1].split("s/step")[0]) for ln in steps]
+    peak = [ln for ln in out.stdout.splitlines() if "peak device" in ln]
+    n_steps = int(TRAIN_CLI[TRAIN_CLI.index("--steps") + 1])
+    if out.returncode != 0 or len(losses) != n_steps \
+            or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"launch.train: rc {out.returncode}, losses "
+                             f"{losses}:\n{out.stdout[-2000:]}"
+                             f"{out.stderr[-2000:]}")
+    peak_gib = float(peak[-1].split()[-2]) if peak else float("nan")
+    res = {"rc": out.returncode, "wall_s": wall, "losses": losses,
+           "step_s": step_s, "peak_gib": peak_gib, "args": TRAIN_CLI}
+    log(f"launch.train {' '.join(TRAIN_CLI)}: exit 0 in {wall:.2f} s on "
+        f"{smi}; losses {losses}; step s {step_s}; peak {peak_gib:.2f} GiB")
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 70)
+    S, Hq, Hkv, D = FLASH["S"], FLASH["Hq"], FLASH["Hkv"], FLASH["D"]
+    q, k, v = (torch.randn((1, S, h, D), generator=g, device="cuda")
+               for h in (Hq, Hkv, Hkv))
+    ct = torch.randn((1, S, Hq, D), generator=g, device="cuda")
+    pos = torch.arange(S, device="cuda")
+    scale = 1.0 / math.sqrt(D)
+    got = {}
+    for kind in ("flash", "plain"):
+        tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "flash":
+            G = Hq // Hkv
+            o = L.sdpa_flash(tq, tk.repeat_interleave(G, dim=2),
+                             tv.repeat_interleave(G, dim=2), pos, pos, scale,
+                             0, 512, 1024)
+        else:
+            o = L.sdpa(tq, tk, tv, L._mask(pos, pos, 0), scale)
+        grads = torch.autograd.grad(o, (tq, tk, tv), ct)
+        torch.cuda.synchronize()
+        got[kind] = (o.detach(), grads, (time.perf_counter() - t0) * 1e3)
+    pairs = [("out", got["plain"][0], got["flash"][0])] + [
+        (f"d{n}", a, b) for n, a, b in zip("qkv", got["plain"][1],
+                                           got["flash"][1])]
+    errs = {n: compare(f"sdpa_flash vs sdpa at S {S}: {n}", a, b,
+                       TOL["f32"])[1] for n, a, b in pairs}
+    res["flash_vs_plain"] = {"rel_err": errs, "flash_ms": got["flash"][2],
+                             "plain_ms": got["plain"][2], **FLASH}
+    log(f"sdpa_flash vs sdpa at S {S} (Hq {Hq}, Hkv {Hkv}, D {D}, f32) on "
+        f"{smi}: rel err " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                       errs.items())
+        + f"; forward + backward {got['flash'][2]:.1f} ms (flash), "
+        f"{got['plain'][2]:.1f} ms (plain), first call each")
+    del got, pairs, q, k, v, ct
+    free()
+    return res
+
+
+def quantize_cli_path(smi):
+    """``python -m repro_torch.launch.quantize`` with ``QUANT_CLI`` and
+    ``--teacher-ckpt`` over one directory, twice: the first run trains the
+    smoke teacher 20 steps and saves it, the second must train none (its
+    log says so) and quantize the same teacher (the crc32 of its leaves in
+    each run's report.json). Output in ``OUT_DIR/launch_quantize.log``."""
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               PYTHONUNBUFFERED="1")
+    d = tempfile.mkdtemp(prefix="quantize-cli-")
+    runs, logs = [], []
+    for i in range(2):
+        out_dir = os.path.join(d, f"nq{i}")
+        cmd = [sys.executable, "-m", "repro_torch.launch.quantize",
+               *QUANT_CLI, "--teacher-ckpt", os.path.join(d, "teacher"),
+               "--out", out_dir]
+        t0 = time.perf_counter()
+        try:
+            out = subprocess.run(cmd, capture_output=True, text=True,
+                                 env=env, cwd=ROOT,
+                                 timeout=QUANT_CLI_TIMEOUT_S)
+        except subprocess.TimeoutExpired as e:
+            raise AssertionError(f"launch.quantize run {i}: no exit within "
+                                 f"{QUANT_CLI_TIMEOUT_S} s") from e
+        wall = time.perf_counter() - t0
+        logs.append(f"$ {' '.join(cmd[1:])}\n{out.stdout}{out.stderr}")
+        if out.returncode != 0:
+            raise AssertionError(f"launch.quantize run {i}: rc "
+                                 f"{out.returncode}:\n{out.stdout[-2000:]}"
+                                 f"{out.stderr[-2000:]}")
+        with open(os.path.join(out_dir, "report.json")) as f:
+            rep = json.load(f)
+        runs.append({"wall_s": wall, "teacher": rep["teacher"],
+                     "ppl_fp": rep["ppl_fp"], "ppl_q": rep["ppl_q"],
+                     "lines": [x for x in out.stdout.splitlines()
+                               if x.startswith("[quantize] teacher")]})
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "launch_quantize.log"), "w") as f:
+        f.write("\n".join(logs))
+    shutil.rmtree(d, ignore_errors=True)
+    steps = int(QUANT_CLI[QUANT_CLI.index("--teacher-steps") + 1])
+    t0, t1 = (r["teacher"] for r in runs)
+    log("launch.quantize " + " ".join(QUANT_CLI) + " --teacher-ckpt, twice, "
+        f"on {smi}: "
+        + "; ".join(f"{r['lines']} in {r['wall_s']:.2f} s, ppl_fp "
+                    f"{r['ppl_fp']:.4f}, ppl_q {r['ppl_q']:.4f}"
+                    for r in runs)
+        + f"; teacher crc32 {t0['crc32']:#010x} / {t1['crc32']:#010x}")
+    if (t0["trained_steps"], t1["trained_steps"]) != (steps, 0) \
+            or t0["step"] != steps or t1["step"] != steps \
+            or t0["crc32"] != t1["crc32"] \
+            or f"teacher at step {steps}: 0 steps trained" not in \
+            " ".join(runs[1]["lines"]):
+        raise AssertionError(f"launch.quantize --teacher-ckpt: {runs}")
+    return {"runs": runs}
 
 
 def quantize_inputs(arch, depth=None):

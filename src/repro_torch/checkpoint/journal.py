@@ -97,7 +97,7 @@ def _crc_leaves(tree) -> int:
         shape, name, arr = _leaf_bytes(leaf, packed)
         crc = zlib.crc32(repr((tuple(int(s) for s in shape), name)).encode(),
                          crc)
-        crc = zlib.crc32(np.ascontiguousarray(arr).tobytes(), crc)
+        crc = zlib.crc32(np.ascontiguousarray(arr), crc)     # read in place
     return crc
 
 

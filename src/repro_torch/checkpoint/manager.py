@@ -1,12 +1,13 @@
 """Atomic checkpoints in the JAX package's layout: the port of the save,
 restore and keyed save / restore of ``repro.checkpoint.manager`` for
-parameter trees.
+parameter trees and training states.
 
 Layout written by the JAX package: ``<dir>/step_00000123/{arrays-<k>.npz,
-meta.json}``. Leaves are stored in the order JAX flattens the parameter
-dict (keys sorted at every level), striped across numbered npz shards as
-``leaf_000000``...; ``meta.json`` records each leaf's shape, dtype name
-and crc32 (and, for a keyed save, each leaf's key path joined by ``/``).
+meta.json}``. Leaves are stored in the order JAX flattens the tree (dict
+keys sorted at every level, tuple and NamedTuple items in order),
+striped across numbered npz shards as ``leaf_000000``...; ``meta.json``
+records each leaf's shape, dtype name and crc32 (and, for a keyed save,
+each leaf's key path joined by ``/``).
 Extended floats (bfloat16) are stored as same-width unsigned bit views;
 packed words (int32 in the port) as uint32. A restore verifies every leaf
 against ``meta.json`` and names the bad leaf on a missing shard or leaf, a
@@ -46,12 +47,28 @@ def _fsync_path(path: str) -> None:
         os.close(fd)
 
 
+def _is_spec(node) -> bool:
+    return hasattr(node, "shape") and hasattr(node, "dtype")
+
+
 def _flatten(tree, prefix=()) -> List[Tuple[Tuple[str, ...], Any]]:
-    """(key path, leaf) pairs in JAX's dict flatten order (sorted keys)."""
+    """(key path, leaf) pairs in ``jax.tree.leaves`` order: a dict's keys
+    sorted, a tuple's or list's items in order, a NamedTuple's fields in
+    declaration order (a training state ``(params, AdamState(step, m, v),
+    eff)`` flattens as JAX's does). A tuple item's path component is its
+    index, a NamedTuple field's its name. Anything with a shape and a
+    dtype (a tensor, an array, a ``LeafSpec``) is a leaf."""
     if isinstance(tree, dict):
         out = []
         for k in sorted(tree):
             out += _flatten(tree[k], prefix + (k,))
+        return out
+    if isinstance(tree, (tuple, list)) and not _is_spec(tree):
+        names = getattr(tree, "_fields", None) or \
+            [str(i) for i in range(len(tree))]
+        out = []
+        for name, item in zip(names, tree):
+            out += _flatten(item, prefix + (name,))
         return out
     return [(prefix, tree)]
 
@@ -66,6 +83,23 @@ def _unflatten(items) -> Dict:
     return out
 
 
+def _unflatten_like(template, leaves):
+    """`leaves` (in :func:`_flatten` order) in the structure of
+    `template`: dicts, tuples, lists and NamedTuples rebuilt as such."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, (tuple, list)) and not _is_spec(node):
+            items = [build(x) for x in node]
+            if hasattr(node, "_fields"):
+                return type(node)(*items)
+            return type(node)(items)
+        return next(it)
+    return build(template)
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = directory
@@ -75,6 +109,10 @@ class CheckpointManager:
         return os.path.join(self.dir, f"step_{step:08d}")
 
     def steps(self) -> List[int]:
+        """The saved steps, ascending (none while the directory does not
+        exist: the first save makes it)."""
+        if not os.path.isdir(self.dir):
+            return []
         out = []
         for name in os.listdir(self.dir):
             if name.startswith("step_"):
@@ -98,8 +136,9 @@ class CheckpointManager:
 
     def save(self, step: int, tree: Any, template: Any = None,
              keyed: bool = False) -> str:
-        """Write nested dict `tree` of tensors as step `step`, in the
-        layout and leaf order the JAX package writes and reads. A leaf
+        """Write `tree` (nested dicts, tuples and NamedTuples of tensors)
+        as step `step`, in the layout and leaf order the JAX package writes
+        and reads. A leaf
         stored as uint32 (packed words, int32 in the port) is one whose
         `template` spec says ``uint32``, or without a template one named
         ``qv`` / ``qu_t``. With ``keyed=True`` meta.json also records each
@@ -125,7 +164,8 @@ class CheckpointManager:
             arr, name = numpy_from_tensor(leaf, "uint32" if word else None)
             shapes.append(list(arr.shape))
             dtypes.append(name)
-            checksums.append(zlib.crc32(np.ascontiguousarray(arr).tobytes()))
+            # the crc32 of the stored bytes, read in place (no copy)
+            checksums.append(zlib.crc32(np.ascontiguousarray(arr)))
             cur[f"leaf_{i:06d}"] = arr
             cur_bytes += arr.nbytes
             if cur_bytes >= SHARD_BYTES:
@@ -195,7 +235,7 @@ class CheckpointManager:
                     f"shape {tuple(raw.shape)}, meta.json says "
                     f"{tuple(shapes[i])}")
             if checksums is not None:
-                got = zlib.crc32(np.ascontiguousarray(raw).tobytes())
+                got = zlib.crc32(np.ascontiguousarray(raw))
                 if got != checksums[i]:
                     raise ValueError(
                         f"corrupt/truncated checkpoint {d!r}: {where} "
@@ -204,10 +244,11 @@ class CheckpointManager:
             out.append(tensor_from_numpy(raw, meta["dtypes"][i]))
         return out
 
-    def restore(self, step: int, template: Any) -> Dict:
-        """Load `step` into the structure of `template` (a nested dict
-        whose leaves carry ``.shape``). Returns a nested dict of CPU
-        tensors, bit-exact (packed uint32 words as int32)."""
+    def restore(self, step: int, template: Any) -> Any:
+        """Load `step` into the structure of `template` (nested dicts,
+        tuples and NamedTuples whose leaves carry ``.shape``). Returns that
+        structure of CPU tensors, bit-exact (packed uint32 words as
+        int32)."""
         meta = self.meta(step)
         flat = _flatten(template)
         if meta["n_leaves"] != len(flat):
@@ -220,7 +261,7 @@ class CheckpointManager:
                 raise ValueError(f"leaf {i} ({'/'.join(path)}): checkpoint "
                                  f"shape {tuple(leaf.shape)} != template "
                                  f"{tuple(spec.shape)}")
-        return _unflatten([(p, l) for (p, _), l in zip(flat, leaves)])
+        return _unflatten_like(template, leaves)
 
     def restore_keyed(self, step: int) -> Dict:
         """Template-free restore of a checkpoint written with
@@ -237,7 +278,7 @@ class CheckpointManager:
         return _unflatten([(tuple(kp.split("/")), l)
                            for kp, l in zip(keypaths, leaves)])
 
-    def restore_latest(self, template: Any) -> Optional[Tuple[int, Dict]]:
+    def restore_latest(self, template: Any) -> Optional[Tuple[int, Any]]:
         step = self.latest_step()
         if step is None:
             return None

@@ -1,6 +1,7 @@
 """deepseek-v2-lite-16b [moe] — 27L d_model=2048 16H, MLA kv_lora=512,
 expert d_ff=1408, vocab=102400, MoE 64 routed top-6 + 2 shared experts,
 first layer dense (d_ff=10944) [arXiv:2405.04434; hf]."""
+from repro_torch.api.archs import ArchSpec, register_arch
 from repro_torch.models.config import ModelConfig, scaled_down
 
 CONFIG = ModelConfig(
@@ -31,3 +32,10 @@ SMOKE = scaled_down(
     first_k_dense=1, vocab_size=256, n_experts=8, n_experts_per_tok=2,
     n_shared_experts=1, kv_lora_rank=32, qk_rope_dim=8, qk_nope_dim=16,
     v_head_dim=16, loss_chunk=0, remat=False)
+
+SHAPES = ["train_4k", "prefill_32k", "decode_32k"]
+
+
+@register_arch("deepseek-v2-lite-16b")
+def _arch() -> ArchSpec:
+    return ArchSpec("deepseek-v2-lite-16b", CONFIG, SMOKE, tuple(SHAPES))

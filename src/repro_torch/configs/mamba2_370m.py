@@ -1,5 +1,6 @@
 """mamba2-370m [ssm] — 48L d_model=1024, attn-free, vocab=50280,
 ssm_state=128, SSD state-space duality [arXiv:2405.21060; unverified]."""
+from repro_torch.api.archs import ArchSpec, register_arch
 from repro_torch.models.config import ModelConfig, scaled_down
 
 CONFIG = ModelConfig(
@@ -22,3 +23,10 @@ SMOKE = scaled_down(
     CONFIG, name="mamba2-370m-smoke", n_layers=3, d_model=64,
     vocab_size=256, ssm_state=16, ssm_head_dim=16, ssm_chunk=16,
     loss_chunk=0, remat=False)
+
+SHAPES = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
+
+
+@register_arch("mamba2-370m")
+def _arch() -> ArchSpec:
+    return ArchSpec("mamba2-370m", CONFIG, SMOKE, tuple(SHAPES))

@@ -8,6 +8,7 @@ and the head predicts all 4 codebooks of the next frame in parallel. The
 block is the JAX package's llama-style one (RoPE, SwiGLU, no delay
 pattern), kept here.
 """
+from repro_torch.api.archs import ArchSpec, register_arch
 from repro_torch.models.config import ModelConfig, scaled_down
 
 CONFIG = ModelConfig(
@@ -28,3 +29,10 @@ SMOKE = scaled_down(
     CONFIG, name="musicgen-medium-smoke", n_layers=2, d_model=64,
     n_heads=4, n_kv_heads=4, d_ff=128, vocab_size=128, head_dim=16,
     loss_chunk=0, remat=False)
+
+SHAPES = ["train_4k", "prefill_32k", "decode_32k"]
+
+
+@register_arch("musicgen-medium")
+def _arch() -> ArchSpec:
+    return ArchSpec("musicgen-medium", CONFIG, SMOKE, tuple(SHAPES))

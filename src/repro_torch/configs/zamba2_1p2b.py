@@ -6,6 +6,7 @@
 style). The shared block has a 4096 sliding window so the arch stays
 sub-quadratic at long context (the JAX package's adaptation, kept here).
 """
+from repro_torch.api.archs import ArchSpec, register_arch
 from repro_torch.models.config import ModelConfig, scaled_down
 
 CONFIG = ModelConfig(
@@ -31,3 +32,10 @@ SMOKE = scaled_down(
     n_kv_heads=4, d_ff=128, vocab_size=256, head_dim=16, ssm_state=16,
     ssm_head_dim=16, ssm_chunk=16, attn_every=2, sliding_window=64,
     loss_chunk=0, remat=False)
+
+SHAPES = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
+
+
+@register_arch("zamba2-1.2b")
+def _arch() -> ArchSpec:
+    return ArchSpec("zamba2-1.2b", CONFIG, SMOKE, tuple(SHAPES))

@@ -11,7 +11,7 @@ consumer moves them to its device. Batches are a pure function of
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -77,6 +77,20 @@ def make_batch(cfg: ModelConfig, corpus: SyntheticCorpus, seed: int,
             (batch, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
         b["image_embeds"] = torch.from_numpy(img).to(torch_dtype(cfg))
     return b
+
+
+def train_iterator(cfg: ModelConfig, batch: int, seq: int, seed: int = 0,
+                   start_step: int = 0,
+                   corpus: Optional[SyntheticCorpus] = None
+                   ) -> Iterator[Dict[str, torch.Tensor]]:
+    """Infinite deterministic stream of :func:`make_batch` from step
+    `start_step` on: a resumed run passes the step it restored and reads
+    the batches it would have read (deterministic data skip)."""
+    corpus = corpus or SyntheticCorpus(cfg.vocab_size)
+    step = start_step
+    while True:
+        yield make_batch(cfg, corpus, seed, step, batch, seq)
+        step += 1
 
 
 def calib_batches(cfg: ModelConfig, n_samples: int = 16, seq: int = 128,

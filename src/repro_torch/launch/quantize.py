@@ -1,16 +1,23 @@
 """Quantization CLI, the port of ``repro.launch.quantize`` for every
-family: build the FP teacher, check the inputs (``quant.preflight``), run
-the NanoQuant pipeline through ``NanoQuantModel.quantize``, save the
-packed artifact and report sizes and perplexities.
+family: train (or resume) the FP teacher, check the inputs
+(``quant.preflight``), run the NanoQuant pipeline through
+``NanoQuantModel.quantize``, save the packed artifact and report sizes
+and perplexities.
 
     PYTHONPATH=src python -m repro_torch.launch.quantize --arch llama3.2-1b \
-        --bpw 1.0 --out /tmp/nq
+        --bpw 1.0 --teacher-steps 150 --out /tmp/nq
     PYTHONPATH=src python -m repro_torch.launch.serve --quantized-ckpt /tmp/nq
 
-The teacher is ``models.transformer.init_params`` from seed 0 (what the
-JAX package's CLI quantizes with ``--teacher-steps 0``): the smoke
-config by default, the published one with ``--full``. The run is on
-``--device`` (``cuda`` by default; nothing falls back to the CPU).
+The teacher is the smoke config by default, the published one with
+``--full``, trained on the synthetic corpus for ``--teacher-steps``
+(150, the reference's recipe: ``TrainConfig(lr=1e-3, warmup=20)``, 8
+sequences of ``--calib-seq`` tokens a step) from ``init_params`` of seed
+0; ``--teacher-steps 0`` quantizes that draw untrained. With
+``--teacher-ckpt DIR`` the teacher resumes from DIR's latest checkpoint
+(either package's ``Trainer`` writes them), trains only the steps it
+lacks, its data stream started at that step, and saves its last step
+there: a rerun trains nothing. The run is on ``--device`` (``cuda`` by
+default; nothing falls back to the CPU).
 
 Fault tolerance: ``--journal-dir`` makes the run crash-safe (a per-block
 journal, ``checkpoint.journal``); ``--resume`` picks a killed run up from
@@ -20,10 +27,8 @@ on missing ``[quant] heartbeat`` lines; a restarted child gets
 ``--resume``. ``--crash-at-block N`` injects one crash when block N
 starts, on the first attempt only (a restart drill).
 
-Teacher training (``--teacher-steps`` > 0, ``--teacher-ckpt``) waits for
-the trainer (ROADMAP item 13) and exits non-zero. The VLM's calibration
-and evaluation batches carry seeded image embeddings
-(``data.synthetic.make_batch``).
+The VLM's calibration and evaluation batches carry seeded image
+embeddings (``data.synthetic.make_batch``).
 """
 from __future__ import annotations
 
@@ -33,13 +38,37 @@ import json
 import os
 import sys
 
-# flags of the JAX package's CLI the port refuses: (flag, what it
-# needs, the ROADMAP item that brings it)
-_REFUSED = (
-    ("teacher_steps", "a trained teacher", "13 (the trainer)"),
-    ("teacher_ckpt", "a trained teacher", "13 (the trainer)"),
-)
 HEARTBEAT_RE = r"\[quant\] heartbeat"
+
+
+def train_teacher(cfg, steps: int, seq: int, ckpt_dir: str = "",
+                  device="cuda", log=print):
+    """The FP teacher of the reference CLI's recipe: `cfg`'s
+    ``init_params`` (seed 0) trained by ``train.Trainer`` for `steps`
+    steps under ``TrainConfig(lr=1e-3, warmup=20, total_steps=steps)`` on
+    ``train_iterator(cfg, 8, seq)``. With `ckpt_dir` it resumes from the
+    directory's latest step (the data stream started there), trains only
+    the steps it lacks and saves its last step. Returns (params, {"step",
+    "trained_steps", "crc32"}: the teacher's step, the steps trained
+    here, the crc32 of its leaves)."""
+    from repro_torch.checkpoint.journal import _crc_leaves
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data import train_iterator
+    from repro_torch.train import TrainConfig, Trainer
+
+    tcfg = TrainConfig(lr=1e-3, warmup=20, total_steps=steps)
+    mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
+    start = (mgr.latest_step() or 0) if mgr is not None else 0
+    tr = Trainer(cfg, tcfg, train_iterator(cfg, 8, seq, start_step=start),
+                 mgr, log_every=25, log_fn=log, device=device)
+    tr.restore_or_init()
+    trained = max(0, steps - tr.step)
+    tr.run(trained)
+    if mgr is not None and trained and tr.step % tr.ckpt_every:
+        mgr.save(tr.step, tr.state)
+    params = tr.state[0]
+    return params, {"step": tr.step, "trained_steps": trained,
+                    "crc32": _crc_leaves(params)}
 
 
 def main(argv=None):
@@ -90,14 +119,11 @@ def main(argv=None):
     ap.add_argument("--crash-at-block", type=int, default=-1,
                     help="inject one crash when this block starts, "
                          "first attempt only (restart drill)")
-    # the JAX package's flags the port does not take yet (_REFUSED)
-    ap.add_argument("--teacher-steps", type=int, default=0)
-    ap.add_argument("--teacher-ckpt", default="")
+    ap.add_argument("--teacher-steps", type=int, default=150)
+    ap.add_argument("--teacher-ckpt", default="",
+                    help="resume the teacher from (and save it to) this "
+                         "checkpoint directory")
     args = ap.parse_args(argv)
-    for flag, needs, item in _REFUSED:
-        if getattr(args, flag) != ap.get_default(flag):
-            ap.error(f"--{flag.replace('_', '-')} needs {needs}, which the "
-                     f"port does not have yet (ROADMAP item {item})")
     cfg = get_config(args.arch) if args.full else get_smoke(args.arch)
     if args.resume and not args.journal_dir:
         ap.error("--resume needs --journal-dir")
@@ -117,14 +143,12 @@ def main(argv=None):
             hang_timeout=args.hang_timeout,
             heartbeat_pattern=HEARTBEAT_RE))
 
-    import torch
     from repro_torch import resolve_device
     from repro_torch.api import NanoQuantModel
     from repro_torch.api.init_methods import list_init_methods
     from repro_torch.checkpoint.journal import QuantJournal
     from repro_torch.core.pipeline import QuantConfig
     from repro_torch.data.synthetic import SyntheticCorpus, calib_batches
-    from repro_torch.models import transformer as T
     from repro_torch.quant.faults import QuantFault, QuantFaultPlan
     from repro_torch.quant.preflight import preflight
 
@@ -132,8 +156,12 @@ def main(argv=None):
         ap.error(f"unknown init method {args.init_method!r}; available: "
                  f"{list_init_methods()}")
     device = resolve_device(args.device)
-    params = T.init_params(
-        cfg, torch.Generator(device=device).manual_seed(0), device)
+    params, teacher = train_teacher(cfg, args.teacher_steps, args.calib_seq,
+                                    args.teacher_ckpt, device)
+    print(f"[quantize] teacher at step {teacher['step']}: "
+          f"{teacher['trained_steps']} steps trained in this run"
+          + (f" (checkpoints in {args.teacher_ckpt})"
+             if args.teacher_ckpt else ""), flush=True)
     corpus = SyntheticCorpus(cfg.vocab_size)
     calib = calib_batches(cfg, args.calib_samples, args.calib_seq,
                           corpus=corpus)
@@ -187,6 +215,7 @@ def main(argv=None):
         model.save(args.out)
         with open(os.path.join(args.out, "report.json"), "w") as f:
             json.dump({"ppl_fp": ppl_fp, "ppl_q": ppl_q, "sizes": sizes,
+                       "teacher": teacher,
                        "ranks": model.ranks,
                        "wall_s": model.report["wall_s"],
                        "quant_config": dataclasses.asdict(qcfg)},

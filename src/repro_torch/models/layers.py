@@ -17,6 +17,7 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 
@@ -222,6 +223,64 @@ def sdpa(q, k, v, mask, scale: float):
     return o.reshape(B, Sq, Hq, -1)
 
 
+def _flash_kv_step(m_run, l_run, acc, qblk, kblk, vblk, qpos, kpos,
+                   scale: float, window: int):
+    """One key chunk of :func:`sdpa_flash`'s online softmax: the running
+    max, normalizer and f32 accumulator of a query chunk, updated."""
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qblk, kblk).float() * scale
+    msk = _mask(qpos, kpos, window)
+    s = torch.where(msk[None, None, None], s, torch.full_like(s, -1e30))
+    m_new = torch.maximum(m_run, s.amax(-1))
+    alpha = torch.exp(m_run - m_new)
+    pexp = torch.exp(s - m_new[..., None])
+    l_new = l_run * alpha + pexp.sum(-1)
+    acc = acc * alpha[..., None] + torch.einsum(
+        "bhgqk,bkhd->bhgqd", pexp.to(vblk.dtype), vblk).float()
+    return m_new, l_new, acc
+
+
+def sdpa_flash(q, k, v, q_pos, k_pos, scale: float, window: int = 0,
+               q_chunk: int = 512, kv_chunk: int = 1024):
+    """Memory-bounded attention, the port of the reference's
+    ``sdpa_flash``: an outer loop over query chunks and an inner loop over
+    key chunks with an online softmax (the flash-attention algorithm in
+    plain PyTorch ops). q (B, Sq, Hq, D), k/v (B, Sk, Hkv, D), q_pos (Sq,)
+    and k_pos (Sk,) the positions of the causal (+ `window`) mask; each
+    length a multiple of its chunk (cut to the length when longer). When
+    a gradient is taken each key chunk's step is checkpointed, as the
+    reference's ``jax.checkpoint`` of it: the backward recomputes its
+    (q_chunk, kv_chunk) scores instead of keeping every chunk pair's."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    G = Hq // Hkv
+    q_chunk, kv_chunk = min(q_chunk, Sq), min(kv_chunk, Sk)
+    if Sq % q_chunk or Sk % kv_chunk:
+        raise ValueError(f"sdpa_flash: lengths ({Sq}, {Sk}) are not "
+                         f"multiples of the chunks ({q_chunk}, {kv_chunk})")
+    step = _flash_kv_step
+    if torch.is_grad_enabled():
+        def step(*a):
+            return checkpoint(_flash_kv_step, *a, use_reentrant=False)
+    outs = []
+    for qs in range(0, Sq, q_chunk):
+        qblk = q[:, qs:qs + q_chunk].reshape(B, q_chunk, Hkv, G, D)
+        qpos = q_pos[qs:qs + q_chunk]
+        m = torch.full((B, Hkv, G, q_chunk), -math.inf, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, Hkv, G, q_chunk), dtype=torch.float32,
+                        device=q.device)
+        acc = torch.zeros((B, Hkv, G, q_chunk, Dv), dtype=torch.float32,
+                          device=q.device)
+        for ks in range(0, Sk, kv_chunk):
+            m, l, acc = step(m, l, acc, qblk, k[:, ks:ks + kv_chunk],
+                             v[:, ks:ks + kv_chunk],
+                             qpos, k_pos[ks:ks + kv_chunk], scale, window)
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.to(v.dtype))                   # (B, Hkv, G, cq, Dv)
+    # (nq, B, Hkv, G, cq, Dv) -> (B, Sq, Hq, Dv)
+    return torch.stack(outs).permute(1, 0, 4, 2, 3, 5).reshape(B, Sq, Hq, Dv)
+
+
 def paged_cache_write(pool, new, block_table, row):
     """Write S tokens into a paged KV pool, in place: token j of `new`
     (B, S, ...) lands in row ``row[b] + j`` of slot b's virtual rectangle
@@ -353,7 +412,17 @@ def attention(p, cfg, x, positions, cache=None, cache_pos=None,
                     "position 0; decode runs over the paged pool")
             cache["k"][:, :S] = k.to(cache["k"].dtype)
             cache["v"][:, :S] = v.to(cache["v"].dtype)
-        o = sdpa(q, k, v, _mask(positions, positions, window), scale)
+        if S >= cfg.flash_threshold:
+            # the reference's route at long lengths (the cache-less forward
+            # and the rectangular prefill), with its GQA head repeat
+            G = cfg.n_heads // cfg.n_kv_heads
+            if G > 1:
+                k = k.repeat_interleave(G, dim=2)
+                v = v.repeat_interleave(G, dim=2)
+            o = sdpa_flash(q, k, v, positions, positions, scale, window,
+                           cfg.flash_q_chunk, cfg.flash_kv_chunk)
+        else:
+            o = sdpa(q, k, v, _mask(positions, positions, window), scale)
     return dense(p["wo"], o.reshape(B, S, -1), "attn.wo"), cache
 
 

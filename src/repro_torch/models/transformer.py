@@ -36,10 +36,12 @@ everything between runs as for ``dense``.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import util
 from repro_torch.core.util import tree_index
@@ -163,43 +165,68 @@ def ring_rows(cfg: ModelConfig, max_len: int) -> int:
     return min(max_len, cfg.sliding_window or max_len)
 
 
-def backbone(params, cfg: ModelConfig, tokens, image_embeds=None):
+def _maybe_remat(f, cfg: ModelConfig, training: bool):
+    """`f` under activation checkpointing when the config asks for it in a
+    training forward (the reference's ``jax.checkpoint`` of each unit its
+    backbone scans): the unit's activations are recomputed in the
+    backward instead of kept. Calibration and KD run ``training=False``,
+    so no forward hook of theirs fires twice."""
+    if cfg.remat and training:
+        return functools.partial(checkpoint, f, use_reentrant=False)
+    return f
+
+
+def backbone(params, cfg: ModelConfig, tokens, image_embeds=None,
+             training: bool = False):
     """Full-sequence forward to final hidden states (B, S, d) of tokens
     (B, S), or (B, S, K) frames for the audio family. The VLM needs
-    `image_embeds` (B, n_img, d), projected to each cross layer's K/V."""
+    `image_embeds` (B, n_img, d), projected to each cross layer's K/V.
+    With ``training`` and ``cfg.remat`` each unit the reference scans is
+    rematerialized (:func:`_maybe_remat`): a dense / MoE / SSM layer, the
+    hybrid's Mamba2 layer with the shared block application that follows
+    it, the VLM's group and each of its self layers."""
     check_family(cfg)
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
     if cfg.family == "vlm":
         if image_embeds is None:
             raise ValueError("the VLM's forward needs image_embeds")
-        # taps: a self layer under its flat index g · per + i, a cross
-        # layer (its image K/V projection included) under its group
-        for g, selfs, cp in _vlm_groups(params, cfg):
+        self_block = _maybe_remat(
+            lambda lp, h: _apply_attn_block(lp, cfg, h, positions), cfg,
+            training)
+
+        def group(h, g, selfs, cp):
+            # taps: a self layer under its flat index g · per + i, a cross
+            # layer (its image K/V projection included) under its group
             for i, lp in enumerate(selfs):
                 L.set_scope("self_layers", g * len(selfs) + i)
-                x = _apply_attn_block(lp, cfg, x, positions)
+                h = self_block(lp, h)
             L.set_scope("cross_layers", g)
-            x = _apply_cross_block(cp, cfg, x,
-                                   L.image_kv(cp["xattn"], cfg, image_embeds))
+            return _apply_cross_block(
+                cp, cfg, h, L.image_kv(cp["xattn"], cfg, image_embeds))
+        group = _maybe_remat(group, cfg, training)
+        for g, selfs, cp in _vlm_groups(params, cfg):
+            x = group(x, g, selfs, cp)
         L.set_scope("", None)
         return L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+
+    def unit(h, name, idx, lp):
+        L.set_scope(name, idx)
+        if not cfg.is_ssm_layer_stack:
+            return _apply_attn_block(lp, cfg, h, positions)
+        h, _ = _apply_mamba_block(lp, cfg, h)
+        app = shared_app(cfg, idx)
+        if app is not None:
+            # the shared block's taps go under its application, as the
+            # reference files them; the next layer sets its own scope
+            L.set_scope("shared_attn", app)
+            h = _apply_attn_block(params["shared_attn"], cfg, h, positions)
+            L.set_scope("", None)
+        return h
+    unit = _maybe_remat(unit, cfg, training)
     for name, layers in _stacks(params):
         for idx, lp in enumerate(layers):
-            L.set_scope(name, idx)
-            if cfg.is_ssm_layer_stack:
-                x, _ = _apply_mamba_block(lp, cfg, x)
-                app = shared_app(cfg, idx)
-                if app is not None:
-                    # the shared block's taps go under its application,
-                    # as the reference files them; the next layer sets
-                    # its own scope again
-                    L.set_scope("shared_attn", app)
-                    x = _apply_attn_block(params["shared_attn"], cfg, x,
-                                          positions)
-                    L.set_scope("", None)
-            else:
-                x = _apply_attn_block(lp, cfg, x, positions)
+            x = unit(x, name, idx, lp)
     L.set_scope("", None)
     return L.rms_norm(x, params["ln_f"], cfg.norm_eps)
 
@@ -239,24 +266,34 @@ def _xent(logits, labels):
 def loss_fn(params, cfg: ModelConfig, batch, training: bool = True):
     """Mean token NLL of batch {'tokens', 'labels'[, 'image_embeds']},
     the port of ``repro.models.transformer.loss_fn``; the batch moves to
-    the params' device. `training` is accepted for the reference's
-    signature (it selects rematerialization there)."""
+    the params' device. `training` selects rematerialization
+    (:func:`backbone`). The loss runs over sequence chunks of
+    ``cfg.loss_chunk`` tokens when that divides the length, each chunk's
+    logits recomputed in the backward (the reference's
+    ``jax.checkpoint(chunk_loss)``)."""
     dev = params["embed"].device
     img = batch.get("image_embeds")
     h = backbone(params, cfg, batch["tokens"].to(dev),
-                 None if img is None else img.to(dev))
+                 None if img is None else img.to(dev), training=training)
     labels = batch["labels"].to(dev)
-    w = _head_w(params, cfg).to(h.dtype)
+    w = _head_w(params, cfg)
     S = h.shape[1]
     chunk = min(cfg.loss_chunk or S, S)
     if S % chunk:
         chunk = S
-    tot = cnt = 0.0
-    for c in range(0, S, chunk):
-        logits = h[:, c:c + chunk] @ w
+
+    def chunk_loss(h_c, y_c):
+        logits = h_c @ w.to(h_c.dtype)
         if cfg.family == "audio":
             logits = logits.unflatten(-1, (cfg.n_codebooks, cfg.vocab_size))
-        t, n = _xent(logits, labels[:, c:c + chunk])
+        return _xent(logits, y_c)
+
+    if chunk < S and torch.is_grad_enabled():
+        chunk_loss = functools.partial(checkpoint, chunk_loss,
+                                       use_reentrant=False)
+    tot = cnt = 0.0
+    for c in range(0, S, chunk):
+        t, n = chunk_loss(h[:, c:c + chunk], labels[:, c:c + chunk])
         tot, cnt = tot + t, cnt + n
     return tot / torch.clamp(cnt, min=1.0)
 

@@ -8,7 +8,9 @@ increment, bias correction uses the incremented step, and the update is
 computed in f32 and cast back to each parameter's dtype. Trees are
 nested dicts whose None leaves (``core.util.partition`` placeholders)
 are skipped; leaves are visited in JAX's order (sorted keys), so the
-global norm sums in the same order.
+global norm sums in the same order. The state's step is a 0-d int32
+CPU tensor, as JAX's is a 0-d int32 leaf, so that a training state
+``(params, AdamState(step, m, v), eff)`` checkpoints in JAX's layout.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from repro_torch.core import util
 
 
 class AdamState(NamedTuple):
-    step: int
+    step: torch.Tensor          # 0-d int32, on the CPU
     m: Any
     v: Any
 
@@ -74,7 +76,8 @@ class AdamW:
     def init(self, params) -> AdamState:
         zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                       device=p.device)
-        return AdamState(step=0, m=util.tree_map(zeros, params),
+        return AdamState(step=torch.zeros((), dtype=torch.int32),
+                         m=util.tree_map(zeros, params),
                          v=util.tree_map(zeros, params))
 
     def update(self, grads, state: AdamState, params):
@@ -85,8 +88,8 @@ class AdamW:
         step = state.step + 1
         b1, b2 = self.b1, self.b2
         lr = self.lr(state.step)
-        bc1 = 1 - _f32(b1) ** _f32(step)
-        bc2 = 1 - _f32(b2) ** _f32(step)
+        bc1 = 1 - _f32(b1) ** step.float()
+        bc2 = 1 - _f32(b2) ** step.float()
 
         def upd(g, m, v, p):
             gf = g.float()

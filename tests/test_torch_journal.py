@@ -477,9 +477,9 @@ def test_supervised_cli_drill(tmp_path, capsys):
     supervisor restarts it with ``--resume``, it resumes one journaled
     block, and its artifact equals an uninterrupted run's bit for bit."""
     from repro_torch.launch import quantize as cli
-    common = ["--device", "cpu", "--calib-samples", "4", "--calib-seq",
-              "32", "--admm-iters", "4", "--t-pre", "2", "--t-post", "2",
-              "--t-glob", "2"]
+    common = ["--device", "cpu", "--teacher-steps", "0", "--calib-samples",
+              "4", "--calib-seq", "32", "--admm-iters", "4", "--t-pre", "2",
+              "--t-post", "2", "--t-glob", "2"]
     drill = str(tmp_path / "drill")
     env = dict(os.environ, PYTHONPATH="src", OMP_NUM_THREADS="1")
     r = subprocess.run(

@@ -896,22 +896,40 @@ def test_quantize_entry_points_default_to_the_card(tiny):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--teacher-steps", "5"], "ROADMAP item 13"),
-    (["--teacher-ckpt", "x"], "ROADMAP item 13"),
     (["--resume"], "--resume needs --journal-dir"),
     (["--supervise"], "--supervise needs --journal-dir"),
     (["--supervise", "--crash-at-block", "0"],
      "--supervise needs --journal-dir"),
     (["--init-method", "nope"], "unknown init method")])
 def test_quantize_cli_refuses_unported_flags(flags, item, capsys):
-    """What the port's CLI still refuses (a trained teacher), naming its
-    ROADMAP item, and the journal flags' misuse, before any
-    work: each exits non-zero with `item` in its message."""
+    """The journal flags' misuse and an unknown init method, refused
+    before any work: each exits non-zero with `item` in its message."""
     from repro_torch.launch import quantize as cli
     with pytest.raises(SystemExit) as ei:
         cli.main(flags + ["--device", "cpu"])
     assert ei.value.code != 0
     assert item in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", ["--teacher-steps", "--teacher-ckpt"])
+def test_quantize_cli_accepts_teacher_flags(flag, tmp_path, capsys):
+    """The teacher flags the port once refused: ``--teacher-steps 3``
+    trains the teacher 3 steps, ``--teacher-ckpt DIR`` (with the default
+    150 cut to 3) trains it into DIR and saves its last step; either run
+    then quantizes it and reports both perplexities."""
+    from repro_torch.launch import quantize as cli
+    ckpt = str(tmp_path / "teacher")
+    extra = ["--teacher-steps", "3"] + (
+        ["--teacher-ckpt", ckpt] if flag == "--teacher-ckpt" else [])
+    cli.main(extra + ["--device", "cpu", "--calib-samples", "4",
+                      "--calib-seq", "32", "--admm-iters", "2", "--t-pre",
+                      "1", "--t-post", "1", "--t-glob", "1"])
+    text = capsys.readouterr().out
+    for line in ("teacher at step 3: 3 steps trained", "FP teacher ppl",
+                 "NanoQuant ppl"):
+        assert line in text, line
+    assert os.path.isdir(os.path.join(ckpt, "step_00000003")) == (
+        flag == "--teacher-ckpt")
 
 
 @pytest.mark.parametrize("arch", [None, "musicgen-medium",
@@ -925,7 +943,8 @@ def test_quantize_cli_then_serve(tmp_path, arch):
     env = dict(os.environ, PYTHONPATH="src", OMP_NUM_THREADS="1")
     q = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.quantize", "--device",
-         "cpu", "--calib-samples", "4", "--calib-seq", "32", "--admm-iters",
+         "cpu", "--teacher-steps", "0", "--calib-samples", "4",
+         "--calib-seq", "32", "--admm-iters",
          "4", "--t-pre", "2", "--t-post", "2", "--t-glob", "2", "--out",
          out] + (["--arch", arch] if arch else []),
         capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)

@@ -215,7 +215,8 @@ def test_quantize_cli_hybrid(tmp_path, capsys):
     from repro_torch.api import NanoQuantModel
     from repro_torch.launch import quantize as cli
     out = str(tmp_path / "nq")
-    cli.main(["--arch", ARCH, "--device", "cpu", "--calib-samples", "4",
+    cli.main(["--arch", ARCH, "--device", "cpu", "--teacher-steps", "0",
+              "--calib-samples", "4",
               "--calib-seq", "32", "--admm-iters", "4", "--t-pre", "2",
               "--t-post", "2", "--t-glob", "2", "--journal-dir",
               str(tmp_path / "j"), "--out", out])
