@@ -10,7 +10,7 @@ Phases, each printing its own line(s); any failure exits non-zero:
    nvcc for sm_90a (one process per source, started together);
 2a. llama3.2-1b train (right after the build; it opens no profiler
    session) — the port's trainer (``train.Trainer``) on llama3.2-1b at
-   full width, cut to 4 of its 16 layers, in bf16 with f32 AdamW moments,
+   full width, cut to 2 of its 16 layers, in bf16 with f32 AdamW moments,
    under the quantize CLI's teacher recipe (``TrainConfig(lr=1e-3,
    warmup=20, total_steps=150)``, 8 x 256 tokens a step; ``TRAIN``): a
    drill checkpointing every 50 steps under
@@ -31,14 +31,14 @@ Phases, each printing its own line(s); any failure exits non-zero:
    version at the gate shape (K 2048 -> N 8192 at rank 1600) with M =
    1024, f32 and bf16: output and the gradients of x, s1 and s2, forward
    and forward + backward timed. Then the port's quantization pipeline
-   (``NanoQuantModel.quantize``) on llama3.2-1b at full width, cut to 4
+   (``NanoQuantModel.quantize``) on llama3.2-1b at full width, cut to 2
    of its 16 layers (``QUANT_DEPTH``), in bf16, the teacher phase 2a
    trained, restored from its step-150 checkpoint by the code of
    ``launch.quantize --teacher-ckpt`` (no further step), calibrated on
    ``QUANT``'s 16 samples of 256 tokens (cut from the paper's 128 x
    2048), ``QuantConfig()`` at its defaults (1.0 bpw, ADMM 40, TuneFP 40,
    STE 60, KD 60), on the path ``llama3.2-1b-quantize``: #1 only, 7
-   launches per block's check forward and 28 per KD step; the seconds of
+   launches per block's check forward and 7 per layer in each KD step; the seconds of
    calibration, of each block and of KD, each block's error and init
    method, the KD loss at its first and last step and over its first and
    last pass of the batches, the ranks and the linears' bpw, peak memory;
@@ -62,8 +62,8 @@ Phases, each printing its own line(s); any failure exits non-zero:
    intermediate rounded to x's dtype, held against the two-stage oracle),
    checked and timed as the gate shape's; then the pipeline, as for
    llama3.2-1b, on musicgen-medium (2 of its 48 layers; calibration frames
-   of 4 codebooks), mamba2-370m (4 of 48), deepseek-v2-lite-16b (its dense
-   layer and 2 of 26 MoE layers), zamba2-1.2b (7 of its 38 Mamba2 layers,
+   of 4 codebooks), mamba2-370m (2 of 48), deepseek-v2-lite-16b (its dense
+   layer and 1 of 26 MoE layers), zamba2-1.2b (7 of its 38 Mamba2 layers,
    so one application of the shared attention block, which is quantized
    first on its inputs gathered from the teacher stream) and
    llama-3.2-vision-90b (2 of its 100 layers grouped as one, a self block
@@ -211,6 +211,26 @@ Phases, each printing its own line(s); any failure exits non-zero:
    speculative decoding in bf16 as for llama (the first plain run gives
    decode tok/s, TTFT and peak memory; the plain decode window's profile
    is the ``bf16_decode_profile``);
+6a. tensor-parallel serving (``TP_PHASES``) — the engine over a
+   ``(data=1, model=N)`` mesh (``InferenceEngine(mesh=)``), N ranks in N
+   processes (``launch.mesh.run_ranks``) that all use this one card: NCCL
+   refuses two ranks on one device, so the ranks' collectives run over
+   gloo, staged through host memory (an N-card deployment exchanges
+   device memory over NCCL instead; only that transport differs). Each
+   rank draws the phase's model from the seed on the card as the
+   unsharded phase did, takes its shards (``place_on_mesh`` under
+   ``SERVE``) and runs #1, #2 and #4 on them, the all-reduces and the
+   logits' all-gather between; the megakernel declines under TP.
+   ``qwen1.5-110b-tp2`` (the qwen1.5-110b model at TP 2 under ``QWEN``,
+   f32) and ``llama3.2-1b-tp4`` / ``llama3.2-1b-tp4-spec`` (the llama
+   model at TP 4 under ``LLAMA``, f32, plain then self-speculative). On
+   every rank: greedy tokens equal the unsharded path's (``megakernel``,
+   ``spec``, ``qwen1.5-110b``) up to near-ties of the plain path; launches
+   per forward by the template (#1 and #4 per layer, #2 per layer and
+   decode forward, #3 none); per forward 2 x layers + 1 all-reduces and
+   one all-gather; the drained pool; the bytes the rank holds against
+   the unsharded model's (packed words and all), its peak GiB and host ms
+   per decode step (ranks time-sharing one card over gloo, not TP speed);
 7. qwen3-4b — full width, cut to 9 of its 36 layers (``DEPTH``; per-head
    qk_norm, which rules out #3) at 1.0 bpw, weights drawn on the card, under the llama
    traffic on the path ``qwen3-4b`` (#1 and #2 only), gated like the
@@ -220,7 +240,7 @@ Phases, each printing its own line(s); any failure exits non-zero:
    4096; M 8, the capacity of a decode step and of a prefill of up to 64
    tokens, and M 40, a 256-token prefill's; f32 and bf16) against its
    plain version, timed beside the batched library call over unpacked
-   bf16 factors; then the model at full width, cut to 6 of its 94
+   bf16 factors; then the model at full width, cut to 3 of its 94
    layers (``DEPTH``; 128 experts, top-8), at 1.0 bpw, weights and
    routers drawn on the card, under the qwen1.5-110b traffic on the path
    ``qwen3-moe-235b-a22b`` (#1 and #2 only, #1 launched at the expert
@@ -296,7 +316,7 @@ Phases, each printing its own line(s); any failure exits non-zero:
    K 8192 -> N 1024 at rank 864, M = 4 images x 1024 patches = 4096) and
    at the cross block's wq at M 4; #4 at the vision FFN's four two-call
    stages (rank 6336) at M 4; f32 and bf16. Then the model at full width,
-   cut to 10 of its 100 layers (``DEPTH``: 2 groups of 4 self-attention
+   cut to 5 of its 100 layers (``DEPTH``: one group of 4 self-attention
    blocks over the paged pool and one gated cross-attention block over
    per-slot image K/V) at 1.0 bpw, weights drawn on the card, on the paths
    ``llama-3.2-vision-90b`` (the engine under the qwen1.5-110b traffic,
@@ -347,6 +367,7 @@ import gc
 import json
 import math
 import os
+import pickle
 import shutil
 import subprocess
 import sys
@@ -456,10 +477,11 @@ VISION_IMAGE = {"arch": "llama-3.2-vision-90b", "n": 4, "prompt": 32,
 MUSICGEN = dict(LLAMA, arch="musicgen-medium")
 # depth cuts that keep the script inside its time limit with the quantize
 # phases, on a slow host too (halved again when the VLM's quantization came
-# in): the layers each model is served at (width untouched; every other
-# model at full depth)
+# in, and the VLM's and qwen3-moe's halved once more when the
+# tensor-parallel phases came in): the layers each model is served at
+# (width untouched; every other model at full depth)
 DEPTH = {"llama3.2-1b": 4, "qwen1.5-110b": 5, "qwen3-4b": 9,
-         "qwen3-moe-235b-a22b": 6, "llama-3.2-vision-90b": 10,
+         "qwen3-moe-235b-a22b": 3, "llama-3.2-vision-90b": 5,
          "deepseek-v2-lite-16b": 3, "mamba2-370m": 4, "zamba2-1.2b": 6,
          "musicgen-medium": 4}
 
@@ -470,17 +492,20 @@ DEPTH = {"llama3.2-1b": 4, "qwen1.5-110b": 5, "qwen3-4b": 9,
 QUANT = {"arch": "llama3.2-1b", "samples": 16, "seq": 256}
 QUANT_SERVE = dict(LLAMA, n=4, up_front=2)
 # the depths quantized, each at full width (width untouched), cut to keep
-# the script inside its time limit: llama3.2-1b 4 of its 16 layers,
-# musicgen 2 of its 48 layers (frames of 4 codebooks), mamba2 4 of 48,
-# deepseek its dense layer and 2 MoE layers of 27 (every block kind twice),
+# the script inside its time limit (llama3.2-1b, mamba2 and deepseek
+# halved again when the tensor-parallel phases came in, so that a slow
+# host keeps inside it too): llama3.2-1b 2 of its 16 layers (the trainer's
+# teacher too), musicgen 2 of its 48 layers (frames of 4 codebooks),
+# mamba2 2 of 48, deepseek its dense layer and 1 MoE layer of 27 (every
+# block kind once, the second on the first's quantized outputs),
 # zamba2 7 of its 38 Mamba2 layers (one application of the shared block
 # after layer 5, the drill's crash after it), llama-3.2-vision-90b 2 of its
 # 100 layers (one self block, then the cross block: a block takes ≈ 58 s
 # on an NVIDIA H100 80GB HBM3 at 700 W, so one group of its published 5
 # would not fit the script); each artifact served in f32 under 4 requests
 # of its family's traffic
-QUANT_DEPTH = {"llama3.2-1b": 4, "musicgen-medium": 2, "mamba2-370m": 4,
-               "deepseek-v2-lite-16b": 3, "zamba2-1.2b": 7,
+QUANT_DEPTH = {"llama3.2-1b": 2, "musicgen-medium": 2, "mamba2-370m": 2,
+               "deepseek-v2-lite-16b": 2, "zamba2-1.2b": 7,
                "llama-3.2-vision-90b": 2}
 MUSICGEN_QUANT_SERVE = dict(MUSICGEN, n=4, up_front=2)
 MAMBA_QUANT_SERVE = dict(MAMBA, n=4, up_front=2)
@@ -610,6 +635,18 @@ PATHS = (
     ("llama-3.2-vision-90b-quantized", VISION_QUANT_SERVE, {}, None, None,
      None, (FUSED, MEGA, PACKED), (PAGED,)),
 )
+
+# tensor-parallel phases: (phase, arch, ranks, [(path, traffic, speculative
+# settings, the unsharded path whose tokens gate it)]); every rank on the
+# one card, over gloo
+TP_PHASES = (
+    ("qwen1.5-110b-tp2", "qwen1.5-110b", 2,
+     [("qwen1.5-110b-tp2", QWEN, None, "qwen1.5-110b")]),
+    ("llama3.2-1b-tp4", "llama3.2-1b", 4,
+     [("llama3.2-1b-tp4", LLAMA, None, "megakernel"),
+      ("llama3.2-1b-tp4-spec", LLAMA, SPEC, "spec")]),
+)
+TOKENS = {}                      # path -> its f32 greedy tokens
 
 # the kernels' names in a profiler trace, and the lm head's matmul
 TRACE_NAMES = ((FUSED, "fused_lowrank_kernel"),
@@ -742,6 +779,10 @@ def main():
     del qwen
     free()
     phase("qwen1.5-110b bf16 runs and profiles")
+
+    for name, arch, n, runs in TP_PHASES:
+        report[name] = tp_phase(arch, n, runs, launches)
+        phase(f"{name}: tensor-parallel serving, {n} ranks on one card")
 
     qwen3 = make_on_card("qwen3-4b")
     report["qwen3-4b"] = serve_paths(qwen3, QWEN3, launches)
@@ -936,17 +977,38 @@ def main():
 # ---------------------------------------------------------------------------
 
 
-def make_llama():
+_LLAMA_TREE = {}                 # the host draw, made once per process
+
+
+def llama_tree():
+    """llama3.2-1b's packed tree at its :data:`DEPTH` (numpy), drawn on the
+    host from the seed the first time it is asked for."""
+    if "tree" not in _LLAMA_TREE:
+        from repro_torch.configs import get_config
+        from repro_torch.quant.surgery import abstract_quantized_params
+        from repro_torch.testing import random_packed_params
+        cfg = dataclasses.replace(get_config("llama3.2-1b"), dtype="float32",
+                                  n_layers=DEPTH["llama3.2-1b"])
+        _LLAMA_TREE["tree"] = random_packed_params(
+            abstract_quantized_params(cfg, 1.0), SEED)
+    return _LLAMA_TREE["tree"]
+
+
+def make_llama(tree_file=None):
     """llama3.2-1b at 1.0 bpw in f32 at its :data:`DEPTH`, packed words and
-    scales drawn on the host from the seed."""
+    scales drawn on the host from the seed (≈ 10 s, once per process), or
+    read from `tree_file`, a pickle of that draw (the TP ranks read the
+    parent's: the same weights, without four more draws)."""
     import torch
     from repro_torch.api import NanoQuantModel
     from repro_torch.configs import get_config
-    from repro_torch.quant.surgery import abstract_quantized_params
-    from repro_torch.testing import random_packed_params
     cfg = dataclasses.replace(get_config("llama3.2-1b"), dtype="float32",
                               n_layers=DEPTH["llama3.2-1b"])
-    tree = random_packed_params(abstract_quantized_params(cfg, 1.0), SEED)
+    if tree_file is not None:
+        with open(tree_file, "rb") as f:
+            tree = pickle.load(f)
+    else:
+        tree = llama_tree()
     return NanoQuantModel.from_numpy(tree, cfg, device="cuda",
                                      dtype=torch.float32,
                                      quant={"target_bpw": 1.0, "min_dim": 48})
@@ -1897,7 +1959,7 @@ def _gsp_requests(cfg, traffic):
 
 
 def _engine(model, traffic, policy, megakernel=None, spec=None,
-            prefix_cache=True):
+            prefix_cache=True, mesh=None):
     from repro_torch.serve.engine import ServeConfig
     return model.engine(ServeConfig(greedy=True, page_size=64,
                                     megakernel=megakernel, debug=True,
@@ -1906,7 +1968,7 @@ def _engine(model, traffic, policy, megakernel=None, spec=None,
                                         "kv_pool_pages")),
                         max_batch=traffic["max_batch"],
                         max_len=traffic["max_len"], policy=policy,
-                        **(spec or {}))
+                        mesh=mesh, **(spec or {}))
 
 
 def _submit(eng, prompts, uids, traffic):
@@ -1916,15 +1978,17 @@ def _submit(eng, prompts, uids, traffic):
 
 
 def serve(model, traffic, policy, megakernel=None, spec=None,
-          prefix_cache=True, on_engine=None):
+          prefix_cache=True, on_engine=None, mesh=None, engine=None):
     """The traffic's requests: `up_front` submitted at once, the rest
     after `after` engine steps (mid-flight admission); speculative with
     `spec` (ServeConfig fields); `on_engine(eng)` runs before the first
-    submission. Checks the drained pool: no slot maps a page, only the
+    submission; `engine`: one built already by :func:`_engine` (the
+    arguments that build one are then unused). Checks the drained pool: no slot maps a page, only the
     prefix index holds pages, every table row is zero, and clearing the
     index empties the pool. Returns (outputs, engine, wall seconds, the
     engine's stats before the clearing, with ``peak_used_pages``)."""
-    eng = _engine(model, traffic, policy, megakernel, spec, prefix_cache)
+    eng = engine if engine is not None else _engine(
+        model, traffic, policy, megakernel, spec, prefix_cache, mesh)
     if on_engine is not None:
         on_engine(eng)
     prompts = _requests(model.cfg, traffic)
@@ -2206,7 +2270,7 @@ def serve_paths(model, traffic, launches):
                 spec, on_engine=path_log and path_log.attach)
         launches[name] = [c.launches for c in counters]
         grid = dict(grid)
-        outs[name] = got
+        outs[name] = TOKENS[name] = got
         acceptance = eng.spec.acceptance_rate() if spec else None
         ring_rows = eng.kv.ring_pages * eng.kv.page_size \
             if eng.kv is not None and eng.kv.has_ring else None
@@ -2320,6 +2384,223 @@ def serve_paths(model, traffic, launches):
                f"{st['evicted_pages']} evicted"))
     res["launches_by_path"] = {p[0]: launches[p[0]] for p in paths}
     return res
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving: N ranks on the one card
+# ---------------------------------------------------------------------------
+
+
+def _held_bytes(tree, skip=()):
+    """(bytes of packed words, bytes of every leaf) that the tensors of a
+    parameter tree hold on the card, each storage counted once (a layer of
+    an engine's split stack is a view); subtrees named in `skip` left
+    out."""
+    import torch
+    seen, held = set(), [0, 0]
+
+    def walk(t):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                if k not in skip:
+                    walk(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+        elif isinstance(t, torch.Tensor):
+            st = t.untyped_storage()
+            if st.data_ptr() in seen:
+                return
+            seen.add(st.data_ptr())
+            held[1] += st.nbytes()
+            if t.dtype == torch.int32:
+                held[0] += st.nbytes()
+    walk(tree)
+    return held
+
+
+def tp_bytes(eng_params, full_params):
+    """Bytes of this rank's shards, measured over the tensors its engine
+    holds (the merged QKV / gate-up copies apart, as ``merged_rank``),
+    against the unsharded model's tensors: the packed words, and every
+    leaf."""
+    merged = ("wqkv", "wgu")
+    tot = dict(zip(("packed_rank", "all_rank"),
+                   _held_bytes(eng_params, merged)))
+    tot.update(zip(("packed_full", "all_full"), _held_bytes(full_params)))
+    tot["merged_rank"] = _held_bytes(eng_params)[1] - tot["all_rank"]
+    tot["packed_share"] = tot["packed_rank"] / tot["packed_full"]
+    tot["all_share"] = tot["all_rank"] / tot["all_full"]
+    return tot
+
+
+class _Redraw:
+    """A rank's unsharded model after it was dropped: its config, and the
+    model drawn again from the seed only if a token gate reads its plain
+    forward (at a divergence)."""
+
+    def __init__(self, make, cfg):
+        self._make, self.cfg, self._model = make, cfg, None
+
+    def __getattr__(self, name):
+        if self._model is None:
+            self._model = self._make()
+        return getattr(self._model, name)
+
+
+def tp_rank(rank, arch, n, runs, want, device="cuda:0", tree_file=None):
+    """One rank of a tensor-parallel phase: the phase's model drawn from
+    the seed on the card (the unsharded phase's weights, bit for bit), an
+    engine for each of `runs` built over a (1, n) mesh of gloo ranks that
+    share the card, and then the unsharded model dropped, so that the
+    rank holds only its shards (and the peak counts its engines only).
+    Each path's launch counts and collectives are set to 0 just before its
+    run and its tokens gated against the unsharded path's `want` (a
+    divergence only at a plain-path near-tie). llama's host draw is read
+    from the parent's `tree_file`. Only rank 0 logs."""
+    import torch
+    from repro_torch.kernels.ops import KernelPolicy
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.sharding import comm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    mesh = make_serving_mesh(n, device=device)
+
+    def make():
+        return make_llama(tree_file) if arch == "llama3.2-1b" \
+            else make_on_card(arch)
+    model = make()
+    pol = KernelPolicy(mode="cuda")
+    engines = {name: _engine(model, traffic, pol, None, spec, True, mesh)
+               for name, traffic, spec, _ in runs}
+    out = {"bytes": tp_bytes(engines[runs[0][0]].params, model.params),
+           "device": str(mesh.device), "backend": mesh.backend,
+           "cfg": model.cfg}
+    model = _Redraw(make, model.cfg)
+    free()
+    counters = _counters()
+    for name, traffic, spec, versus in runs:
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        comm.reset_stats()
+        got, eng, wall, st = serve(model, traffic, None, engine=engines.pop(
+            name))
+        counts = [c.launches for c in counters]
+        collectives = dict(comm.STATS)
+        margin = gate(model, traffic, name, got, want[versus])
+        res = {"tokens": {u: t.tolist() for u, t in got.items()},
+               "launches": counts, "collectives": collectives,
+               "stats": st, "wall_s": wall, "peak_gib": _peak_gib(),
+               "max_divergence_margin": margin,
+               "kv_cache_bytes": eng.kv_cache_bytes(),
+               "decode_step_ms": 1e3 * st["decode_time_s"]
+               / max(1, st["decode_steps"])}
+        if spec:
+            res["acceptance_rate"] = eng.spec.acceptance_rate()
+        out[name] = res
+        del eng
+        free()
+    return out
+
+
+def tp_template(name, cfg, res):
+    """A TP path's launches and collectives on one rank against the
+    template: G forwards (one all-gather of the logits each; an
+    admission's prefill or a decode step, or a speculative draft or
+    verify); per forward (2 x layers + 1) all-reduces and, per layer, the
+    merged QKV and wo on #1 with gate-up and w_down on #1 (rank up to
+    MAX_FUSED_RANK) or on #4 (two-call: 4 + 2 launches); #2 once per layer
+    of a plain decode step; #3 never."""
+    from repro_torch.core.bpw import rank_for_bpw
+    from repro_torch.kernels import binary_matmul
+    st, c, counts = res["stats"], res["collectives"], res["launches"]
+    L, G = cfg.n_layers, c["all_gather"]
+    spec = st["spec_cycles"] > 0
+    if not spec and G != st["admissions"] + st["decode_steps"]:
+        raise AssertionError(f"{name}: {G} logits all-gathers, expected one "
+                             f"per forward ({st})")
+    if c["all_reduce"] != (2 * L + 1) * G:
+        raise AssertionError(f"{name}: {c['all_reduce']} all-reduces over "
+                             f"{G} forwards, expected {2 * L + 1} each")
+    twocall = binary_matmul.MAX_FUSED_RANK < rank_for_bpw(
+        cfg.d_ff, cfg.d_model, 1.0, 32)
+    fused, packed = (2, 6) if twocall else (4, 0)
+    want = {FUSED: fused * L * G, PACKED: packed * L * G, MEGA: 0}
+    if not spec:
+        want[PAGED] = L * st["decode_steps"]
+    bad = {KERNELS[i][0]: (counts[i], n) for i, n in want.items()
+           if counts[i] != n}
+    if bad or (spec and counts[PAGED] == 0):
+        raise AssertionError(f"{name}: launches (got, template) {bad}, #2 "
+                             f"{counts[PAGED]}")
+
+
+def tp_phase(arch, n, runs, launches, backend="gloo"):
+    """Start `n` ranks for `runs` (see :data:`TP_PHASES`): over gloo, all
+    on the one card; over nccl, rank r on card r (``scripts/
+    tp_nccl_probe.py``). Check every rank's results: the same tokens on
+    every rank (each already gated in its rank), the template, the drained
+    pools. Returns the report; the launch lists gain each path's rank-0
+    counts."""
+    import tempfile
+    from repro_torch.launch.mesh import run_ranks
+    want = {versus: TOKENS[versus] for _, _, _, versus in runs}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="nq-tp-") as tmp:
+        tree_file = None
+        if arch == "llama3.2-1b":
+            tree_file = os.path.join(tmp, "llama.pkl")
+            with open(tree_file, "wb") as f:
+                pickle.dump(llama_tree(), f, protocol=5)
+        out = run_ranks(tp_rank, n, backend, args=(
+            arch, n, runs, want, "cuda:0" if backend == "gloo" else None,
+            tree_file))
+    cfg = out[0]["cfg"]
+    shared = backend == "gloo"
+    where = "one card" if shared else f"{n} cards"
+    timing = "ranks time-sharing one card over gloo" if shared \
+        else "a card per rank over NCCL"
+    report = {"ranks": n, "backend": backend, "devices": [
+        out[r]["device"] for r in range(n)],
+        "transport": "every rank on one card; collectives staged through "
+                     "host memory over gloo (ranks time-sharing the card, "
+                     "not TP speed)" if shared
+                     else "a card per rank; collectives over NCCL",
+        "phase_s": time.perf_counter() - t0, "bytes": out[0]["bytes"]}
+    for name, traffic, spec, versus in runs:
+        for r in range(n):
+            tp_template(f"{name} rank {r}", cfg, out[r][name])
+            if out[r][name]["tokens"] != out[0][name]["tokens"]:
+                raise AssertionError(f"{name}: rank {r}'s tokens differ "
+                                     f"from rank 0's")
+        res = dict(out[0][name])
+        del res["tokens"]
+        res["per_rank"] = {r: {k: out[r][name][k] for k in (
+            "peak_gib", "wall_s", "decode_step_ms", "launches")}
+            for r in range(n)}
+        launches[name] = res["launches"]
+        report[name] = res
+        b = out[0]["bytes"]
+        log(f"engine {name} f32 over {n} {backend} ranks on {where}: tokens "
+            f"match the {versus} path"
+            + ("" if res["max_divergence_margin"] is None
+               else " up to near-ties")
+            + "; per rank: launches " + ", ".join(
+                f"{k[0]}={c}" for k, c in zip(KERNELS, res["launches"]))
+            + f", {res['collectives']['all_reduce']} all-reduces and "
+            f"{res['collectives']['all_gather']} all-gathers, packed words "
+            f"{b['packed_share']:.3f} and all bytes {b['all_share']:.3f} of "
+            f"the unsharded model's (held: {b['all_rank'] / 1e9:.3f} GB, "
+            f"merged copies {b['merged_rank'] / 1e9:.3f} GB), peak "
+            + "/".join(f"{out[r][name]['peak_gib']:.2f}" for r in range(n))
+            + f" GiB, {res['decode_step_ms']:.1f} host ms per decode step "
+            f"({timing})"
+            + ("" if not spec else
+               f"; acceptance {res['acceptance_rate']:.3f}"))
+    return report
 
 
 # ---------------------------------------------------------------------------

@@ -9,11 +9,9 @@ of ``repro.api`` that the port has from the layers that implement them.
     model.save("/ckpt/nq")
     model = api.NanoQuantModel.load("/ckpt/nq")
 
-The reference's names the port does not have yet are listed in ROADMAP
-§1: the mesh placement (``place_on_mesh``, ``place_cache_on_mesh``,
-``ShardingPolicy``), ``BatchServer``, the kernel tuning tables
-(``load_block_table``, ``load_paged_table``), ``set_kernel_policy`` and
-``quantizable_paths``.
+Of the reference's names the port lacks only its kernel tuning tables
+(``load_block_table``, ``load_paged_table``): the port's launch planners
+size every grid from the occupancy query and read no table.
 """
 from repro_torch.api.archs import (  # noqa: F401
     ARCHS, ArchSpec, get_arch, get_config, get_smoke, list_archs,
@@ -32,13 +30,15 @@ from repro_torch.core.pipeline import (  # noqa: F401
 from repro_torch.kernels.ops import (  # noqa: F401
     KernelPolicy, current_kernel_policy, kernel_policy,
     lowrank_binary_matmul, lowrank_binary_matmul_expert,
-    lowrank_binary_matmul_merged)
+    lowrank_binary_matmul_merged, set_kernel_policy)
 from repro_torch.quant.faults import (  # noqa: F401
     InjectedPipelineCrash, QuantFault, QuantFaultPlan)
 from repro_torch.quant.preflight import PreflightError, preflight  # noqa: F401
 from repro_torch.quant.surgery import (  # noqa: F401
-    abstract_quantized_params, merge_projection_groups, packed_model_bytes)
+    abstract_quantized_params, merge_projection_groups, packed_model_bytes,
+    place_cache_on_mesh, place_on_mesh, quantizable_paths)
 from repro_torch.serve import recovery  # noqa: F401
+from repro_torch.serve.batcher import BatchServer  # noqa: F401  (deprecated)
 from repro_torch.serve.engine import (  # noqa: F401
     InferenceEngine, RequestError, RequestHandle, ServeConfig,
     TERMINAL_STATUSES)
@@ -46,6 +46,7 @@ from repro_torch.serve.faults import Fault, FaultPlan  # noqa: F401
 from repro_torch.serve.paging import (  # noqa: F401
     PageAccountingError, PagedKVState)
 from repro_torch.serve.scheduler import Request  # noqa: F401
+from repro_torch.sharding.rules import ShardingPolicy  # noqa: F401
 
 __all__ = [
     # artifact
@@ -61,13 +62,14 @@ __all__ = [
     # kernels
     "KernelPolicy", "kernel_policy", "current_kernel_policy",
     "lowrank_binary_matmul", "lowrank_binary_matmul_merged",
-    "lowrank_binary_matmul_expert",
-    # surgery / storage
+    "lowrank_binary_matmul_expert", "set_kernel_policy",
+    # surgery / storage / placement
     "abstract_quantized_params", "merge_projection_groups",
-    "packed_model_bytes",
+    "packed_model_bytes", "quantizable_paths", "place_on_mesh",
+    "place_cache_on_mesh", "ShardingPolicy",
     # serving / persistence
     "InferenceEngine", "RequestHandle", "Request", "ServeConfig",
-    "PagedKVState", "CheckpointManager",
+    "PagedKVState", "CheckpointManager", "BatchServer",
     # failure handling
     "RequestError", "TERMINAL_STATUSES", "PageAccountingError",
     "Fault", "FaultPlan", "recovery",

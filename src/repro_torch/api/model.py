@@ -171,13 +171,16 @@ class NanoQuantModel:
                spec_k: Optional[int] = None,
                prefix_cache: Optional[bool] = None,
                policy: Optional[KernelPolicy] = None, faults=None,
-               clock=None) -> InferenceEngine:
+               clock=None, mesh=None) -> InferenceEngine:
         """The serving entry point: a slot-scheduled, continuously
         batched :class:`InferenceEngine` over this model on its device.
         `spec_rank_frac` / `spec_k` / `prefix_cache` override the
         matching ServeConfig fields, as in the JAX package. `faults` (a
         ``serve.faults.FaultPlan``) injects a fault schedule and `clock`
-        replaces the deadline clock (both for chaos testing)."""
+        replaces the deadline clock (both for chaos testing). `mesh` (a
+        ``launch.mesh.Mesh`` of which this process is one rank) serves
+        this rank's shards of the model, placed under
+        ``sharding.rules.SERVE``; every rank makes the same calls."""
         scfg = scfg or ServeConfig()
         if spec_rank_frac is not None:
             scfg = dataclasses.replace(scfg, spec_rank_frac=spec_rank_frac)
@@ -189,7 +192,7 @@ class NanoQuantModel:
                                max_batch=max_batch, max_len=max_len,
                                seed=seed, admission=admission,
                                device=self.device, policy=policy,
-                               faults=faults, clock=clock)
+                               faults=faults, clock=clock, mesh=mesh)
 
     def generate(self, prompts: Sequence[np.ndarray],
                  max_new_tokens: Optional[int] = None,

@@ -11,16 +11,28 @@
   structure with their plain versions.
 - ``mode="auto"`` — ``cuda`` for CUDA tensors, ``ref`` for CPU tensors.
 
-A policy can be passed explicitly or installed for a scope
-(``with kernel_policy(p): ...``, contextvar-based). Block sizes are fixed inside the kernels for
-now; there is no counterpart of the TPU tile table yet.
+A policy can be passed explicitly, installed for a scope (``with
+kernel_policy(p): ...``, contextvar-based) or installed process-wide
+(:func:`set_kernel_policy`). The launch planners size each grid from the
+occupancy query; there is no counterpart of the TPU tile table.
+
+Tensor parallelism (the reference's shard_map launches, made explicit):
+a policy carrying a ``mesh`` (``repro_torch.launch.mesh.Mesh``) runs each
+launch on this rank's shard, placed by ``quant.surgery.place_on_mesh``
+under the Megatron pairing of ``sharding.rules``. A column-parallel linear
+(``tp="col"``) launches on its d_out shard with no collective; a
+row-parallel one (``tp="row"``) launches on its d_in shard, which gives a
+full-width partial sum, and ONE all-reduce finishes it
+(``sharding.comm.all_reduce_sum``). Merged groups are column-local, the
+paged attention reads the local heads, and the megakernel declines under
+TP, as the reference's does.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
 import dataclasses
-from typing import List, Optional, Sequence, Union
+from typing import Any, List, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -45,6 +57,7 @@ class KernelPolicy:
     fused: bool = True
     merge_projections: bool = True
     megakernel: bool = True
+    mesh: Any = None
 
     def __post_init__(self):
         if self.mode not in _MODES:
@@ -64,13 +77,28 @@ class KernelPolicy:
     def use_megakernel(self, device) -> bool:
         return self.use_merged_projections(device) and self.megakernel
 
+    def tp_size(self) -> int:
+        """Ranks on the mesh's ``model`` axis (1 without a mesh)."""
+        return 1 if self.mesh is None else self.mesh.tp
 
-_POLICY: contextvars.ContextVar[KernelPolicy] = contextvars.ContextVar(
-    "nanoquant_torch_kernel_policy", default=KernelPolicy())
+
+_DEFAULT_POLICY = [KernelPolicy()]
+_POLICY: contextvars.ContextVar[Optional[KernelPolicy]] = \
+    contextvars.ContextVar("nanoquant_torch_kernel_policy", default=None)
 
 
 def current_kernel_policy() -> KernelPolicy:
-    return _POLICY.get()
+    scoped = _POLICY.get()
+    return scoped if scoped is not None else _DEFAULT_POLICY[0]
+
+
+def set_kernel_policy(policy: Union[KernelPolicy, str]) -> KernelPolicy:
+    """Install `policy` process-wide (all threads); returns the previous
+    default. Scoped :func:`kernel_policy` overrides still win."""
+    prev = _DEFAULT_POLICY[0]
+    _DEFAULT_POLICY[0] = KernelPolicy(mode=policy) \
+        if isinstance(policy, str) else policy
+    return prev
 
 
 @contextlib.contextmanager
@@ -184,8 +212,19 @@ def _wants_grad(x, s1, s2) -> bool:
                                         or s2.requires_grad)
 
 
+def finish_row_parallel(y, policy: Optional[KernelPolicy] = None):
+    """The all-reduce that finishes a row-parallel linear's partial sums
+    (identity without a tensor-parallel mesh)."""
+    p = policy if policy is not None else current_kernel_policy()
+    if p.tp_size() == 1:
+        return y
+    from repro_torch.sharding import comm
+    return comm.all_reduce_sum(y, p.mesh)
+
+
 def lowrank_binary_matmul(x, qv, qu_t, s1, s2,
                           policy: Optional[KernelPolicy] = None,
+                          tp: Optional[str] = None,
                           eff_rank: Optional[int] = None):
     """y = s1 ⊙ ((x ⊙ s2) @ V±1) @ U±1ᵀ — packed operands (paper Eq. 1).
     The kernel path runs the fused kernel (f32 intermediate) up to
@@ -195,13 +234,25 @@ def lowrank_binary_matmul(x, qv, qu_t, s1, s2,
     s2 (:class:`_LowrankBinaryMatmul`), which the quantization pipeline's
     scale-only distillation needs. With no gradient to take (grad mode
     off, or none of x, s1, s2 requiring one) the same forward runs without
-    the Function."""
+    the Function.
+
+    `tp`: this linear's Megatron role (``sharding.rules.tp_role``),
+    consulted only under a policy with a tensor-parallel mesh, where the
+    operands are this rank's shard: "col" launches on the d_out shard with
+    no collective; "row" launches on the d_in shard (x the matching slice
+    of the activation) and one all-reduce sums the partials. Every rank's
+    operands are whole rank columns, so ``eff_rank`` composes with both
+    roles. A linear that ``place_on_mesh`` left whole (a shape that does
+    not divide the axis) is passed with ``tp=None``: the replicated
+    launch."""
     p = policy if policy is not None else current_kernel_policy()
     x = _match_packed_k(x, qv)
     if _wants_grad(x, s1, s2):
-        return _LowrankBinaryMatmul.apply(x, qv, qu_t, s1, s2, p, eff_rank,
-                                          False)
-    return _lowrank_forward(x, qv, qu_t, s1, s2, p, eff_rank)
+        y = _LowrankBinaryMatmul.apply(x, qv, qu_t, s1, s2, p, eff_rank,
+                                       False)
+    else:
+        y = _lowrank_forward(x, qv, qu_t, s1, s2, p, eff_rank)
+    return finish_row_parallel(y, p) if tp == "row" else y
 
 
 def lowrank_binary_matmul_merged(x, mp, dims: Sequence[int],
@@ -222,7 +273,13 @@ def lowrank_binary_matmul_merged(x, mp, dims: Sequence[int],
     ``y = ((t ⊙ rmask_g) @ U_g) ⊙ s1_g``: rmask as stage 2's s_k zeroes
     the padded rank columns (padded V words unpack to -1, so stage 1
     alone does not). That is the fused oracle's arithmetic, so the result
-    matches JAX's within the kernel tolerances."""
+    matches JAX's within the kernel tolerances.
+
+    Merged groups are all column-parallel (QKV / gate-up). Under a
+    tensor-parallel mesh each rank's group is merged from its own d_out
+    shards (``quant.surgery.merge_projection_groups`` after
+    ``place_on_mesh``), so the launch is shard-local with no collective
+    and `dims` are the local widths."""
     p = policy if policy is not None else current_kernel_policy()
     x = _match_packed_k(x, mp["qv"])
     shape = x.shape
@@ -306,7 +363,13 @@ def paged_attention(q, k_pool, v_pool, block_table, q_pos, cache_pos, *,
 
     q: (B, S, Hq, D) — S == 1 for decode, S > 1 for a multi-token read
     whose S rows are already in the pool (S single-token launches at
-    shifted positions; the per-query mask keeps later rows out)."""
+    shifted positions; the per-query mask keeps later rows out).
+
+    Under a tensor-parallel mesh the caller passes this rank's heads:
+    its query heads and the pool's kv heads they read (kv-head-sharded
+    per ``sharding.rules.cache_pspecs(paged=True)``, or the one replicated
+    kv head its query heads share), and each rank attends over them with
+    no collective."""
     p = policy if policy is not None else current_kernel_policy()
     if not p.use_kernels(q.device):
         return ref.paged_attention_ref(q, k_pool, v_pool, block_table, q_pos,
@@ -314,6 +377,9 @@ def paged_attention(q, k_pool, v_pool, block_table, q_pos, cache_pos, *,
     bt = block_table.to(torch.int32).contiguous()
     qp = q_pos.to(torch.int32)
     cp = cache_pos.to(torch.int32)
+    # a pool is contiguous; the one-kv-head view of a replicated pool
+    # (``quant.surgery.kv_layout``) is copied out for the launch
+    k_pool, v_pool = k_pool.contiguous(), v_pool.contiguous()
     outs = [paged_kernel.paged_decode_attention(
         q[:, j:j + 1].contiguous(), k_pool, v_pool, bt, qp + j, cp + j,
         window=window, scale=scale) for j in range(q.shape[1])]
@@ -332,10 +398,13 @@ def decode_step_megakernel(x, mqkv, wo, k_pool, v_pool, block_table, q_pos,
     Returns ``(y, k_new, v_new)`` or **None** when the launch does not
     qualify — off the kernel path, megakernel or merging off, ranks past
     MAX_FUSED_RANK, eff_rank not a multiple of 32 — and the caller then
-    runs the unfused chain, which is online-softmax-equal.
+    runs the unfused chain, which is online-softmax-equal. It declines
+    under a tensor-parallel mesh too, as the reference's does: its wo is
+    row-parallel there and needs the all-reduce between the head-local
+    attention and the residual, which the one launch has no place for.
     x: (B, K) one decode token per slot; dims: (Hq*D, Hkv*D)."""
     p = policy if policy is not None else current_kernel_policy()
-    if not p.use_megakernel(x.device):
+    if not p.use_megakernel(x.device) or p.tp_size() > 1:
         return None
     if mqkv["qv"].dim() != 3 or wo["qv"].dim() != 2:
         return None

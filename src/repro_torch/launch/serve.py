@@ -35,6 +35,19 @@ requests (token-identically under greedy decoding). On a CUDA card this
 is the recovery from a real device fault, which leaves the process's
 CUDA context unusable. ``--crash-at-step N`` snapshots and exits with
 code 7 at tick N, to exercise the loop.
+
+Tensor-parallel serving: ``--tp N`` starts N ranks
+(``launch.mesh.run_ranks``) over ``--tp-backend`` (``nccl``, one card per
+rank, an error with fewer cards; or ``gloo``, every rank on ``--device``,
+one card shared or the CPU, its collectives staged through host memory).
+The model is made once (loaded, or the demo quantized) and saved as an
+artifact in a temporary directory that each rank loads; each rank serves
+its shards of it over a ``(data=1, model=N)`` mesh, and only rank 0
+prints, starting with a line that gives the backend, the ranks' devices
+and the mesh. Deadlines, snapshots and ``--supervise`` read one
+process's clock or plan and are refused with ``--tp`` (ROADMAP item 12d).
+``--engine wave`` admits a new batch only once every slot is free (the
+deprecated ``BatchServer``'s admission).
 """
 from __future__ import annotations
 
@@ -70,10 +83,7 @@ def demo_model(arch: str, fp: bool = False, device="cuda"):
                                    qcfg, verbose=False, device=device)
 
 
-def main(argv=None):
-    """Run the CLI on `argv` (default ``sys.argv[1:]``); returns the
-    finished requests' output tokens by uid."""
-    argv = sys.argv[1:] if argv is None else list(argv)
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--quantized-ckpt", default="",
                     help="NanoQuantModel artifact; if empty, quantizes "
@@ -89,6 +99,18 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=24)
     ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--engine", choices=("continuous", "wave"),
+                    default="continuous",
+                    help="admission: continuous batching, or a new batch "
+                         "only once every slot is free (the deprecated "
+                         "BatchServer)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree: serve over a (data=1, "
+                         "model=N) mesh of N ranks")
+    ap.add_argument("--tp-backend", choices=("nccl", "gloo"),
+                    default="nccl",
+                    help="--tp's process group: nccl (one card per rank) "
+                         "or gloo (every rank on --device)")
     ap.add_argument("--page-size", type=int, default=64,
                     help="KV rows per page of the paged pool")
     ap.add_argument("--kv-pool-pages", type=int, default=0,
@@ -132,7 +154,31 @@ def main(argv=None):
                          "the child is declared hung")
     ap.add_argument("--max-restarts", type=int, default=3,
                     help="--supervise: restart budget")
+    return ap
+
+
+def main(argv=None):
+    """Run the CLI on `argv` (default ``sys.argv[1:]``); returns the
+    finished requests' output tokens by uid."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    ap = _parser()
     args = ap.parse_args(argv)
+    if args.tp > 1:
+        clocked = [f for f, on in (("--supervise", args.supervise),
+                                   ("--snapshot", args.snapshot),
+                                   ("--deadline", args.deadline),
+                                   ("--crash-at-step", args.crash_at_step))
+                   if on]
+        if clocked:
+            ap.error(f"{', '.join(clocked)} read one process's clock or "
+                     f"snapshot and are refused with --tp (ROADMAP item 12d)")
+        from repro_torch.launch.mesh import check_backend, under_torchrun
+        try:
+            check_backend(args.tp_backend, args.tp)
+        except RuntimeError as e:
+            ap.error(str(e))
+        if under_torchrun() and int(os.environ["RANK"]):
+            sys.stdout = open(os.devnull, "w")      # only rank 0 prints
 
     if args.supervise:
         from repro_torch.launch import supervisor
@@ -147,9 +193,6 @@ def main(argv=None):
             heartbeat_pattern=r"\[serve\] heartbeat"))
 
     from repro_torch.api import NanoQuantModel
-    from repro_torch.serve import recovery
-    from repro_torch.serve.engine import ServeConfig
-    from repro_torch.serve.scheduler import Request
 
     if args.quantized_ckpt and not args.fp:
         model = NanoQuantModel.load(args.quantized_ckpt, device=args.device)
@@ -163,6 +206,50 @@ def main(argv=None):
         print("[serve] FP random-init teacher (--fp)" if args.fp else
               "[serve] quantized random-init teacher (demo)", flush=True)
 
+    if args.shared_prefix and model.cfg.family == "audio":
+        ap.error("--shared-prefix does not support audio prompts")
+    if args.tp == 1:
+        return _serve(args, model)
+    import tempfile
+    from repro_torch.launch.mesh import run_ranks
+    with tempfile.TemporaryDirectory(prefix="nq-serve-tp-") as tmp:
+        art = model.save(os.path.join(tmp, "model"))
+        del model
+        out = run_ranks(_serve_rank, args.tp, args.tp_backend,
+                        args=(argv, art), workdir=tmp)
+    # under torchrun this process is one rank: rank 0's outputs where it
+    # runs, None on the others
+    return out.get(0)
+
+
+def _serve_rank(rank: int, argv, artifact: str):
+    """One rank of ``--tp``: load the artifact on this rank's device,
+    serve its shards over the mesh; only rank 0 prints."""
+    import torch.distributed as dist
+    from repro_torch.api import NanoQuantModel
+    from repro_torch.launch.mesh import make_serving_mesh
+    args = _parser().parse_args(argv)
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    # nccl: the mesh's own choice, cuda:LOCAL_RANK under torchrun
+    mesh = make_serving_mesh(
+        args.tp, device=None if args.tp_backend == "nccl" else args.device)
+    devices = [None] * args.tp
+    dist.all_gather_object(devices, str(mesh.device), group=mesh.group)
+    shared = len(set(devices)) == 1 and mesh.device.type == "cuda"
+    print(f"[serve] tensor-parallel: {args.tp} ranks over "
+          f"{mesh.backend} on {devices}, mesh {mesh.shape}"
+          + ("; the ranks share one device, their collectives staged "
+             "through host memory" if shared else ""), flush=True)
+    return _serve(args, NanoQuantModel.load(artifact, device=mesh.device),
+                  mesh)
+
+
+def _serve(args, model, mesh=None):
+    """The serving loop over `model` (this rank's shards under `mesh`)."""
+    from repro_torch.serve import recovery
+    from repro_torch.serve.engine import ServeConfig
+    from repro_torch.serve.scheduler import Request
     cfg = model.cfg
     spec = args.spec_rank_frac or None
     scfg = ServeConfig(max_new_tokens=args.max_new,
@@ -175,15 +262,15 @@ def main(argv=None):
               f"k<={args.spec_k} (greedy sampling forced)")
     eng = model.engine(scfg, max_batch=args.max_batch,
                        max_len=(args.shared_prefix + args.prompt_len
-                                + args.max_new))
+                                + args.max_new),
+                       admission=args.engine, mesh=mesh)
+    del model                           # a rank keeps its shards only
     rng = np.random.default_rng(0)
     # a prompt of tokens, or the audio family's frames of n_codebooks ids
     shape = ((args.prompt_len, cfg.n_codebooks)
              if cfg.family == "audio" else (args.prompt_len,))
     sys_prompt = None
     if args.shared_prefix:
-        if cfg.family == "audio":
-            ap.error("--shared-prefix does not support audio prompts")
         sys_prompt = rng.integers(0, cfg.vocab_size,
                                   size=args.shared_prefix).astype(np.int64)
     t0 = time.time()
@@ -229,7 +316,7 @@ def main(argv=None):
     n_tok = sum(len(r.output) for r in done.values())
     n_term = {s: eng.stats[s] for s in ("cancelled", "expired", "failed")
               if eng.stats[s]}
-    print(f"[serve] engine=continuous on {eng.device}: {len(done)} "
+    print(f"[serve] engine={args.engine} on {eng.device}: {len(done)} "
           f"requests, {n_tok} tokens in {dt:.2f}s ({n_tok / dt:.1f} tok/s)"
           + (f", non-done terminals {n_term}" if n_term else ""))
     lats = np.asarray(sorted(h.latency for h in handles if h.done))

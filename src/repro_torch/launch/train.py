@@ -11,7 +11,7 @@ stream started at that step (deterministic data skip); under
 ``launch/supervisor.py`` a crash restarts and resumes the same way.
 ``--grad-accum N`` splits each (batch, seq) batch into N microbatches of
 batch / N rows (the train step takes them pre-split). ``--mesh
-single|multi`` (a sharded run) waits for ROADMAP item 12.
+single|multi`` (a sharded run) waits for ROADMAP item 12c.
 """
 from __future__ import annotations
 
@@ -75,7 +75,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.mesh != "none":
         ap.error(f"--mesh {args.mesh} needs the sharded trainer, which the "
-                 f"port does not have yet (ROADMAP item 12)")
+                 f"port does not have yet (ROADMAP item 12c)")
     if args.grad_accum > 1 and args.batch % args.grad_accum:
         ap.error(f"--grad-accum {args.grad_accum} splits each batch into "
                  f"equal microbatches: --batch {args.batch} is not a "

@@ -20,6 +20,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
+from repro_torch.quant.surgery import kv_layout
+from repro_torch.sharding.rules import tp_role
 
 # --------------------------------------------------------------------------
 # calibration taps (paper Alg. 1 Phase 1): while a StatCollector is
@@ -107,17 +109,25 @@ def dense(p: dict, x, name: Optional[str] = None):
     """FP, STE-latent or packed-binary linear. x: (..., d_in) -> (...,
     d_out). A packed dict of a draft view (``quant.surgery.
     rank_truncated_view``) carries ``eff_rank``: the kernel then reads only
-    the leading rank columns. `name` keys the calibration taps."""
+    the leading rank columns. `name` keys the calibration taps and gives
+    the linear's tensor-parallel role (``sharding.rules.tp_role``), as the
+    reference's ``dense`` passes it: under a mesh a row-parallel linear's
+    partial sums are all-reduced before its bias, which is added once."""
     tap = _TAP.get() if name is not None else None
     if tap is not None:
         tap.record_in(name, x)
+    tp = None if kops.current_kernel_policy().mesh is None \
+        else tp_role(name)
     if "qu_t" in p:      # packed low-rank binary path (paper Eq. 1)
         y = kops.lowrank_binary_matmul(x, p["qv"], p["qu_t"], p["s1"],
-                                       p["s2"], eff_rank=p.get("eff_rank"))
+                                       p["s2"], tp=tp,
+                                       eff_rank=p.get("eff_rank"))
     elif "lu" in p:      # continuous latents with STE (refinement phase)
         y = _ste_matmul(p, x)
     else:
         y = x @ p["w"].to(x.dtype)
+        if tp == "row":
+            y = kops.finish_row_parallel(y)
     if tap is not None:
         tap.hook_out(name, y)
     if "b" in p:
@@ -165,6 +175,14 @@ def dense_expert(p: dict, x, name: Optional[str] = None):
 def _use_merged(p: dict, key: str, x) -> bool:
     return key in p and \
         kops.current_kernel_policy().use_merged_projections(x.device)
+
+
+def _width(lin: dict) -> int:
+    """A linear's output width, read from its (packed or FP) leaves: under
+    tensor parallelism the rank's d_out shard."""
+    if "qu_t" in lin:
+        return lin["qu_t"].shape[-1]
+    return lin["lu"].shape[-2] if "lu" in lin else lin["w"].shape[-1]
 
 
 # --------------------------------------------------------------------------
@@ -355,7 +373,13 @@ def attention(p, cfg, x, positions, cache=None, cache_pos=None,
     assumes ``cache_pos == positions``: the hybrid's ring passes its write
     row wrapped modulo the ring's rows and its query positions absolute,
     and the write (:func:`paged_cache_write`), #2, #3 and their plain
-    versions place row r at position ``q - ((cache_pos - r) mod rows)``."""
+    versions place row r at position ``q - ((cache_pos - r) mod rows)``.
+
+    Head counts are read from the projections' widths, so under tensor
+    parallelism the layer runs on the rank's heads (its wq / wk / wv
+    shards, its pool of kv heads: ``quant.surgery.kv_layout``); wo is then
+    row-parallel and its all-reduce (in :func:`dense`) restores the full
+    output. The megakernel declines under a mesh."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     if (cache is not None and block_table is not None and S == 1
@@ -378,17 +402,19 @@ def attention(p, cfg, x, positions, cache=None, cache_pos=None,
             paged_cache_write(cache["v"], v_new[:, None], block_table,
                               cache_pos)
             return y[:, None], cache
+    dq, dkv = _width(p["wq"]), _width(p["wk"])
     if _use_merged(p, "wqkv", x):
-        q, k, v = dense_merged(
-            p["wqkv"], x,
-            (cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.n_kv_heads * hd))
-        q = q.reshape(B, S, cfg.n_heads, hd)
-        k = k.reshape(B, S, cfg.n_kv_heads, hd)
-        v = v.reshape(B, S, cfg.n_kv_heads, hd)
+        q, k, v = dense_merged(p["wqkv"], x, (dq, dkv, dkv))
     else:
-        q = dense(p["wq"], x, "attn.wq").reshape(B, S, cfg.n_heads, hd)
-        k = dense(p["wk"], x, "attn.wk").reshape(B, S, cfg.n_kv_heads, hd)
-        v = dense(p["wv"], x, "attn.wv").reshape(B, S, cfg.n_kv_heads, hd)
+        q = dense(p["wq"], x, "attn.wq")
+        k = dense(p["wk"], x, "attn.wk")
+        v = dense(p["wv"], x, "attn.wv")
+    Hq, Hkv = dq // hd, dkv // hd
+    q = q.reshape(B, S, Hq, hd)
+    k = k.reshape(B, S, Hkv, hd)
+    v = v.reshape(B, S, Hkv, hd)
+    mesh = kops.current_kernel_policy().mesh
+    kv = None if mesh is None else kv_layout(cfg, mesh)[1]
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -401,9 +427,11 @@ def attention(p, cfg, x, positions, cache=None, cache_pos=None,
         # paged decode: page-mapped write, then the block-table walk
         paged_cache_write(cache["k"], k, block_table, cache_pos)
         paged_cache_write(cache["v"], v, block_table, cache_pos)
-        o = kops.paged_attention(q, cache["k"], cache["v"], block_table,
-                                 positions[:, 0], cache_pos, window=window,
-                                 scale=scale)
+        kp, vp = cache["k"], cache["v"]
+        if kv is not None:
+            kp, vp = kp[:, :, kv], vp[:, :, kv]
+        o = kops.paged_attention(q, kp, vp, block_table, positions[:, 0],
+                                 cache_pos, window=window, scale=scale)
     else:
         if cache is not None:
             if isinstance(cache_pos, torch.Tensor) or cache_pos != 0:
@@ -412,10 +440,12 @@ def attention(p, cfg, x, positions, cache=None, cache_pos=None,
                     "position 0; decode runs over the paged pool")
             cache["k"][:, :S] = k.to(cache["k"].dtype)
             cache["v"][:, :S] = v.to(cache["v"].dtype)
+        if kv is not None:
+            k, v = k[:, :, kv], v[:, :, kv]
         if S >= cfg.flash_threshold:
             # the reference's route at long lengths (the cache-less forward
             # and the rectangular prefill), with its GQA head repeat
-            G = cfg.n_heads // cfg.n_kv_heads
+            G = q.shape[2] // k.shape[2]
             if G > 1:
                 k = k.repeat_interleave(G, dim=2)
                 v = v.repeat_interleave(G, dim=2)

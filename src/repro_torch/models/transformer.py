@@ -45,7 +45,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import util
 from repro_torch.core.util import tree_index
+from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
+from repro_torch.sharding import comm
 from repro_torch.models.config import ModelConfig, check_family
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -133,12 +135,36 @@ def _apply_mamba_block(p, cfg, x, state=None):
     return x + y, new_state
 
 
+def _tp_mesh(what: str):
+    """The tensor-parallel mesh of the kernel policy in force, for a leaf
+    that holds one rank's vocabulary shard."""
+    mesh = kops.current_kernel_policy().mesh
+    if mesh is None:
+        raise ValueError(f"the {what} holds a vocabulary shard, and the "
+                         f"kernel policy in force carries no mesh")
+    return mesh
+
+
 def embed_tokens(params, cfg, tokens):
     """Token ids (B, S) to (B, S, d); the audio family's frames (B, S, K)
-    to the sum of each codebook's embedding, in codebook order."""
+    to the sum of each codebook's embedding, in codebook order.
+
+    An embedding of fewer than ``vocab_size`` rows is one rank's
+    vocabulary shard (``place_on_mesh``): the vocab-parallel lookup gives
+    the rows of ids in the rank's range and zeros elsewhere, and one
+    all-reduce sums them (each id's row comes from one rank, so the sum is
+    that row exactly)."""
     emb = params["embed"]
     if cfg.family != "audio":
-        return emb[tokens]
+        if emb.shape[0] == cfg.vocab_size:
+            return emb[tokens]
+        mesh = _tp_mesh("embedding")
+        n = emb.shape[0]
+        local = tokens - mesh.tp_rank * n
+        mine = (local >= 0) & (local < n)
+        x = torch.where(mine[..., None], emb[local.clamp(0, n - 1)],
+                        torch.zeros((), dtype=emb.dtype, device=emb.device))
+        return comm.all_reduce_sum(x, mesh)
     x = emb[0][tokens[..., 0]]
     for k in range(1, cfg.n_codebooks):
         x = x + emb[k][tokens[..., k]]
@@ -237,8 +263,13 @@ def _head_w(params, cfg):
 
 def logits_fn(params, cfg, hidden):
     """The lm head stays a plain matmul (tied to the embedding or not);
-    the audio family's logits come back as (..., n_codebooks, vocab)."""
+    the audio family's logits come back as (..., n_codebooks, vocab).
+    A head of one rank's vocabulary shard gives that slice of the logits,
+    and one all-gather assembles them, the same on every rank."""
     out = hidden @ _head_w(params, cfg).to(hidden.dtype)
+    books = cfg.n_codebooks if cfg.family == "audio" else 1
+    if out.shape[-1] != books * cfg.vocab_size:
+        out = comm.all_gather_last(out, _tp_mesh("lm head"))
     if cfg.family == "audio":
         out = out.unflatten(-1, (cfg.n_codebooks, cfg.vocab_size))
     return out

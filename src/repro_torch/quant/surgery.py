@@ -11,7 +11,11 @@
   columns set to 0);
 - :func:`rank_truncated_view` — the zero-copy rank-r' draft view that
   self-speculative decoding reads (``serve.speculative``);
-- :func:`packed_model_bytes` — the checkpoint's storage accounting.
+- :func:`packed_model_bytes` — the checkpoint's storage accounting;
+- :func:`quantizable_paths` — every linear the quantizer selects;
+- :func:`place_on_mesh` / :func:`place_cache_on_mesh` — one rank's shards
+  of a parameter tree or a cache under ``sharding.rules`` (the reference
+  places a global array per device; here each rank holds its own).
 
 The selection rule is ``core.layout.quantizable_linear``, the copy of
 the JAX package's: every linear ``{"w": (d_in, d_out)}`` (or stacked
@@ -21,8 +25,9 @@ excluded (the MoE router stays FP32).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -277,6 +282,14 @@ def merge_projection_groups(params):
     the input tree is not modified (a new dict is returned where
     anything was added).
 
+    Under tensor parallelism it runs on one rank's shards
+    (:func:`place_on_mesh` first), so each group stacks the rank's own
+    wq / wk / wv (gate / up) d_out shards, which stay head-aligned. This
+    departs from the reference, which shards the merged group's padded
+    Nmax axis: explicit TP needs each rank's q / k / v columns to be whole
+    heads, which a cut of the padded axis is not. The numbers are the
+    same.
+
     A departure from the JAX package: its merge also builds ``wqkv`` in
     the VLM's cross-attention blocks (:data:`SPLIT_INPUT_BLOCKS`), whose
     wq reads the hidden state while wk / wv read the image, so no layer
@@ -353,6 +366,157 @@ def rank_truncated_view(params, rank_frac: float, align: int = PACK_ALIGN):
         return node if all(out[k] is v for k, v in node.items()) else out
 
     return walk(params)
+
+
+# ---------------------------------------------------------------------------
+# placement on a tensor-parallel mesh
+# ---------------------------------------------------------------------------
+
+
+def kv_layout(cfg: ModelConfig, mesh) -> Tuple[bool, Optional[slice]]:
+    """How this rank holds and reads the kv heads on a tensor-parallel
+    `mesh`: (replicated, read). The one decision that placement
+    (:func:`param_placement`, :func:`local_cache`), the engine's checks
+    and ``models.layers.attention`` share.
+
+    replicated: ``n_kv_heads`` does not divide the ``model`` axis, so wk /
+    wv (and their biases) and the caches stay whole on every rank. This
+    departs from the reference, whose rule splits wk's d_out inside a
+    head and lets GSPMD regather it, which explicit TP cannot; the pool's
+    placement is still the reference's ``cache_pspecs(paged=True)``,
+    which replicates it there. read: the slice of the held kv heads this
+    rank's query heads read, their GQA group's one head (None: every kv
+    head it holds, the heads sharded with the query heads or no mesh).
+    Raises where the rank's query heads would straddle GQA groups over
+    replicated kv heads (the same on every rank)."""
+    n = 1 if mesh is None else mesh.tp
+    if n == 1 or cfg.is_mla or cfg.n_kv_heads % n == 0:
+        return False, None
+    hq, G = cfg.n_heads // n, cfg.n_heads // cfg.n_kv_heads
+    if cfg.n_heads % n or G % hq:
+        raise NotImplementedError(
+            f"{cfg.n_kv_heads} kv heads do not divide over {n} ranks and "
+            f"{cfg.n_heads} query heads do not split into runs inside GQA "
+            f"groups of {G}")
+    first = mesh.tp_rank * hq // G
+    return True, slice(first, first + 1)
+
+
+def param_placement(params, cfg: ModelConfig, mesh, policy=None):
+    """The spec tree :func:`place_on_mesh` places `params` by:
+    ``sharding.rules.param_pspecs`` under `policy` (default
+    :data:`sharding.rules.SERVE`), with wk / wv (and their biases)
+    replicated where ``n_kv_heads`` does not divide the model axis
+    (:func:`kv_layout`)."""
+    from repro_torch.sharding import rules
+    specs = rules.param_pspecs(cfg, params, mesh,
+                               policy if policy is not None else rules.SERVE)
+    if not kv_layout(cfg, mesh)[0]:
+        return specs
+
+    def fix(path, spec):
+        parts = path.split("/")
+        if len(parts) > 1 and parts[-2] in ("wk", "wv"):
+            return (None,) * len(spec)
+        return spec
+    return rules.map_with_path(fix, specs)
+
+
+def place_on_mesh(params, cfg: ModelConfig, mesh, policy=None):
+    """This rank's shards of a (quantized or FP) parameter tree on a
+    serving mesh per ``sharding.rules``: packed U/s1 d_out-sharded for
+    column-parallel projections, packed V/s2 d_in-sharded for row-parallel
+    ones, FP ``w`` / ``b`` paired the same way, the embedding and lm head
+    split on the vocabulary, everything non-divisible whole. The default
+    policy is :data:`repro_torch.sharding.rules.SERVE` (tensor-parallel
+    only, V replicated), the layout the launches of ``kernels.ops`` read.
+    Returns a new tree of contiguous tensors (a whole leaf is the input's
+    own tensor).
+
+    One departure from the reference: where ``n_kv_heads`` does not divide
+    the model axis (qwen1.5-110b's smoke config, one kv head), wk and wv
+    stay whole on every rank, as the pool does, and each rank's query
+    heads read the kv head their GQA group maps to (:func:`kv_layout`)."""
+    from repro_torch.sharding import rules
+    specs = param_placement(params, cfg, mesh, policy)
+
+    def walk(tree, spec):
+        if isinstance(tree, dict):
+            return {k: walk(v, spec[k]) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, sp) for v, sp in zip(tree, spec)]
+        if not isinstance(tree, torch.Tensor):
+            return tree
+        return rules.local_shard(tree, spec, mesh, mesh.coords)
+
+    return walk(params, specs)
+
+
+def local_cache(make, cfg: ModelConfig, mesh, device):
+    """A cache tree allocated as this rank's blocks: ``make(device)``
+    builds the whole tree; on a tensor-parallel `mesh` it is built on the
+    meta device and every leaf is allocated (zeros) at its block's shape
+    under ``sharding.rules.cache_pspecs(paged=True)``. That is the pool's
+    placement, and the rectangular prefill cache takes it too: its kv
+    heads split with the query heads or stay whole (:func:`kv_layout`);
+    the reference's rule for it would fall back to the sequence dim,
+    which explicit TP has no regather for."""
+    if mesh is None or mesh.tp == 1:
+        return make(device)
+    from repro_torch.sharding import rules
+    full = make("meta")
+    specs = rules.cache_pspecs(cfg, full, mesh, rules.SERVE, paged=True)
+
+    def walk(tree, spec):
+        if isinstance(tree, dict):
+            return {k: walk(v, spec[k]) for k, v in tree.items()}
+        return torch.zeros(rules.local_shape(tree.shape, spec, mesh),
+                           dtype=tree.dtype, device=device)
+
+    return walk(full, specs)
+
+
+def place_cache_on_mesh(cache, cfg: ModelConfig, mesh, policy=None,
+                        paged: bool = False):
+    """This rank's shards of a KV / SSM cache per
+    ``sharding.rules.cache_pspecs`` (kv heads, or the sequence dim, on
+    ``model``; the slot dim on the data axes when divisible). ``paged``
+    for a page pool (``serve.paging``): it shards its kv-head dim only,
+    whole where that does not divide."""
+    from repro_torch.sharding import rules
+    specs = rules.cache_pspecs(cfg, cache, mesh,
+                               policy if policy is not None else rules.SERVE,
+                               paged=paged)
+
+    def walk(tree, spec):
+        if isinstance(tree, dict):
+            return {k: walk(v, spec[k]) for k, v in tree.items()}
+        return rules.local_shard(tree, spec, mesh, mesh.coords)
+
+    return walk(cache, specs)
+
+
+def quantizable_paths(params, cfg: ModelConfig, min_dim: int = 48
+                      ) -> List[Tuple[Tuple[str, ...], Any]]:
+    """[(path, linear dict)] for every quantizable linear of the model's
+    block stacks, keys in sorted order (the reference's walk)."""
+    out = []
+
+    def walk(d, path):
+        for k in sorted(d.keys()):
+            v = d[k]
+            if not isinstance(v, dict):
+                continue
+            if "w" in v and not isinstance(v["w"], dict):
+                if quantizable_linear(k, v["w"].shape, min_dim):
+                    out.append((path + (k,), v))
+            else:
+                walk(v, path + (k,))
+
+    for stack in BLOCK_STACKS:
+        if stack in params and isinstance(params[stack], dict):
+            walk(params[stack], (stack,))
+    return out
 
 
 # ---------------------------------------------------------------------------

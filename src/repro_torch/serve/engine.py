@@ -72,7 +72,9 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.build import KernelError
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
-from repro_torch.quant.surgery import merge_projection_groups
+from repro_torch.quant.surgery import (kv_layout, local_cache,
+                                      merge_projection_groups,
+                                      param_placement, place_on_mesh)
 from repro_torch.serve import paging, speculative
 from repro_torch.serve.faults import InjectedDeviceError
 from repro_torch.serve.prefix import PrefixCache
@@ -227,6 +229,61 @@ def _device_side(err: BaseException) -> bool:
     raised it: it propagates instead of failing one handle."""
     return isinstance(err, (KernelError,) + _CUDA_ERRORS) or (
         isinstance(err, RuntimeError) and "cuda" in str(err).lower())
+
+
+# the families tensor-parallel serving covers (ROADMAP item 12b: the rest)
+TP_FAMILIES = ("dense",)
+
+
+def check_tp_serving(cfg: ModelConfig, mesh, faults=None) -> None:
+    """Raise unless an engine can serve `cfg` over `mesh`: the dense family
+    only (expert-parallel MoE, MLA, SSM, hybrid, VLM and audio wait for
+    ROADMAP item 12b), no fault plan (it fires on one process's plan,
+    ROADMAP item 12d), query heads that divide the model axis, and, where
+    the kv heads do not, each rank's query heads inside one GQA group
+    (``quant.surgery.kv_layout``)."""
+    n = mesh.tp
+    if cfg.family not in TP_FAMILIES:
+        raise NotImplementedError(
+            f"tensor-parallel serving covers the {TP_FAMILIES} family; "
+            f"{cfg.family!r} waits for ROADMAP item 12b")
+    if faults is not None:
+        raise NotImplementedError(
+            "a fault plan fires on one process's schedule; it is refused "
+            "under a tensor-parallel mesh (ROADMAP item 12d)")
+    if cfg.n_heads % n:
+        raise NotImplementedError(
+            f"{cfg.n_heads} query heads do not divide over {n} ranks")
+    kv_layout(cfg, mesh)
+
+
+def check_tp_layout(cfg: ModelConfig, params, mesh) -> None:
+    """Raise unless ``place_on_mesh`` splits every linear of the layers as
+    the launches read it: a column-parallel one on d_out only (wk / wv
+    whole where ``kv_layout`` replicates the kv heads), a row-parallel one
+    on d_in only. The reference falls back to a whole linear where a shape
+    does not divide and lets GSPMD regather its activation; explicit TP
+    has no regather, so such a model is refused here."""
+    from repro_torch.core.util import leaves_with_path
+    from repro_torch.sharding.rules import tp_role
+    want = {"col": {"qu_t": -1, "s1": -1, "w": -1, "b": -1},
+            "row": {"qv": -2, "s2": -1, "w": -2}}
+    kv_whole = kv_layout(cfg, mesh)[0]
+    for path, spec in leaves_with_path(param_placement(params, cfg, mesh)):
+        parts = path.split("/")
+        role = tp_role(parts[-2]) if len(parts) > 1 else None
+        if role is None or parts[0] not in T.STACKS:
+            continue
+        if kv_whole and parts[-2] in ("wk", "wv"):
+            continue
+        on = [i - len(spec) for i, e in enumerate(spec)
+              if e == "model" or (isinstance(e, tuple) and "model" in e)]
+        dim = want[role].get(parts[-1])
+        if on != ([] if dim is None else [dim]):
+            raise NotImplementedError(
+                f"{path} would be placed {spec} over {mesh.shape}: "
+                f"tensor-parallel serving needs each {role}-parallel linear "
+                f"split on its {'d_out' if role == 'col' else 'd_in'} only")
 
 
 class RequestError(RuntimeError):
@@ -389,6 +446,19 @@ class InferenceEngine:
     ``serve.faults.FaultPlan`` whose hooks fire at the engine's seams
     (None in production); clock: the deadline clock, monotonic seconds
     (injectable so that tests expire requests deterministically).
+
+    mesh: a tensor-parallel mesh (``repro_torch.launch.mesh.Mesh``) over
+    which this process is one rank. The engine then holds this rank's
+    shards (``quant.surgery.place_on_mesh`` under
+    ``sharding.rules.SERVE``), merges its own QKV / gate-up
+    shards, allocates its kv heads of the pool and runs every launch of
+    ``kernels.ops`` on them, with the all-reduces and the logits'
+    all-gather between (see :func:`check_tp_serving` for what it serves).
+    The ranks run SPMD: each receives the same ``submit`` / ``step`` /
+    ``run`` calls, the scheduler is deterministic given them, and every
+    rank holds the same full logits, so greedy tokens and seeded samples
+    agree on every rank without further messages;
+    :meth:`check_invariants` checks that the ranks' host schedules agree.
     """
 
     def __init__(self, params, cfg: ModelConfig,
@@ -396,11 +466,17 @@ class InferenceEngine:
                  max_len: int = 512, seed: int = 0,
                  admission: str = "continuous", device="cuda",
                  policy: Optional[kops.KernelPolicy] = None, faults=None,
-                 clock: Optional[Callable[[], float]] = None):
+                 clock: Optional[Callable[[], float]] = None, mesh=None):
         self.device = resolve_device(device)
         self.scfg = scfg or ServeConfig()
         if self.scfg.spec_rank_frac is not None:
             speculative.check_config(self.scfg)
+        self.mesh = mesh
+        if mesh is not None:
+            check_tp_serving(cfg, mesh, faults=faults)
+            if mesh.device.type != self.device.type:
+                raise ValueError(f"this rank's mesh device is {mesh.device}, "
+                                 f"the engine's {self.device}")
         kinds = paging.cache_page_kinds(cfg)
         if kinds and not self.scfg.paged:
             raise NotImplementedError(
@@ -412,6 +488,10 @@ class InferenceEngine:
         pol = policy if policy is not None else kops.current_kernel_policy()
         if self.scfg.megakernel is not None:
             pol = dataclasses.replace(pol, megakernel=self.scfg.megakernel)
+        if mesh is not None:
+            pol = dataclasses.replace(pol, mesh=mesh)
+            check_tp_layout(cfg, params, mesh)
+            params = place_on_mesh(params, cfg, mesh)
         self.policy = pol
         if pol.use_merged_projections(self.device):
             params = merge_projection_groups(params)
@@ -440,7 +520,7 @@ class InferenceEngine:
         if self.paged:
             self.cache = paging.init_paged_cache(
                 cfg, self.kv.n_pages, self.kv.page_size, self.device,
-                batch=max_batch)
+                batch=max_batch, mesh=mesh)
         else:
             self.cache = T.init_cache(cfg, max_batch, max_len, self.device)
         self.pos = np.zeros((max_batch,), np.int64)
@@ -496,6 +576,11 @@ class InferenceEngine:
         if req.deadline_s is not None and req.deadline_s < 0:
             raise ValueError(f"request {req.uid}: deadline_s must be "
                              f">= 0, got {req.deadline_s}")
+        if req.deadline_s is not None and self.mesh is not None:
+            raise NotImplementedError(
+                f"request {req.uid}: a deadline reads each rank's own clock, "
+                f"so tensor-parallel ranks could expire it at different "
+                f"ticks (ROADMAP item 12d)")
         need = self.kv.pages_for_prompt(n) if self.paged else 0
         if need and need + self.kv.watermark > self.kv.n_pages - 1:
             raise ValueError(
@@ -701,6 +786,11 @@ class InferenceEngine:
         engine without a pool cannot checkpoint a live slot and fails it.
         Returns the requests completed so far. Admission stays closed
         until :meth:`resume_admission`."""
+        if timeout is not None and self.mesh is not None:
+            raise NotImplementedError(
+                "a drain timeout reads each rank's own clock, so "
+                "tensor-parallel ranks could stop at different ticks "
+                "(ROADMAP item 12d)")
         self.draining = True
         t0 = self.clock()
         while self.active.any():
@@ -724,7 +814,18 @@ class InferenceEngine:
         """Audit the page pool (when there is one), the prefix index and
         the slot/task/owner alignment; raises ``paging.PageAccountingError``
         on the first violation. Runs on every fault and, with
-        ``ServeConfig(debug=True)``, at the end of every tick."""
+        ``ServeConfig(debug=True)``, at the end of every tick. Under a
+        mesh it also checks lockstep: a digest of this rank's host
+        schedule (each slot's uid, position, activity and last token) is
+        gathered over the ranks, and a mismatch raises."""
+        if self.mesh is not None:
+            from repro_torch.sharding import comm
+            uids = np.asarray([-1 if u is None else u
+                               for u in self.scheduler.slots], np.int64)
+            comm.check_same(comm.fingerprint(
+                uids, self.pos, self.active, self.tokens,
+                np.asarray([len(self.scheduler.pending)])), self.mesh,
+                "the host schedule")
         if self.paged:
             self.kv.check_invariants()
         if self.prefix is not None:
@@ -862,7 +963,9 @@ class InferenceEngine:
                 else bucket_length(n, self.max_len)
             padded = np.zeros((1, bucket) + prompt.shape[1:], np.int64)
             padded[0, :n] = prompt
-            single = T.init_cache(self.cfg, 1, self.max_len, self.device)
+            single = local_cache(
+                lambda dev: T.init_cache(self.cfg, 1, self.max_len, dev),
+                self.cfg, self.mesh, self.device)
             logits, single = T.prefill(
                 self.params, self.cfg,
                 torch.from_numpy(padded).to(self.device), single,

@@ -96,7 +96,7 @@ class PageAccountingError(AssertionError):
 
 
 def init_paged_cache(cfg, n_pages: int, page_size: int, device="cuda",
-                     batch: Optional[int] = None):
+                     batch: Optional[int] = None, mesh=None):
     """Pool-shaped cache, one pool per block stack: {stack: {leaf: (*lead,
     n_pages, page_size, *row)}} over ``transformer.cache_leaves`` (k / v
     rows (Hkv, D); MLA's c_kv (dc,) and k_rope (1, dr)) in the model
@@ -106,7 +106,16 @@ def init_paged_cache(cfg, n_pages: int, page_size: int, device="cuda",
     (``transformer.state_cache``), "shared_attn": {"k" / "v": (n_apps,
     n_pages, page_size, Hkv, D)}}; so is the VLM's: {"self_layers": the
     pool of (groups, per) layers, "cross_kv": the image K/V of `batch`
-    slots (``transformer.image_cache``)}."""
+    slots (``transformer.image_cache``)}.
+
+    With a tensor-parallel `mesh` the pools hold this rank's kv heads
+    (``quant.surgery.local_cache``: the placement of
+    ``sharding.rules.cache_pspecs(paged=True)``), so
+    :func:`kv_cache_bytes` reports this rank's bytes."""
+    if mesh is not None:
+        from repro_torch.quant.surgery import local_cache
+        return local_cache(lambda dev: init_paged_cache(
+            cfg, n_pages, page_size, dev, batch), cfg, mesh, device)
     kinds = cache_page_kinds(cfg)
     if not kinds:
         raise ValueError(f"family {cfg.family!r} has no pageable KV cache")

@@ -40,7 +40,13 @@ def snapshot(engine: InferenceEngine) -> Dict[str, Any]:
     active slots first (in slot order), then the queue in FIFO order, so
     that a restored engine re-admits in the order the source served.
     Call after ``drain()`` for a quiesced snapshot; a live engine is safe
-    too (the records are host state), its slots captured mid-flight."""
+    too (the records are host state), its slots captured mid-flight.
+    Refused for a tensor-parallel engine: each rank would write its own
+    file, and a restart restores one process (ROADMAP item 12d)."""
+    if engine.mesh is not None:
+        raise NotImplementedError(
+            "snapshots of a tensor-parallel engine are not supported "
+            "(ROADMAP item 12d)")
     items: List[Dict[str, Any]] = []
 
     def add(handle: RequestHandle, emitted: List[Any], budget: int):

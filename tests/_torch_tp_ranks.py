@@ -1,0 +1,158 @@
+"""The rank side of ``tests/test_torch_sharding.py``: functions that each
+rank of a gloo group runs on the CPU (``repro_torch.launch.mesh.
+run_ranks``). It imports torch, numpy and ``repro_torch`` only, so a
+spawned rank starts without JAX; everything a rank needs (numpy param
+trees, prompts) comes in its arguments, and everything the checks need
+comes back in its one picklable result."""
+import numpy as np
+import torch
+
+from repro_torch.convert import params_from_numpy
+from repro_torch.kernels import binary_matmul, ops
+from repro_torch.launch.mesh import make_serving_mesh
+from repro_torch.models.config import ModelConfig
+from repro_torch.quant.surgery import merge_projection_groups, place_on_mesh
+from repro_torch.serve.engine import InferenceEngine, ServeConfig
+from repro_torch.serve.scheduler import Request
+from repro_torch.sharding import comm
+
+TP = 2
+# the reference's own TP config (tests/test_engine.py's sharded engine)
+TP_CFG = ModelConfig(name="tiny", family="dense", n_layers=2, d_model=64,
+                     n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=256,
+                     loss_chunk=0, remat=False, dtype="float32")
+
+
+def serve(eng, prompts, budgets):
+    """Every prompt submitted, the first two up front and the rest after
+    one step (mid-flight admission), then drained: (tokens, stats)."""
+    for uid, (p, b) in enumerate(zip(prompts, budgets)):
+        eng.submit(Request(uid, np.asarray(p, np.int64), max_new_tokens=b))
+        if uid == 1:
+            eng.step()
+    done = eng.run()
+    return {u: r.output.tolist() for u, r in done.items()}, dict(eng.stats)
+
+
+def _drained(eng) -> bool:
+    kv = eng.kv
+    ok = not kv.ref.any() and kv.used_pages == kv.cached_page_count \
+        and not kv.tables["linear"].any()
+    if eng.prefix is not None:
+        eng.prefix.clear()
+    return ok and kv.used_pages == 0
+
+
+def _engine_run(tree, cfg, mesh, prompts, budgets, policy, **scfg):
+    eng = InferenceEngine(params_from_numpy(tree, "cpu"), cfg,
+                          ServeConfig(greedy=True, page_size=8, debug=True,
+                                      **scfg),
+                          max_batch=2, max_len=48, device="cpu",
+                          policy=policy, mesh=mesh)
+    toks, stats = serve(eng, prompts, budgets)
+    pool = tuple(eng.cache["layers"]["k"].shape)
+    return {"tokens": toks, "stats": stats, "pool": pool,
+            "kv_bytes": eng.kv_cache_bytes(), "drained": _drained(eng)}
+
+
+def _gather_heads(o, mesh):
+    """(B, S, H_local, D) of every rank -> (B, S, H, D), in rank order."""
+    B, S, H, D = o.shape
+    return comm.all_gather_last(o.reshape(B, S, H * D), mesh).reshape(
+        B, S, -1, D)
+
+
+def _launches(lin, x, mesh, pol):
+    """Column, row and merged launches on this rank's shards of `lin` (a
+    layer's packed wq / wo / w_gate / w_up), gathered or summed to full
+    outputs."""
+    n, r = mesh.tp, mesh.tp_rank
+    col = ops.lowrank_binary_matmul(x, *_ops(lin["wq"]), policy=pol,
+                                    tp="col")
+    k_loc = lin["wo"]["qv"].shape[0] * 32
+    row = ops.lowrank_binary_matmul(x[:, r * k_loc:(r + 1) * k_loc],
+                                    *_ops(lin["wo"]), policy=pol, tp="row")
+    merged = merge_projection_groups({"ffn": lin})["ffn"]["wgu"]
+    d = lin["w_gate"]["qu_t"].shape[-1]
+    g, u = ops.lowrank_binary_matmul_merged(x, merged, (d, d), policy=pol)
+    return {"col": comm.all_gather_last(col, mesh), "row": row,
+            "gate": comm.all_gather_last(g, mesh),
+            "up": comm.all_gather_last(u, mesh), "n": n}
+
+
+def _ops(p):
+    return p["qv"], p["qu_t"], p["s1"], p["s2"]
+
+
+def rank_checks(rank, case):
+    """Everything the parent's tests read, from one rank: the launches
+    (fused and, with MAX_FUSED_RANK lowered, the two-call route), the
+    head-local paged attention, the engines and the lockstep check."""
+    torch.manual_seed(0)
+    mesh = make_serving_mesh(TP, device="cpu")
+    out = {"rank": rank, "coords": dict(mesh.coords),
+           "broadcast": comm.broadcast_object({"from": rank}, mesh)}
+
+    # ---- the launches --------------------------------------------------
+    lin = place_on_mesh(params_from_numpy(case["linears"], "cpu"),
+                        case["lin_cfg"], mesh)["layers"]
+    x = torch.from_numpy(case["x"])
+    pol = ops.KernelPolicy(mode="cuda", mesh=mesh)
+    out["fused"] = {k: v.numpy() if isinstance(v, torch.Tensor) else v
+                    for k, v in _launches(lin, x, mesh, pol).items()}
+    keep = binary_matmul.MAX_FUSED_RANK
+    binary_matmul.MAX_FUSED_RANK = 16
+    try:
+        out["twocall"] = {k: v.numpy() if isinstance(v, torch.Tensor)
+                          else v for k, v in
+                          _launches(lin, x, mesh, pol).items()}
+    finally:
+        binary_matmul.MAX_FUSED_RANK = keep
+
+    # ---- head-local paged attention ------------------------------------
+    pa = {k: torch.from_numpy(v) for k, v in case["paged"].items()}
+    hq = pa["q"].shape[2] // TP
+    hkv = pa["k"].shape[2] // TP
+    o = ops.paged_attention(
+        pa["q"][:, :, rank * hq:(rank + 1) * hq].contiguous(),
+        pa["k"][:, :, rank * hkv:(rank + 1) * hkv].contiguous(),
+        pa["v"][:, :, rank * hkv:(rank + 1) * hkv].contiguous(),
+        pa["bt"], pa["q_pos"], pa["q_pos"], scale=0.25, policy=pol)
+    out["paged"] = _gather_heads(o, mesh).numpy()
+
+    # ---- engines -------------------------------------------------------
+    comm.reset_stats()
+    cuda = ops.KernelPolicy(mode="cuda")
+    out["plain"] = _engine_run(case["tiny"], TP_CFG, mesh, case["prompts"],
+                               case["budgets"], ops.KernelPolicy(mode="ref"),
+                               prefix_cache=False)
+    out["plain"]["comm"] = dict(comm.STATS)
+    out["prefix"] = _engine_run(case["tiny"], TP_CFG, mesh, case["prompts"],
+                                case["budgets"], cuda)
+    # the draft's near-ties follow the policy's rounding: the spec
+    # counters are held to JAX's under the policy JAX's CPU engine runs
+    out["spec"] = _engine_run(case["tiny"], TP_CFG, mesh, case["prompts"],
+                              case["budgets"], ops.KernelPolicy(mode="ref"),
+                              spec_rank_frac=0.5, spec_k=2)
+    binary_matmul.MAX_FUSED_RANK = 64
+    try:
+        out["qwen"] = _engine_run(case["qwen"], case["qwen_cfg"], mesh,
+                                  case["qwen_prompts"], case["budgets"][:4],
+                                  cuda)
+    finally:
+        binary_matmul.MAX_FUSED_RANK = keep
+
+    # ---- lockstep: one rank queues what the other does not (host state
+    # only: a step would launch collectives the other rank never joins)
+    eng = InferenceEngine(params_from_numpy(case["tiny"], "cpu"), TP_CFG,
+                          ServeConfig(greedy=True, page_size=8),
+                          max_batch=2, max_len=48, device="cpu", mesh=mesh)
+    eng.check_invariants()
+    if rank == 1:
+        eng.submit(Request(9, np.arange(1, 5), max_new_tokens=2))
+    try:
+        eng.check_invariants()
+        out["lockstep"] = None
+    except RuntimeError as e:
+        out["lockstep"] = str(e)
+    return out
