@@ -195,6 +195,19 @@ Phases, each printing its own line(s); any failure exits non-zero:
    repro_torch.launch.serve --supervise``, crashing once: exit 7 once, a
    restart, resumed requests, exit 0, the snapshot removed; it times the
    recovery from the output's lines (``chiprun_out/restart.log``);
+4a. llama3.2-1b-rect — the same model and ``LLAMA`` traffic on the
+   rectangular KV cache (``ServeConfig(paged=False)``, the reference's
+   identity oracle): the f32 plain-oracle engine, then the kernel
+   engine with every launch count at 0 just before its run, which must
+   launch #1 on every packed linear of every forward (4 per layer) and
+   #2, #3 and #4 never (the rectangle is read by plain ops, as the
+   reference reads it); its tokens gated against the rectangular plain
+   engine's and the paged ``megakernel`` and ``unfused`` paths'; then
+   ``generate(paged=False)`` of the traffic's 8 prompts cut to the
+   shortest one's 17 tokens, gated against the rectangular kernel
+   engine on those prompts. In bf16 (after the llama bf16 runs) the
+   rectangle and the pool in turns (rect, pool, rect, pool): decode
+   tok/s, TTFT, peak GiB and ``kv_cache_bytes``;
 5. qwen1.5-110b kernels — kernel #4 (packed_matmul) at the four two-call
    stage shapes of the qwen1.5-110b MLP (rank 6976) at M in {1, 8, 64},
    plus an eff_rank view read in place; kernel #1 at its merged-QKV and
@@ -202,7 +215,7 @@ Phases, each printing its own line(s); any failure exits non-zero:
    kv head; then the speculative path's shapes: #4's two launches of the
    draft's gate (rank 3488 of 6976, read in place) at M = 4 and #1's
    merged QKV at the verify's M = 20;
-6. qwen1.5-110b engine — full width, cut to 5 of its 80 layers
+6. qwen1.5-110b engine — full width, cut to 4 of its 80 layers
    (``DEPTH``, so that the script keeps inside its time limit), at 1.0
    bpw, weights drawn on the card from the seed: 4 slots, max_len 128,
    4 requests of 16-64 prompt tokens and 16 new tokens, 2 admitted after
@@ -478,9 +491,10 @@ MUSICGEN = dict(LLAMA, arch="musicgen-medium")
 # depth cuts that keep the script inside its time limit with the quantize
 # phases, on a slow host too (halved again when the VLM's quantization came
 # in, and the VLM's and qwen3-moe's halved once more when the
-# tensor-parallel phases came in): the layers each model is served at
-# (width untouched; every other model at full depth)
-DEPTH = {"llama3.2-1b": 4, "qwen1.5-110b": 5, "qwen3-4b": 9,
+# tensor-parallel phases came in; qwen1.5-110b 5 -> 4 when the
+# rectangular KV cache's phase came in): the layers each model is served
+# at (width untouched; every other model at full depth)
+DEPTH = {"llama3.2-1b": 4, "qwen1.5-110b": 4, "qwen3-4b": 9,
          "qwen3-moe-235b-a22b": 3, "llama-3.2-vision-90b": 5,
          "deepseek-v2-lite-16b": 3, "mamba2-370m": 4, "zamba2-1.2b": 6,
          "musicgen-medium": 4}
@@ -647,6 +661,9 @@ TP_PHASES = (
       ("llama3.2-1b-tp4-spec", LLAMA, SPEC, "spec")]),
 )
 TOKENS = {}                      # path -> its f32 greedy tokens
+# the rectangular KV cache's phase: llama3.2-1b under LLAMA, on the engine
+# and generate with ServeConfig(paged=False)
+RECT = "llama3.2-1b-rect"
 
 # the kernels' names in a profiler trace, and the lm head's matmul
 TRACE_NAMES = ((FUSED, "fused_lowrank_kernel"),
@@ -744,6 +761,8 @@ def main():
     phase("llama3.2-1b f32 chaos path")
     report["llama3.2-1b-restart"] = restart_path(llama)
     phase("llama3.2-1b restart path")
+    report[RECT] = rect_path(llama, launches)
+    phase(f"{RECT}: f32 engine and generate on the rectangle")
     llama = cast(llama, torch.bfloat16)
     cmp = spec_compare(llama, LLAMA, report)
     report["llama3.2-1b"]["spec_bf16"] = cmp
@@ -751,6 +770,8 @@ def main():
     report["llama3.2-1b"]["bf16_profile"] = profile_engine(
         llama, LLAMA, report["llama3.2-1b"]["bf16"]["wall_s"])
     phase("llama3.2-1b bf16 runs and profiles")
+    report[RECT]["bf16"] = rect_compare(llama, LLAMA, report)
+    phase(f"{RECT}: bf16 rectangle against the pool")
     report["llama3.2-1b-prefix"]["bf16"] = prefix_compare(llama, PREFIX,
                                                           report)
     phase("llama3.2-1b bf16 prefix runs and profiles")
@@ -1959,11 +1980,11 @@ def _gsp_requests(cfg, traffic):
 
 
 def _engine(model, traffic, policy, megakernel=None, spec=None,
-            prefix_cache=True, mesh=None):
+            prefix_cache=True, mesh=None, paged=True):
     from repro_torch.serve.engine import ServeConfig
     return model.engine(ServeConfig(greedy=True, page_size=64,
                                     megakernel=megakernel, debug=True,
-                                    prefix_cache=prefix_cache,
+                                    prefix_cache=prefix_cache, paged=paged,
                                     kv_pool_pages=traffic.get(
                                         "kv_pool_pages")),
                         max_batch=traffic["max_batch"],
@@ -1978,20 +1999,24 @@ def _submit(eng, prompts, uids, traffic):
 
 
 def serve(model, traffic, policy, megakernel=None, spec=None,
-          prefix_cache=True, on_engine=None, mesh=None, engine=None):
-    """The traffic's requests: `up_front` submitted at once, the rest
-    after `after` engine steps (mid-flight admission); speculative with
-    `spec` (ServeConfig fields); `on_engine(eng)` runs before the first
-    submission; `engine`: one built already by :func:`_engine` (the
-    arguments that build one are then unused). Checks the drained pool: no slot maps a page, only the
-    prefix index holds pages, every table row is zero, and clearing the
-    index empties the pool. Returns (outputs, engine, wall seconds, the
-    engine's stats before the clearing, with ``peak_used_pages``)."""
+          prefix_cache=True, on_engine=None, mesh=None, engine=None,
+          paged=True, prompts=None):
+    """The traffic's requests (or `prompts`): `up_front` submitted at once,
+    the rest after `after` engine steps (mid-flight admission);
+    speculative with `spec` (ServeConfig fields); on the rectangle with
+    ``paged=False``; `on_engine(eng)` runs before the first submission;
+    `engine`: one built already by :func:`_engine` (the arguments that
+    build one are then unused). Checks the drained pool: no slot maps a
+    page, only the prefix index holds pages, every table row is zero, and
+    clearing the index empties the pool. Returns (outputs, engine, wall
+    seconds, the engine's stats before the clearing, with
+    ``peak_used_pages``)."""
     eng = engine if engine is not None else _engine(
-        model, traffic, policy, megakernel, spec, prefix_cache, mesh)
+        model, traffic, policy, megakernel, spec, prefix_cache, mesh, paged)
     if on_engine is not None:
         on_engine(eng)
-    prompts = _requests(model.cfg, traffic)
+    if prompts is None:
+        prompts = _requests(model.cfg, traffic)
     n, k = traffic["n"], traffic["up_front"]
     t0 = time.perf_counter()
     _submit(eng, prompts, range(k), traffic)
@@ -2007,7 +2032,7 @@ def serve(model, traffic, policy, megakernel=None, spec=None,
     for uid, r in done.items():
         if len(r.output) != traffic["new"]:
             raise AssertionError(f"request {uid}: {len(r.output)} tokens")
-    if kv is None:                    # the SSM family's state cache
+    if kv is None:                    # the rectangle or the state cache
         return {u: r.output for u, r in done.items()}, eng, wall, \
             dict(eng.stats)
     if kv.ref.any() or kv.used_pages != kv.cached_page_count \
@@ -2384,6 +2409,103 @@ def serve_paths(model, traffic, launches):
                f"{st['evicted_pages']} evicted"))
     res["launches_by_path"] = {p[0]: launches[p[0]] for p in paths}
     return res
+
+
+# ---------------------------------------------------------------------------
+# the rectangular KV cache (ServeConfig(paged=False))
+# ---------------------------------------------------------------------------
+
+
+def rect_path(model, launches):
+    """llama3.2-1b's f32 engine on the rectangle: the plain oracles, then
+    the kernel path with every launch count set to 0 just before its run
+    (#1 on every packed linear of every forward, 4 per layer; #2, #3 and
+    #4 never: the rectangle is read by plain ops and no rank passes 4096).
+    Its tokens are gated against the rectangular plain engine's and the
+    paged paths' (``TOKENS``), and ``generate(paged=False)`` of the
+    traffic's prompts cut to one length against the rectangular kernel
+    engine on those prompts."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.ops import KernelPolicy
+    from repro_torch.serve.engine import ServeConfig, generate
+    traffic, cfg, name = LLAMA, model.cfg, RECT
+    torch.cuda.reset_peak_memory_stats()
+    want, eng, ref_wall, _ = serve(model, traffic, KernelPolicy(mode="ref"),
+                                   paged=False)
+    del eng
+    free()
+    res = {"ref_wall_s": ref_wall, "ref_peak_gib": _peak_gib()}
+    counters = _counters()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    got, eng, wall, st = serve(model, traffic, KernelPolicy(mode="cuda"),
+                               paged=False)
+    launches[name] = [c.launches for c in counters]
+    if eng.kv is not None:
+        raise AssertionError(f"engine path {name}: a pool was built")
+    res.update(wall_s=wall, peak_gib=_peak_gib(), stats=st,
+               kv_cache_bytes=eng.kv_cache_bytes())
+    del eng
+    free()
+    log(f"engine path {name}: launches " + ", ".join(
+        f"{k[0]}={n}" for k, n in zip(KERNELS, launches[name])))
+    forwards = st["admissions"] + st["decode_steps"]
+    per_forward = 4 * cfg.n_layers     # merged QKV, wo, merged gate-up, down
+    if launches[name] != [per_forward * forwards, 0, 0, 0]:
+        raise AssertionError(
+            f"engine path {name}: launches {launches[name]}, expected "
+            f"{per_forward} of #1 x {forwards} forwards and no other kernel")
+    res["vs_plain"] = gate(model, traffic, name, got, want)
+    for versus in ("megakernel", "unfused"):
+        res[f"vs_{versus}"] = gate(model, traffic, name, got, TOKENS[versus])
+    res["identical"] = {k: all(np.array_equal(got[u], w[u]) for u in w)
+                        for k, w in (("plain", want),
+                                     ("megakernel", TOKENS["megakernel"]),
+                                     ("unfused", TOKENS["unfused"]))}
+    TOKENS[name] = got
+    # generate: one batched prefill of equal prompts, then decode steps on
+    # the rectangle, against the rectangular engine on the same prompts
+    n = min(len(p) for p in _requests(cfg, traffic))
+    prompts = [p[:n] for p in _requests(cfg, traffic)]
+    eng_toks, eng, _, _ = serve(model, traffic, KernelPolicy(mode="cuda"),
+                                paged=False, prompts=prompts)
+    del eng
+    free()
+    t0 = time.perf_counter()
+    gen, _ = generate(model.params, cfg, np.stack(prompts),
+                      ServeConfig(greedy=True, paged=False,
+                                  max_new_tokens=traffic["new"]),
+                      policy=KernelPolicy(mode="cuda"))
+    gen = gen.cpu().numpy()
+    res["generate_s"] = time.perf_counter() - t0
+    res["generate_vs_engine"] = gate(
+        model, traffic, f"{name} generate", {u: gen[u] for u in eng_toks},
+        eng_toks, prompts=prompts)
+    res["generate_identical"] = all(np.array_equal(gen[u], eng_toks[u])
+                                    for u in eng_toks)
+    log(f"engine {traffic['arch']} f32 {name}: tokens match the "
+        f"rectangular plain engine's, the megakernel and unfused paged "
+        f"paths' (identical: {res['identical']}); generate(paged=False) of "
+        f"{len(prompts)} prompts of {n} tokens matches the rectangular "
+        f"engine (identical: {res['generate_identical']}); "
+        f"{st['tokens_emitted']} tokens, {st['decode_steps']} decode steps, "
+        f"#1 {per_forward} per forward, no #2 / #3 / #4; wall {wall:.2f} s, "
+        f"peak {res['peak_gib']:.2f} GiB, rectangle "
+        f"{res['kv_cache_bytes']} bytes")
+    return res
+
+
+def rect_compare(model, traffic, report):
+    """bf16 on the kernel path, the rectangle against the paged pool in
+    turns (rect, pool, rect, pool) in this one process: decode tok/s,
+    TTFT, peak GiB and the cache's bytes of each."""
+    runs = {"rect": [], "pool": []}
+    for kind in ("rect", "pool", "rect", "pool"):
+        runs[kind].append(bf16_run(model, traffic, report,
+                                   paged=kind == "pool"))
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -3152,13 +3274,15 @@ def serve_demo_paths():
     return res
 
 
-def bf16_run(model, traffic, report, spec=None):
-    """The bf16 engine on the kernel path (speculative with `spec`):
-    decode tok/s (tokens emitted by decode steps over their host wall
-    time), host ms per step (per cycle when speculative), TTFT and peak
-    memory, and the host µs per step of the engine's tick-boundary reaping
-    (``_reap``, run with no fault plan); with `spec` also the acceptance
-    rate and the tokens committed per slot and cycle (a + 1 on average)."""
+def bf16_run(model, traffic, report, spec=None, paged=True):
+    """The bf16 engine on the kernel path (speculative with `spec`; on the
+    rectangle with ``paged=False``): decode tok/s (tokens emitted by
+    decode steps over their host wall time), host ms per step (per cycle
+    when speculative), TTFT, peak memory and the cache's attention bytes
+    (``kv_cache_bytes``), and the host µs per step of the engine's
+    tick-boundary reaping (``_reap``, run with no fault plan); with `spec`
+    also the acceptance rate and the tokens committed per slot and cycle
+    (a + 1 on average)."""
     import torch
     from repro_torch.kernels.ops import KernelPolicy
     torch.cuda.reset_peak_memory_stats()
@@ -3173,9 +3297,10 @@ def bf16_run(model, traffic, report, spec=None):
             reap_s[0] += time.perf_counter() - t0
         eng._reap = timed
     _, eng, wall, st = serve(model, traffic, KernelPolicy(mode="cuda"),
-                             spec=spec, on_engine=time_reap)
+                             spec=spec, on_engine=time_reap, paged=paged)
     ttft = sorted(h.ttft for h in eng.handles.values())
     acceptance = eng.spec.acceptance_rate() if spec else None
+    kv_bytes = eng.kv_cache_bytes()
     del eng
     free()
     decode_tokens = st["tokens_emitted"] - st["admissions"]
@@ -3183,7 +3308,8 @@ def bf16_run(model, traffic, report, spec=None):
            / st["decode_time_s"], "ttft_s": ttft, "stats": st,
            "peak_gib": _peak_gib(),
            "decode_step_ms": 1e3 * st["decode_time_s"] / st["decode_steps"],
-           "reap_us_per_step": 1e6 * reap_s[0] / st["steps"]}
+           "reap_us_per_step": 1e6 * reap_s[0] / st["steps"],
+           "kv_cache_bytes": kv_bytes}
     what = "step"
     if spec:
         slot_cycles = st["decode_steps"] * traffic["max_batch"] \
@@ -3192,13 +3318,15 @@ def bf16_run(model, traffic, report, spec=None):
                    committed_per_slot_cycle=decode_tokens / slot_cycles)
         what = (f"cycle; {res['committed_per_slot_cycle']:.2f} tokens "
                 f"committed per slot and cycle, acceptance {acceptance:.3f}")
-    log(f"engine {traffic['arch']} bf16{' spec' if spec else ''} on "
+    log(f"engine {traffic['arch']} bf16{' spec' if spec else ''}"
+        f"{'' if paged else ' rect'} on "
         f"{report['device']}: decode {res['decode_tok_s']:.1f} tok/s "
         f"({res['decode_step_ms']:.1f} ms per {what}; "
         f"{traffic['max_batch']} slots; reaping "
         f"{res['reap_us_per_step']:.1f} µs per step), TTFT median "
         f"{ttft[len(ttft) // 2] * 1e3:.1f} ms (max {ttft[-1] * 1e3:.1f} ms), "
-        f"peak {res['peak_gib']:.2f} GiB, wall {wall:.2f} s")
+        f"peak {res['peak_gib']:.2f} GiB, KV cache {kv_bytes} bytes, wall "
+        f"{wall:.2f} s")
     return res
 
 

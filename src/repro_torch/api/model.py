@@ -173,9 +173,11 @@ class NanoQuantModel:
                policy: Optional[KernelPolicy] = None, faults=None,
                clock=None, mesh=None) -> InferenceEngine:
         """The serving entry point: a slot-scheduled, continuously
-        batched :class:`InferenceEngine` over this model on its device.
-        `spec_rank_frac` / `spec_k` / `prefix_cache` override the
-        matching ServeConfig fields, as in the JAX package. `faults` (a
+        batched :class:`InferenceEngine` over this model on its device,
+        over the paged pool, or the rectangle with
+        ``ServeConfig(paged=False)``. `spec_rank_frac` / `spec_k` /
+        `prefix_cache` override the matching ServeConfig fields, as in the
+        JAX package. `faults` (a
         ``serve.faults.FaultPlan``) injects a fault schedule and `clock`
         replaces the deadline clock (both for chaos testing). `mesh` (a
         ``launch.mesh.Mesh`` of which this process is one rank) serves
@@ -198,8 +200,9 @@ class NanoQuantModel:
                  max_new_tokens: Optional[int] = None,
                  scfg: Optional[ServeConfig] = None, max_batch: int = 8,
                  seed: int = 0) -> List[np.ndarray]:
-        """Batched generation on the engine; one output array per prompt,
-        in order. The audio family's prompts are (S, K) frames and its
+        """Batched generation on the engine (on the rectangle with
+        ``scfg.paged=False``); one output array per prompt, in order. The
+        audio family's prompts are (S, K) frames and its
         outputs (n, K); ``max_len`` counts frames."""
         if not prompts:
             raise ValueError("generate() needs at least one prompt")

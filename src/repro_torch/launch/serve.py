@@ -1,5 +1,6 @@
 """Serving driver: batched generation from a packed model artifact, the
-port of ``repro.launch.serve`` on the paged pool.
+port of ``repro.launch.serve``, on the paged pool or (``--rect``) on the
+reference's rectangular KV cache.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --quantized-ckpt /ckpt/nq --requests 16 --max-new 32
@@ -19,7 +20,10 @@ page (SSM) is served on its per-slot state cache, and the pool line
 reports that layout instead; the hybrid's line gives its ring pages per
 slot and its per-slot state beside the pool, the VLM's its image K/V
 bytes per slot beside the pool (a request carries no image: they stay
-zero, as in the reference's engine). The audio family's prompts are
+zero, as in the reference's engine). ``--rect`` serves any family on the
+rectangle (``ServeConfig(paged=False)``, the reference's identity
+oracle: no prefix cache, and ``--spec-rank-frac`` refused), and the line
+gives the rectangle's bytes instead. The audio family's prompts are
 ``--prompt-len`` frames of ``n_codebooks`` ids; ``--shared-prefix``
 refuses them, as the reference's CLI does.
 The engine runs on ``--device`` (``cuda`` by default; nothing falls back
@@ -46,6 +50,9 @@ its shards of it over a ``(data=1, model=N)`` mesh, and only rank 0
 prints, starting with a line that gives the backend, the ranks' devices
 and the mesh. Deadlines, snapshots and ``--supervise`` read one
 process's clock or plan and are refused with ``--tp`` (ROADMAP item 12d).
+``--rect --tp N`` gives each rank its rectangle of kv heads, split with
+the query heads where they divide the model axis and whole where they do
+not (``quant.surgery.kv_layout``).
 ``--engine wave`` admits a new batch only once every slot is free (the
 deprecated ``BatchServer``'s admission).
 """
@@ -99,6 +106,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=24)
     ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--rect", action="store_true",
+                    help="serve on the legacy rectangular KV pool "
+                         "instead of the paged pool (the identity "
+                         "oracle; see docs/serving.md)")
     ap.add_argument("--engine", choices=("continuous", "wave"),
                     default="continuous",
                     help="admission: continuous batching, or a new batch "
@@ -163,6 +174,8 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     ap = _parser()
     args = ap.parse_args(argv)
+    if args.spec_rank_frac and args.rect:
+        ap.error("--spec-rank-frac needs the paged KV pool; drop --rect")
     if args.tp > 1:
         clocked = [f for f, on in (("--supervise", args.supervise),
                                    ("--snapshot", args.snapshot),
@@ -252,7 +265,7 @@ def _serve(args, model, mesh=None):
     from repro_torch.serve.scheduler import Request
     cfg = model.cfg
     spec = args.spec_rank_frac or None
-    scfg = ServeConfig(max_new_tokens=args.max_new,
+    scfg = ServeConfig(max_new_tokens=args.max_new, paged=not args.rect,
                        page_size=args.page_size,
                        kv_pool_pages=args.kv_pool_pages or None,
                        greedy=bool(spec), spec_rank_frac=spec,
@@ -344,14 +357,25 @@ def _serve(args, model, mesh=None):
 
 def _print_pool_stats(eng) -> None:
     """The pool line for each cache layout: an engine without a paged
-    pool (a family with nothing to page, the SSM state) has no allocator
-    to report on; the hybrid's pool of ring pages holds its per-slot
-    state beside it, the VLM's pool its per-slot image K/V."""
+    pool (``--rect``, or a family with nothing to page, the SSM state)
+    has no allocator to report on, and gives the rectangle's bytes (the
+    reference's line) or the state cache's; the hybrid's pool of ring
+    pages holds its per-slot state beside it, the VLM's pool its per-slot
+    image K/V."""
     if eng.kv is None:
+        kv = eng.kv_cache_bytes()
+        state = eng.cache_bytes() - kv
+        if kv:
+            print(f"[serve] rectangular layout (paging disabled): "
+                  f"{eng.max_batch} x {eng.max_len} KV rectangle, "
+                  f"{kv / 2**20:.2f} MiB"
+                  + (f", per-slot state of {eng.max_batch} slots beside it "
+                     f"({state / 2**20:.2f} MiB)" if state else ""))
+            return
         print(f"[serve] rectangular layout (paging disabled): per-slot "
               f"state cache of {eng.max_batch} slots "
               f"({eng.cache_bytes() / 2**20:.2f} MiB), KV "
-              f"{eng.kv_cache_bytes() / 2**20:.2f} MiB")
+              f"{kv / 2**20:.2f} MiB")
         return
     ring = ""
     pool = eng.kv_cache_bytes()

@@ -6,7 +6,8 @@ Params are plain dicts of tensors, as in the JAX package. Linear layers go
 through :func:`dense`, which runs a full-precision matmul or a NanoQuant
 packed low-rank binary matmul when the dict carries packed leaves. KV
 caches are updated in place (the JAX package returns fresh arrays): the
-engine owns one pool and every decode step writes into it.
+engine owns one cache, a paged pool or a rectangle, and every decode step
+writes into it.
 """
 from __future__ import annotations
 
@@ -325,6 +326,22 @@ def gather_pages(pool, block_table):
     return g.reshape(block_table.shape[0], -1, *pool.shape[2:])
 
 
+def _cache_write(buf, new, cache_pos):
+    """Write `new` (B, S, ...) into a rectangular cache `buf` (B, Smax,
+    ...) at row offset `cache_pos`, in place: a scalar shared by the
+    batch, or a per-slot (B,) vector (the continuous-batching decode).
+    Returns `buf`."""
+    S = new.shape[1]
+    new = new.to(buf.dtype)
+    if isinstance(cache_pos, torch.Tensor) and cache_pos.dim():
+        r = cache_pos.long()[:, None] + torch.arange(S, device=buf.device)
+        buf[torch.arange(buf.shape[0], device=buf.device)[:, None], r] = new
+    else:
+        p = int(cache_pos)
+        buf[:, p:p + S] = new
+    return buf
+
+
 def _cache_valid(k_pos, cache_pos, S: int):
     """Rows of a cache holding real entries: (Smax,) for a scalar
     cache_pos, (B, 1, Smax) for a per-slot (B,) one."""
@@ -363,10 +380,15 @@ def attention(p, cfg, x, positions, cache=None, cache_pos=None,
     """GQA attention. Returns (out, cache).
 
     cache None: training / full-sequence forward. With a rectangular
-    cache dict(k=(B, Smax, Hkv, D), v=...): prompt prefill at position 0
-    — the cache rows [0, S) are written and the prompt attends to itself
-    (S == 1 only for the hybrid's exact-length prefill of a one-token
-    prompt). With ``block_table`` (B, pages): the cache is a paged pool
+    cache dict(k=(B, Smax, Hkv, D), v=...), the reference's two routes:
+    S tokens are written at rows ``cache_pos`` (a scalar, or per-slot
+    (B,) with positions (B, S); :func:`_cache_write`); S > 1 (the prompt
+    prefill) attends over its fresh k / v (``sdpa_flash`` from
+    ``flash_threshold``), S == 1 (a decode step) reads the whole rectangle
+    under :func:`_decode_mask`, which hides the rows never written (a
+    bucketed prefill's pad rows past the prompt among them) and, for the
+    hybrid's ring of ``win`` rows, wraps at the buffer's length. With
+    ``block_table`` (B, pages): the cache is a paged pool
     (k/v: (n_pages, page_size, Hkv, D)) and the S tokens (a decode, the
     speculative verify or a prefix hit's suffix prefill) write and read
     it at per-slot rows ``cache_pos`` (B,), positions (B, S). Nothing here
@@ -377,7 +399,8 @@ def attention(p, cfg, x, positions, cache=None, cache_pos=None,
 
     Head counts are read from the projections' widths, so under tensor
     parallelism the layer runs on the rank's heads (its wq / wk / wv
-    shards, its pool of kv heads: ``quant.surgery.kv_layout``); wo is then
+    shards, its pool or rectangle of kv heads:
+    ``quant.surgery.kv_layout``); wo is then
     row-parallel and its all-reduce (in :func:`dense`) restores the full
     output. The megakernel declines under a mesh."""
     B, S, _ = x.shape
@@ -432,14 +455,18 @@ def attention(p, cfg, x, positions, cache=None, cache_pos=None,
             kp, vp = kp[:, :, kv], vp[:, :, kv]
         o = kops.paged_attention(q, kp, vp, block_table, positions[:, 0],
                                  cache_pos, window=window, scale=scale)
+    elif cache is not None and S == 1:
+        # rectangular decode: the whole rectangle under the decode mask
+        ck = _cache_write(cache["k"], k, cache_pos)
+        cv = _cache_write(cache["v"], v, cache_pos)
+        if kv is not None:
+            ck, cv = ck[:, :, kv], cv[:, :, kv]
+        o = sdpa(q, ck, cv, _decode_mask(positions, cache_pos, ck.shape[1],
+                                         window), scale)
     else:
         if cache is not None:
-            if isinstance(cache_pos, torch.Tensor) or cache_pos != 0:
-                raise NotImplementedError(
-                    "the rectangular cache serves the prompt prefill at "
-                    "position 0; decode runs over the paged pool")
-            cache["k"][:, :S] = k.to(cache["k"].dtype)
-            cache["v"][:, :S] = v.to(cache["v"].dtype)
+            _cache_write(cache["k"], k, cache_pos)
+            _cache_write(cache["v"], v, cache_pos)
         if kv is not None:
             k, v = k[:, :, kv], v[:, :, kv]
         if S >= cfg.flash_threshold:
@@ -472,9 +499,12 @@ def mla_attention(p, cfg, x, positions, cache=None, cache_pos=None,
     keeps it in plain XLA (no paged-attention kernel serves MLA).
 
     cache None: full-sequence forward. A rectangular cache dict(c_kv=(B,
-    Smax, dc), k_rope=(B, Smax, 1, dr)) with S > 1: prompt prefill at
-    position 0, rows [0, S) written and the prompt attending to itself
-    (the rows past S that the reference masks add exactly 0). With
+    Smax, dc), k_rope=(B, Smax, 1, dr)): the S tokens write rows
+    ``cache_pos`` (scalar or per-slot (B,), :func:`_cache_write`) and read
+    the whole rectangle under the causal mask and :func:`_cache_valid`, as
+    the reference reads it; a prompt prefill at position 0 (S > 1) reads
+    its S fresh rows only (the rows past S that the reference masks add
+    exactly 0). With
     ``block_table`` (B, pages): the cache is a paged pool (c_kv: (n_pages,
     page_size, dc), k_rope: (n_pages, page_size, 1, dr)); the S tokens (a
     decode, the speculative verify, a prefix hit's suffix prefill) write
@@ -500,14 +530,17 @@ def mla_attention(p, cfg, x, positions, cache=None, cache_pos=None,
         c_kv = gather_pages(cache["c_kv"], block_table)       # (B, T, dc)
         k_rope = gather_pages(cache["k_rope"], block_table)   # (B, T, 1, dr)
         msk = _decode_mask(positions, cache_pos, c_kv.shape[1], 0)
+    elif cache is not None and (S == 1 or isinstance(cache_pos, torch.Tensor)
+                                or cache_pos != 0):
+        # a decode, or any call at an offset: the whole rectangle
+        c_kv = _cache_write(cache["c_kv"], c_kv, cache_pos)
+        k_rope = _cache_write(cache["k_rope"], k_rope, cache_pos)
+        k_pos = torch.arange(c_kv.shape[1], device=x.device)
+        msk = _mask(positions, k_pos, 0) & _cache_valid(k_pos, cache_pos, S)
     else:
         if cache is not None:
-            if S == 1 or cache_pos != 0:
-                raise NotImplementedError(
-                    "the rectangular cache serves the prompt prefill at "
-                    "position 0; decode runs over the paged pool")
-            cache["c_kv"][:, :S] = c_kv.to(cache["c_kv"].dtype)
-            cache["k_rope"][:, :S] = k_rope.to(cache["k_rope"].dtype)
+            _cache_write(cache["c_kv"], c_kv, 0)
+            _cache_write(cache["k_rope"], k_rope, 0)
         msk = _mask(positions, positions, 0)
     w_uk = p["w_uk"]["w"].to(x.dtype).reshape(dc, H, dn)
     w_uv = p["w_uv"]["w"].to(x.dtype).reshape(dc, H, dv)

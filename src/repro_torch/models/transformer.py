@@ -568,9 +568,11 @@ def _shared_positions(cfg, pos, S: int, attn_cache, block_tables):
     With ``block_tables["ring"]`` (B, pages): the paged decode (S == 1,
     per-slot (B,) `pos`), whose write row wraps modulo the slot's virtual
     ring ``pages · page_size`` on the device, the query position staying
-    absolute. Without: the rectangular prefill at position 0, rows [0, S)
-    of a ring of ``win`` rows; a prompt longer than the ring raises (the
-    reference's prefill fails there too)."""
+    absolute. Without: the rectangular ring of ``win`` rows, written at
+    the reference's rows: ``min(pos, win - S)`` for a prefill, ``pos %
+    win`` for a decode (`pos` scalar or per-slot (B,)); the decode mask
+    wraps at the buffer's length. A prompt longer than the ring raises
+    (the reference's prefill fails there too)."""
     bt = block_tables.get("ring") if block_tables else None
     if bt is not None:
         if S != 1:
@@ -580,16 +582,18 @@ def _shared_positions(cfg, pos, S: int, attn_cache, block_tables):
         rows = bt.shape[1] * attn_cache["k"].shape[2]
         pos = pos.long()
         return pos[:, None], torch.remainder(pos, rows), bt
-    if isinstance(pos, torch.Tensor) or pos != 0:
-        raise NotImplementedError(
-            "the hybrid's rectangular cache serves the prompt prefill at "
-            "position 0; decode runs over the ring pool: pass "
-            "block_tables={'ring': ...}")
     win = attn_cache["k"].shape[2]
     if S > win:
         raise ValueError(f"a prompt of {S} tokens is longer than the shared "
                          f"attention's ring of {win} rows")
-    return torch.arange(S, device=attn_cache["k"].device), 0, None
+    steps = torch.arange(S, device=attn_cache["k"].device)
+    if isinstance(pos, torch.Tensor) and pos.dim():
+        pos = pos.long()
+        wpos = torch.clamp(pos, max=win - S) if S > 1 \
+            else torch.remainder(pos, win)
+        return pos[:, None] + steps[None, :], wpos, None
+    pos = int(pos)
+    return pos + steps, min(pos, win - S) if S > 1 else pos % win, None
 
 
 def _ssm_forward(params, cfg, x, cache, pos=0, block_tables=None,
@@ -643,9 +647,10 @@ def _vlm_forward(params, cfg, x, cache, positions, pos, bt,
 
 def _cached_forward(params, cfg, tokens, cache, pos, block_tables=None,
                     image_embeds=None):
-    """Prefill (rectangular cache, pos 0), or a paged decode, verify or
-    suffix prefill (per-slot (B,) pos and ``block_tables={"linear": (B,
-    pages)}``). Writes the cache in place; returns (hidden, cache)."""
+    """Prefill or decode over a rectangular cache (`pos` a scalar or
+    per-slot (B,)), or a paged decode, verify or suffix prefill (per-slot
+    (B,) pos and ``block_tables={"linear": (B, pages)}``). Writes the
+    cache in place; returns (hidden, cache)."""
     check_family(cfg)
     x = embed_tokens(params, cfg, tokens)
     if cfg.is_ssm_layer_stack:
@@ -667,16 +672,6 @@ def _cached_forward(params, cfg, tokens, cache, pos, block_tables=None,
                                   {k: v[i] for k, v in leaves.items()}, pos,
                                   bt)
     return L.rms_norm(x, params["ln_f"], cfg.norm_eps), cache
-
-
-def _paged_forward(params, cfg, tokens, cache, pos, block_tables):
-    """The paged forward of a decode step, a verify and a suffix prefill:
-    every row goes through the slot's block table."""
-    if not block_tables:
-        raise ValueError("a paged forward (decode, verify, suffix "
-                         "prefill) runs over the pool: pass block_tables")
-    return _cached_forward(params, cfg, tokens, cache, pos,
-                           block_tables=block_tables)
 
 
 def prefill(params, cfg, tokens, cache, last_idx: Optional[int] = None,
@@ -705,28 +700,43 @@ def prefill(params, cfg, tokens, cache, last_idx: Optional[int] = None,
         h, cache = _cached_forward(params, cfg, tokens, cache, 0,
                                    image_embeds=image_embeds)
     else:
-        h, cache = _paged_forward(params, cfg, tokens, cache, start_pos,
-                                  block_tables)
+        if not block_tables:
+            raise ValueError("a suffix prefill runs over the pool: pass "
+                             "block_tables")
+        h, cache = _cached_forward(params, cfg, tokens, cache, start_pos,
+                                   block_tables=block_tables)
     h = h[:, -1:] if last_idx is None else h[:, last_idx:last_idx + 1]
     return logits_fn(params, cfg, h), cache
 
 
 def decode_step(params, cfg, token, cache, pos, block_tables=None,
                 active=None):
-    """One decode step over a paged pool: token (B, S) (S == 1 normally),
-    pos (B,) per-slot positions, block_tables {"linear": (B, pages)}.
-    The SSM family's step runs over its per-slot state cache instead
-    (no tables, `pos` unused); `active` (B,) bool keeps the state of
-    inactive slots. The hybrid takes both: the state cache with `active`,
-    and its shared block's ring pool through ``block_tables={"ring": (B,
-    ring_pages)}`` at the absolute positions `pos`. The VLM's cross layers
-    read ``cache["cross_kv"]`` per slot. The audio family's `token` is
-    (B, S, K) and its logits (B, S, K, V). Returns (logits (B, S, V),
+    """One decode step: token (B, S) (S == 1 normally), pos (B,) per-slot
+    positions (or a scalar shared by the batch, on a rectangle). Over a
+    paged pool with block_tables {"linear": (B, pages)}; without tables
+    over the rectangular cache of :func:`init_cache`, the reference's
+    ``paged=False`` layout (each slot's rows at ``pos``, the whole
+    rectangle read under the decode mask). The SSM family's step runs
+    over its per-slot state cache (no tables, `pos` unused); `active`
+    (B,) bool keeps the state of inactive slots. The hybrid takes both:
+    the state cache with `active`, and its shared block's ring, a pool
+    through ``block_tables={"ring": (B, ring_pages)}`` or the rectangle's
+    ring of ``win`` rows, at the absolute positions `pos`. The VLM's cross
+    layers read ``cache["cross_kv"]`` per slot. The audio family's `token`
+    is (B, S, K) and its logits (B, S, K, V). Returns (logits (B, S, V),
     cache)."""
     if cfg.is_ssm_layer_stack:
         h, cache = _ssm_forward(params, cfg, embed_tokens(params, cfg, token),
                                 cache, pos, block_tables, active)
     else:
-        h, cache = _paged_forward(params, cfg, token, cache, pos,
-                                  block_tables)
+        if not block_tables:
+            name = next(iter(stack_lead(cfg)))
+            rows = next(iter(cache[name].values())).shape[lead_axes(name)]
+            if rows != token.shape[0]:
+                raise ValueError(
+                    f"a decode without block_tables runs over a rectangular "
+                    f"cache of the batch's {token.shape[0]} slots; this one "
+                    f"has {rows} (a paged pool? pass block_tables)")
+        h, cache = _cached_forward(params, cfg, token, cache, pos,
+                                   block_tables=block_tables)
     return logits_fn(params, cfg, h), cache

@@ -19,9 +19,11 @@ from repro_torch.serve.scheduler import Request  # noqa: F401  (re-export)
 
 class BatchServer:
     """Deprecated wave-scheduled facade over :class:`InferenceEngine`.
-    It drives whatever pool the engine was built with (an overcommitted
-    pool's preemptions requeue work mid-wave). Extra engine kwargs
-    (``device=``, ``policy=``, ``mesh=``) pass straight through."""
+    Cache-layout agnostic, as the reference's: it drives whatever layout
+    `scfg` gives the engine, the paged pool (an overcommitted pool's
+    preemptions requeue work mid-wave) or the rectangle
+    (``paged=False``). Extra engine kwargs (``device=``, ``policy=``,
+    ``mesh=``) pass straight through."""
 
     def __init__(self, params, cfg: ModelConfig, scfg: ServeConfig,
                  max_batch: int = 8, max_len: int = 512, seed: int = 0,

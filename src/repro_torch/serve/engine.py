@@ -1,10 +1,19 @@
 """Serving engine: slot-scheduled continuous batching over the paged KV
-pool, the port of the plain path of ``repro.serve.engine``.
+pool or the rectangular KV cache, the port of the plain path of
+``repro.serve.engine``.
 
 :class:`InferenceEngine` owns a fixed pool of ``max_batch`` decode slots
 over one paged KV pool. Each slot carries its own position, budget and
 EOS state; one batched decode step advances every slot (inactive slots
-write to the null page and are ignored). A family with nothing to page
+write to the null page and are ignored). With ``ServeConfig(paged=False)``
+it serves every family on the reference's rectangle instead, ``max_batch
+x max_len`` rows (the hybrid's ring of ``win`` rows per slot): admission
+prefills the prompt alone and inserts its whole rectangle into the slot,
+and the decode step writes each slot's row at its position and reads the
+rectangle under the decode mask; there is no page gate, no prefix
+sharing, no speculation and no preemption (a device fault fails its slot
+and the others decode on in place, a drain timeout fails the live
+slots). A family with nothing to page
 (the SSM family's recurrent state) is served on a per-slot state cache
 instead: admission prefills the prompt at its exact length (a pad token
 would enter the state) and inserts the state into the slot; the decode
@@ -85,10 +94,11 @@ from repro_torch.serve.scheduler import (Request, SlotScheduler,
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
-    """The JAX package's serving config, field for field. The port serves
-    the attention families and the hybrid on the paged pool only
-    (``paged=False`` raises for them); the SSM family has nothing to page
-    and is served on its per-slot state cache under either setting. ``prefix_cache=True``
+    """The JAX package's serving config, field for field. ``paged=False``
+    serves on the reference's rectangular KV cache, its identity oracle
+    (no prefix cache, no speculation); the SSM family has nothing to page
+    and is served on its per-slot state cache under either setting.
+    ``prefix_cache=True``
     shares prompt-prefix KV pages across requests (``serve.prefix``):
     admission maps the longest cached prefix read-only and prefills only
     the suffix, writes into shared pages copy on write, and cached pages
@@ -154,10 +164,12 @@ def generate(params, cfg: ModelConfig, tokens, scfg: ServeConfig,
     n_img, d), zero without them), then
     ``scfg.max_new_tokens`` decode steps at positions ``S + i``, each
     sampling from the last logits (`generator` draws when not greedy).
-    The port decodes over a pool only, so the prefilled rows go into a
-    pool of B slots whose tables map each row's pages (linear tables, or
-    the hybrid's rings), the slot-indexed leaves (the VLM's image K/V, the
-    Mamba2 state) by slot; the SSM family decodes on its state cache. The
+    With ``scfg.paged=False`` the steps decode on that rectangle, as the
+    reference's do; by default (``paged=True``) the prefilled rows go
+    into a pool of B slots whose tables map each row's pages (linear
+    tables, or the hybrid's rings), the slot-indexed leaves (the VLM's
+    image K/V, the Mamba2 state) by slot, and the steps decode over the
+    pool. The SSM family decodes on its state cache either way. The
     kernel policy is `policy` or the ambient one (with merged projections
     added on the kernel path, ``scfg.megakernel`` overriding its bit), on
     the params' device. Returns (generated (B, max_new) int64, or (B,
@@ -173,7 +185,7 @@ def generate(params, cfg: ModelConfig, tokens, scfg: ServeConfig,
     tokens = torch.as_tensor(np.asarray(tokens), device=dev).long()
     B, S = tokens.shape[:2]
     max_len = S + scfg.max_new_tokens
-    kinds = paging.cache_page_kinds(cfg)
+    kinds = paging.cache_page_kinds(cfg) if scfg.paged else set()
     with kops.kernel_policy(pol), torch.inference_mode():
         rect = T.init_cache(cfg, B, max_len, dev)
         logits, rect = T.prefill(params, cfg, tokens, rect,
@@ -193,19 +205,19 @@ def generate(params, cfg: ModelConfig, tokens, scfg: ServeConfig,
             del rect
         else:
             cache = rect
-        pos = torch.full((B,), S, dtype=torch.long, device=dev)
         outs = []
         for i in range(scfg.max_new_tokens):
             tok = sample_token(logits, generator, scfg)
             if cfg.family == "audio":
                 tok = tok[:, None]                  # (B, 1, K)
             outs.append(tok)
-            tables = None
+            pos, tables = S + i, None               # the batch's position
             if kv is not None:
                 for b in range(B):
                     kv.ensure(b, S + i)
                 tables = kv.device_tables(dev)
-            logits, cache = T.decode_step(params, cfg, tok, cache, pos + i,
+                pos = torch.full((B,), S + i, dtype=torch.long, device=dev)
+            logits, cache = T.decode_step(params, cfg, tok, cache, pos,
                                           block_tables=tables)
     gen = torch.cat(outs, dim=1) if outs \
         else tokens.new_zeros((B, 0) + tokens.shape[2:])
@@ -433,10 +445,10 @@ class _Resume:
 
 class InferenceEngine:
     """Slot-scheduled, continuously batched serving engine over a paged
-    KV pool, over the per-slot state cache of a family with nothing to
-    page, or over both (the hybrid; see the module docstring). ``paged``
-    says whether there is a pool: ``kv`` is the pool's allocator, or
-    None.
+    KV pool, over the rectangle (``ServeConfig(paged=False)``, or the
+    per-slot state cache of a family with nothing to page), or over both
+    (the hybrid; see the module docstring). ``paged`` says whether there
+    is a pool: ``kv`` is the pool's allocator, or None.
 
     params: the port's parameter tree, already on `device`; device:
     ``"cuda"`` by default (raises without a card) or ``"cpu"``; policy:
@@ -451,7 +463,9 @@ class InferenceEngine:
     which this process is one rank. The engine then holds this rank's
     shards (``quant.surgery.place_on_mesh`` under
     ``sharding.rules.SERVE``), merges its own QKV / gate-up
-    shards, allocates its kv heads of the pool and runs every launch of
+    shards, allocates its kv heads of the pool or the rectangle (whole
+    where they do not divide, ``quant.surgery.kv_layout``) and runs every
+    launch of
     ``kernels.ops`` on them, with the all-reduces and the logits'
     all-gather between (see :func:`check_tp_serving` for what it serves).
     The ranks run SPMD: each receives the same ``submit`` / ``step`` /
@@ -477,11 +491,7 @@ class InferenceEngine:
             if mesh.device.type != self.device.type:
                 raise ValueError(f"this rank's mesh device is {mesh.device}, "
                                  f"the engine's {self.device}")
-        kinds = paging.cache_page_kinds(cfg)
-        if kinds and not self.scfg.paged:
-            raise NotImplementedError(
-                "the port decodes the attention families and the hybrid's "
-                "shared block over the paged pool only (paged=True)")
+        kinds = paging.cache_page_kinds(cfg) if self.scfg.paged else set()
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"the engine on {self.device}")
@@ -505,8 +515,9 @@ class InferenceEngine:
         self.faults = faults
         # drain(): no fresh admissions (preempted resumes still re-admit)
         self.draining = False
-        # the paged pool, unless the family has nothing to page (the SSM
-        # family's state is O(1) per slot): then the per-slot state cache.
+        # the paged pool, unless disabled (``paged=False``: the reference's
+        # rectangle) or the family has nothing to page (the SSM family's
+        # state is O(1) per slot): then the rectangular per-slot cache.
         # The hybrid's pool of ring pages holds its state leaves beside it.
         self.kv: Optional[paging.PagedKVState] = None
         if kinds:
@@ -522,7 +533,10 @@ class InferenceEngine:
                 cfg, self.kv.n_pages, self.kv.page_size, self.device,
                 batch=max_batch, mesh=mesh)
         else:
-            self.cache = T.init_cache(cfg, max_batch, max_len, self.device)
+            # under a mesh, each rank's rectangle of kv heads
+            self.cache = local_cache(
+                lambda dev: T.init_cache(cfg, max_batch, max_len, dev), cfg,
+                mesh, self.device)
         self.pos = np.zeros((max_batch,), np.int64)
         self.active = np.zeros((max_batch,), bool)
         # the last emitted token of each slot: (max_batch, 1), or the
@@ -870,14 +884,17 @@ class InferenceEngine:
         self.stats["decode_time_s"] = 0.0
 
     def kv_cache_bytes(self) -> int:
-        """Bytes of the paged pool's attention leaves (0 without a pool,
-        as in the reference; the hybrid's ring pool)."""
+        """Bytes of the cache's attention leaves, as in the reference: the
+        paged pool's (the hybrid's ring pool), or the rectangle's (its
+        ring of ``win`` rows per slot, the VLM's image K/V); 0 for the SSM
+        family's state cache."""
         return paging.kv_cache_bytes(self.cache)
 
     def cache_bytes(self) -> int:
-        """Bytes of every leaf of the engine's cache: the paged pool, the
-        per-slot state cache (the SSM family's f32 state and conv rings,
-        which do not grow with max_len), or both (the hybrid)."""
+        """Bytes of every leaf of the engine's cache: the paged pool or the
+        rectangle, the per-slot state cache (the SSM family's f32 state
+        and conv rings, which do not grow with max_len), or both (the
+        hybrid)."""
         return sum(t.numel() * t.element_size()
                    for leaves in self.cache.values() for t in leaves.values())
 

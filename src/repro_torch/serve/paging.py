@@ -189,8 +189,9 @@ def copy_page(cache, src: int, dst: int):
 def kv_cache_bytes(cache) -> int:
     """Bytes held by the attention cache's leaves (k / v, or MLA's c_kv /
     k_rope; the hybrid's ring pool; the VLM's pool and its per-slot image
-    K/V), keyed on the leaf name as in the reference; the state leaves do
-    not count (0 for the SSM family's state cache)."""
+    K/V) of a pool or a rectangle, keyed on the leaf name as in the
+    reference; the state leaves do not count (0 for the SSM family's
+    state cache)."""
     return sum(t.numel() * t.element_size() for leaves in cache.values()
                for name, t in leaves.items() if name in _POOL_LEAVES)
 

@@ -2,8 +2,9 @@
 ``repro.serve.scheduler``: the host-side bookkeeping of which request
 occupies which decode slot and what is still queued, the prompt-length
 buckets, the preemption victim policy, and the per-slot cache ops of a
-rectangular cache (the SSM family's recurrent state, the engine's cache
-without a pool).
+rectangular cache (the engine's cache without a pool: the attention
+rectangles, the hybrid's ring of ``win`` rows, the VLM's image K/V and
+the SSM family's recurrent state).
 
 Admission policies: ``"continuous"`` refills any freed slot at once (the
 default); ``"wave"`` admits a new batch only once every slot is free.
@@ -20,9 +21,6 @@ import torch
 from repro_torch.models.transformer import lead_axes
 
 ADMISSION_POLICIES = ("continuous", "wave")
-# the hybrid's shared-attention ring lives in the paged pool
-# (``paging.paged_insert_slot`` inserts it): the slot ops pass it through
-_POOLED_STACKS = ("shared_attn",)
 
 
 @dataclasses.dataclass
@@ -56,25 +54,18 @@ def pick_preemption_victim(candidates: List[Tuple[int, int, int]]) -> int:
     return min(candidates, key=lambda t: (t[1], -t[2], -t[0]))[0]
 
 
-def _slot_stacks(cache):
-    """The stacks of a cache the slot ops write: all but the pooled
-    :data:`_POOLED_STACKS`. A leaf's batch axis follows its stack's layer
-    axes (``transformer.lead_axes``: 2 for the VLM's self layers, 1 for
-    every other stack, the VLM's image K/V among them)."""
-    return [(st, leaves) for st, leaves in cache.items()
-            if st not in _POOLED_STACKS]
-
-
 def cache_insert_slot(pool, single, slot: int):
-    """Insert a batch-1 cache into slot `slot` of a pooled per-slot cache,
-    in place, as the reference's ``cache_insert_slot`` does: the leading
-    rows of a rectangle (the VLM's self layers and image K/V too), or the
-    whole of an SSM state leaf (the f32 ``ssm`` state and every row of
-    each conv ring, whose short-prompt tail the prefill right-aligns
-    behind zeros, so no row of the previous occupant survives). The
-    hybrid's shared attention ring lives in the paged pool
-    (``paging.paged_insert_slot`` inserts both)."""
-    for stack, leaves in _slot_stacks(pool):
+    """Insert a batch-1 cache into slot `slot` of a rectangular per-slot
+    cache, in place, as the reference's ``cache_insert_slot`` does, leaf
+    by leaf at its stack's batch axis (``transformer.lead_axes``: 2 for
+    the VLM's self layers, 1 for every other stack): the leading rows of
+    an attention rectangle (all ``max_len`` of a prefill cache, its pad
+    rows past the prompt too), the hybrid's whole ring of ``win`` rows,
+    the VLM's image K/V, or the whole of an SSM state leaf (the f32
+    ``ssm`` state and every row of each conv ring, whose short-prompt
+    tail the prefill right-aligns behind zeros, so no row of the previous
+    occupant survives). A paged pool takes ``paging.paged_insert_slot``."""
+    for stack, leaves in pool.items():
         ax = lead_axes(stack)
         for name, leaf in leaves.items():
             src = single[stack][name]
@@ -85,13 +76,15 @@ def cache_insert_slot(pool, single, slot: int):
 
 
 def cache_select_active(new, old, active):
-    """Per-slot select of the slot-indexed leaves: active slots take the
-    freshly written cache, the others keep their old entries (the engine's
-    decode commits the SSM state this way, layer by layer:
-    ``transformer._commit_state``). The hybrid's ring pool passes through
-    from `new`."""
-    out = dict(new)
-    for stack, leaves in _slot_stacks(new):
+    """Per-slot select over every leaf of a rectangular cache (the
+    reference's): active slots take the freshly written cache, the others
+    keep their old entries. The engine's decode commits the SSM state this
+    way, layer by layer (``transformer._commit_state``); its attention
+    rows need no select, as an inactive slot's write is made again, equal,
+    before each read of its rows, and a slot's rows are replaced whole at
+    admission. A paged pool takes ``paging.paged_select_active``."""
+    out = {}
+    for stack, leaves in new.items():
         ax = lead_axes(stack)
         sel = {}
         for name, n in leaves.items():

@@ -7,8 +7,10 @@ comes back in its one picklable result."""
 import numpy as np
 import torch
 
+from repro_torch.api import NanoQuantModel
 from repro_torch.convert import params_from_numpy
 from repro_torch.kernels import binary_matmul, ops
+from repro_torch.launch import serve as cli
 from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.models.config import ModelConfig
 from repro_torch.quant.surgery import merge_projection_groups, place_on_mesh
@@ -36,6 +38,8 @@ def serve(eng, prompts, budgets):
 
 def _drained(eng) -> bool:
     kv = eng.kv
+    if kv is None:                  # the rectangle: no pages to account
+        return not eng.active.any() and not eng.scheduler.pending
     ok = not kv.ref.any() and kv.used_pages == kv.cached_page_count \
         and not kv.tables["linear"].any()
     if eng.prefix is not None:
@@ -134,13 +138,25 @@ def rank_checks(rank, case):
     out["spec"] = _engine_run(case["tiny"], TP_CFG, mesh, case["prompts"],
                               case["budgets"], ops.KernelPolicy(mode="ref"),
                               spec_rank_frac=0.5, spec_k=2)
+    out["rect"] = _engine_run(case["tiny"], TP_CFG, mesh, case["prompts"],
+                              case["budgets"], cuda, paged=False)
     binary_matmul.MAX_FUSED_RANK = 64
     try:
-        out["qwen"] = _engine_run(case["qwen"], case["qwen_cfg"], mesh,
-                                  case["qwen_prompts"], case["budgets"][:4],
-                                  cuda)
+        for name, paged in (("qwen", True), ("qwen_rect", False)):
+            out[name] = _engine_run(case["qwen"], case["qwen_cfg"], mesh,
+                                    case["qwen_prompts"],
+                                    case["budgets"][:4], cuda, paged=paged)
     finally:
         binary_matmul.MAX_FUSED_RANK = keep
+
+    # ---- launch.serve --rect --tp 2: the CLI's serving loop on this rank's
+    # shards, and on the whole model without a mesh (its seeded sampler
+    # draws the same numbers on both)
+    args = cli._parser().parse_args(case["cli_argv"])
+    for name, m in (("cli_rect", mesh), ("cli_rect_unsharded", None)):
+        model = NanoQuantModel.from_numpy(case["tiny"], TP_CFG, device="cpu")
+        out[name] = {u: t.tolist()
+                     for u, t in cli._serve(args, model, m).items()}
 
     # ---- lockstep: one rank queues what the other does not (host state
     # only: a step would launch collectives the other rank never joins)

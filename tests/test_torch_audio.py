@@ -352,6 +352,27 @@ def test_engine_matches_jax_engine(model, trace, jax_engine_run, mode,
     _drained(eng)
 
 
+@pytest.mark.parametrize("mode", list(MODES))
+def test_rect_engine_matches_jax_engine(model, trace, jax_engine_run, mode):
+    """``ServeConfig(paged=False)``: frames identical to JAX's engine's
+    (its pool, whose tokens the reference holds equal to its
+    rectangle's), the EOS request stopping where it does there, admission
+    steps equal, no pool and no prefix index; every layer's k / v
+    rectangle of 2 slots x 48 frames."""
+    cj, ct, _, jparams, tparams = model
+    prompts, _, eos = trace
+    want, jsteps, _ = jax_engine_run
+    eng = _port_engine(ct, tparams, mode, paged=False)
+    assert eng.kv is None and eng.prefix is None
+    got = _serve(Request, eng, prompts, BUDGETS, eos)
+    assert sorted(got) == sorted(want)
+    for u in want:
+        np.testing.assert_array_equal(want[u], got[u], err_msg=f"uid {u}")
+    assert eng.admission_step == jsteps
+    assert eng.kv_cache_bytes() == (ct.n_layers * 2 * 2 * 48
+                                    * ct.n_kv_heads * ct.head_dim * 4)
+
+
 def _shared_trace(ct):
     """A 2-page system prompt of frames under 3 tails (one of a whole
     page), a repeat of a prompt (a full cover: its last page copied on

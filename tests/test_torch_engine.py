@@ -13,13 +13,20 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_common import f32, jax_tree, packed_model, torch_params
+import jax
+import jax.numpy as jnp
+
+from _torch_common import (assert_close, f32, jax_tree, one_torch_thread,  # noqa: F401
+                           packed_model, torch_params)
 from repro import configs as jconfigs
+from repro.models import transformer as JT
 from repro.serve import InferenceEngine as JEngine
 from repro.serve import Request as JRequest
 from repro.serve import ServeConfig as JServeConfig
 from repro_torch.api import NanoQuantModel
 from repro_torch.kernels import binary_matmul, megakernel, ops, paged_attention
+from repro_torch.models import transformer as TT
+from repro_torch.serve.batcher import BatchServer
 from repro_torch.serve.engine import InferenceEngine, ServeConfig, sample_token
 from repro_torch.serve.scheduler import Request, bucket_length
 
@@ -60,11 +67,13 @@ def _run_port(tparams, cfg, prompts, budgets, scfg, max_batch, max_len,
 
 @pytest.fixture(scope="module")
 def jax_midflight(model):
+    """JAX's engine over the mid-flight trace: prompts, tokens, admission
+    and decode steps."""
     cfg, _, jparams, _ = model
     prompts = _prompts(cfg, LENS)
-    out, _ = _run_jax(jparams, cfg, prompts, BUDGETS,
-                      JServeConfig(greedy=True, page_size=8), 2, 40)
-    return prompts, out
+    out, eng = _run_jax(jparams, cfg, prompts, BUDGETS,
+                        JServeConfig(greedy=True, page_size=8), 2, 40)
+    return prompts, out, dict(eng.admission_step), eng.stats["decode_steps"]
 
 
 def _spy(monkeypatch, module, name, calls):
@@ -80,7 +89,7 @@ def _spy(monkeypatch, module, name, calls):
 def test_midflight_admission_matches_jax_engine(model, jax_midflight, mode,
                                                 monkeypatch):
     cfg, _, _, tparams = model
-    prompts, want = jax_midflight
+    prompts, want, _, _ = jax_midflight
     calls = {}
     _spy(monkeypatch, binary_matmul, "fused_lowrank_matmul_grouped", calls)
     _spy(monkeypatch, paged_attention, "paged_decode_attention", calls)
@@ -159,8 +168,15 @@ def test_submit_validation_and_unported_options(model):
     with pytest.raises(ValueError, match="greedy"):
         InferenceEngine(tparams, cfg, ServeConfig(spec_rank_frac=0.5),
                         device="cpu")
-    with pytest.raises(NotImplementedError):
-        InferenceEngine(tparams, cfg, ServeConfig(paged=False), device="cpu")
+    # the rectangle: no pool, no prefix index, speculation refused
+    rect = InferenceEngine(tparams, cfg, ServeConfig(paged=False), 2, 16,
+                           device="cpu")
+    assert rect.kv is None and not rect.paged and rect.prefix is None
+    assert rect.kv_cache_bytes() == rect.cache_bytes() == (
+        2 * cfg.n_layers * 2 * 16 * cfg.n_kv_heads * cfg.head_dim * 4)
+    with pytest.raises(ValueError, match="paged KV cache"):
+        InferenceEngine(tparams, cfg, ServeConfig(
+            greedy=True, spec_rank_frac=0.5, paged=False), device="cpu")
     with pytest.raises(ValueError, match="cannot hold one slot"):
         InferenceEngine(tparams, cfg, ServeConfig(kv_pool_pages=1), 2, 16,
                         device="cpu")
@@ -223,3 +239,86 @@ def test_page_allocator_and_slot_ops():
     assert sel["layers"]["k"][0, 0].eq(1).all()
     assert torch.equal(sel["layers"]["k"][0, 1], pool["layers"]["k"][0, 1])
     assert paging.paged_select_active(pool, None, None) == pool
+
+
+# ---------------------------------------------------------------------------
+# the rectangular KV cache (ServeConfig(paged=False))
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("window", [0, 5])
+def test_rect_decode_step_matches_jax(model, window):
+    """One decode step over a rectangle at per-slot positions (3 slots at
+    rows 2, 9 and 15 of 16, every row filled with noise, so rows past a
+    slot's position are stale and must be masked) against JAX's
+    ``decode_step`` on ``init_cache``'s layout: logits within 1e-5
+    relative, every row written where JAX writes it; with and without a
+    sliding window."""
+    cfg, tree, _, tparams = model
+    cfg = dataclasses.replace(cfg, sliding_window=window)
+    rng = np.random.default_rng(window)
+    shape = tuple(TT.init_cache(cfg, 3, 16, "cpu")["layers"]["k"].shape)
+    noise = {k: rng.standard_normal(shape).astype(np.float32)
+             for k in ("k", "v")}
+    tok = rng.integers(0, cfg.vocab_size, size=(3, 1)).astype(np.int32)
+    pos = np.array([2, 9, 15], np.int32)
+    want, jc = jax.jit(lambda p, t, c, q: JT.decode_step(p, cfg, t, c, q))(
+        jax_tree(tree), tok, {"layers": {k: jnp.asarray(v)
+                                         for k, v in noise.items()}}, pos)
+    for mode, pol in MODES.items():
+        tc = {"layers": {k: torch.from_numpy(v.copy())
+                         for k, v in noise.items()}}
+        with ops.kernel_policy(pol):
+            got, tc = TT.decode_step(tparams, cfg, torch.from_numpy(tok).long(),
+                                     tc, torch.from_numpy(pos).long())
+        assert_close(want, got, 1e-5, f"logits {mode}")
+        for k in ("k", "v"):
+            assert_close(jc["layers"][k], tc["layers"][k], 1e-5,
+                         f"rectangle {k} {mode}")
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_rect_engine_matches_jax_engine(model, jax_midflight, mode,
+                                        monkeypatch):
+    """``InferenceEngine(ServeConfig(paged=False))`` against JAX's engine
+    (its pool, whose tokens the reference holds equal to its rectangle's;
+    2 slots, a request admitted mid-flight into a reused slot): tokens,
+    admission and decode steps, the bytes of JAX's rectangle; the packed
+    linears launch #1 on the kernel path and the rectangle is read by
+    plain ops, never by #2 or #3; ``BatchServer`` and
+    ``NanoQuantModel.engine`` serve it with the same tokens."""
+    cfg, tree, jparams, tparams = model
+    prompts, want, jsteps, jdecode = jax_midflight
+    jbytes = JEngine(jparams, cfg, JServeConfig(paged=False), max_batch=2,
+                     max_len=40).kv_cache_bytes()
+    calls = {}
+    _spy(monkeypatch, binary_matmul, "fused_lowrank_matmul_grouped", calls)
+    _spy(monkeypatch, paged_attention, "paged_decode_attention", calls)
+    _spy(monkeypatch, megakernel, "decode_step_megakernel_raw", calls)
+    scfg = ServeConfig(greedy=True, paged=False, debug=True)
+    got, eng = _run_port(tparams, cfg, prompts, BUDGETS, scfg, 2, 40,
+                         MODES[mode])
+    assert sorted(got) == sorted(want)
+    for u in want:
+        np.testing.assert_array_equal(want[u], got[u])
+    assert eng.kv is None and eng.admission_step == jsteps
+    assert eng.stats["decode_steps"] == jdecode
+    assert eng.kv_cache_bytes() == jbytes
+    assert (mode == "ref") == (not calls)
+    assert "paged_decode_attention" not in calls
+    assert "decode_step_megakernel_raw" not in calls
+    if mode != "kernels":
+        return
+    with pytest.warns(DeprecationWarning):
+        srv = BatchServer(tparams, cfg, scfg, max_batch=2, max_len=40,
+                          device="cpu", policy=MODES[mode])
+    assert srv.engine.kv is None
+    eng = NanoQuantModel.from_numpy(tree, cfg, device="cpu").engine(
+        scfg, max_batch=2, max_len=40, policy=MODES[mode])
+    assert eng.kv is None
+    for e in (srv, eng):
+        for uid, (p, b) in enumerate(zip(prompts, BUDGETS)):
+            e.submit(Request(uid, p, max_new_tokens=b))
+        done = e.run()
+        for u in want:
+            np.testing.assert_array_equal(want[u], done[u].output)

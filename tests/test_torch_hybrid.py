@@ -62,6 +62,7 @@ from repro.serve import Request as JRequest
 from repro.serve import ServeConfig as JServeConfig
 from repro.serve import paging as jpaging
 from repro.serve import recovery as jrecovery
+from repro.serve import scheduler as jscheduler
 from repro.serve.faults import Fault as JFault
 from repro.serve.faults import FaultPlan as JFaultPlan
 from repro_torch import configs as tconfigs
@@ -71,7 +72,8 @@ from repro_torch.models import transformer as TT
 from repro_torch.quant import surgery as tsurgery
 from repro_torch.serve import FaultPlan, RequestError, paging, recovery
 from repro_torch.serve.engine import InferenceEngine, ServeConfig
-from repro_torch.serve.scheduler import Request, cache_select_active
+from repro_torch.serve.scheduler import (Request, cache_insert_slot,
+                                         cache_select_active)
 from repro_torch.testing import chaos_plan, chaos_trace, drive_chaos
 
 ARCH = "zamba2-1.2b"
@@ -382,16 +384,50 @@ def test_paged_decode_matches_jax(model, jax_results, window, mode):
                               pool["k"][:, page, r % PS])
 
 
-def test_hybrid_decode_needs_its_ring_table(model):
-    """The hybrid's decode runs over the ring pool only; its rectangular
-    cache serves the prefill at position 0 and refuses a prompt longer
-    than the ring."""
-    _, ct, _, _, tparams = model
+def test_hybrid_decode_needs_its_ring_table(model, jax_results):
+    """Without a ring table the hybrid decodes over its rectangular ring of
+    ``win`` rows, as the reference does: 3 slots at positions 4, 13 and
+    37 of a ring of 16 rows (the last has wrapped it twice; every row and
+    the state filled with noise) against JAX's ``decode_step`` on
+    ``init_cache``'s layout, the write at row ``pos % win``, logits within
+    1e-5 relative; an inactive slot keeps its state. A prompt longer than
+    the ring is refused."""
+    cj, ct = _configs(window=16)
+    _, _, _, jparams, tparams = model
+    rng = np.random.default_rng(3)
+    state = {k: rng.standard_normal(tuple(v.shape)).astype(np.float32)
+             for k, v in TT.state_cache(ct, 3, "cpu").items()}
+    ring = {leaf: rng.standard_normal((2, 3, 16, ct.n_kv_heads,
+                                       ct.head_dim)).astype(np.float32)
+            for leaf in ("k", "v")}
+    tok = rng.integers(0, ct.vocab_size, size=(3, 1)).astype(np.int32)
+    pos = np.array([4, 13, 37], np.int32)
+    if "rect-decode" not in jax_results:
+        jcache = {"layers": {k: jnp.asarray(v) for k, v in state.items()},
+                  "shared_attn": {k: jnp.asarray(v) for k, v in ring.items()},
+                  "window": 16}
+        jax_results["rect-decode"] = jax.jit(
+            lambda p, t, c, q: JT.decode_step(p, cj, t, c, q))(
+                jparams, tok, jcache, pos)
+    want, jc = jax_results["rect-decode"]
+    for mode, pol in MODES.items():
+        tc = {"layers": {k: torch.from_numpy(v.copy())
+                         for k, v in state.items()},
+              "shared_attn": {k: torch.from_numpy(v.copy())
+                              for k, v in ring.items()}}
+        with ops.kernel_policy(pol):
+            got, tc = TT.decode_step(
+                tparams, ct, torch.from_numpy(tok).long(), tc,
+                torch.from_numpy(pos).long(),
+                active=torch.tensor([True, True, False]))
+        assert_close(want[:2], got[:2], 1e-5, f"rect decode logits {mode}")
+        for leaf in ("k", "v"):
+            assert_close(jc["shared_attn"][leaf], tc["shared_attn"][leaf],
+                         1e-5, f"rect ring {leaf} {mode}")
+        for k in STATE:
+            np.testing.assert_array_equal(tc["layers"][k][:, 2].numpy(),
+                                          state[k][:, 2])
     cache = TT.init_cache(ct, 1, 8, "cpu")
-    tok = torch.zeros((1, 1), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ring pool"):
-        TT.decode_step(tparams, ct, tok, cache, torch.zeros(1).long(),
-                       active=torch.ones(1, dtype=torch.bool))
     with pytest.raises(ValueError, match="longer than the shared attention"):
         TT.prefill(tparams, ct, torch.zeros((1, 9), dtype=torch.long), cache)
 
@@ -609,8 +645,10 @@ def test_mixed_cache_insert_and_select_match_jax(model):
     D)`` beside the slot-indexed state, as JAX's ``init_paged_cache``
     lays it out; ``paged_insert_slot`` scatters a prefilled rectangle's
     ring rows into the slot's ring pages (rows past the window zero) and
-    its state into the slot; ``paged_select_active`` and the scheduler's
-    ``cache_select_active`` select state only and leave the pool alone."""
+    its state into the slot; ``paged_select_active`` selects state only
+    and leaves the pool alone. On the rectangle the scheduler's
+    ``cache_insert_slot`` / ``cache_select_active`` cover the ring too,
+    as JAX's do."""
     cj, ct = _configs(window=20)
     _, _, _, jparams, tparams = model
     jpool = jpaging.init_paged_cache(cj, 2, 48, n_pages=7, page_size=PS)
@@ -646,12 +684,28 @@ def test_mixed_cache_insert_and_select_match_jax(model):
     jnew = jax.tree.map(lambda a: jnp.asarray(a.numpy()), new)
     want = jpaging.paged_select_active(
         dict(jnew, window=20), dict(jpool), jactive)
-    for sel in (paging.paged_select_active(new, tpool, active),
-                cache_select_active(new, tpool, active)):
-        for stack in tpool:
-            for leaf, t in sel[stack].items():
-                np.testing.assert_array_equal(np.asarray(want[stack][leaf]),
-                                              t.numpy())
+    sel = paging.paged_select_active(new, tpool, active)
+    for stack in tpool:
+        for leaf, t in sel[stack].items():
+            np.testing.assert_array_equal(np.asarray(want[stack][leaf]),
+                                          t.numpy())
+    jrect = jscheduler.cache_insert_slot(JT.init_cache(cj, 2, 48), jsingle, 1)
+    trect = cache_insert_slot(TT.init_cache(ct, 2, 48, "cpu"), tsingle, 1)
+    rnew = {s: {k: v + 1 for k, v in leaves.items()}
+            for s, leaves in trect.items()}
+    def as_jax(tree):
+        return dict(jax.tree.map(lambda a: jnp.asarray(a.numpy()), tree),
+                    window=20)
+    want = jscheduler.cache_select_active(as_jax(rnew), as_jax(trect),
+                                          jactive)
+    got = cache_select_active(rnew, trect, active)
+    assert set(got) == set(trect) == {"layers", "shared_attn"}
+    for stack in trect:
+        for leaf, t in trect[stack].items():
+            assert_close(jrect[stack][leaf], t, tol("f32"),
+                         f"rect insert {stack}/{leaf}")
+            np.testing.assert_array_equal(np.asarray(want[stack][leaf]),
+                                          got[stack][leaf].numpy())
 
 
 # ---------------------------------------------------------------------------
@@ -706,7 +760,9 @@ def test_ring_wrap_engine_matches_jax(model, jax_runs, window, mode):
     writes at ``pos % window``) while three of the four requests' writes
     wrap their ring; admission and decode steps equal JAX's; one pool of
     ring pages (no linear table, no prefix index) beside the per-slot
-    state; the pool drained."""
+    state; the pool drained. The port's rectangular engine, whose rings
+    of ``window`` rows wrap at other rows than the pool's, gives JAX's
+    tokens too."""
     cj, ct = _configs(window)
     _, _, _, jparams, tparams = model
     want, jstats, jsteps = _jax_run(jax_runs, window, True, jparams)
@@ -725,6 +781,14 @@ def test_ring_wrap_engine_matches_jax(model, jax_runs, window, mode):
     assert eng.stats["decode_steps"] == jstats["decode_steps"]
     assert eng.kv.peak_used_pages == 2 * eng.kv.ring_pages
     _drained(eng)
+    reng = _port_engine(ct, tparams, mode, paged=False)
+    assert reng.kv is None
+    assert tuple(reng.cache["shared_attn"]["k"].shape[1:3]) == (2, window)
+    same_tokens(rect, serve_engine(reng, Request, draw_prompts(
+        ct, LENS, seed=4), BUDGETS))
+    assert reng.admission_step == jsteps
+    assert reng.kv_cache_bytes() == 2 * 2 * window * 2 * ct.n_kv_heads \
+        * ct.head_dim * 4
 
 
 def test_engine_cache_bytes(model):
@@ -761,8 +825,9 @@ def test_prefix_cache_builds_no_index(model):
 def test_refusals_match_jax(model):
     """Speculation is refused at "linear page tables only" in both
     packages, before the recurrent-state check (the reference's order);
-    without a pool the paged-cache check comes first in both. The port
-    serves the hybrid over its pool only (``paged=False`` raises)."""
+    without a pool the paged-cache check comes first in both. Without
+    speculation ``paged=False`` builds the rectangle: no pool, a ring of
+    ``min(max_len, window)`` rows per slot beside the state."""
     cj, ct, _, jparams, tparams = model
     kw = dict(greedy=True, spec_rank_frac=0.5)
     with pytest.raises(ValueError, match="linear page tables only"):
@@ -774,8 +839,12 @@ def test_refusals_match_jax(model):
                         device="cpu")
     with pytest.raises(ValueError, match="paged KV cache"):
         JEngine(jparams, cj, JServeConfig(paged=False, **kw))
-    with pytest.raises(NotImplementedError, match="paged"):
-        InferenceEngine(tparams, ct, ServeConfig(paged=False), device="cpu")
+    eng = InferenceEngine(tparams, ct, ServeConfig(paged=False),
+                          max_batch=2, max_len=32, device="cpu")
+    assert eng.kv is None and eng.prefix is None and eng.spec is None
+    assert set(eng.cache) == {"layers", "shared_attn"}
+    assert tuple(eng.cache["shared_attn"]["k"].shape[:3]) == (
+        TT.n_shared_apps(ct), 2, min(32, ct.sliding_window or 32))
 
 
 @pytest.fixture(scope="module")

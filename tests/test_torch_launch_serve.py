@@ -29,9 +29,10 @@ FAMILIES = {"dense": "llama3.2-1b", "moe": "qwen3-moe-235b-a22b",
 N, PROMPT, NEW, BATCH, PAGE = 3, 6, 4, 2, 4
 
 
-def _expected(arch, fp):
+def _expected(arch, fp, paged=True):
     """The engine's tokens over the demo model built from the public entry
-    points, under the CLI's requests and serving settings."""
+    points, under the CLI's requests and serving settings (on the
+    rectangle with ``paged=False``, as ``--rect`` serves)."""
     cfg = get_smoke(arch)
     params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     if fp:
@@ -41,7 +42,8 @@ def _expected(arch, fp):
                            rank_align=32)
         model = NanoQuantModel.quantize(params, cfg, calib_batches(cfg, 8, 64),
                                         qcfg, verbose=False, device="cpu")
-    eng = model.engine(ServeConfig(max_new_tokens=NEW, page_size=PAGE),
+    eng = model.engine(ServeConfig(max_new_tokens=NEW, page_size=PAGE,
+                                   paged=paged),
                        max_batch=BATCH, max_len=PROMPT + NEW)
     rng = np.random.default_rng(0)
     shape = (PROMPT, cfg.n_codebooks) if cfg.family == "audio" else (PROMPT,)
@@ -73,3 +75,34 @@ def test_serve_cli_demo_and_fp(family, fp, capsys):
     assert sorted(got) == sorted(want) == list(range(N))
     for uid in want:
         np.testing.assert_array_equal(got[uid], want[uid], err_msg=str(uid))
+
+
+@pytest.mark.parametrize("family", [f for f in FAMILIES if f != "ssm"])
+def test_serve_cli_rect(family, capsys):
+    """``--rect`` serves every attention family's FP demo teacher on the
+    rectangle (``ServeConfig(paged=False)``), prints the reference's
+    rectangular-layout line with the rectangle's bytes, and emits the
+    tokens of the engine over ``NanoQuantModel.from_fp`` with
+    ``paged=False``."""
+    arch = FAMILIES[family]
+    got = cli.main(["--device", "cpu", "--arch", arch, "--requests", str(N),
+                    "--prompt-len", str(PROMPT), "--max-new", str(NEW),
+                    "--max-batch", str(BATCH), "--fp", "--rect"])
+    out = capsys.readouterr().out
+    assert (f"[serve] rectangular layout (paging disabled): {BATCH} x "
+            f"{PROMPT + NEW} KV rectangle") in out
+    assert "paged KV pool" not in out and "prefix cache" not in out
+    want = _expected(arch, True, paged=False)
+    assert sorted(got) == sorted(want) == list(range(N))
+    for uid in want:
+        np.testing.assert_array_equal(got[uid], want[uid], err_msg=str(uid))
+
+
+def test_serve_cli_rect_refuses_speculation(capsys):
+    """``--rect`` with ``--spec-rank-frac`` is refused before any model is
+    built, with the reference's message."""
+    with pytest.raises(SystemExit) as e:
+        cli.main(["--device", "cpu", "--rect", "--spec-rank-frac", "0.5"])
+    assert e.value.code == 2
+    assert "--spec-rank-frac needs the paged KV pool; drop --rect" in \
+        capsys.readouterr().err

@@ -177,9 +177,11 @@ def _route_inputs(ct, route, dt, rng):
     """(x, positions, cache (numpy leaves or None), cache_pos, block
     table) of one route; S = 7 for the full and prefill routes, 1 for a
     decode, 3 for a verify whose pool holds stale rows past the
-    frontier."""
-    B = 3 if route.startswith("paged") else 2
-    S = {"full": 7, "prefill": 7, "paged-decode": 1, "paged-verify": 3}[route]
+    frontier; the rectangle's decode and 3-token call at per-slot offsets
+    over a rectangle of 12 noisy rows (stale past each slot's offset)."""
+    B = 3 if route.startswith(("paged", "rect")) else 2
+    S = {"full": 7, "prefill": 7, "paged-decode": 1, "paged-verify": 3,
+         "rect-decode": 1, "rect-verify": 3}[route]
     x = rng.standard_normal((B, S, ct.d_model)).astype(np.float32)
     dc, dr = ct.kv_lora_rank, ct.qk_rope_dim
     if route == "full":
@@ -190,13 +192,20 @@ def _route_inputs(ct, route, dt, rng):
         return x, np.arange(S, dtype=np.int32), cache, 0, None
     cp = np.array([9, 5, 2], np.int32) if S == 1 else \
         np.array([6, 2, 0], np.int32)
+    pos = cp[:, None] + np.arange(S, dtype=np.int32)[None]
+    if route.startswith("rect"):
+        cache = {"c_kv": rng.standard_normal((B, 12, dc)).astype(np.float32),
+                 "k_rope": rng.standard_normal((B, 12, 1, dr)
+                                               ).astype(np.float32)}
+        return x, pos, cache, cp, None
     cache = {"c_kv": rng.standard_normal((6, 4, dc)).astype(np.float32),
              "k_rope": rng.standard_normal((6, 4, 1, dr)).astype(np.float32)}
     pos = cp[:, None] + np.arange(S, dtype=np.int32)[None]
     return x, pos, cache, cp, PAGED_BT
 
 
-ROUTES = ["full", "prefill", "paged-decode", "paged-verify"]
+ROUTES = ["full", "prefill", "paged-decode", "paged-verify", "rect-decode",
+          "rect-verify"]
 
 
 @pytest.mark.parametrize("route,dt,mode", [
@@ -422,6 +431,25 @@ def test_mla_paged_identity(model, jax_runs, mode):
     assert teng.admission_step == jsteps
     assert teng.stats["decode_steps"] == jstats["decode_steps"]
     drained(teng)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_mla_rect_engine_matches_jax(model, jax_runs, mode):
+    """The port's engine on its rectangular latent cache
+    (``ServeConfig(paged=False)``) against JAX's: tokens, admission and
+    decode steps and the rectangle's bytes equal, no pool."""
+    cj, ct, _, jparams, tparams = model
+    prompts = draw_prompts(ct, LENS)
+    want, jstats, jsteps = jax_engine(jax_runs, cj, jparams, prompts,
+                                      BUDGETS, page_size=PS, paged=False)
+    teng = _port_engine(ct, tparams, mode, paged=False)
+    assert teng.kv is None and set(teng.cache["layers"]) == {"c_kv",
+                                                             "k_rope"}
+    same_tokens(want, serve_engine(teng, Request, prompts, BUDGETS))
+    assert teng.admission_step == jsteps
+    assert teng.stats["decode_steps"] == jstats["decode_steps"]
+    B, rows, dc, dr = 2, 48, ct.kv_lora_rank, ct.qk_rope_dim
+    assert teng.kv_cache_bytes() == ct.n_layers * B * rows * (dc + dr) * 4
 
 
 @pytest.mark.parametrize("mode", list(MODES))

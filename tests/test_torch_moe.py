@@ -348,6 +348,30 @@ def test_engine_matches_jax_engine(model, jax_runs, mode):
 
 
 @pytest.mark.parametrize("mode", ["ref", "kernels"])
+def test_rect_engine_matches_jax_engine(model, jax_runs, mode):
+    """The engine on the rectangular cache (``paged=False``; the variant's
+    leading dense block has its own rectangle) against JAX's engine (its
+    pool, whose tokens the reference holds equal to its rectangle's): the
+    MoE decodes on the batch of both slots as JAX's does, so tokens,
+    admission and decode steps equal; no pool, every layer's k / v
+    rectangle of 2 slots x 48 rows."""
+    cj, ct, _, jparams, tparams = model
+    prompts = draw_prompts(ct, LENS)
+    want, jstats, jsteps = jax_engine(jax_runs, cj, jparams, prompts,
+                                      BUDGETS, page_size=PS,
+                                      prefix_cache=False)
+    teng = _port_engine(ct, tparams, mode, paged=False)
+    assert teng.kv is None
+    assert set(teng.cache) == ({"dense_layers", "layers"}
+                               if ct.first_k_dense else {"layers"})
+    same_tokens(want, serve_engine(teng, Request, prompts, BUDGETS))
+    assert teng.admission_step == jsteps
+    assert teng.stats["decode_steps"] == jstats["decode_steps"]
+    assert teng.kv_cache_bytes() == (ct.n_layers * 2 * 48 * 2
+                                     * ct.n_kv_heads * ct.head_dim * 4)
+
+
+@pytest.mark.parametrize("mode", ["ref", "kernels"])
 def test_prefix_engine_matches_jax_engine(model, jax_runs, mode):
     """The prefix cache: hits prefill their suffix padded as JAX pads it,
     so tokens and counters equal JAX's prefix engine."""

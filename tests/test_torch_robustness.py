@@ -25,7 +25,8 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-from _torch_common import f32, jax_tree, packed_model, torch_params
+from _torch_common import (f32, jax_tree, one_torch_thread,  # noqa: F401
+                           packed_model, torch_params)
 from repro import configs as jconfigs
 from repro.api import NanoQuantModel as JModel
 from repro.serve import Fault as JFault
@@ -766,3 +767,111 @@ def test_save_loads_in_jax(model, tmp_path):
             else:
                 assert torch.equal(v, got[k]), k
     same_t(m.params, back.params)
+
+
+# ---------------------------------------------------------------------------
+# the rectangular engine (ServeConfig(paged=False)) against JAX's
+# ---------------------------------------------------------------------------
+
+
+RECT_SCFG = dict(greedy=True, paged=False, debug=True)
+RECT_KEYS = TERMINALS + ("decode_steps", "tokens_emitted", "admissions",
+                         "steps", "preemptions")
+DRAIN_LENS = (5, 9)
+
+
+def _rect_drain(eng, request, prompts):
+    """Two requests on `eng` (either package's), one step, then
+    ``drain(timeout=0)``: (statuses, tokens, the failed one's reason)."""
+    hs = [eng.submit(request(100 + u, p, max_new_tokens=8))
+          for u, p in enumerate(prompts)]
+    eng.step()
+    eng.drain(timeout=0)
+    live = [h for h in hs if h.status == "failed"]
+    return ([h.status for h in hs], [[int(t) for t in h.tokens] for h in hs],
+            live[0].error.reason if live else None)
+
+
+@pytest.fixture(scope="module")
+def jax_rect(model):
+    """JAX's rectangular engine through the chaos plan, then a drain with
+    no time left; the engine is returned too, its prefill and decode
+    compiled, for the snapshot test."""
+    cfg, _, jparams, _ = model
+    trace = _trace(cfg)
+    plan = JFaultPlan([JFault(**dataclasses.asdict(f))
+                       for f in chaos_plan(trace)], seed=CHAOS_SEED)
+    eng = JEngine(jparams, cfg, JServeConfig(**RECT_SCFG), faults=plan,
+                  **CHAOS_ENGINE)
+    handles = drive_chaos(eng, trace, JRequest, plan)
+    chaos = (plan.fired, {u: h.status for u, h in handles.items()},
+             {u: [int(t) for t in h.tokens] for u, h in handles.items()},
+             {k: eng.stats[k] for k in RECT_KEYS})
+    drain = _rect_drain(eng, JRequest, _prompts(cfg, DRAIN_LENS, seed=5))
+    eng.resume_admission()
+    return chaos, drain, eng
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_rect_chaos_matches_jax(model, jax_rect, mode):
+    """The chaos plan on the rectangular engine against JAX's: the fired
+    log (the pool seams, the prefix eviction and the speculative cancel
+    stay unfired in both), statuses, tokens and counters equal; the
+    device error fails one slot and the others decode on in place (no
+    preemption); every non-done handle carries a structured error. Then
+    ``drain(timeout=0)`` fails the live slot with JAX's reason, as JAX's
+    rectangle cannot checkpoint it either."""
+    cfg = model[0]
+    trace = _trace(cfg)
+    plan = FaultPlan(chaos_plan(trace), seed=CHAOS_SEED)
+    eng = _engine(model, faults=plan, policy=MODES[mode], paged=False,
+                  **CHAOS_ENGINE)
+    assert eng.kv is None
+    handles = drive_chaos(eng, trace, Request, plan)
+    for h in handles.values():
+        assert h.finished
+        if h.status != "done":
+            assert isinstance(h.error, RequestError) and h.error.reason
+    fired = {k for _, k, _ in plan.fired}
+    assert not fired & {"dry_pool", "preempt", "evict_prefix", "cancel_spec"}
+    assert "device_error" in fired
+    assert eng.stats["device_faults"] == 1 and eng.stats["preemptions"] == 0
+    (jfired, jstatuses, jtokens, jstats), jdrain, _ = jax_rect
+    assert plan.fired == jfired
+    assert {u: h.status for u, h in handles.items()} == jstatuses
+    assert {u: list(h.tokens) for u, h in handles.items()} == jtokens
+    assert {k: eng.stats[k] for k in RECT_KEYS} == jstats
+    drain = _rect_drain(eng, Request, _prompts(cfg, DRAIN_LENS, seed=5))
+    assert drain == jdrain and drain[0] == ["failed", "failed"]
+    assert "cannot checkpoint a live slot" in drain[2]
+
+
+def test_rect_snapshot_crosses_layouts_and_packages(model, jax_rect):
+    """A snapshot of JAX's rectangular engine, taken live 3 steps into the
+    chaos trace, restores into the port's paged engine; a snapshot of
+    that, 2 steps later, restores into the port's rectangular engine;
+    every request then ends with the undisturbed engine's tokens."""
+    trace = _trace(model[0])
+    base_h = drive_chaos(_port_engine(model, "ref"), trace, Request)
+    _, _, src = jax_rect
+    for _, uid, prompt, budget in trace:
+        src.submit(JRequest(uid, prompt, max_new_tokens=budget))
+    for _ in range(3):
+        src.step()
+    outputs = {u: r.output for u, r in src.done.items()
+               if u in base_h and src.handles[u].status == "done"}
+    snap = jrecovery.snapshot(src)
+    assert any(it["emitted"] for it in snap["items"])
+    paged = _engine(model, **CHAOS_ENGINE)
+    recovery.restore(paged, snap)
+    for _ in range(2):
+        paged.step()
+    outputs.update({u: r.output for u, r in paged.done.items()})
+    snap = recovery.snapshot(paged)
+    assert any(it["emitted"] for it in snap["items"])
+    rect = _engine(model, paged=False, **CHAOS_ENGINE)
+    recovery.restore(rect, snap)
+    outputs.update({u: r.output for u, r in rect.run().items()})
+    assert set(outputs) == set(base_h)
+    for u, h in base_h.items():
+        assert [int(t) for t in outputs[u]] == list(h.tokens), f"request {u}"

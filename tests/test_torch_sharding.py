@@ -327,7 +327,11 @@ def case():
             "prompts": prompts, "budgets": budgets,
             "qwen": packed_model(qcfg, 1, min_dim=8, bpw=3.0),
             "qwen_cfg": qcfg,
-            "qwen_prompts": draw_prompts(qcfg, [5, 11, 3, 8])}
+            "qwen_prompts": draw_prompts(qcfg, [5, 11, 3, 8]),
+            "cli_argv": ["--device", "cpu", "--rect", "--tp", "2",
+                         "--tp-backend", "gloo", "--requests", "3",
+                         "--prompt-len", "6", "--max-new", "4",
+                         "--max-batch", "2"]}
 
 
 @pytest.fixture(scope="module")
@@ -381,8 +385,12 @@ def test_tp_paged_attention_head_local(case, ranks):
     assert_close(want, ranks[0]["paged"], tol("f32"), "head-local paged")
 
 
-@pytest.mark.parametrize("run", ["plain", "prefix"])
+@pytest.mark.parametrize("run", ["plain", "prefix", "rect"])
 def test_tp_engine_tokens_equal_unsharded_jax(case, ranks, jax_runs, run):
+    """The TP engine's tokens on every rank equal JAX's unsharded engine's:
+    plain, with the prefix cache, and on the rectangle (``paged=False``),
+    whose rows, like the pool's, hold each rank's one kv head of the
+    two."""
     want, jstats = _jax(jax_runs, case, "tiny")
     for r in ranks.values():
         res = r[run]
@@ -390,6 +398,11 @@ def test_tp_engine_tokens_equal_unsharded_jax(case, ranks, jax_runs, run):
         assert res["drained"]
     # the two ranks' pools hold one kv head each of the two
     assert ranks[0][run]["pool"][-2:] == (1, R.TP_CFG.head_dim)
+    if run == "rect":
+        assert ranks[0][run]["pool"][1:3] == (2, 48)
+        # k and v of each layer: 2 slots x 48 rows x 1 kv head, f32
+        assert ranks[0][run]["kv_bytes"] == R.TP_CFG.n_layers * 2 * 2 * 48 \
+            * R.TP_CFG.head_dim * 4
     st = ranks[0]["prefix"]["stats"]
     if run == "prefix":
         for k in ("prefix_hit_tokens", "cow_copies", "shared_pages"):
@@ -427,8 +440,24 @@ def test_tp_kv_heads_replicated_qwen_smoke(case, ranks, jax_runs):
     want, _ = _jax(jax_runs, case, "qwen")
     cfg = case["qwen_cfg"]
     for r in ranks.values():
-        assert r["qwen"]["tokens"] == want
-        assert r["qwen"]["pool"][-2:] == (1, cfg.head_dim)
+        for run in ("qwen", "qwen_rect"):
+            assert r[run]["tokens"] == want
+            assert r[run]["pool"][-2:] == (1, cfg.head_dim)
+    # the rectangle stays whole on every rank: (layers, slots, rows, 1, D)
+    assert ranks[0]["qwen_rect"]["pool"][:3] == (cfg.n_layers, 2, 48)
+
+
+def test_launch_serve_rect_tp_ranks(ranks):
+    """``launch.serve --rect --tp 2 --tp-backend gloo``'s serving loop
+    (``_serve`` over each rank's shards, with the CLI's ServeConfig from
+    its parsed arguments) emits on both ranks the tokens that the same
+    loop emits on the unsharded model: every request, ``--max-new``
+    tokens each."""
+    want = ranks[0]["cli_rect_unsharded"]
+    assert sorted(want) == [0, 1, 2]
+    assert all(len(t) == 4 for t in want.values())
+    for r in ranks.values():
+        assert r["cli_rect"] == r["cli_rect_unsharded"] == want
 
 
 def test_tp_lockstep_check_and_broadcast(ranks):

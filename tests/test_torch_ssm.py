@@ -436,8 +436,9 @@ def test_state_engine_matches_jax_engine(model, jax_runs, mode):
 
 def test_engine_refusals_match_jax(model):
     """Speculation is refused in both packages, paged or not (no pool,
-    then the recurrent state); the attention families still refuse
-    ``paged=False``; a pool is never built for this family."""
+    then the recurrent state); a pool is never built for this family,
+    and an attention family's ``paged=False`` builds the rectangle this
+    family's state cache shares the engine's code with."""
     cj, ct, _, jparams, tparams = model
     for paged in (True, False):
         kw = dict(greedy=True, spec_rank_frac=0.5, paged=paged)
@@ -448,9 +449,10 @@ def test_engine_refusals_match_jax(model):
     eng = InferenceEngine(tparams, ct, ServeConfig(paged=False), device="cpu")
     assert eng.kv is None and not eng.paged
     llama = f32(tconfigs.get_smoke("llama3.2-1b"))
-    with pytest.raises(NotImplementedError, match="paged"):
-        InferenceEngine(torch_params(packed_model(llama, 0)), llama,
-                        ServeConfig(paged=False), device="cpu")
+    rect = InferenceEngine(torch_params(packed_model(llama, 0)), llama,
+                           ServeConfig(paged=False), device="cpu")
+    assert rect.kv is None and not rect.paged
+    assert set(rect.cache["layers"]) == {"k", "v"}
 
 
 def _greedy_forward(cj, jparams, prompt, n_new):

@@ -564,6 +564,28 @@ def test_engine_matches_jax_engine(model, jax_runs, mode):
     assert t.cache_bytes() == t.kv_cache_bytes()
 
 
+@pytest.mark.parametrize("mode", list(MODES))
+def test_rect_engine_matches_jax_engine(model, jax_runs, mode):
+    """``ServeConfig(paged=False)``: the self layers' rectangle beside the
+    per-slot image K/V, greedy tokens and admission steps equal JAX's
+    engine's (its pool, whose tokens the reference holds equal to its
+    rectangle's); ``kv_cache_bytes`` counts the self layers' k / v rows
+    of 2 slots x 48 and the image K/V, as JAX's rectangular engine's."""
+    cj, ct, _, jparams, tparams = model
+    prompts = draw_prompts(ct, LENS, seed=4)
+    want, _, jsteps = jax_engine(jax_runs, cj, jparams, prompts, BUDGETS,
+                                 page_size=PS)
+    eng = _port_engine(ct, tparams, mode, paged=False)
+    assert eng.kv is None and set(eng.cache) == {"self_layers", "cross_kv"}
+    same_tokens(want, serve_engine(eng, Request, prompts, BUDGETS))
+    assert eng.admission_step == jsteps
+    assert not any(t.any() for t in eng.cache["cross_kv"].values())
+    groups = ct.n_layers // ct.cross_attn_every
+    rows = (ct.n_layers - groups) * 48 + groups * ct.n_image_tokens
+    assert eng.kv_cache_bytes() == eng.cache_bytes() == (
+        2 * 2 * rows * ct.n_kv_heads * ct.head_dim * 4)
+
+
 @pytest.fixture(scope="module")
 def spec_model():
     """The smoke model packed at 6 bpw, so that its ranks truncate."""
@@ -714,7 +736,8 @@ def test_generate_matches_jax_per_family(arch):
     identical, last logits within the tolerance. The port decodes over a
     pool of 2 slots (linear tables; the hybrid's rings), the SSM family on
     its state cache; the VLM's prompts carry images, the audio family's
-    are frames of 4 codebook ids (2, 6, 4)."""
+    are frames of 4 codebook ids (2, 6, 4). With ``paged=False`` it
+    decodes on the prefilled rectangle, as JAX's does: the same tokens."""
     cj = f32(jconfigs.get_smoke(arch))
     ct = f32(tconfigs.get_smoke(arch))
     tree = packed_model(ct, seed=1, min_dim=FAMILIES[arch])
@@ -726,12 +749,13 @@ def test_generate_matches_jax_per_family(arch):
     want, wl = jgenerate(jax_tree(tree), cj, jnp.asarray(toks),
                          JServeConfig(greedy=True, max_new_tokens=4),
                          image_embeds=jimg)
-    got, gl = generate(torch_params(tree), ct, toks,
-                       ServeConfig(greedy=True, max_new_tokens=4,
-                                   page_size=4),
-                       image_embeds=timg, policy=MODES["kernels"])
-    np.testing.assert_array_equal(np.asarray(want), got.numpy())
-    assert_close(wl, gl, LOGITS_TOL, f"{arch} last logits")
+    for paged in (True, False):
+        got, gl = generate(torch_params(tree), ct, toks,
+                           ServeConfig(greedy=True, max_new_tokens=4,
+                                       page_size=4, paged=paged),
+                           image_embeds=timg, policy=MODES["kernels"])
+        np.testing.assert_array_equal(np.asarray(want), got.numpy())
+        assert_close(wl, gl, LOGITS_TOL, f"{arch} last logits {paged}")
 
 
 # ---------------------------------------------------------------------------
