@@ -61,8 +61,8 @@ Phases, each printing its own line(s); any failure exits non-zero:
    at rank 6336, past #1's 4096, M 1024: #4 twice per forward, its rank
    intermediate rounded to x's dtype, held against the two-stage oracle),
    checked and timed as the gate shape's; then the pipeline, as for
-   llama3.2-1b, on musicgen-medium (2 of its 48 layers; calibration frames
-   of 4 codebooks), mamba2-370m (2 of 48), deepseek-v2-lite-16b (its dense
+   llama3.2-1b, on musicgen-medium (1 of its 48 layers; calibration frames
+   of 4 codebooks), mamba2-370m (1 of 48), deepseek-v2-lite-16b (its dense
    layer and 1 of 26 MoE layers), zamba2-1.2b (7 of its 38 Mamba2 layers,
    so one application of the shared attention block, which is quantized
    first on its inputs gathered from the teacher stream) and
@@ -138,7 +138,7 @@ Phases, each printing its own line(s); any failure exits non-zero:
    of wo's 992), #2 as the verify reads it (5 queries per slot through
    ``ops.paged_attention`` over a pool with stale rows past the
    frontier);
-4. llama3.2-1b engine — llama3.2-1b at full width, cut to 4 of its 16
+4. llama3.2-1b engine — llama3.2-1b at full width, cut to 1 of its 16
    layers (``DEPTH``), at 1.0 bpw with packed weights drawn from a seed,
    served by the
    continuous-batching engine (8 slots, max_len 256, 8 requests of
@@ -215,7 +215,7 @@ Phases, each printing its own line(s); any failure exits non-zero:
    kv head; then the speculative path's shapes: #4's two launches of the
    draft's gate (rank 3488 of 6976, read in place) at M = 4 and #1's
    merged QKV at the verify's M = 20;
-6. qwen1.5-110b engine — full width, cut to 4 of its 80 layers
+6. qwen1.5-110b engine — full width, cut to 2 of its 80 layers
    (``DEPTH``, so that the script keeps inside its time limit), at 1.0
    bpw, weights drawn on the card from the seed: 4 slots, max_len 128,
    4 requests of 16-64 prompt tokens and 16 new tokens, 2 admitted after
@@ -236,24 +236,39 @@ Phases, each printing its own line(s); any failure exits non-zero:
    logits' all-gather between; the megakernel declines under TP.
    ``qwen1.5-110b-tp2`` (the qwen1.5-110b model at TP 2 under ``QWEN``,
    f32) and ``llama3.2-1b-tp4`` / ``llama3.2-1b-tp4-spec`` (the llama
-   model at TP 4 under ``LLAMA``, f32, plain then self-speculative). On
-   every rank: greedy tokens equal the unsharded path's (``megakernel``,
-   ``spec``, ``qwen1.5-110b``) up to near-ties of the plain path; launches
-   per forward by the template (#1 and #4 per layer, #2 per layer and
-   decode forward, #3 none); per forward 2 x layers + 1 all-reduces and
-   one all-gather; the drained pool; the bytes the rank holds against
-   the unsharded model's (packed words and all), its peak GiB and host ms
-   per decode step (ranks time-sharing one card over gloo, not TP speed);
-7. qwen3-4b — full width, cut to 9 of its 36 layers (``DEPTH``; per-head
+   model at TP 4 under ``LLAMA``, f32, plain then self-speculative) after
+   the qwen1.5-110b phase, and after the musicgen phase (its last family's
+   unsharded paths) ``qwen3-moe-235b-a22b-tp2``,
+   ``deepseek-v2-lite-16b-tp2`` and ``musicgen-medium-tp2`` (each family's
+   model at TP 2 under its traffic, f32): an MoE rank holds E / 2 whole
+   experts, routes every row with the replicated router and launches #1's
+   grid over its own (G = 64 for qwen3-moe, 32 for deepseek), MLA splits
+   wq / w_uk / w_uv / wo by head and keeps w_dkv, w_kr and the latent pool
+   whole, musicgen's codebook tables split on the vocabulary; phases of
+   one size share one start of their ranks (each rank serves their
+   models in turn, each drawn and dropped). On every
+   rank: greedy tokens equal the unsharded path's (``megakernel``,
+   ``spec``, ``qwen1.5-110b``, the family's path) up to near-ties of the
+   plain path (an MoE's by ``moe_gate`` against its unsharded path's
+   router log), an MoE's router choices equal on every rank; launches per
+   forward by the family's template (#1 and #4 per layer, the expert grid
+   at G = E / N, #2 per GQA layer and decode forward, #3 none); per
+   forward 2 x layers + 1 all-reduces (an MoE layer's one carries its
+   shared experts' partial) and one all-gather; the drained pool; the
+   bytes the rank holds against the unsharded model's (packed words,
+   expert words, all), its peak GiB and host ms per decode step (ranks
+   time-sharing one card over gloo, not TP speed);
+7. qwen3-4b — full width, cut to 4 of its 36 layers (``DEPTH``; per-head
    qk_norm, which rules out #3) at 1.0 bpw, weights drawn on the card, under the llama
    traffic on the path ``qwen3-4b`` (#1 and #2 only), gated like the
    llama paths; then one bf16 run (decode tok/s, TTFT, peak memory);
 8. qwen3-moe-235b-a22b — kernel #1 at its expert grid (G = 128 experts,
    x per group, rank 1088; gate/up K 4096 -> N 1536 and down K 1536 -> N
    4096; M 8, the capacity of a decode step and of a prefill of up to 64
-   tokens, and M 40, a 256-token prefill's; f32 and bf16) against its
-   plain version, timed beside the batched library call over unpacked
-   bf16 factors; then the model at full width, cut to 3 of its 94
+   tokens, and M 40, a 256-token prefill's; f32 and bf16; and at M 8 at
+   the grid of one rank of its TP 2 phase, G = 64) against its plain
+   version, timed beside the batched library call over unpacked bf16
+   factors; then the model at full width, cut to 2 of its 94
    layers (``DEPTH``; 128 experts, top-8), at 1.0 bpw, weights and
    routers drawn on the card, under the qwen1.5-110b traffic on the path
    ``qwen3-moe-235b-a22b`` (#1 and #2 only, #1 launched at the expert
@@ -268,14 +283,14 @@ Phases, each printing its own line(s); any failure exits non-zero:
    rank 384) at M 8, and at the 64-expert grid (x per group, rank 800;
    gate/up K 2048 -> N 1408, down K 1408 -> N 2048) at M 8 and 32, f32 and
    bf16, against its plain version beside its library call; then the
-   model at full width, cut to 3 of its 27 layers (``DEPTH``: one dense, 2
+   model at full width, cut to 2 of its 27 layers (``DEPTH``: one dense, 1
    MoE of 64 experts top-6 plus 2 shared; MLA attention over a paged pool
    of compressed latents, kv_lora_rank 512 plus a 64-wide RoPE key per
    row) at 1.0 bpw, weights and routers drawn on the card, under the llama
-   traffic on the path ``deepseek-v2-lite-16b``: #1 only, 24 launches per
+   traffic on the path ``deepseek-v2-lite-16b``: #1 only, 15 launches per
    forward (four per layer for wq, w_dkv, w_kr and wo, three at the
    expert grid and two for the shared experts per MoE layer, two for the
-   dense block; 240 at full depth), 6 of them at the grid; #2, #3 and #4
+   dense block; 240 at full depth), 3 of them at the grid; #2, #3 and #4
    never (MLA's read
    is plain torch ops, as the reference keeps it plain XLA). Its f32 gate
    is ``moe_gate``. Then one bf16 run (decode tok/s, TTFT, peak memory,
@@ -288,11 +303,11 @@ Phases, each printing its own line(s); any failure exits non-zero:
    96, a partial tile of the rank stage, the shape of wC too; out_proj,
    K 2048 -> 1024 at rank 640) at M 8 and 256, f32 and bf16, against its
    plain version beside its library call; then the model at full width,
-   cut to 4 of its 48 Mamba2 blocks (``DEPTH``; d 1024, d_inner 2048, 32
+   cut to 2 of its 48 Mamba2 blocks (``DEPTH``; d 1024, d_inner 2048, 32
    heads of 64, state 128, chunk 256, vocab 50280, tied head) at 1.0 bpw,
    weights drawn on the card, on the per-slot state cache (no pool) under
    the llama traffic with prompts of 17-520 tokens (``MAMBA``), on the
-   path ``mamba2-370m``: #1 only, 20 launches per forward (wz, wx, wB, wC
+   path ``mamba2-370m``: #1 only, 10 launches per forward (wz, wx, wB, wC
    and out_proj per layer; wdt stays FP), #2, #3 and #4 never; gated like
    the llama paths. Then one bf16 run (decode tok/s, TTFT, peak memory,
    the state cache's bytes per slot) and its decode window under the
@@ -352,7 +367,7 @@ Phases, each printing its own line(s); any failure exits non-zero:
    its decode shape (B 8, 24 query heads over 24 kv heads: G 1, D 64, K
    1536, pages of 64) over 4 and 32 table entries, each against its
    plain version beside its library call (#3 also beside its unfused
-   chain), f32 and bf16. Then the model at full width, cut to 4 of its
+   chain), f32 and bf16. Then the model at full width, cut to 2 of its
    48 layers (``DEPTH``; d 1536, 4 codebooks of 2048; the reference's
    llama-style block)
    at 1.0 bpw, weights drawn on the card, under ``MUSICGEN``: 8 requests
@@ -492,12 +507,18 @@ MUSICGEN = dict(LLAMA, arch="musicgen-medium")
 # phases, on a slow host too (halved again when the VLM's quantization came
 # in, and the VLM's and qwen3-moe's halved once more when the
 # tensor-parallel phases came in; qwen1.5-110b 5 -> 4 when the
-# rectangular KV cache's phase came in): the layers each model is served
-# at (width untouched; every other model at full depth)
-DEPTH = {"llama3.2-1b": 4, "qwen1.5-110b": 4, "qwen3-4b": 9,
-         "qwen3-moe-235b-a22b": 3, "llama-3.2-vision-90b": 5,
-         "deepseek-v2-lite-16b": 3, "mamba2-370m": 4, "zamba2-1.2b": 6,
-         "musicgen-medium": 4}
+# rectangular KV cache's phase came in). The TP phases of the audio and
+# MoE families (43-53 s on an NVIDIA H100 80GB HBM3 at 700 W, started
+# as one group of ranks since) were paid for by llama3.2-1b 4 -> 1,
+# qwen1.5-110b 4 -> 2, qwen3-4b 9 -> 4, qwen3-moe 3 -> 2, deepseek 3 -> 2
+# (its dense layer and one MoE layer), mamba2 4 -> 2 and musicgen 4 -> 2,
+# with QUANT_DEPTH's musicgen and mamba2 2 -> 1 (PERF.md
+# lists the seconds each saved). The layers each model is served at
+# (width untouched; every other model at full depth)
+DEPTH = {"llama3.2-1b": 1, "qwen1.5-110b": 2, "qwen3-4b": 4,
+         "qwen3-moe-235b-a22b": 2, "llama-3.2-vision-90b": 5,
+         "deepseek-v2-lite-16b": 2, "mamba2-370m": 2, "zamba2-1.2b": 6,
+         "musicgen-medium": 2}
 
 # the quantization pipeline on the card: llama3.2-1b at full width in its
 # config's dtype (bf16), calibrated on `samples` sequences of `seq` tokens
@@ -508,9 +529,12 @@ QUANT_SERVE = dict(LLAMA, n=4, up_front=2)
 # the depths quantized, each at full width (width untouched), cut to keep
 # the script inside its time limit (llama3.2-1b, mamba2 and deepseek
 # halved again when the tensor-parallel phases came in, so that a slow
-# host keeps inside it too): llama3.2-1b 2 of its 16 layers (the trainer's
-# teacher too), musicgen 2 of its 48 layers (frames of 4 codebooks),
-# mamba2 2 of 48, deepseek its dense layer and 1 MoE layer of 27 (every
+# host keeps inside it too; musicgen and mamba2 2 -> 1 when the audio and
+# MoE families' TP phases came in): llama3.2-1b 2 of its 16 layers (the
+# trainer's teacher too: at 1 layer its loss did not fall in 150 steps,
+# 12.1699 -> 12.2061), musicgen 1 of its 48 layers (frames of 4
+# codebooks), mamba2 1 of 48, deepseek its dense layer and 1 MoE layer of
+# 27 (every
 # block kind once, the second on the first's quantized outputs),
 # zamba2 7 of its 38 Mamba2 layers (one application of the shared block
 # after layer 5, the drill's crash after it), llama-3.2-vision-90b 2 of its
@@ -518,7 +542,7 @@ QUANT_SERVE = dict(LLAMA, n=4, up_front=2)
 # on an NVIDIA H100 80GB HBM3 at 700 W, so one group of its published 5
 # would not fit the script); each artifact served in f32 under 4 requests
 # of its family's traffic
-QUANT_DEPTH = {"llama3.2-1b": 2, "musicgen-medium": 2, "mamba2-370m": 2,
+QUANT_DEPTH = {"llama3.2-1b": 2, "musicgen-medium": 1, "mamba2-370m": 1,
                "deepseek-v2-lite-16b": 2, "zamba2-1.2b": 7,
                "llama-3.2-vision-90b": 2}
 MUSICGEN_QUANT_SERVE = dict(MUSICGEN, n=4, up_front=2)
@@ -652,15 +676,24 @@ PATHS = (
 
 # tensor-parallel phases: (phase, arch, ranks, [(path, traffic, speculative
 # settings, the unsharded path whose tokens gate it)]); every rank on the
-# one card, over gloo
+# one card, over gloo. Each runs once its unsharded paths have run; the
+# MoE phases are expert-parallel (E / N experts per rank) and gated by
+# ``moe_gate`` against their unsharded path's router log
 TP_PHASES = (
     ("qwen1.5-110b-tp2", "qwen1.5-110b", 2,
      [("qwen1.5-110b-tp2", QWEN, None, "qwen1.5-110b")]),
     ("llama3.2-1b-tp4", "llama3.2-1b", 4,
      [("llama3.2-1b-tp4", LLAMA, None, "megakernel"),
       ("llama3.2-1b-tp4-spec", LLAMA, SPEC, "spec")]),
+    ("qwen3-moe-235b-a22b-tp2", "qwen3-moe-235b-a22b", 2,
+     [("qwen3-moe-235b-a22b-tp2", QWEN3_MOE, None, "qwen3-moe-235b-a22b")]),
+    ("deepseek-v2-lite-16b-tp2", "deepseek-v2-lite-16b", 2,
+     [("deepseek-v2-lite-16b-tp2", DEEPSEEK, None, "deepseek-v2-lite-16b")]),
+    ("musicgen-medium-tp2", "musicgen-medium", 2,
+     [("musicgen-medium-tp2", MUSICGEN, None, "musicgen-medium")]),
 )
 TOKENS = {}                      # path -> its f32 greedy tokens
+ROUTER_LOGS = {}                 # MoE path -> its router log (moe_gate's)
 # the rectangular KV cache's phase: llama3.2-1b under LLAMA, on the engine
 # and generate with ServeConfig(paged=False)
 RECT = "llama3.2-1b-rect"
@@ -801,9 +834,18 @@ def main():
     free()
     phase("qwen1.5-110b bf16 runs and profiles")
 
-    for name, arch, n, runs in TP_PHASES:
-        report[name] = tp_phase(arch, n, runs, launches)
-        phase(f"{name}: tensor-parallel serving, {n} ranks on one card")
+    def tp_phases():
+        # the TP phases whose unsharded paths have run, those of one size
+        # in one start of their ranks
+        todo = [p for p in TP_PHASES if p[0] not in report
+                and all(v in TOKENS for *_, v in p[3])]
+        for n in sorted({p[2] for p in todo}):
+            group = [(name, arch, runs) for name, arch, k, runs in todo
+                     if k == n]
+            report.update(tp_phase(group, n, launches))
+            phase(f"{', '.join(g[0] for g in group)}: tensor-parallel "
+                  f"serving, {n} ranks on one card")
+    tp_phases()
 
     qwen3 = make_on_card("qwen3-4b")
     report["qwen3-4b"] = serve_paths(qwen3, QWEN3, launches)
@@ -817,6 +859,9 @@ def main():
 
     moe = make_on_card("qwen3-moe-235b-a22b")
     line = check_expert_grid(moe, report)
+    # the grid one rank of qwen3-moe-235b-a22b-tp2 launches: its 64 experts
+    line += check_expert_grid(moe, report, ms=(8,), groups=64,
+                              key="moe_kernel_checks_rank_local")
     lines[FUSED]["expert_grid"] = [
         {k: r[k] for k in r if k in (
             "group", "G", "M", "K", "R", "N", "dtype", "ms", "plain_ms",
@@ -956,6 +1001,7 @@ def main():
     del mg
     free()
     phase("musicgen-medium bf16 run and profile")
+    tp_phases()
 
 
     kernels = []
@@ -1383,12 +1429,13 @@ EXPERT_MS = (8, 40)
 
 
 def check_expert_grid(model, report, ms=EXPERT_MS, seed=SEED + 10,
-                      key="moe_kernel_checks"):
+                      key="moe_kernel_checks", groups=None):
     """#1 with the expert axis as its group axis (G = n_experts, x per
-    group) at layer 0's expert stacks, at each M of `ms`, f32 and bf16,
-    against its plain version; the yardstick is the batched form of the
-    merged rows' library call over unpacked bf16 factors. The rows go to
-    ``report[key]``; returns the f32 M = 8 rows for the kernels line."""
+    group; with `groups`, the first `groups` experts, a tensor-parallel
+    rank's block) at layer 0's expert stacks, at each M of `ms`, f32 and
+    bf16, against its plain version; the yardstick is the batched form of
+    the merged rows' library call over unpacked bf16 factors. The rows go
+    to ``report[key]``; returns the f32 M = 8 rows for the kernels line."""
     import torch
     from repro_torch.kernels import binary_matmul, ref
     from repro_torch.models.transformer import split_layers
@@ -1398,6 +1445,8 @@ def check_expert_grid(model, report, ms=EXPERT_MS, seed=SEED + 10,
     rows = []
     for group, lin in EXPERT_ROWS:
         p = moe[lin]
+        if groups is not None:
+            p = {k: v[:groups].contiguous() for k, v in p.items()}
         G, KW, R = p["qv"].shape
         K, N = KW * 32, p["qu_t"].shape[-1]
         args = (p["qv"], p["qu_t"], p["s1"], p["s2"])
@@ -2161,6 +2210,23 @@ class _EngineLog:
         from repro_torch.serve import engine as E
         layers._route, E.sample_token = self._saved
 
+    def record(self):
+        """What ``moe_gate`` reads of this log, as host arrays (picklable:
+        a TP rank gates against it)."""
+        import types
+        return types.SimpleNamespace(
+            calls=[(o, ti.numpy(), gap.numpy()) for o, ti, gap in self.calls],
+            margins=dict(self.margins))
+
+    @staticmethod
+    def restore(rec):
+        """A :meth:`record` as a log ``moe_gate`` reads."""
+        import types
+        import torch
+        return types.SimpleNamespace(
+            calls=[(o, torch.from_numpy(ti), torch.from_numpy(gap))
+                   for o, ti, gap in rec.calls], margins=rec.margins)
+
     def attach(self, eng):
         from repro_torch.serve.engine import _Resume
         decode, admit, emit = eng._decode_tick, eng._admit_impl, eng._emit
@@ -2288,7 +2354,9 @@ def serve_paths(model, traffic, launches):
             c.launches = 0
         grid = binary_matmul.fused_lowrank_matmul_grouped.grid_launches
         grid.clear()
-        path_log = _EngineLog() if moe else None
+        # the MoE path's log keeps its token margins too: a TP path is
+        # gated against it
+        path_log = _EngineLog(margins=True) if moe else None
         with path_log or contextlib.nullcontext():
             got, eng, wall, st = serve(
                 model, traffic, KernelPolicy(mode="cuda", **fields), mk,
@@ -2296,6 +2364,8 @@ def serve_paths(model, traffic, launches):
         launches[name] = [c.launches for c in counters]
         grid = dict(grid)
         outs[name] = TOKENS[name] = got
+        if moe:
+            ROUTER_LOGS[name] = path_log.record()
         acceptance = eng.spec.acceptance_rate() if spec else None
         ring_rows = eng.kv.ring_pages * eng.kv.page_size \
             if eng.kv is not None and eng.kv.has_ring else None
@@ -2541,11 +2611,34 @@ def _held_bytes(tree, skip=()):
     return held
 
 
+def _expert_stacks(tree):
+    """The routed expert stacks of a parameter tree (stacked or an
+    engine's per-layer list): every ``moe`` dict's linears but its router
+    and shared experts."""
+    out = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                if k == "moe" and isinstance(v, dict):
+                    out.extend(v[n] for n in v if n not in ("router",
+                                                            "shared"))
+                else:
+                    walk(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+    walk(tree)
+    return out
+
+
 def tp_bytes(eng_params, full_params):
     """Bytes of this rank's shards, measured over the tensors its engine
     holds (the merged QKV / gate-up copies apart, as ``merged_rank``),
     against the unsharded model's tensors: the packed words, and every
-    leaf."""
+    leaf; an MoE's routed expert words also on their own (``expert_*``,
+    E / N experts per rank) and the packed words without them
+    (``other_packed_share``)."""
     merged = ("wqkv", "wgu")
     tot = dict(zip(("packed_rank", "all_rank"),
                    _held_bytes(eng_params, merged)))
@@ -2553,6 +2646,13 @@ def tp_bytes(eng_params, full_params):
     tot["merged_rank"] = _held_bytes(eng_params)[1] - tot["all_rank"]
     tot["packed_share"] = tot["packed_rank"] / tot["packed_full"]
     tot["all_share"] = tot["all_rank"] / tot["all_full"]
+    tot["expert_rank"] = _held_bytes(_expert_stacks(eng_params))[0]
+    tot["expert_full"] = _held_bytes(_expert_stacks(full_params))[0]
+    if tot["expert_full"]:
+        tot["expert_share"] = tot["expert_rank"] / tot["expert_full"]
+        tot["other_packed_share"] = (
+            (tot["packed_rank"] - tot["expert_rank"])
+            / (tot["packed_full"] - tot["expert_full"]))
     return tot
 
 
@@ -2570,25 +2670,43 @@ class _Redraw:
         return getattr(self._model, name)
 
 
-def tp_rank(rank, arch, n, runs, want, device="cuda:0", tree_file=None):
-    """One rank of a tensor-parallel phase: the phase's model drawn from
-    the seed on the card (the unsharded phase's weights, bit for bit), an
-    engine for each of `runs` built over a (1, n) mesh of gloo ranks that
-    share the card, and then the unsharded model dropped, so that the
-    rank holds only its shards (and the peak counts its engines only).
-    Each path's launch counts and collectives are set to 0 just before its
-    run and its tokens gated against the unsharded path's `want` (a
-    divergence only at a plain-path near-tie). llama's host draw is read
-    from the parent's `tree_file`. Only rank 0 logs."""
+def tp_rank(rank, phases, n, want, device="cuda:0", tree_file=None,
+            logs=None):
+    """One rank of one or more tensor-parallel phases over a (1, n) mesh
+    of ranks (gloo ranks share the card): for each (name, arch, runs) of
+    `phases` in turn, :func:`_tp_serve` and its seconds. Only rank 0
+    logs."""
     import torch
-    from repro_torch.kernels.ops import KernelPolicy
     from repro_torch.launch.mesh import make_serving_mesh
-    from repro_torch.sharding import comm
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if rank:
         sys.stdout = open(os.devnull, "w")
     mesh = make_serving_mesh(n, device=device)
+    out = {}
+    for name, arch, runs in phases:
+        t0 = time.perf_counter()
+        out[name] = _tp_serve(mesh, arch, runs, want, tree_file, logs)
+        out[name]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _tp_serve(mesh, arch, runs, want, tree_file, logs):
+    """One rank's share of a tensor-parallel phase: the phase's model drawn
+    from the seed on the card (the unsharded phase's weights, bit for
+    bit), an engine for each of `runs` built over `mesh`, and then the
+    unsharded model dropped, so that the rank holds only its shards (and
+    the peak counts its engines only). Each path's launch counts and
+    collectives are set to 0 just before its run and its tokens gated
+    against the unsharded path's `want` (a divergence only at a
+    plain-path near-tie; an MoE's by ``moe_gate`` against the unsharded
+    path's router log in `logs`, which also reads the router). llama's
+    host draw is read from the parent's `tree_file`."""
+    import contextlib
+    import torch
+    from repro_torch.kernels import binary_matmul
+    from repro_torch.kernels.ops import KernelPolicy
+    from repro_torch.sharding import comm
 
     def make():
         return make_llama(tree_file) if arch == "llama3.2-1b" \
@@ -2603,23 +2721,40 @@ def tp_rank(rank, arch, n, runs, want, device="cuda:0", tree_file=None):
     model = _Redraw(make, model.cfg)
     free()
     counters = _counters()
+    grid = binary_matmul.fused_lowrank_matmul_grouped.grid_launches
+    moe = model.cfg.family == "moe"
     for name, traffic, spec, versus in runs:
         torch.cuda.reset_peak_memory_stats()
         for c in counters:
             c.launches = 0
+        grid.clear()
         comm.reset_stats()
-        got, eng, wall, st = serve(model, traffic, None, engine=engines.pop(
-            name))
+        path_log = _EngineLog() if moe else None
+        with path_log or contextlib.nullcontext():
+            got, eng, wall, st = serve(
+                model, traffic, None, engine=engines.pop(name),
+                on_engine=path_log and path_log.attach)
         counts = [c.launches for c in counters]
         collectives = dict(comm.STATS)
-        margin = gate(model, traffic, name, got, want[versus])
+        grids = dict(grid)
+        if moe:
+            ties = moe_gate(name, got, want[versus], path_log,
+                            _EngineLog.restore(logs[versus]))
+            margin = None if ties is None else max(
+                t.get("logit_margin", t.get("router_gap")) for t in ties)
+        else:
+            margin = gate(model, traffic, name, got, want[versus])
         res = {"tokens": {u: t.tolist() for u, t in got.items()},
                "launches": counts, "collectives": collectives,
+               "grid_launches": grids,
                "stats": st, "wall_s": wall, "peak_gib": _peak_gib(),
                "max_divergence_margin": margin,
                "kv_cache_bytes": eng.kv_cache_bytes(),
                "decode_step_ms": 1e3 * st["decode_time_s"]
                / max(1, st["decode_steps"])}
+        if moe:
+            res["near_ties"] = ties
+            res["routes"] = [ti.numpy() for _, ti, _ in path_log.calls]
         if spec:
             res["acceptance_rate"] = eng.spec.acceptance_rate()
         out[name] = res
@@ -2628,14 +2763,19 @@ def tp_rank(rank, arch, n, runs, want, device="cuda:0", tree_file=None):
     return out
 
 
-def tp_template(name, cfg, res):
-    """A TP path's launches and collectives on one rank against the
-    template: G forwards (one all-gather of the logits each; an
-    admission's prefill or a decode step, or a speculative draft or
-    verify); per forward (2 x layers + 1) all-reduces and, per layer, the
-    merged QKV and wo on #1 with gate-up and w_down on #1 (rank up to
-    MAX_FUSED_RANK) or on #4 (two-call: 4 + 2 launches); #2 once per layer
-    of a plain decode step; #3 never."""
+def tp_template(name, cfg, res, n):
+    """A TP path's launches and collectives on one rank of `n` against
+    its family's template: G forwards (one all-gather of the logits each;
+    an admission's prefill or a decode step, or a speculative draft or
+    verify); per forward (2 x layers + 1) all-reduces (each layer's wo and
+    its FFN's w_down, or its MoE layer's one, which carries the shared
+    experts' partial too; the embedding's). #1 per layer and forward: the
+    merged QKV and wo (MLA: wq, w_dkv, w_kr, wo) and, for a dense FFN or
+    the shared experts, gate-up and w_down on #1 (rank up to
+    MAX_FUSED_RANK) or on #4 (two-call: 4 + 2 launches); an MoE layer's
+    three expert linears on #1 at the rank-local grid (G = E / n, x per
+    group). #2 once per GQA layer of a plain decode step (MLA reads its
+    latents with plain ops); #3 never."""
     from repro_torch.core.bpw import rank_for_bpw
     from repro_torch.kernels import binary_matmul
     st, c, counts = res["stats"], res["collectives"], res["launches"]
@@ -2647,43 +2787,70 @@ def tp_template(name, cfg, res):
     if c["all_reduce"] != (2 * L + 1) * G:
         raise AssertionError(f"{name}: {c['all_reduce']} all-reduces over "
                              f"{G} forwards, expected {2 * L + 1} each")
-    twocall = binary_matmul.MAX_FUSED_RANK < rank_for_bpw(
-        cfg.d_ff, cfg.d_model, 1.0, 32)
-    fused, packed = (2, 6) if twocall else (4, 0)
-    want = {FUSED: fused * L * G, PACKED: packed * L * G, MEGA: 0}
+    n_moe = L - cfg.first_k_dense if cfg.family == "moe" else 0
+    ffns = (L - n_moe) + (n_moe if cfg.n_shared_experts else 0)
+    d_ff = cfg.dense_d_ff if cfg.first_k_dense else cfg.d_ff
+    twocall = ffns and binary_matmul.MAX_FUSED_RANK < rank_for_bpw(
+        d_ff, cfg.d_model, 1.0, 32)
+    attn = 4 if cfg.is_mla else 2
+    per = attn * L + 3 * n_moe + (0 if twocall else 2) * ffns
+    want = {FUSED: per * G, PACKED: (6 * ffns if twocall else 0) * G,
+            MEGA: 0}
     if not spec:
-        want[PAGED] = L * st["decode_steps"]
-    bad = {KERNELS[i][0]: (counts[i], n) for i, n in want.items()
-           if counts[i] != n}
+        want[PAGED] = 0 if cfg.is_mla else L * st["decode_steps"]
+    bad = {KERNELS[i][0]: (counts[i], k) for i, k in want.items()
+           if counts[i] != k}
     if bad or (spec and counts[PAGED] == 0):
         raise AssertionError(f"{name}: launches (got, template) {bad}, #2 "
                              f"{counts[PAGED]}")
+    if n_moe:
+        local = res["grid_launches"].get((cfg.n_experts // n, False), 0)
+        if local != 3 * n_moe * G or any(
+                k[0] == cfg.n_experts for k in res["grid_launches"]):
+            raise AssertionError(
+                f"{name}: #1 at the expert grids {res['grid_launches']}, "
+                f"expected 3 x {n_moe} layers x {G} forwards at G = "
+                f"{cfg.n_experts // n} (x per group) and none at G = "
+                f"{cfg.n_experts}")
 
 
-def tp_phase(arch, n, runs, launches, backend="gloo"):
-    """Start `n` ranks for `runs` (see :data:`TP_PHASES`): over gloo, all
-    on the one card; over nccl, rank r on card r (``scripts/
-    tp_nccl_probe.py``). Check every rank's results: the same tokens on
-    every rank (each already gated in its rank), the template, the drained
-    pools. Returns the report; the launch lists gain each path's rank-0
-    counts."""
+def tp_phase(phases, n, launches, backend="gloo"):
+    """Start `n` ranks once for `phases`, (name, arch, runs) each (see
+    :data:`TP_PHASES`): over gloo, all on the one card; over nccl, rank r
+    on card r (``scripts/tp_nccl_probe.py``). Check every rank's results:
+    the same tokens on every rank (each already gated in its rank), an
+    MoE's routers' choices the same on every rank, the template, the
+    drained pools. Returns {phase name: its report}; the launch lists gain
+    each path's rank-0 counts."""
     import tempfile
     from repro_torch.launch.mesh import run_ranks
-    want = {versus: TOKENS[versus] for _, _, _, versus in runs}
+    versus = [v for _, _, runs in phases for *_, v in runs]
+    want = {v: TOKENS[v] for v in versus}
+    logs = {v: ROUTER_LOGS[v] for v in versus if v in ROUTER_LOGS}
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="nq-tp-") as tmp:
         tree_file = None
-        if arch == "llama3.2-1b":
+        if any(arch == "llama3.2-1b" for _, arch, _ in phases):
             tree_file = os.path.join(tmp, "llama.pkl")
             with open(tree_file, "wb") as f:
                 pickle.dump(llama_tree(), f, protocol=5)
         out = run_ranks(tp_rank, n, backend, args=(
-            arch, n, runs, want, "cuda:0" if backend == "gloo" else None,
-            tree_file))
+            phases, n, want, "cuda:0" if backend == "gloo" else None,
+            tree_file, logs))
+    spawn_s = time.perf_counter() - t0
+    return {name: _tp_report({r: out[r][name] for r in range(n)}, n, runs,
+                             launches, backend, spawn_s)
+            for name, _, runs in phases}
+
+
+def _tp_report(out, n, runs, launches, backend, spawn_s):
+    """One phase's report from its ranks' results `out` (see
+    :func:`tp_phase`)."""
+    import numpy as np
     cfg = out[0]["cfg"]
     shared = backend == "gloo"
     where = "one card" if shared else f"{n} cards"
-    timing = "ranks time-sharing one card over gloo" if shared \
+    timing = "ranks time-sharing one card over gloo, not TP speed" if shared \
         else "a card per rank over NCCL"
     report = {"ranks": n, "backend": backend, "devices": [
         out[r]["device"] for r in range(n)],
@@ -2691,35 +2858,55 @@ def tp_phase(arch, n, runs, launches, backend="gloo"):
                      "host memory over gloo (ranks time-sharing the card, "
                      "not TP speed)" if shared
                      else "a card per rank; collectives over NCCL",
-        "phase_s": time.perf_counter() - t0, "bytes": out[0]["bytes"]}
+        "phase_s": out[0]["seconds"], "spawn_s": spawn_s,
+        "bytes": {r: out[r]["bytes"] for r in range(n)}}
     for name, traffic, spec, versus in runs:
+        routes = [out[r][name].pop("routes", None) for r in range(n)]
         for r in range(n):
-            tp_template(f"{name} rank {r}", cfg, out[r][name])
+            tp_template(f"{name} rank {r}", cfg, out[r][name], n)
             if out[r][name]["tokens"] != out[0][name]["tokens"]:
                 raise AssertionError(f"{name}: rank {r}'s tokens differ "
                                      f"from rank 0's")
+            if routes[0] is not None and not (
+                    len(routes[r]) == len(routes[0]) and all(
+                        np.array_equal(a, b)
+                        for a, b in zip(routes[r], routes[0]))):
+                raise AssertionError(f"{name}: rank {r}'s routers chose "
+                                     f"other experts than rank 0's")
         res = dict(out[0][name])
         del res["tokens"]
+        res["grid_launches"] = {f"G={g} x_shared={x}": k for (g, x), k in
+                                res["grid_launches"].items()}
         res["per_rank"] = {r: {k: out[r][name][k] for k in (
             "peak_gib", "wall_s", "decode_step_ms", "launches")}
             for r in range(n)}
         launches[name] = res["launches"]
         report[name] = res
         b = out[0]["bytes"]
+        experts = "" if not b.get("expert_full") else (
+            f"; expert words {b['expert_rank'] / 1e9:.3f} of "
+            f"{b['expert_full'] / 1e9:.3f} GB ({b['expert_share']:.3f}), "
+            f"other packed words {b['other_packed_share']:.3f}")
         log(f"engine {name} f32 over {n} {backend} ranks on {where}: tokens "
             f"match the {versus} path"
             + ("" if res["max_divergence_margin"] is None
                else " up to near-ties")
+            + (f" on every rank, the routers' choices equal on every rank"
+               if cfg.family == "moe" else " on every rank")
             + "; per rank: launches " + ", ".join(
                 f"{k[0]}={c}" for k, c in zip(KERNELS, res["launches"]))
-            + f", {res['collectives']['all_reduce']} all-reduces and "
+            + f" ({res['grid_launches']}), "
+            f"{res['collectives']['all_reduce']} all-reduces and "
             f"{res['collectives']['all_gather']} all-gathers, packed words "
             f"{b['packed_share']:.3f} and all bytes {b['all_share']:.3f} of "
-            f"the unsharded model's (held: {b['all_rank'] / 1e9:.3f} GB, "
-            f"merged copies {b['merged_rank'] / 1e9:.3f} GB), peak "
+            f"the unsharded model's (held: " + "/".join(
+                f"{out[r]['bytes']['all_rank'] / 1e9:.3f}" for r in range(n))
+            + f" GB, merged copies {b['merged_rank'] / 1e9:.3f} GB{experts}"
+            f"), peak "
             + "/".join(f"{out[r][name]['peak_gib']:.2f}" for r in range(n))
-            + f" GiB, {res['decode_step_ms']:.1f} host ms per decode step "
-            f"({timing})"
+            + " GiB, " + "/".join(f"{out[r][name]['decode_step_ms']:.1f}"
+                                  for r in range(n))
+            + f" host ms per decode step ({timing})"
             + ("" if not spec else
                f"; acceptance {res['acceptance_rate']:.3f}"))
     return report

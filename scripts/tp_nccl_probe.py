@@ -1,22 +1,27 @@
 #!/usr/bin/env python3
 """Tensor-parallel serving over NCCL with a card per rank: the
-tensor-parallel phases of ``chip_smoke.py`` (``TP_PHASES``:
-qwen1.5-110b at TP 2 under its traffic, llama3.2-1b at TP 4 under its
-traffic, plain then self-speculative; f32, full width at ``DEPTH``) with
+tensor-parallel phases of ``chip_smoke.py`` (``TP_PHASES``) with
 ``backend="nccl"``, rank r on card r, instead of gloo ranks sharing one
-card. It needs four cards.
+card. By default the phases qwen1.5-110b at TP 2 and llama3.2-1b at TP 4
+(plain then self-speculative); ``--arch A`` runs A's phase instead, at
+``--tp`` ranks (4 by default: qwen3-moe-235b-a22b then holds 32 experts
+and one kv head per rank). f32, full width at ``DEPTH``. It needs a card
+per rank.
 
     python3 scripts/tp_nccl_probe.py
+    python3 scripts/tp_nccl_probe.py --arch qwen3-moe-235b-a22b --tp 4
 
-The kernels are built first; the unsharded llama3.2-1b and qwen1.5-110b
-engine paths run on card 0 and give the tokens each TP path is gated
-against (identical, or a divergence at a plain-path near-tie), then each
-phase starts its ranks. Every rank checks its launches and collectives
-against the template, as in ``chip_smoke.py``. It prints the card's name
-and power limit, each path's line (host ms per decode step, here with
-each collective over NCCL) and the phases' seconds; the records go to
+The kernels are built first; the unsharded engine paths of each phase's
+model run on card 0 and give the tokens each TP path is gated against
+(identical, or a divergence at a plain-path near-tie; an MoE's through
+``moe_gate``), then each phase starts its ranks. Every rank checks its
+launches and collectives against its family's template, as in
+``chip_smoke.py``. It prints the card's name and power limit, each
+path's line (host ms per decode step, here with each collective over
+NCCL) and the phases' seconds; the records go to
 ``chiprun_out/tp_nccl_probe.json``.
 """
+import argparse
 import json
 import os
 import subprocess
@@ -24,16 +29,38 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CARDS = 4
 
 
-def main():
+def phases(cs, arch, n):
+    """The TP phases to run: ``TP_PHASES``' first two, or `arch`'s phase
+    renamed and resized to `n` ranks."""
+    if arch is None:
+        return cs.TP_PHASES[:2]
+    for _, a, _, runs in cs.TP_PHASES:
+        if a == arch:
+            name = f"{arch}-tp{n}"
+            return [(name, arch, n, [
+                (f"{name}{path[len(arch) + 4:]}", traffic, spec, versus)
+                for path, traffic, spec, versus in runs])]
+    sys.exit(f"tp_nccl_probe: no tensor-parallel phase serves {arch}")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default=None,
+                    help="run this arch's TP phase (default: qwen1.5-110b "
+                         "at TP 2 and llama3.2-1b at TP 4)")
+    ap.add_argument("--tp", type=int, default=4,
+                    help="ranks of --arch's phase, a card each")
+    args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import torch
     import chip_smoke as cs
-    if not torch.cuda.is_available() or torch.cuda.device_count() < CARDS:
-        sys.exit(f"tp_nccl_probe: needs {CARDS} CUDA cards")
+    todo = phases(cs, args.arch, args.tp)
+    cards = max(n for _, _, n, _ in todo)
+    if not torch.cuda.is_available() or torch.cuda.device_count() < cards:
+        sys.exit(f"tp_nccl_probe: needs {cards} CUDA cards")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -44,16 +71,18 @@ def main():
     report = {"device": smi, "build_s": build.build_all()}
     launches = {}
     t0 = time.perf_counter()
-    llama = cs.make_llama()
-    cs.serve_paths(llama, cs.LLAMA, launches)
-    del llama
-    qwen = cs.make_on_card("qwen1.5-110b")
-    cs.serve_paths(qwen, cs.QWEN, launches)
-    del qwen
-    cs.free()
+    paths = {p[0]: p[1] for p in cs.PATHS}
+    for _, arch, _, runs in todo:
+        traffic = paths[runs[0][3]]
+        model = cs.make_llama() if arch == "llama3.2-1b" \
+            else cs.make_on_card(arch)
+        cs.serve_paths(model, traffic, launches)
+        del model
+        cs.free()
     report["unsharded_s"] = time.perf_counter() - t0
-    for name, arch, n, runs in cs.TP_PHASES:
-        report[name] = cs.tp_phase(arch, n, runs, launches, backend="nccl")
+    for name, arch, n, runs in todo:
+        report.update(cs.tp_phase([(name, arch, runs)], n, launches,
+                                  backend="nccl"))
         cs.log(f"{name}: {report[name]['phase_s']:.1f} s over NCCL, "
                f"devices {report[name]['devices']}")
     os.makedirs(cs.OUT_DIR, exist_ok=True)

@@ -23,9 +23,10 @@ under the Megatron pairing of ``sharding.rules``. A column-parallel linear
 (``tp="col"``) launches on its d_out shard with no collective; a
 row-parallel one (``tp="row"``) launches on its d_in shard, which gives a
 full-width partial sum, and ONE all-reduce finishes it
-(``sharding.comm.all_reduce_sum``). Merged groups are column-local, the
-paged attention reads the local heads, and the megakernel declines under
-TP, as the reference's does.
+(``sharding.comm.all_reduce_sum``). Merged groups are column-local, an
+expert stack's launch runs the rank's own experts (G = E / N), the paged
+attention reads the local heads, and the megakernel declines under TP,
+as the reference's does.
 """
 from __future__ import annotations
 
@@ -347,8 +348,20 @@ def lowrank_binary_matmul_expert(x, qv, qu_t, s1, s2,
     rounded to x's dtype. eff_rank truncates every expert to the leading
     R' components (all experts share one packed rank). Differentiable in
     x, s1 and s2 through :class:`_LowrankBinaryMatmul`, taken only when a
-    gradient is (as for :func:`lowrank_binary_matmul`)."""
+    gradient is (as for :func:`lowrank_binary_matmul`).
+
+    Expert-parallel under a tensor-parallel mesh: the operands are this
+    rank's block of E / N whole experts (``place_on_mesh``) and `x` is
+    already the matching local slice, the rows dispatched to those
+    experts (``models.layers.moe`` buffers only them), so the launch is
+    #1's grid at G = E / N with no collective, the reference's
+    ``_shard_launch`` over the expert axis. The layer's one all-reduce
+    comes after its combine; a replicated launch followed by it would
+    count every expert N times."""
     p = policy if policy is not None else current_kernel_policy()
+    if x.shape[0] != qv.shape[0]:
+        raise KernelError(f"x holds {x.shape[0]} experts' rows, the packed "
+                          f"stack {qv.shape[0]} experts")
     x = _match_packed_k(x, qv)
     if _wants_grad(x, s1, s2):
         return _LowrankBinaryMatmul.apply(x, qv, qu_t, s1, s2, p, eff_rank,

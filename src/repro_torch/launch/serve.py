@@ -48,11 +48,15 @@ The model is made once (loaded, or the demo quantized) and saved as an
 artifact in a temporary directory that each rank loads; each rank serves
 its shards of it over a ``(data=1, model=N)`` mesh, and only rank 0
 prints, starting with a line that gives the backend, the ranks' devices
-and the mesh. Deadlines, snapshots and ``--supervise`` read one
-process's clock or plan and are refused with ``--tp`` (ROADMAP item 12d).
+and the mesh. The dense, audio and MoE families (MLA among them) serve
+so: an MoE's routed experts are split E / N per rank (expert-parallel),
+the audio family's codebook tables on their vocabulary; the SSM, hybrid
+and VLM families are refused (ROADMAP item 12b). Deadlines, snapshots
+and ``--supervise`` read one process's clock or plan and are refused
+with ``--tp`` (ROADMAP item 12d).
 ``--rect --tp N`` gives each rank its rectangle of kv heads, split with
 the query heads where they divide the model axis and whole where they do
-not (``quant.surgery.kv_layout``).
+not (``quant.surgery.kv_layout``; MLA's latent rectangle whole).
 ``--engine wave`` admits a new batch only once every slot is free (the
 deprecated ``BatchServer``'s admission).
 """
@@ -117,7 +121,9 @@ def _parser() -> argparse.ArgumentParser:
                          "BatchServer)")
     ap.add_argument("--tp", type=int, default=1,
                     help="tensor-parallel degree: serve over a (data=1, "
-                         "model=N) mesh of N ranks")
+                         "model=N) mesh of N ranks (the dense, audio and "
+                         "MoE families; an MoE's experts split E/N per "
+                         "rank)")
     ap.add_argument("--tp-backend", choices=("nccl", "gloo"),
                     default="nccl",
                     help="--tp's process group: nccl (one card per rank) "

@@ -106,32 +106,37 @@ def _ste_matmul(p, x):
     return y * p["s1"].to(x.dtype)
 
 
-def dense(p: dict, x, name: Optional[str] = None):
+def dense(p: dict, x, name: Optional[str] = None, reduce: bool = True):
     """FP, STE-latent or packed-binary linear. x: (..., d_in) -> (...,
     d_out). A packed dict of a draft view (``quant.surgery.
     rank_truncated_view``) carries ``eff_rank``: the kernel then reads only
     the leading rank columns. `name` keys the calibration taps and gives
     the linear's tensor-parallel role (``sharding.rules.tp_role``), as the
     reference's ``dense`` passes it: under a mesh a row-parallel linear's
-    partial sums are all-reduced before its bias, which is added once."""
+    partial sums are all-reduced before its bias, which is added once.
+    ``reduce=False`` leaves a row-parallel linear's partial sums to the
+    caller, who folds them into an all-reduce of its own (the MoE layer's
+    shared experts); its bias is then added on the model axis's rank 0
+    only, so that the sum holds it once."""
     tap = _TAP.get() if name is not None else None
     if tap is not None:
         tap.record_in(name, x)
-    tp = None if kops.current_kernel_policy().mesh is None \
-        else tp_role(name)
+    mesh = kops.current_kernel_policy().mesh
+    tp = None if mesh is None else tp_role(name)
+    finish = tp == "row" and reduce
     if "qu_t" in p:      # packed low-rank binary path (paper Eq. 1)
         y = kops.lowrank_binary_matmul(x, p["qv"], p["qu_t"], p["s1"],
-                                       p["s2"], tp=tp,
+                                       p["s2"], tp=tp if reduce else None,
                                        eff_rank=p.get("eff_rank"))
     elif "lu" in p:      # continuous latents with STE (refinement phase)
         y = _ste_matmul(p, x)
     else:
         y = x @ p["w"].to(x.dtype)
-        if tp == "row":
+        if finish:
             y = kops.finish_row_parallel(y)
     if tap is not None:
         tap.hook_out(name, y)
-    if "b" in p:
+    if "b" in p and (finish or tp != "row" or mesh.tp_rank == 0):
         y = y + p["b"].to(y.dtype)
     return y
 
@@ -512,11 +517,18 @@ def mla_attention(p, cfg, x, positions, cache=None, cache_pos=None,
     :func:`_decode_mask`. Rounding points are the reference's: q, c_kv,
     the RoPE'd q_rope / k_rope, q_lat, each score einsum, the
     probabilities, o_lat and o in x's dtype; the score sum, scale, mask
-    and softmax in f32."""
+    and softmax in f32.
+
+    The head count is read from wq's width, so under tensor parallelism
+    the layer runs on the rank's heads: its column shards of wq and of
+    the FP ``w_uk`` / ``w_uv`` (split on the head axis), wo row-parallel
+    with its all-reduce in :func:`dense`. The role-less ``w_dkv`` / ``w_kr``
+    stay whole, as do the latent pool and rectangle, so every rank writes
+    the same latent rows."""
     B, S, _ = x.shape
-    H = cfg.n_heads
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
     dv, dc = cfg.v_head_dim, cfg.kv_lora_rank
+    H = _width(p["wq"]) // (dn + dr)
     q = dense(p["wq"], x, "attn.wq").reshape(B, S, H, dn + dr)
     q_nope = q[..., :dn]
     q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
@@ -600,16 +612,18 @@ def image_kv(p, cfg, image_embeds):
 # --------------------------------------------------------------------------
 
 
-def ffn(p, x, prefix: str = "ffn"):
+def ffn(p, x, prefix: str = "ffn", reduce: bool = True):
     """SwiGLU FFN; `prefix` names its taps (the MoE's shared experts tap
-    under ``moe.shared``)."""
+    under ``moe.shared``). ``reduce=False``: under a tensor-parallel mesh
+    the row-parallel w_down's partial sums are returned unreduced
+    (:func:`dense`)."""
     if _use_merged(p, "wgu", x):
         d_ff = p["wgu"]["qu_t"].shape[-1]   # gate/up share d_out
         g, u = dense_merged(p["wgu"], x, (d_ff, d_ff))
     else:
         g = dense(p["w_gate"], x, prefix + ".w_gate")
         u = dense(p["w_up"], x, prefix + ".w_up")
-    return dense(p["w_down"], silu(g) * u, prefix + ".w_down")
+    return dense(p["w_down"], silu(g) * u, prefix + ".w_down", reduce)
 
 
 # --------------------------------------------------------------------------
@@ -644,15 +658,19 @@ def _route(p, cfg, xf):
     return topw, topi, probs
 
 
-def _dispatch(xf, topw, topi, E: int, capacity: int):
+def _dispatch(xf, topw, topi, E: int, capacity: int, lo: int = 0,
+              n_local: Optional[int] = None):
     """Sort-based capacity dispatch of t tokens. xf (t, d); topw/topi
     (t, k). The (token, choice) pairs are sorted by expert (stable, so
     earlier tokens first); pair j of expert e takes row j of its buffer
-    while j < capacity, else the trash row. Returns (buf (E, capacity,
-    d), dest, st, sw, keep)."""
+    while j < capacity, else the trash row. Only experts lo .. lo +
+    n_local - 1 (all E by default) get buffers: a pair routed elsewhere
+    is not kept here. Returns (buf (n_local, capacity, d), dest, st, sw,
+    keep)."""
     t, d = xf.shape
     k = topi.shape[-1]
     dev = xf.device
+    n_local = E if n_local is None else n_local
     flat_e = topi.reshape(-1)
     flat_t = torch.arange(t, device=dev).repeat_interleave(k)
     order = torch.argsort(flat_e, stable=True)
@@ -660,11 +678,14 @@ def _dispatch(xf, topw, topi, E: int, capacity: int):
     starts = torch.searchsorted(se, torch.arange(E, device=dev))
     rank = torch.arange(t * k, device=dev) - starts[se]
     keep = rank < capacity
-    dest = torch.where(keep, se * capacity + rank,
-                       torch.full_like(se, E * capacity))   # overflow: trash
-    buf = xf.new_zeros((E * capacity + 1, d))
+    if n_local != E:
+        keep = keep & (se >= lo) & (se < lo + n_local)
+    dest = torch.where(keep, (se - lo) * capacity + rank,
+                       torch.full_like(se, n_local * capacity))  # trash
+    buf = xf.new_zeros((n_local * capacity + 1, d))
     buf[dest] = xf[st] * keep[:, None].to(xf.dtype)
-    return buf[:E * capacity].reshape(E, capacity, d), dest, st, sw, keep
+    return buf[:n_local * capacity].reshape(n_local, capacity, d), dest, \
+        st, sw, keep
 
 
 def _combine(ob, dest, st, sw, keep, t: int):
@@ -675,6 +696,22 @@ def _combine(ob, dest, st, sw, keep, t: int):
     return ob.new_zeros((t, ob.shape[-1])).index_add_(0, st, contrib)
 
 
+def _expert_range(p, cfg):
+    """(first expert, experts held) of the routed stacks in `p`: all E,
+    or under a tensor-parallel mesh this rank's block of E / N experts
+    (``sharding.rules``: the stacks split on E, each expert whole)."""
+    lin = p["w_gate"]
+    held = next(lin[k] for k in ("qu_t", "w", "lu") if k in lin).shape[0]
+    if held == cfg.n_experts:
+        return 0, held
+    mesh = kops.current_kernel_policy().mesh
+    if mesh is None:
+        raise ValueError(f"the expert stacks hold {held} of "
+                         f"{cfg.n_experts} experts, and the kernel policy "
+                         f"in force carries no mesh")
+    return mesh.tp_rank * held, held
+
+
 def moe(p, cfg, x, capacity: Optional[int] = None):
     """Capacity-bounded sort-based MoE over the B·S rows of the call, one
     dispatch group (the JAX package groups by its data-parallel degree,
@@ -682,7 +719,18 @@ def moe(p, cfg, x, capacity: Optional[int] = None):
     buffer, the three expert linears (each one launch of kernel #1 over
     all E experts), combine, plus the shared experts' FFN when present.
     A token routed to an expert past its capacity loses that expert's
-    contribution."""
+    contribution.
+
+    Expert-parallel under a tensor-parallel mesh (the reference's
+    ``_shard_launch`` over the expert axis, made explicit): every rank
+    routes all the rows with the replicated f32 router and sorts the same
+    pairs, so capacity and drops are the unsharded layer's; it buffers
+    only the pairs of its own E / N experts, launches #1 over its local
+    stacks (G = E / N) and combines their rows. The shared experts'
+    row-parallel partial joins that partial sum, and ONE all-reduce
+    finishes the layer, as one finishes a dense FFN. The routed w_down is
+    never all-reduced on its own: its rows are whole experts, not a d_in
+    shard."""
     B, S, d = x.shape
     T = B * S
     E = cfg.n_experts
@@ -694,15 +742,18 @@ def moe(p, cfg, x, capacity: Optional[int] = None):
         capacity = int(math.ceil(T * cfg.n_experts_per_tok / E
                                  * cfg.capacity_factor))
         capacity = max(8, -(-capacity // 8) * 8)
-    eb, dest, st, sw, keep = _dispatch(xf, topw, topi, E, capacity)
+    lo, held = _expert_range(p, cfg)
+    eb, dest, st, sw, keep = _dispatch(xf, topw, topi, E, capacity, lo,
+                                       held)
     h = silu(dense_expert(p["w_gate"], eb, "moe.w_gate")) \
         * dense_expert(p["w_up"], eb, "moe.w_up")
-    ob = dense_expert(p["w_down"], h, "moe.w_down")      # (E, capacity, d)
-    y = _combine(ob.reshape(E * capacity, d), dest, st, sw, keep, T)
+    ob = dense_expert(p["w_down"], h, "moe.w_down")   # (held, capacity, d)
+    y = _combine(ob.reshape(held * capacity, d), dest, st, sw, keep, T)
     y = y.reshape(B, S, d).to(x.dtype)
+    parallel = held != E
     if cfg.n_shared_experts:
-        y = y + ffn(p["shared"], x, "moe.shared")
-    return y
+        y = y + ffn(p["shared"], x, "moe.shared", reduce=not parallel)
+    return kops.finish_row_parallel(y) if parallel else y
 
 
 def moe_dense_oracle(p, cfg, x):

@@ -150,24 +150,37 @@ def embed_tokens(params, cfg, tokens):
     to the sum of each codebook's embedding, in codebook order.
 
     An embedding of fewer than ``vocab_size`` rows is one rank's
-    vocabulary shard (``place_on_mesh``): the vocab-parallel lookup gives
-    the rows of ids in the rank's range and zeros elsewhere, and one
-    all-reduce sums them (each id's row comes from one rank, so the sum is
-    that row exactly)."""
+    vocabulary shard (``place_on_mesh``; the audio family's (K, V, d)
+    tables split on V, each codebook's alike): the vocab-parallel lookup
+    gives the rows of ids in the rank's range and zeros elsewhere, and
+    one all-reduce sums them (each id's row comes from one rank, so the
+    sum is that row exactly). The audio family's rows are all-reduced per
+    codebook, as one (..., K, d) tensor, and then summed in codebook order
+    as the whole tables are, so the frame's embedding is the unsharded
+    one bit for bit."""
     emb = params["embed"]
-    if cfg.family != "audio":
-        if emb.shape[0] == cfg.vocab_size:
+    audio = cfg.family == "audio"
+    n = emb.shape[-2]
+    if n == cfg.vocab_size:
+        if not audio:
             return emb[tokens]
+        rows = [emb[k][tokens[..., k]] for k in range(cfg.n_codebooks)]
+    else:
         mesh = _tp_mesh("embedding")
-        n = emb.shape[0]
         local = tokens - mesh.tp_rank * n
         mine = (local >= 0) & (local < n)
-        x = torch.where(mine[..., None], emb[local.clamp(0, n - 1)],
-                        torch.zeros((), dtype=emb.dtype, device=emb.device))
-        return comm.all_reduce_sum(x, mesh)
-    x = emb[0][tokens[..., 0]]
-    for k in range(1, cfg.n_codebooks):
-        x = x + emb[k][tokens[..., k]]
+        local = local.clamp(0, n - 1)
+        rows = emb[local] if not audio else torch.stack(
+            [emb[k][local[..., k]] for k in range(cfg.n_codebooks)], -2)
+        rows = comm.all_reduce_sum(torch.where(
+            mine[..., None], rows,
+            torch.zeros((), dtype=emb.dtype, device=emb.device)), mesh)
+        if not audio:
+            return rows
+        rows = rows.unbind(-2)
+    x = rows[0]
+    for r in rows[1:]:
+        x = x + r
     return x
 
 

@@ -426,8 +426,13 @@ def place_on_mesh(params, cfg: ModelConfig, mesh, policy=None):
     """This rank's shards of a (quantized or FP) parameter tree on a
     serving mesh per ``sharding.rules``: packed U/s1 d_out-sharded for
     column-parallel projections, packed V/s2 d_in-sharded for row-parallel
-    ones, FP ``w`` / ``b`` paired the same way, the embedding and lm head
-    split on the vocabulary, everything non-divisible whole. The default
+    ones, FP ``w`` / ``b`` paired the same way, an MoE's routed expert
+    stacks split on E with every expert's factors whole (the router
+    whole, the shared experts' FFN paired as a dense FFN), MLA's
+    ``w_uk`` / ``w_uv`` on the head axis and its role-less ``w_dkv`` /
+    ``w_kr`` whole, the embedding (the audio family's K tables alike) and
+    lm head split on the vocabulary, everything non-divisible whole. The
+    default
     policy is :data:`repro_torch.sharding.rules.SERVE` (tensor-parallel
     only, V replicated), the layout the launches of ``kernels.ops`` read.
     Returns a new tree of contiguous tensors (a whole leaf is the input's

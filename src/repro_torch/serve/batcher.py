@@ -23,7 +23,8 @@ class BatchServer:
     `scfg` gives the engine, the paged pool (an overcommitted pool's
     preemptions requeue work mid-wave) or the rectangle
     (``paged=False``). Extra engine kwargs (``device=``, ``policy=``,
-    ``mesh=``) pass straight through."""
+    ``mesh=``: the families ``engine.check_tp_serving`` admits) pass
+    straight through."""
 
     def __init__(self, params, cfg: ModelConfig, scfg: ServeConfig,
                  max_batch: int = 8, max_len: int = 512, seed: int = 0,

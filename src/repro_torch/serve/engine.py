@@ -243,21 +243,23 @@ def _device_side(err: BaseException) -> bool:
         isinstance(err, RuntimeError) and "cuda" in str(err).lower())
 
 
-# the families tensor-parallel serving covers (ROADMAP item 12b: the rest)
-TP_FAMILIES = ("dense",)
+# the families tensor-parallel serving covers (MLA is the moe family with
+# ``cfg.is_mla``); ROADMAP item 12b's second half: the SSM, hybrid and VLM
+TP_FAMILIES = ("dense", "audio", "moe")
 
 
 def check_tp_serving(cfg: ModelConfig, mesh, faults=None) -> None:
-    """Raise unless an engine can serve `cfg` over `mesh`: the dense family
-    only (expert-parallel MoE, MLA, SSM, hybrid, VLM and audio wait for
-    ROADMAP item 12b), no fault plan (it fires on one process's plan,
+    """Raise unless an engine can serve `cfg` over `mesh`: the dense,
+    audio and MoE families (MLA among them; the SSM, hybrid and VLM wait
+    for ROADMAP item 12b), no fault plan (it fires on one process's plan,
     ROADMAP item 12d), query heads that divide the model axis, and, where
     the kv heads do not, each rank's query heads inside one GQA group
-    (``quant.surgery.kv_layout``)."""
+    (``quant.surgery.kv_layout``); an MoE's routed experts and its shared
+    experts' FFN width divide the model axis too."""
     n = mesh.tp
     if cfg.family not in TP_FAMILIES:
         raise NotImplementedError(
-            f"tensor-parallel serving covers the {TP_FAMILIES} family; "
+            f"tensor-parallel serving covers the {TP_FAMILIES} families; "
             f"{cfg.family!r} waits for ROADMAP item 12b")
     if faults is not None:
         raise NotImplementedError(
@@ -266,6 +268,15 @@ def check_tp_serving(cfg: ModelConfig, mesh, faults=None) -> None:
     if cfg.n_heads % n:
         raise NotImplementedError(
             f"{cfg.n_heads} query heads do not divide over {n} ranks")
+    if cfg.family == "moe":
+        if cfg.n_experts % n:
+            raise NotImplementedError(
+                f"{cfg.n_experts} experts do not divide over {n} ranks")
+        shared = cfg.n_shared_experts * cfg.moe_d_ff
+        if shared % n:
+            raise NotImplementedError(
+                f"the shared experts' FFN width {shared} does not divide "
+                f"over {n} ranks")
     kv_layout(cfg, mesh)
 
 
@@ -273,7 +284,9 @@ def check_tp_layout(cfg: ModelConfig, params, mesh) -> None:
     """Raise unless ``place_on_mesh`` splits every linear of the layers as
     the launches read it: a column-parallel one on d_out only (wk / wv
     whole where ``kv_layout`` replicates the kv heads), a row-parallel one
-    on d_in only. The reference falls back to a whole linear where a shape
+    on d_in only, a routed expert stack on its expert axis only (each
+    expert whole: the rank's launch of #1 runs its experts' full
+    factors). The reference falls back to a whole linear where a shape
     does not divide and lets GSPMD regather its activation; explicit TP
     has no regather, so such a model is refused here."""
     from repro_torch.core.util import leaves_with_path
@@ -288,10 +301,18 @@ def check_tp_layout(cfg: ModelConfig, params, mesh) -> None:
             continue
         if kv_whole and parts[-2] in ("wk", "wv"):
             continue
-        on = [i - len(spec) for i, e in enumerate(spec)
+        on = [i for i, e in enumerate(spec)
               if e == "model" or (isinstance(e, tuple) and "model" in e)]
+        if "moe" in parts and "shared" not in parts:
+            # a routed expert stack (the shared experts' FFN is Megatron's)
+            if on != [T.lead_axes(parts[0])]:
+                raise NotImplementedError(
+                    f"{path} would be placed {spec} over {mesh.shape}: "
+                    f"expert-parallel serving needs each routed expert "
+                    f"stack split on its expert axis only")
+            continue
         dim = want[role].get(parts[-1])
-        if on != ([] if dim is None else [dim]):
+        if [i - len(spec) for i in on] != ([] if dim is None else [dim]):
             raise NotImplementedError(
                 f"{path} would be placed {spec} over {mesh.shape}: "
                 f"tensor-parallel serving needs each {role}-parallel linear "
@@ -464,10 +485,13 @@ class InferenceEngine:
     shards (``quant.surgery.place_on_mesh`` under
     ``sharding.rules.SERVE``), merges its own QKV / gate-up
     shards, allocates its kv heads of the pool or the rectangle (whole
-    where they do not divide, ``quant.surgery.kv_layout``) and runs every
-    launch of
-    ``kernels.ops`` on them, with the all-reduces and the logits'
-    all-gather between (see :func:`check_tp_serving` for what it serves).
+    where they do not divide, ``quant.surgery.kv_layout``; MLA's latent
+    pool whole) and runs every launch of ``kernels.ops`` on them, with
+    the all-reduces and the logits' all-gather between (see
+    :func:`check_tp_serving` for what it serves). An MoE is
+    expert-parallel: each rank holds E / N whole experts, routes every
+    row with the replicated router and launches #1's grid over its own
+    experts (``models.layers.moe``).
     The ranks run SPMD: each receives the same ``submit`` / ``step`` /
     ``run`` calls, the scheduler is deterministic given them, and every
     rank holds the same full logits, so greedy tokens and seeded samples

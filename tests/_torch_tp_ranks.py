@@ -172,3 +172,125 @@ def rank_checks(rank, case):
     except RuntimeError as e:
         out["lockstep"] = str(e)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the audio and MoE families (tests/test_torch_tp_families.py)
+# ---------------------------------------------------------------------------
+
+
+class _Spies:
+    """While open: every router call's chosen experts, and every call of
+    #1's wrapper as (groups, x per group)."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self.routes, self.grids = [], []
+        route = layers._route
+        grouped = binary_matmul.fused_lowrank_matmul_grouped
+        self._real = (route, grouped)
+
+        def spy_route(p, cfg, xf):
+            out = route(p, cfg, xf)
+            self.routes.append(out[1].numpy().copy())
+            return out
+
+        def spy_grouped(x, qv, *a, **kw):
+            self.grids.append((int(qv.shape[0]), bool(kw.get("x_shared"))))
+            return grouped(x, qv, *a, **kw)
+        layers._route = spy_route
+        binary_matmul.fused_lowrank_matmul_grouped = spy_grouped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+        layers._route, binary_matmul.fused_lowrank_matmul_grouped = self._real
+
+
+def _family_run(tree, cfg, mesh, prompts, budgets, policy, **scfg):
+    """One engine run of a family's model over this rank's shards: tokens,
+    stats, collectives, the cache's leaf shapes, the routers' choices and
+    #1's calls by grid."""
+    eng = InferenceEngine(params_from_numpy(tree, "cpu"), cfg,
+                          ServeConfig(greedy=True, page_size=8, debug=True,
+                                      **scfg),
+                          max_batch=2, max_len=48, device="cpu",
+                          policy=policy, mesh=mesh)
+    comm.reset_stats()
+    with _Spies() as spies:
+        toks, stats = serve(eng, prompts, budgets)
+    cache = {stack: {k: tuple(v.shape) for k, v in leaves.items()}
+             for stack, leaves in eng.cache.items()}
+    return {"tokens": toks, "stats": stats, "comm": dict(comm.STATS),
+            "cache": cache, "kv_bytes": eng.kv_cache_bytes(),
+            "drained": _drained(eng), "routes": spies.routes,
+            "grids": spies.grids}
+
+
+def _expert_launches(case, mesh):
+    """#1's expert launch on this rank's block of the stack, placed by
+    ``place_on_mesh`` (the qwen3-moe smoke config's rules), x the
+    matching slice of the dispatch buffer: fused, two-call and ref."""
+    from repro_torch.models import layers
+    cfg = case["qwen_cfg"]
+    stack = place_on_mesh(params_from_numpy(case["experts"], "cpu"), cfg,
+                          mesh)["layers"]["moe"]["w_gate"]
+    lin = {k: v[0] for k, v in stack.items()}
+    with ops.kernel_policy(ops.KernelPolicy(mesh=mesh)):
+        lo, held = layers._expert_range({"w_gate": lin}, cfg)
+    xs = torch.from_numpy(case["expert_x"])[lo:lo + held]
+    out = {"range": (lo, held)}
+    for name, pol in (("fused", ops.KernelPolicy(mode="cuda", mesh=mesh)),
+                      ("ref", ops.KernelPolicy(mode="ref", mesh=mesh))):
+        out[name] = ops.lowrank_binary_matmul_expert(
+            xs, *_ops(lin), policy=pol).numpy()
+    keep = binary_matmul.MAX_FUSED_RANK
+    binary_matmul.MAX_FUSED_RANK = 16
+    try:
+        out["twocall"] = ops.lowrank_binary_matmul_expert(
+            xs, *_ops(lin), policy=ops.KernelPolicy(mode="cuda",
+                                                   mesh=mesh)).numpy()
+    finally:
+        binary_matmul.MAX_FUSED_RANK = keep
+    return out
+
+
+def family_checks(rank, case):
+    """Everything ``tests/test_torch_tp_families.py`` reads, from one rank:
+    the rank-local expert launch, the audio family's vocab-parallel
+    embedding, and the engines of qwen3-moe (paged, rectangle, prefix,
+    speculative), deepseek (MLA; paged and rectangle) and musicgen (paged
+    and rectangle) over this rank's shards."""
+    from repro_torch.kernels.ops import kernel_policy
+    from repro_torch.models import transformer as T
+    torch.manual_seed(0)
+    mesh = make_serving_mesh(TP, device="cpu")
+    out = {"rank": rank, "experts": _expert_launches(case, mesh)}
+
+    # the audio family's embedding, sharded and whole
+    mcfg = case["musicgen_cfg"]
+    full = params_from_numpy(case["musicgen"], "cpu")
+    local = place_on_mesh(full, mcfg, mesh)
+    frames = torch.from_numpy(case["frames"]).long()
+    with kernel_policy(ops.KernelPolicy(mode="cuda", mesh=mesh)):
+        out["embed"] = (T.embed_tokens(local, mcfg, frames).numpy(),
+                        T.embed_tokens(full, mcfg, frames).numpy(),
+                        tuple(local["embed"].shape))
+
+    cuda, ref = ops.KernelPolicy(mode="cuda"), ops.KernelPolicy(mode="ref")
+    for name, paged in (("paged", True), ("rect", False)):
+        for arch in ("qwen", "deepseek", "musicgen"):
+            out[f"{arch}_{name}"] = _family_run(
+                case[arch], case[f"{arch}_cfg"], mesh,
+                case[f"{arch}_prompts"], case["budgets"], cuda,
+                paged=paged, prefix_cache=False)
+    out["qwen_prefix"] = _family_run(
+        case["qwen"], case["qwen_cfg"], mesh, case["shared_prompts"],
+        case["shared_budgets"], cuda)
+    # the draft's near-ties follow the policy's rounding: the spec
+    # counters are held to JAX's under the policy JAX's CPU engine runs
+    out["qwen_spec"] = _family_run(
+        case["qwen_spec"], case["qwen_cfg"], mesh, case["qwen_prompts"],
+        case["budgets"], ref, prefix_cache=False, spec_rank_frac=0.5,
+        spec_k=4)
+    return out

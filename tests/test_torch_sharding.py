@@ -7,8 +7,9 @@ against the JAX package, on the CPU.
   arch's FP and 1.0-bpw templates under ``DEFAULT`` and ``SERVE`` on
   abstract meshes (1, 2), (1, 4), (1, 8), (2, 2) and (2, 2, 2).
 - ``place_on_mesh``: each rank's shards equal the full arrays cut by JAX's
-  spec, but for the recorded departure (wk / wv whole where the kv heads
-  do not divide the model axis).
+  spec (the dense, MoE, MLA and audio smoke configs), but for the
+  recorded departure (wk / wv whole where the kv heads do not divide the
+  model axis).
 - One spawn of two gloo ranks (``tests/_torch_tp_ranks.py``) runs the
   column, row and merged launches (fused, and the two-call route with
   ``MAX_FUSED_RANK`` lowered) against JAX's oracle at f32 1e-5, the
@@ -61,6 +62,10 @@ POLICIES = (("DEFAULT", jrules.DEFAULT, trules.DEFAULT),
             ("SERVE", jrules.SERVE, trules.SERVE))
 ARCHS = jconfigs.list_archs()
 DENSE = ("llama3.2-1b", "qwen1.5-110b", "qwen3-4b")
+# the families tensor-parallel serving places (the MoE's experts cut on E,
+# MLA's w_uk / w_uv by head, the audio tables on V)
+PLACED = DENSE + ("qwen3-moe-235b-a22b", "deepseek-v2-lite-16b",
+                  "musicgen-medium")
 
 
 def _jspecs(tree) -> dict:
@@ -179,7 +184,7 @@ def _np(t) -> np.ndarray:
     return t.numpy() if t.dtype != torch.bfloat16 else t.float().numpy()
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PLACED)
 @pytest.mark.parametrize("kind", ["fp", "packed"])
 def test_place_on_mesh_cuts_by_jax_specs(arch, kind):
     cfg = f32(get_smoke(arch))
@@ -499,9 +504,7 @@ def _tiny_params():
     return R.params_from_numpy(packed_model(R.TP_CFG, 0, min_dim=32), "cpu")
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "mamba2-370m",
-                                  "deepseek-v2-lite-16b", "zamba2-1.2b",
-                                  "musicgen-medium",
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-1.2b",
                                   "llama-3.2-vision-90b"])
 def test_tp_refuses_other_families(arch):
     cfg = f32(get_smoke(arch))
