@@ -239,25 +239,37 @@ Phases, each printing its own line(s); any failure exits non-zero:
    model at TP 4 under ``LLAMA``, f32, plain then self-speculative) after
    the qwen1.5-110b phase, and after the musicgen phase (its last family's
    unsharded paths) ``qwen3-moe-235b-a22b-tp2``,
-   ``deepseek-v2-lite-16b-tp2`` and ``musicgen-medium-tp2`` (each family's
-   model at TP 2 under its traffic, f32): an MoE rank holds E / 2 whole
-   experts, routes every row with the replicated router and launches #1's
-   grid over its own (G = 64 for qwen3-moe, 32 for deepseek), MLA splits
-   wq / w_uk / w_uv / wo by head and keeps w_dkv, w_kr and the latent pool
-   whole, musicgen's codebook tables split on the vocabulary; phases of
-   one size share one start of their ranks (each rank serves their
-   models in turn, each drawn and dropped). On every
+   ``deepseek-v2-lite-16b-tp2``, ``musicgen-medium-tp2``,
+   ``mamba2-370m-tp2``, ``zamba2-1.2b-tp2`` and
+   ``llama-3.2-vision-90b-tp2`` (each family's model at TP 2 under its
+   traffic, f32): an MoE rank holds E / 2 whole experts, routes every row
+   with the replicated router and launches #1's grid over its own (G = 64
+   for qwen3-moe, 32 for deepseek), MLA splits wq / w_uk / w_uv / wo by
+   head and keeps w_dkv, w_kr and the latent pool whole, musicgen's
+   codebook tables split on the vocabulary, a Mamba2 mixer (mamba2 and
+   zamba2) runs on the rank's SSD heads (wz / wx / out_proj split, wB /
+   wC / wdt whole, the gated norm's sum of squares all-reduced, the
+   state's heads and d_inner columns), zamba2's shared block and the
+   VLM's self and cross blocks on the rank's heads (the VLM's image K/V
+   by kv head); phases of one size share one start of their ranks (each
+   rank serves their models in turn, each drawn and dropped). On every
    rank: greedy tokens equal the unsharded path's (``megakernel``,
    ``spec``, ``qwen1.5-110b``, the family's path) up to near-ties of the
    plain path (an MoE's by ``moe_gate`` against its unsharded path's
    router log), an MoE's router choices equal on every rank; launches per
-   forward by the family's template (#1 and #4 per layer, the expert grid
-   at G = E / N, #2 per GQA layer and decode forward, #3 none); per
-   forward 2 x layers + 1 all-reduces (an MoE layer's one carries its
-   shared experts' partial) and one all-gather; the drained pool; the
-   bytes the rank holds against the unsharded model's (packed words,
-   expert words, all), its peak GiB and host ms per decode step (ranks
-   time-sharing one card over gloo, not TP speed);
+   forward by the family's template (#1 and #4 per layer and packed mixer
+   projection, the expert grid at G = E / N, #2 per GQA self-attention
+   block and decode forward, #3 none); per forward 2 all-reduces per
+   attention block (an MoE layer's one carries its shared experts'
+   partial) and per Mamba2 layer, 1 for the embedding, and one
+   all-gather; the drained pool; the bytes the rank holds against the
+   unsharded model's (packed words, expert words, all), its peak GiB and
+   host ms per decode step (ranks time-sharing one card over gloo, not
+   TP speed). The VLM's phase also runs one ``forward`` of
+   ``VISION_IMAGE``'s prompts with their images on every rank, its
+   last-position logits held to the plain path's (the same argmax per
+   row, or a near-tie; the largest relative difference recorded) and its
+   launches to the template (#1 for the cross blocks' wk / wv too);
 7. qwen3-4b — full width, cut to 4 of its 36 layers (``DEPTH``; per-head
    qk_norm, which rules out #3) at 1.0 bpw, weights drawn on the card, under the llama
    traffic on the path ``qwen3-4b`` (#1 and #2 only), gated like the
@@ -315,7 +327,9 @@ Phases, each printing its own line(s); any failure exits non-zero:
 11. zamba2-1.2b — kernel #1 at the hybrid's mixer shapes (wz, K 2048 ->
    N 4096 at rank 1344, the shape of wx too; wdt, -> 64 at rank 32, a
    partial tile in both stages; out_proj, K 4096 -> 2048 at rank 1344) at
-   M 8 and 256, f32 and bf16; #2 and #3 at the shared attention block's
+   M 8 and 256, and at one rank's shards of its TP 2 phase (wz on d_out
+   2048, out_proj on d_in 2048) at M 8, f32 and bf16; #2 and #3 at the
+   shared attention block's
    decode shape (B 8, 32 query heads over 32 kv heads: G = 1, D 64, pages
    of 64) over a ring-wrapped table of 64 entries (4096 rows, q_pos in
    [4096, 4400), cache_pos = q_pos % 4096, window 4096) and an unwrapped
@@ -343,7 +357,9 @@ Phases, each printing its own line(s); any failure exits non-zero:
    version beside its unfused chain; #1 at the image K/V projection (wk,
    K 8192 -> N 1024 at rank 864, M = 4 images x 1024 patches = 4096) and
    at the cross block's wq at M 4; #4 at the vision FFN's four two-call
-   stages (rank 6336) at M 4; f32 and bf16. Then the model at full width,
+   stages (rank 6336) at M 4, whole and at one rank's shards of its TP 2
+   phase (w_gate's U on d_out 14336, w_down's V on 448 words of d_in);
+   f32 and bf16. Then the model at full width,
    cut to 5 of its 100 layers (``DEPTH``: one group of 4 self-attention
    blocks over the paged pool and one gated cross-attention block over
    per-slot image K/V) at 1.0 bpw, weights drawn on the card, on the paths
@@ -353,7 +369,9 @@ Phases, each printing its own line(s); any failure exits non-zero:
    ``llama-3.2-vision-90b-image`` (the port's ``generate`` of
    ``VISION_IMAGE``: 4 prompts of 32 tokens, each with its own 1024 seeded
    image tokens, 8 new; #1, its image K/V projection at M 4096, #3 and
-   #4), launches of #1-#4 per forward asserted from the template (a quiet
+   #4; the plain path's forward of those prompts and images gives the
+   last-position logits the TP phase's image forward is held to),
+   launches of #1-#4 per forward asserted from the template (a quiet
    fallback from #3 to its chain fails the run), each gated like the llama
    paths against the same entry point on the plain oracles. Then one bf16
    run over ``VISION`` (decode tok/s, TTFT, peak memory, the pool's bytes
@@ -513,8 +531,10 @@ MUSICGEN = dict(LLAMA, arch="musicgen-medium")
 # qwen1.5-110b 4 -> 2, qwen3-4b 9 -> 4, qwen3-moe 3 -> 2, deepseek 3 -> 2
 # (its dense layer and one MoE layer), mamba2 4 -> 2 and musicgen 4 -> 2,
 # with QUANT_DEPTH's musicgen and mamba2 2 -> 1 (PERF.md
-# lists the seconds each saved). The layers each model is served at
-# (width untouched; every other model at full depth)
+# lists the seconds each saved). The TP phases of the SSM, hybrid and VLM
+# families, joining that start of two ranks, added 3.0 s to it (27.8 s
+# against 24.8 s on that card) and needed no cut. The layers each model
+# is served at (width untouched; every other model at full depth)
 DEPTH = {"llama3.2-1b": 1, "qwen1.5-110b": 2, "qwen3-4b": 4,
          "qwen3-moe-235b-a22b": 2, "llama-3.2-vision-90b": 5,
          "deepseek-v2-lite-16b": 2, "mamba2-370m": 2, "zamba2-1.2b": 6,
@@ -678,7 +698,9 @@ PATHS = (
 # settings, the unsharded path whose tokens gate it)]); every rank on the
 # one card, over gloo. Each runs once its unsharded paths have run; the
 # MoE phases are expert-parallel (E / N experts per rank) and gated by
-# ``moe_gate`` against their unsharded path's router log
+# ``moe_gate`` against their unsharded path's router log; the SSM and
+# hybrid phases split each Mamba2 mixer by SSD head; the VLM's phase also
+# holds one forward with ``VISION_IMAGE``'s images to the unsharded one
 TP_PHASES = (
     ("qwen1.5-110b-tp2", "qwen1.5-110b", 2,
      [("qwen1.5-110b-tp2", QWEN, None, "qwen1.5-110b")]),
@@ -691,8 +713,17 @@ TP_PHASES = (
      [("deepseek-v2-lite-16b-tp2", DEEPSEEK, None, "deepseek-v2-lite-16b")]),
     ("musicgen-medium-tp2", "musicgen-medium", 2,
      [("musicgen-medium-tp2", MUSICGEN, None, "musicgen-medium")]),
+    ("mamba2-370m-tp2", "mamba2-370m", 2,
+     [("mamba2-370m-tp2", MAMBA, None, "mamba2-370m")]),
+    ("zamba2-1.2b-tp2", "zamba2-1.2b", 2,
+     [("zamba2-1.2b-tp2", ZAMBA, None, "zamba2-1.2b")]),
+    ("llama-3.2-vision-90b-tp2", "llama-3.2-vision-90b", 2,
+     [("llama-3.2-vision-90b-tp2", VISION, None, "llama-3.2-vision-90b")]),
 )
 TOKENS = {}                      # path -> its f32 greedy tokens
+# the VLM's plain-path forward of VISION_IMAGE's prompts with their images:
+# (its last-position f32 logits, per row the top-2 margin and tolerance)
+IMAGE_LOGITS = {}
 ROUTER_LOGS = {}                 # MoE path -> its router log (moe_gate's)
 # the rectangular KV cache's phase: llama3.2-1b under LLAMA, on the engine
 # and generate with ServeConfig(paged=False)
@@ -1536,6 +1567,18 @@ def check_mamba_kernels(model, report):
     return rows
 
 
+def rank_shard(cfg, lp, n=2, rank=0):
+    """Rank `rank`'s shards of one layer's params `lp` (no leading axes)
+    over a (1, n) serving mesh, as ``place_on_mesh`` cuts them for the
+    tensor-parallel phases (no process group: placement needs none)."""
+    import torch
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.quant.surgery import place_on_mesh
+    mesh = Mesh(("data", "model"), (1, n), {"data": 0, "model": rank}, None,
+                torch.device("cuda"), "gloo")
+    return place_on_mesh({"layers": lp}, cfg, mesh)["layers"]
+
+
 def check_zamba_kernels(model, report):
     """#1 at zamba2-1.2b's mixer shapes against its plain version, f32 and
     bf16, at M 8 and 256: wz (K 2048 -> N 4096, rank 1344; wx has the same
@@ -1546,13 +1589,17 @@ def check_zamba_kernels(model, report):
     D 64, pages of 64, window 4096; #3 with the shared block's merged QKV
     and wo), over a ring-wrapped table of 64 entries (q_pos in [4096,
     4400), cache_pos = q_pos % 4096) and an unwrapped one of 4 entries,
-    f32 and bf16. Returns every row."""
+    f32 and bf16. #1 also at one rank's shards of zamba2-1.2b-tp2 (wz on
+    d_out 2048, out_proj on d_in 2048: 64 of 128 SSD heads) at M 8.
+    Returns every row."""
     import torch
     from repro_torch.quant.surgery import merge_projection_groups
     gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
     cfg = model.cfg
     rows = check_fused(layer0(model), ("wz", "wdt", "out_proj"), (8, 256),
                        gen, cfg.name)
+    rows += check_fused(rank_shard(cfg, layer0(model)), ("wz", "out_proj"),
+                        (8,), gen, f"{cfg.name} tp2 rank 0")
     lp = merge_projection_groups(model.params["shared_attn"])
     gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
     for dt, tdt in _dtypes():
@@ -1579,7 +1626,9 @@ def check_vision_kernels(model, report):
     cross block's wq (K 8192 -> 8192 at rank 4064) at the decode's M 4,
     beside ``torch.matmul`` over the unpacked factors; #4 at the four
     two-call stages of the first self block's FFN (rank 6336) at M 4, the
-    decode's most frequent launches. f32 and bf16. Returns every row."""
+    decode's most frequent launches, and at one rank's shards of
+    llama-3.2-vision-90b-tp2 (w_gate's qu_t on d_out 14336, w_down's qv on
+    448 words of d_in). f32 and bf16. Returns every row."""
     import torch
     from repro_torch.models.transformer import split_layers
     gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
@@ -1600,14 +1649,17 @@ def check_vision_kernels(model, report):
                         (VISION_IMAGE["n"] * cfg.n_image_tokens,), gen,
                         cfg.name)
     rows += check_fused(cp, ("cross_wq",), (m,), gen, cfg.name)
-    for stage, lin, leaf in STAGES:
-        p = lp["ffn"][lin]
-        sk, sn = (p["s2"], None) if leaf == "qv" else (None, p["s1"])
-        for dt, tdt in _dtypes():
-            rows.append(_check_packed(stage, p[leaf], sk, sn, m, dt, tdt,
-                                      gen, cfg.name))
+    local = rank_shard(cfg, lp)
+    for layer, model_name in ((lp, cfg.name),
+                              (local, f"{cfg.name} tp2 rank 0")):
+        for stage, lin, leaf in STAGES:
+            p = layer["ffn"][lin]
+            sk, sn = (p["s2"], None) if leaf == "qv" else (None, p["s1"])
+            for dt, tdt in _dtypes():
+                rows.append(_check_packed(stage, p[leaf], sk, sn, m, dt, tdt,
+                                          gen, model_name))
     report["vision_kernel_checks"] = rows
-    del lp, cp
+    del lp, cp, local
     free()
     return rows
 
@@ -2720,6 +2772,9 @@ def _tp_serve(mesh, arch, runs, want, tree_file, logs):
            "cfg": model.cfg}
     model = _Redraw(make, model.cfg)
     free()
+    if model.cfg.family == "vlm":
+        out["image"] = tp_image_forward(engines[runs[0][0]],
+                                        want[f"{arch}-image"])
     counters = _counters()
     grid = binary_matmul.fused_lowrank_matmul_grouped.grid_launches
     moe = model.cfg.family == "moe"
@@ -2763,41 +2818,107 @@ def _tp_serve(mesh, arch, runs, want, tree_file, logs):
     return out
 
 
+def tp_image_forward(eng, want):
+    """The VLM's ``forward`` of ``VISION_IMAGE``'s prompts with their
+    images over this rank's shards (those of engine `eng`, under its
+    policy; launch counts and collectives set to 0 just before): its
+    last-position f32 logits against the plain path's `want` (see
+    :func:`_image_logits`): the same argmax per row, or a near-tie of the
+    plain path there; the largest difference relative to max(1,
+    max|logit|) recorded. Its launches and collectives against the
+    template of one forward with an image: #1 for each self block's
+    merged QKV and wo and each cross block's wq, wk, wv (the image K/V
+    of the rank's kv heads) and wo, #4 six times per block (the two-call
+    FFN), 2 all-reduces per block and the embedding's, one all-gather."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.ops import kernel_policy
+    from repro_torch.models import transformer as TT
+    from repro_torch.sharding import comm
+    cfg = eng.cfg
+    toks, img = _vision_image_inputs(cfg, torch.float32, eng.device)
+    counters = _counters()
+    for c in counters:
+        c.launches = 0
+    comm.reset_stats()
+    with kernel_policy(eng.policy), torch.inference_mode():
+        lg = TT.forward(eng.params, cfg, torch.from_numpy(toks).to(
+            eng.device), img)[:, -1].float().cpu().numpy()
+    counts = [c.launches for c in counters]
+    coll = dict(comm.STATS)
+    logits, margins, tols = want
+    rel = float(np.abs(lg - logits).max() / max(1.0, np.abs(logits).max()))
+    ties = [b for b in range(len(lg)) if lg[b].argmax() != logits[b].argmax()]
+    for b in ties:
+        if margins[b] >= tols[b]:
+            raise AssertionError(
+                f"image forward: row {b}'s argmax differs from the plain "
+                f"path's at a margin of {margins[b]:.3e} (tolerance "
+                f"{tols[b]:.3e})")
+    groups = cfg.n_layers // cfg.cross_attn_every
+    want_counts = [2 * (cfg.n_layers - groups) + 4 * groups, 0, 0,
+                   6 * cfg.n_layers]
+    if counts != want_counts or coll["all_reduce"] != 2 * cfg.n_layers + 1 \
+            or coll["all_gather"] != 1:
+        raise AssertionError(f"image forward: launches {counts} (template "
+                             f"{want_counts}), collectives {coll}")
+    return {"max_rel_diff": rel, "near_tie_rows": ties, "launches": counts,
+            "collectives": coll, "rows": len(lg)}
+
+
 def tp_template(name, cfg, res, n):
     """A TP path's launches and collectives on one rank of `n` against
     its family's template: G forwards (one all-gather of the logits each;
     an admission's prefill or a decode step, or a speculative draft or
-    verify); per forward (2 x layers + 1) all-reduces (each layer's wo and
-    its FFN's w_down, or its MoE layer's one, which carries the shared
-    experts' partial too; the embedding's). #1 per layer and forward: the
-    merged QKV and wo (MLA: wq, w_dkv, w_kr, wo) and, for a dense FFN or
-    the shared experts, gate-up and w_down on #1 (rank up to
-    MAX_FUSED_RANK) or on #4 (two-call: 4 + 2 launches); an MoE layer's
-    three expert linears on #1 at the rank-local grid (G = E / n, x per
-    group). #2 once per GQA layer of a plain decode step (MLA reads its
-    latents with plain ops); #3 never."""
+    verify). Per forward 2 all-reduces per attention block (its wo and its
+    FFN's w_down, or its MoE layer's one, which carries the shared
+    experts' partial too; the hybrid's shared block per application, the
+    VLM's cross blocks as its self blocks) and per Mamba2 layer (the gated
+    norm's sum of squares and out_proj), and the embedding's one. #1 per
+    Mamba2 layer for each packed mixer projection (wz, wx, wB, wC,
+    out_proj, and wdt where it packs); per attention block the merged QKV
+    and wo (MLA: wq, w_dkv, w_kr, wo; a cross block without an image: wq
+    and wo) and, for a dense FFN or the shared experts, gate-up and w_down
+    on #1 (rank up to MAX_FUSED_RANK) or on #4 (two-call: 4 + 2
+    launches); an MoE layer's three expert linears on #1 at the
+    rank-local grid (G = E / n, x per group). #2 once per GQA self
+    attention block of a plain decode step (MLA reads its latents with
+    plain ops, the VLM's cross blocks with plain ops); #3 never."""
     from repro_torch.core.bpw import rank_for_bpw
+    from repro_torch.core.layout import quantizable_linear
     from repro_torch.kernels import binary_matmul
+    from repro_torch.models.transformer import n_shared_apps
     st, c, counts = res["stats"], res["collectives"], res["launches"]
     L, G = cfg.n_layers, c["all_gather"]
     spec = st["spec_cycles"] > 0
     if not spec and G != st["admissions"] + st["decode_steps"]:
         raise AssertionError(f"{name}: {G} logits all-gathers, expected one "
                              f"per forward ({st})")
-    if c["all_reduce"] != (2 * L + 1) * G:
+    mamba = L if cfg.is_ssm_layer_stack else 0
+    blocks = n_shared_apps(cfg) if cfg.is_ssm_layer_stack else L
+    cross = L // cfg.cross_attn_every if cfg.family == "vlm" else 0
+    reduces = 2 * mamba + 2 * blocks + 1
+    if c["all_reduce"] != reduces * G:
         raise AssertionError(f"{name}: {c['all_reduce']} all-reduces over "
-                             f"{G} forwards, expected {2 * L + 1} each")
+                             f"{G} forwards, expected {reduces} each")
+    d, di, H = cfg.d_model, cfg.d_inner, cfg.ssm_heads
+    gn = cfg.ssm_groups * cfg.ssm_state
+    mixer = sum(quantizable_linear(k, shape, 48) for k, shape in (
+        ("wz", (d, di)), ("wx", (d, di)), ("wB", (d, gn)), ("wC", (d, gn)),
+        ("wdt", (d, H)), ("out_proj", (di, d))))
     n_moe = L - cfg.first_k_dense if cfg.family == "moe" else 0
-    ffns = (L - n_moe) + (n_moe if cfg.n_shared_experts else 0)
+    ffns = (blocks - n_moe) + (n_moe if cfg.n_shared_experts else 0)
     d_ff = cfg.dense_d_ff if cfg.first_k_dense else cfg.d_ff
     twocall = ffns and binary_matmul.MAX_FUSED_RANK < rank_for_bpw(
         d_ff, cfg.d_model, 1.0, 32)
     attn = 4 if cfg.is_mla else 2
-    per = attn * L + 3 * n_moe + (0 if twocall else 2) * ffns
+    per = mixer * mamba + attn * blocks + 3 * n_moe \
+        + (0 if twocall else 2) * ffns
     want = {FUSED: per * G, PACKED: (6 * ffns if twocall else 0) * G,
             MEGA: 0}
     if not spec:
-        want[PAGED] = 0 if cfg.is_mla else L * st["decode_steps"]
+        want[PAGED] = 0 if cfg.is_mla else (blocks - cross) \
+            * st["decode_steps"]
     bad = {KERNELS[i][0]: (counts[i], k) for i, k in want.items()
            if counts[i] != k}
     if bad or (spec and counts[PAGED] == 0):
@@ -2812,6 +2933,8 @@ def tp_template(name, cfg, res, n):
                 f"expected 3 x {n_moe} layers x {G} forwards at G = "
                 f"{cfg.n_experts // n} (x per group) and none at G = "
                 f"{cfg.n_experts}")
+    return {"per_forward": {"fused": per, "all_reduce": reduces},
+            "forwards": G}
 
 
 def tp_phase(phases, n, launches, backend="gloo"):
@@ -2826,6 +2949,9 @@ def tp_phase(phases, n, launches, backend="gloo"):
     from repro_torch.launch.mesh import run_ranks
     versus = [v for _, _, runs in phases for *_, v in runs]
     want = {v: TOKENS[v] for v in versus}
+    archs = {arch for _, arch, _ in phases}
+    want.update({k: v for k, v in IMAGE_LOGITS.items()
+                 if k.removesuffix("-image") in archs})
     logs = {v: ROUTER_LOGS[v] for v in versus if v in ROUTER_LOGS}
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="nq-tp-") as tmp:
@@ -2860,10 +2986,25 @@ def _tp_report(out, n, runs, launches, backend, spawn_s):
                      else "a card per rank; collectives over NCCL",
         "phase_s": out[0]["seconds"], "spawn_s": spawn_s,
         "bytes": {r: out[r]["bytes"] for r in range(n)}}
+    if "image" in out[0]:
+        img = report["image_forward"] = {r: out[r]["image"]
+                                         for r in range(n)}
+        log(f"{cfg.name} forward with images over {n} {backend} ranks on "
+            f"{where}: last-position f32 logits of {img[0]['rows']} prompts "
+            f"against the plain path's: largest relative difference "
+            + "/".join(f"{img[r]['max_rel_diff']:.3e}" for r in range(n))
+            + ", argmax equal"
+            + ("" if not any(img[r]["near_tie_rows"] for r in range(n))
+               else " but at near-ties")
+            + f" on every rank; per rank: launches " + ", ".join(
+                f"{k[0]}={c}" for k, c in zip(KERNELS, img[0]["launches"]))
+            + f", {img[0]['collectives']['all_reduce']} all-reduces and "
+            f"{img[0]['collectives']['all_gather']} all-gathers")
     for name, traffic, spec, versus in runs:
         routes = [out[r][name].pop("routes", None) for r in range(n)]
         for r in range(n):
-            tp_template(f"{name} rank {r}", cfg, out[r][name], n)
+            out[r][name]["template"] = tp_template(f"{name} rank {r}", cfg,
+                                                   out[r][name], n)
             if out[r][name]["tokens"] != out[0][name]["tokens"]:
                 raise AssertionError(f"{name}: rank {r}'s tokens differ "
                                      f"from rank 0's")
@@ -3001,16 +3142,32 @@ def audio_launches(name, cfg, st, counts, megakernel):
         f"forward {4 * n} of #1 ({prefill} prefills, {decode} decode steps)")
 
 
-def _vision_image_inputs(cfg, dtype):
+def _vision_image_inputs(cfg, dtype, device="cuda"):
     """``VISION_IMAGE``'s prompts (numpy, from the seed) and images (drawn
-    on the card from the seed, in `dtype`)."""
+    on the card, `device`, from the seed, in `dtype`)."""
     import numpy as np
     from repro_torch.testing import image_embeds_device
     t = VISION_IMAGE
     rng = np.random.default_rng(SEED + 20)
     toks = rng.integers(0, cfg.vocab_size, size=(t["n"], t["prompt"])
                         ).astype(np.int64)
-    return toks, image_embeds_device(cfg, t["n"], SEED + 21, "cuda", dtype)
+    return toks, image_embeds_device(cfg, t["n"], SEED + 21, device, dtype)
+
+
+def _image_logits(model, toks, img):
+    """The plain path's forward of `toks` with their images `img`: its
+    last-position f32 logits (host), and per row the top-2 margin and the
+    logits tolerance, which a tensor-parallel forward is held to."""
+    import torch
+    from repro_torch.kernels.ops import KernelPolicy, kernel_policy
+    from repro_torch.models import transformer as TT
+    with kernel_policy(KernelPolicy(mode="ref")), torch.inference_mode():
+        lg = TT.forward(model.params, model.cfg,
+                        torch.from_numpy(toks).to(model.device),
+                        img)[:, -1].float()
+    top = torch.topk(lg, 2, dim=-1).values
+    return (lg.cpu().numpy(), (top[:, 0] - top[:, 1]).cpu().numpy(),
+            (LOGITS_TOL * lg.abs().amax(-1).clamp_min(1.0)).cpu().numpy())
 
 
 def vision_image_path(model, launches, name="llama-3.2-vision-90b-image"):
@@ -3037,6 +3194,9 @@ def vision_image_path(model, launches, name="llama-3.2-vision-90b-image"):
     want = want.cpu().numpy()
     ref_wall = time.perf_counter() - t0
     free()
+    if name == "llama-3.2-vision-90b-image":
+        IMAGE_LOGITS[name] = _image_logits(model, toks, img)
+        free()
     counters = _counters()
     for c in counters:
         c.launches = 0

@@ -182,9 +182,9 @@ class NanoQuantModel:
         replaces the deadline clock (both for chaos testing). `mesh` (a
         ``launch.mesh.Mesh`` of which this process is one rank) serves
         this rank's shards of the model, placed under
-        ``sharding.rules.SERVE`` (the dense, audio and MoE families, an
-        MoE's experts split E / N per rank); every rank makes the same
-        calls."""
+        ``sharding.rules.SERVE`` (every family: an MoE's experts split E
+        / N per rank, a Mamba2 mixer's SSD heads H / N, the VLM's image
+        K/V by kv head); every rank makes the same calls."""
         scfg = scfg or ServeConfig()
         if spec_rank_frac is not None:
             scfg = dataclasses.replace(scfg, spec_rank_frac=spec_rank_frac)

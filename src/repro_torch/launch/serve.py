@@ -48,15 +48,17 @@ The model is made once (loaded, or the demo quantized) and saved as an
 artifact in a temporary directory that each rank loads; each rank serves
 its shards of it over a ``(data=1, model=N)`` mesh, and only rank 0
 prints, starting with a line that gives the backend, the ranks' devices
-and the mesh. The dense, audio and MoE families (MLA among them) serve
-so: an MoE's routed experts are split E / N per rank (expert-parallel),
-the audio family's codebook tables on their vocabulary; the SSM, hybrid
-and VLM families are refused (ROADMAP item 12b). Deadlines, snapshots
-and ``--supervise`` read one process's clock or plan and are refused
-with ``--tp`` (ROADMAP item 12d).
+and the mesh. Every family serves so: an MoE's routed experts are split
+E / N per rank (expert-parallel), the audio family's codebook tables on
+their vocabulary, a Mamba2 mixer (the SSM and hybrid families) by SSD
+head, the hybrid's shared block and the VLM's self and cross layers by
+attention head (the VLM's per-slot image K/V by kv head). Deadlines,
+snapshots and ``--supervise`` read one process's clock or plan and are
+refused with ``--tp`` (ROADMAP item 12d).
 ``--rect --tp N`` gives each rank its rectangle of kv heads, split with
 the query heads where they divide the model axis and whole where they do
-not (``quant.surgery.kv_layout``; MLA's latent rectangle whole).
+not (``quant.surgery.kv_layout``; MLA's latent rectangle whole; the
+Mamba2 state of the rank's SSD heads).
 ``--engine wave`` admits a new batch only once every slot is free (the
 deprecated ``BatchServer``'s admission).
 """
@@ -121,9 +123,9 @@ def _parser() -> argparse.ArgumentParser:
                          "BatchServer)")
     ap.add_argument("--tp", type=int, default=1,
                     help="tensor-parallel degree: serve over a (data=1, "
-                         "model=N) mesh of N ranks (the dense, audio and "
-                         "MoE families; an MoE's experts split E/N per "
-                         "rank)")
+                         "model=N) mesh of N ranks (every family; an "
+                         "MoE's experts split E/N per rank, a Mamba2 "
+                         "mixer's SSD heads H/N)")
     ap.add_argument("--tp-backend", choices=("nccl", "gloo"),
                     default="nccl",
                     help="--tp's process group: nccl (one card per rank) "

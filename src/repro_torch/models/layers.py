@@ -183,6 +183,14 @@ def _use_merged(p: dict, key: str, x) -> bool:
         kops.current_kernel_policy().use_merged_projections(x.device)
 
 
+def _kv_read(cfg):
+    """The slice of the held kv heads this rank's query heads read under
+    the mesh in force (``quant.surgery.kv_layout``), or None: every held
+    head."""
+    mesh = kops.current_kernel_policy().mesh
+    return None if mesh is None else kv_layout(cfg, mesh)[1]
+
+
 def _width(lin: dict) -> int:
     """A linear's output width, read from its (packed or FP) leaves: under
     tensor parallelism the rank's d_out shard."""
@@ -441,8 +449,7 @@ def attention(p, cfg, x, positions, cache=None, cache_pos=None,
     q = q.reshape(B, S, Hq, hd)
     k = k.reshape(B, S, Hkv, hd)
     v = v.reshape(B, S, Hkv, hd)
-    mesh = kops.current_kernel_policy().mesh
-    kv = None if mesh is None else kv_layout(cfg, mesh)[1]
+    kv = _kv_read(cfg)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -581,12 +588,22 @@ def cross_attention(p, cfg, x, image_kv):
     1/sqrt(D)), the output through wo scaled by ``tanh(gate)`` in x's
     dtype. image_kv: (k, v), each (B, n_img, Hkv, D), from
     :func:`image_kv`. The reference keeps this plain, so it is plain torch
-    ops here: no kernel serves it."""
+    ops here: no kernel serves it.
+
+    The head count is read from wq's width, so under tensor parallelism
+    the layer runs on the rank's query heads over the image K/V of its kv
+    heads (whole where they do not divide the model axis: its query heads
+    then read their GQA group's one head, ``quant.surgery.kv_layout``);
+    wo is row-parallel, and its all-reduce (in :func:`dense`) comes
+    before ``tanh(gate)`` scales the output."""
     B, S, _ = x.shape
     hd = cfg.head_dim
-    q = dense(p["wq"], x, "xattn.wq").reshape(B, S, cfg.n_heads, hd)
+    q = dense(p["wq"], x, "xattn.wq").reshape(B, S, -1, hd)
     q = rms_norm(q, p["q_norm"], cfg.norm_eps)
     k, v = image_kv
+    kv = _kv_read(cfg)
+    if kv is not None:
+        k, v = k[:, :, kv], v[:, :, kv]
     msk = torch.ones((S, k.shape[1]), dtype=torch.bool, device=x.device)
     o = sdpa(q, k, v, msk, 1.0 / math.sqrt(hd))
     return torch.tanh(p["gate"]).to(x.dtype) * dense(
@@ -596,14 +613,13 @@ def cross_attention(p, cfg, x, image_kv):
 def image_kv(p, cfg, image_embeds):
     """Project the stubbed image patch embeddings (B, n_img, d) to one
     cross layer's (k, v), each (B, n_img, Hkv, D): k per-head RMS-normed,
-    v as projected."""
+    v as projected. Under tensor parallelism Hkv is the rank's kv heads,
+    read from wk's width (its column shard, or whole)."""
     B, n_img, _ = image_embeds.shape
     hd = cfg.head_dim
-    k = dense(p["wk"], image_embeds, "xattn.wk").reshape(
-        B, n_img, cfg.n_kv_heads, hd)
+    k = dense(p["wk"], image_embeds, "xattn.wk").reshape(B, n_img, -1, hd)
     k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    v = dense(p["wv"], image_embeds, "xattn.wv").reshape(
-        B, n_img, cfg.n_kv_heads, hd)
+    v = dense(p["wv"], image_embeds, "xattn.wv").reshape(B, n_img, -1, hd)
     return k, v
 
 
@@ -874,6 +890,32 @@ def _conv_step(buf, new, w, b):
     return y, cat[:, 1:]
 
 
+def _ssd_heads(cfg, H: int) -> Optional[slice]:
+    """The SSD heads a mixer of `H` held heads runs: None for all of
+    ``cfg.ssm_heads``, or under a tensor-parallel mesh this rank's block
+    ``[r·H, (r+1)·H)`` (``sharding.rules``: wz / wx split on d_out by
+    whole heads, the state on its head axis)."""
+    if H == cfg.ssm_heads:
+        return None
+    mesh = kops.current_kernel_policy().mesh
+    if mesh is None:
+        raise ValueError(f"the mixer holds {H} of {cfg.ssm_heads} SSD heads, "
+                         f"and the kernel policy in force carries no mesh")
+    return slice(mesh.tp_rank * H, (mesh.tp_rank + 1) * H)
+
+
+def _gated_norm(y, w, eps: float, width: int, sharded: bool):
+    """The mixer's RMS norm of y (..., C) over the full d_inner `width`.
+    With `sharded` y holds this rank's C = width / N columns: the f32 sum
+    of squares is all-reduced over the model axis, so every rank divides
+    the whole row's sum by the full width, as the unsharded norm does."""
+    if not sharded:
+        return rms_norm(y, w, eps)
+    yf = y.float()
+    ss = kops.finish_row_parallel((yf * yf).sum(dim=-1, keepdim=True))
+    return (yf * torch.rsqrt(ss / width + eps) * w.float()).to(y.dtype)
+
+
 def mamba2(p, cfg, x, state=None):
     """Mamba2 mixer. Returns (out, new state), the state as dict(ssm=(B,
     H, P, N) f32, conv_x / conv_B / conv_C = (B, K-1, C) rings in x's
@@ -887,13 +929,41 @@ def mamba2(p, cfg, x, state=None):
     recurrent step (S == 1) from ``state``. Rounding points are the
     reference's: each conv sum cast to x's dtype on the full route (f32
     into the step's activation), the scan and the state in f32, y cast to
-    x's dtype before the gated norm."""
+    x's dtype before the gated norm.
+
+    Under tensor parallelism the mixer runs on the rank's SSD heads, read
+    from wx's width (:func:`_ssd_heads`): z and x come from the column
+    shards of wz / wx, with conv_x, its bias and norm_w on the same
+    d_inner columns, and the state holds those heads. B, C and dt come
+    out of the whole wB / wC / wdt on every rank; dt, A_log, D and dt_bias
+    are cut to the rank's heads here, once, and B / C after their groups
+    are repeated out to heads, so that each head meets its own group. The
+    gated norm spans all of d_inner, so its sum of squares is all-reduced
+    (:func:`_gated_norm`) before out_proj runs row-parallel and its
+    all-reduce (in :func:`dense`) sums the ranks' partials."""
     B, S, _ = x.shape
-    di, H, P = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
-    g, n = cfg.ssm_groups, cfg.ssm_state
+    P, g, n = cfg.ssm_head_dim, cfg.ssm_groups, cfg.ssm_state
     z, xs, Bm, Cm, dt = _mamba_streams(p, x)
-    dt = softplus(dt.float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"].float())                          # (H,) < 0
+    di = xs.shape[-1]                   # the rank's d_inner shard under TP
+    H = di // P
+    heads = _ssd_heads(cfg, H)
+    A_log, D, dt_bias = p["A_log"], p["D"], p["dt_bias"]
+    if heads is not None:
+        dt, A_log, D, dt_bias = (t[..., heads] for t in (dt, A_log, D,
+                                                         dt_bias))
+    dt = softplus(dt.float() + dt_bias)
+    A = -torch.exp(A_log.float())                               # (H,) < 0
+
+    def per_head(m, *lead, expand=heads is not None):
+        """(..., g·n) -> (..., H, n): each held head's group, or with
+        `expand` off the (..., g, n) groups (the scan repeats them out
+        itself)."""
+        m = m.reshape(*lead, g, n)
+        if not expand:
+            return m
+        m = m.repeat_interleave(cfg.ssm_heads // g, -2)
+        return m if heads is None else m[..., heads, :]
+
     if state is None:
         K1 = cfg.ssm_conv - 1
         new_state = {k: F.pad(t[:, -K1:], (0, 0, max(0, K1 - S), 0))
@@ -904,24 +974,24 @@ def mamba2(p, cfg, x, state=None):
         Cm = silu(_causal_conv(Cm, p["conv_C"], p["conv_bC"]))
         xs = xs.reshape(B, S, H, P)
         y, new_state["ssm"] = ssd_chunked(
-            xs, dt, A, Bm.reshape(B, S, g, n), Cm.reshape(B, S, g, n),
-            cfg.ssm_chunk)
-        y = y + p["D"].float()[None, None, :, None] * xs.float()
+            xs, dt, A, per_head(Bm, B, S), per_head(Cm, B, S), cfg.ssm_chunk)
+        y = y + D.float()[None, None, :, None] * xs.float()
     else:
         xs1, cx = _conv_step(state["conv_x"], xs, p["conv_x"], p["conv_bx"])
         Bm1, cB = _conv_step(state["conv_B"], Bm, p["conv_B"], p["conv_bB"])
         Cm1, cC = _conv_step(state["conv_C"], Cm, p["conv_C"], p["conv_bC"])
         xs = silu(xs1).reshape(B, H, P)
-        Bm = silu(Bm1).reshape(B, g, n).repeat_interleave(H // g, 1)
-        Cm = silu(Cm1).reshape(B, g, n).repeat_interleave(H // g, 1)
+        Bm = per_head(silu(Bm1), B, expand=True)
+        Cm = per_head(silu(Cm1), B, expand=True)
         dt1 = dt[:, 0]                                          # (B, H)
         dA = torch.exp(dt1 * A[None, :])
         ssm = state["ssm"] * dA[:, :, None, None] + \
             (dt1[:, :, None] * Bm)[:, :, None, :] * xs[:, :, :, None]
         y = torch.einsum("bhn,bhpn->bhp", Cm, ssm)
-        y = y + p["D"].float()[None, :, None] * xs
+        y = y + D.float()[None, :, None] * xs
         y = y[:, None]                                          # (B,1,H,P)
         new_state = {"ssm": ssm, "conv_x": cx, "conv_B": cB, "conv_C": cC}
     y = y.reshape(B, S, di).to(x.dtype)
-    y = rms_norm(y * silu(z), p["norm_w"], cfg.norm_eps)
+    y = _gated_norm(y * silu(z), p["norm_w"], cfg.norm_eps, cfg.d_inner,
+                    heads is not None)
     return dense(p["out_proj"], y, "mixer.out_proj"), new_state

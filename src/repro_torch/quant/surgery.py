@@ -430,10 +430,13 @@ def place_on_mesh(params, cfg: ModelConfig, mesh, policy=None):
     stacks split on E with every expert's factors whole (the router
     whole, the shared experts' FFN paired as a dense FFN), MLA's
     ``w_uk`` / ``w_uv`` on the head axis and its role-less ``w_dkv`` /
-    ``w_kr`` whole, the embedding (the audio family's K tables alike) and
-    lm head split on the vocabulary, everything non-divisible whole. The
-    default
-    policy is :data:`repro_torch.sharding.rules.SERVE` (tensor-parallel
+    ``w_kr`` whole, a Mamba2 mixer's wz / wx on d_out and out_proj on
+    d_in by whole SSD heads with conv_x, its bias and norm_w on the same
+    d_inner columns (wB / wC / wdt, the other convs and the per-head
+    A_log / D / dt_bias whole), the hybrid's unstacked shared block and
+    the VLM's self and cross layers paired as a dense block, the
+    embedding (the audio family's K tables alike) and lm head split on
+    the vocabulary, everything non-divisible whole. The default policy is :data:`repro_torch.sharding.rules.SERVE` (tensor-parallel
     only, V replicated), the layout the launches of ``kernels.ops`` read.
     Returns a new tree of contiguous tensors (a whole leaf is the input's
     own tensor).
@@ -461,16 +464,24 @@ def local_cache(make, cfg: ModelConfig, mesh, device):
     """A cache tree allocated as this rank's blocks: ``make(device)``
     builds the whole tree; on a tensor-parallel `mesh` it is built on the
     meta device and every leaf is allocated (zeros) at its block's shape
-    under ``sharding.rules.cache_pspecs(paged=True)``. That is the pool's
-    placement, and the rectangular prefill cache takes it too: its kv
-    heads split with the query heads or stay whole (:func:`kv_layout`);
-    the reference's rule for it would fall back to the sequence dim,
-    which explicit TP has no regather for."""
+    under ``sharding.rules.cache_pspecs(paged=True)`` with no sequence
+    fallback. That is the pool's placement, and the rectangular prefill
+    cache takes it too: its kv heads split with the query heads or stay
+    whole (:func:`kv_layout`); the reference's rule for it would fall
+    back to the sequence dim, which explicit TP has no regather for. So
+    does the VLM's per-slot image K/V, whose rule is the rectangle's: a
+    rank holds the kv heads its wk / wv give, never a block of the image
+    rows. The Mamba2 state holds the rank's SSD heads (``ssm``) and
+    d_inner columns (``conv_x``) beside the whole ``conv_B`` /
+    ``conv_C``."""
     if mesh is None or mesh.tp == 1:
         return make(device)
     from repro_torch.sharding import rules
     full = make("meta")
-    specs = rules.cache_pspecs(cfg, full, mesh, rules.SERVE, paged=True)
+    specs = rules.cache_pspecs(
+        cfg, full, mesh, dataclasses.replace(rules.SERVE,
+                                             seq_shard_cache=False),
+        paged=True)
 
     def walk(tree, spec):
         if isinstance(tree, dict):

@@ -80,7 +80,7 @@ from repro_torch import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.build import KernelError
 from repro_torch.models import transformer as T
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import FAMILIES, ModelConfig
 from repro_torch.quant.surgery import (kv_layout, local_cache,
                                       merge_projection_groups,
                                       param_placement, place_on_mesh)
@@ -243,24 +243,23 @@ def _device_side(err: BaseException) -> bool:
         isinstance(err, RuntimeError) and "cuda" in str(err).lower())
 
 
-# the families tensor-parallel serving covers (MLA is the moe family with
-# ``cfg.is_mla``); ROADMAP item 12b's second half: the SSM, hybrid and VLM
-TP_FAMILIES = ("dense", "audio", "moe")
+# the families tensor-parallel serving covers: every family
+TP_FAMILIES = FAMILIES
+# the Mamba2 mixer's linears without a Megatron role: whole on every rank
+MIXER_WHOLE = ("wB", "wC", "wdt")
 
 
 def check_tp_serving(cfg: ModelConfig, mesh, faults=None) -> None:
-    """Raise unless an engine can serve `cfg` over `mesh`: the dense,
-    audio and MoE families (MLA among them; the SSM, hybrid and VLM wait
-    for ROADMAP item 12b), no fault plan (it fires on one process's plan,
-    ROADMAP item 12d), query heads that divide the model axis, and, where
-    the kv heads do not, each rank's query heads inside one GQA group
-    (``quant.surgery.kv_layout``); an MoE's routed experts and its shared
-    experts' FFN width divide the model axis too."""
+    """Raise unless an engine can serve `cfg` over `mesh` (a model of any
+    family): no fault plan (it fires on one process's plan, ROADMAP item
+    12d), query heads that divide the model axis (the
+    hybrid's shared block and the VLM's self and cross layers alike),
+    and, where the kv heads do not, each rank's query heads inside one
+    GQA group (``quant.surgery.kv_layout``); an MoE's routed experts and
+    its shared experts' FFN width divide the model axis too, and so do a
+    Mamba2 mixer's SSD heads (a head that straddled two ranks could be
+    scanned by neither)."""
     n = mesh.tp
-    if cfg.family not in TP_FAMILIES:
-        raise NotImplementedError(
-            f"tensor-parallel serving covers the {TP_FAMILIES} families; "
-            f"{cfg.family!r} waits for ROADMAP item 12b")
     if faults is not None:
         raise NotImplementedError(
             "a fault plan fires on one process's schedule; it is refused "
@@ -268,6 +267,9 @@ def check_tp_serving(cfg: ModelConfig, mesh, faults=None) -> None:
     if cfg.n_heads % n:
         raise NotImplementedError(
             f"{cfg.n_heads} query heads do not divide over {n} ranks")
+    if cfg.is_ssm_layer_stack and cfg.ssm_heads % n:
+        raise NotImplementedError(
+            f"{cfg.ssm_heads} SSD heads do not divide over {n} ranks")
     if cfg.family == "moe":
         if cfg.n_experts % n:
             raise NotImplementedError(
@@ -281,23 +283,28 @@ def check_tp_serving(cfg: ModelConfig, mesh, faults=None) -> None:
 
 
 def check_tp_layout(cfg: ModelConfig, params, mesh) -> None:
-    """Raise unless ``place_on_mesh`` splits every linear of the layers as
-    the launches read it: a column-parallel one on d_out only (wk / wv
-    whole where ``kv_layout`` replicates the kv heads), a row-parallel one
-    on d_in only, a routed expert stack on its expert axis only (each
-    expert whole: the rank's launch of #1 runs its experts' full
-    factors). The reference falls back to a whole linear where a shape
-    does not divide and lets GSPMD regather its activation; explicit TP
-    has no regather, so such a model is refused here."""
+    """Raise unless ``place_on_mesh`` splits every linear of the layers
+    (the block stacks and the hybrid's unstacked ``shared_attn``) as the
+    launches read it: a column-parallel one on d_out only (wk / wv whole
+    where ``kv_layout`` replicates the kv heads), a row-parallel one on
+    d_in only, a routed expert stack on its expert axis only (each expert
+    whole: the rank's launch of #1 runs its experts' full factors), the
+    Mamba2 mixer's role-less wB / wC / wdt whole. The reference falls back
+    to a whole linear where a shape does not divide and lets GSPMD
+    regather its activation; explicit TP has no regather, so such a model
+    is refused here."""
     from repro_torch.core.util import leaves_with_path
     from repro_torch.sharding.rules import tp_role
     want = {"col": {"qu_t": -1, "s1": -1, "w": -1, "b": -1},
-            "row": {"qv": -2, "s2": -1, "w": -2}}
+            "row": {"qv": -2, "s2": -1, "w": -2},
+            None: {}}
     kv_whole = kv_layout(cfg, mesh)[0]
     for path, spec in leaves_with_path(param_placement(params, cfg, mesh)):
         parts = path.split("/")
-        role = tp_role(parts[-2]) if len(parts) > 1 else None
-        if role is None or parts[0] not in T.STACKS:
+        if len(parts) < 2 or parts[0] not in T.STACKS + ("shared_attn",):
+            continue
+        role = tp_role(parts[-2])
+        if role is None and parts[-2] not in MIXER_WHOLE:
             continue
         if kv_whole and parts[-2] in ("wk", "wv"):
             continue
@@ -313,10 +320,12 @@ def check_tp_layout(cfg: ModelConfig, params, mesh) -> None:
             continue
         dim = want[role].get(parts[-1])
         if [i - len(spec) for i in on] != ([] if dim is None else [dim]):
+            how = {"col": "column-parallel linear split on its d_out only",
+                   "row": "row-parallel linear split on its d_in only",
+                   None: "role-less linear whole on every rank"}[role]
             raise NotImplementedError(
                 f"{path} would be placed {spec} over {mesh.shape}: "
-                f"tensor-parallel serving needs each {role}-parallel linear "
-                f"split on its {'d_out' if role == 'col' else 'd_in'} only")
+                f"tensor-parallel serving needs each {how}")
 
 
 class RequestError(RuntimeError):

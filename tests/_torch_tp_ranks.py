@@ -1,9 +1,10 @@
-"""The rank side of ``tests/test_torch_sharding.py``: functions that each
-rank of a gloo group runs on the CPU (``repro_torch.launch.mesh.
-run_ranks``). It imports torch, numpy and ``repro_torch`` only, so a
-spawned rank starts without JAX; everything a rank needs (numpy param
-trees, prompts) comes in its arguments, and everything the checks need
-comes back in its one picklable result."""
+"""The rank side of ``tests/test_torch_sharding.py``,
+``tests/test_torch_tp_families.py`` and ``tests/test_torch_tp_state.py``:
+functions that each rank of a gloo group runs on the CPU
+(``repro_torch.launch.mesh.run_ranks``). It imports torch, numpy and
+``repro_torch`` only, so a spawned rank starts without JAX; everything a
+rank needs (numpy param trees, prompts) comes in its arguments, and
+everything the checks need comes back in its one picklable result."""
 import numpy as np
 import torch
 
@@ -41,7 +42,7 @@ def _drained(eng) -> bool:
     if kv is None:                  # the rectangle: no pages to account
         return not eng.active.any() and not eng.scheduler.pending
     ok = not kv.ref.any() and kv.used_pages == kv.cached_page_count \
-        and not kv.tables["linear"].any()
+        and not any(t.any() for t in kv.tables.values())
     if eng.prefix is not None:
         eng.prefix.clear()
     return ok and kv.used_pages == 0
@@ -180,15 +181,20 @@ def rank_checks(rank, case):
 
 
 class _Spies:
-    """While open: every router call's chosen experts, and every call of
-    #1's wrapper as (groups, x per group)."""
+    """While open: every router call's chosen experts, every call of #1's
+    wrapper as (groups, x per group), and the calls of #2's and #4's
+    wrappers."""
 
     def __enter__(self):
+        from repro_torch.kernels import paged_attention
         from repro_torch.models import layers
         self.routes, self.grids = [], []
+        self.paged = self.packed = 0
         route = layers._route
         grouped = binary_matmul.fused_lowrank_matmul_grouped
-        self._real = (route, grouped)
+        paged = paged_attention.paged_decode_attention
+        packed = binary_matmul.packed_matmul
+        self._real = (route, grouped, paged, packed)
 
         def spy_route(p, cfg, xf):
             out = route(p, cfg, xf)
@@ -198,13 +204,26 @@ class _Spies:
         def spy_grouped(x, qv, *a, **kw):
             self.grids.append((int(qv.shape[0]), bool(kw.get("x_shared"))))
             return grouped(x, qv, *a, **kw)
+
+        def spy_paged(*a, **kw):
+            self.paged += 1
+            return paged(*a, **kw)
+
+        def spy_packed(*a, **kw):
+            self.packed += 1
+            return packed(*a, **kw)
         layers._route = spy_route
         binary_matmul.fused_lowrank_matmul_grouped = spy_grouped
+        paged_attention.paged_decode_attention = spy_paged
+        binary_matmul.packed_matmul = spy_packed
         return self
 
     def __exit__(self, *exc):
+        from repro_torch.kernels import paged_attention
         from repro_torch.models import layers
-        layers._route, binary_matmul.fused_lowrank_matmul_grouped = self._real
+        (layers._route, binary_matmul.fused_lowrank_matmul_grouped,
+         paged_attention.paged_decode_attention,
+         binary_matmul.packed_matmul) = self._real
 
 
 def _family_run(tree, cfg, mesh, prompts, budgets, policy, **scfg):
@@ -224,7 +243,8 @@ def _family_run(tree, cfg, mesh, prompts, budgets, policy, **scfg):
     return {"tokens": toks, "stats": stats, "comm": dict(comm.STATS),
             "cache": cache, "kv_bytes": eng.kv_cache_bytes(),
             "drained": _drained(eng), "routes": spies.routes,
-            "grids": spies.grids}
+            "grids": spies.grids, "paged": spies.paged,
+            "packed": spies.packed}
 
 
 def _expert_launches(case, mesh):
@@ -293,4 +313,79 @@ def family_checks(rank, case):
         case["qwen_spec"], case["qwen_cfg"], mesh, case["qwen_prompts"],
         case["budgets"], ref, prefix_cache=False, spec_rank_frac=0.5,
         spec_k=4)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the SSM, hybrid and VLM families (tests/test_torch_tp_state.py)
+# ---------------------------------------------------------------------------
+
+
+def _mixer_run(case, key, mesh):
+    """One Mamba2 mixer (layer 0 of `key`'s model) on this rank's shards:
+    the full sequence and one recurrent step from a seeded state cut to
+    the rank's SSD heads / d_inner columns; the output (whole, after the
+    all-reduce) and the new state's shards. Then the same full sequence
+    with the gated norm taken over the rank's own columns only, a rank
+    that skips the norm's all-reduce."""
+    from repro_torch.models import layers
+    cfg = case[f"{key}_cfg"]
+    H = cfg.ssm_heads // mesh.tp
+    heads = slice(mesh.tp_rank * H, (mesh.tp_rank + 1) * H)
+    mixer = params_from_numpy(case[f"{key}_mixer"], "cpu")
+    local = place_on_mesh({"layers": {"mixer": mixer}}, cfg,
+                          mesh)["layers"]["mixer"]
+    cols = slice(heads.start * cfg.ssm_head_dim,
+                 heads.stop * cfg.ssm_head_dim)
+    st = {k: torch.from_numpy(v) for k, v in case["mixer_state"].items()}
+    st["ssm"], st["conv_x"] = st["ssm"][:, heads], st["conv_x"][..., cols]
+    out = {}
+    with ops.kernel_policy(ops.KernelPolicy(mode="cuda", mesh=mesh)):
+        for route, x, state in (("full", case["mixer_x"], None),
+                                ("step", case["mixer_x1"], st)):
+            y, new = layers.mamba2(local, cfg, torch.from_numpy(x), state)
+            out[route] = (y.numpy(), {k: v.numpy() for k, v in new.items()})
+        real = layers._gated_norm
+        layers._gated_norm = lambda y, w, eps, width, sharded: real(
+            y, w, eps, y.shape[-1], False)
+        try:
+            out["own_norm"] = layers.mamba2(
+                local, cfg, torch.from_numpy(case["mixer_x"]))[0].numpy()
+        finally:
+            layers._gated_norm = real
+    return out
+
+
+def state_checks(rank, case):
+    """Everything ``tests/test_torch_tp_state.py`` reads, from one rank:
+    a Mamba2 mixer of mamba2's and of zamba2's on the rank's SSD heads,
+    the VLM's forward with an image over the rank's shards (the smoke
+    config, and a variant with one kv head, whose image K/V every rank
+    holds whole), and the engines of the three smoke configs, on the
+    pool (or the SSM's state cache) and on the rectangle."""
+    from repro_torch.models import transformer as T
+    torch.manual_seed(0)
+    mesh = make_serving_mesh(TP, device="cpu")
+    out = {"rank": rank, "mixer": {k: _mixer_run(case, k, mesh)
+                                   for k in ("mamba", "zamba")}}
+    pol = ops.KernelPolicy(mode="cuda", mesh=mesh)
+    for key in ("vision", "vision_kv1"):
+        cfg = case[f"{key}_cfg"]
+        local = place_on_mesh(params_from_numpy(case[key], "cpu"), cfg, mesh)
+        with ops.kernel_policy(pol), torch.inference_mode():
+            out[f"{key}_forward"] = T.forward(
+                local, cfg, torch.from_numpy(case["image_tokens"]).long(),
+                torch.from_numpy(case["image"])).numpy()
+        out[f"{key}_wk"] = tuple(local["cross_layers"]["xattn"]["wk"]
+                                 ["qu_t"].shape)
+    cuda = ops.KernelPolicy(mode="cuda")
+    for name, paged in (("paged", True), ("rect", False)):
+        for key in ("mamba", "zamba", "vision"):
+            out[f"{key}_{name}"] = _family_run(
+                case[key], case[f"{key}_cfg"], mesh, case["prompts"][key],
+                case["budgets"], cuda, paged=paged, prefix_cache=False)
+    # zamba2's shared block over rings that wrap (window 16)
+    out["zamba_wrap"] = _family_run(
+        case["zamba"], case["zamba_wrap_cfg"], mesh, case["prompts"]["wrap"],
+        case["wrap_budgets"], cuda, prefix_cache=False)
     return out

@@ -63,9 +63,12 @@ POLICIES = (("DEFAULT", jrules.DEFAULT, trules.DEFAULT),
 ARCHS = jconfigs.list_archs()
 DENSE = ("llama3.2-1b", "qwen1.5-110b", "qwen3-4b")
 # the families tensor-parallel serving places (the MoE's experts cut on E,
-# MLA's w_uk / w_uv by head, the audio tables on V)
+# MLA's w_uk / w_uv by head, the audio tables on V, a Mamba2 mixer by SSD
+# head, the VLM's self and cross layers and the hybrid's shared block by
+# attention head)
 PLACED = DENSE + ("qwen3-moe-235b-a22b", "deepseek-v2-lite-16b",
-                  "musicgen-medium")
+                  "musicgen-medium", "mamba2-370m", "zamba2-1.2b",
+                  "llama-3.2-vision-90b")
 
 
 def _jspecs(tree) -> dict:
@@ -507,10 +510,23 @@ def _tiny_params():
 @pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-1.2b",
                                   "llama-3.2-vision-90b"])
 def test_tp_refuses_other_families(arch):
+    """The SSM, hybrid and VLM families are served over two ranks and
+    refused only where their heads do not divide the ranks: over three,
+    mamba2's 8 SSD heads (its ``n_heads`` is 0, which divides anything),
+    a zamba2 variant's 8 SSD heads beside 6 attention heads that divide,
+    the VLM's 4 query heads."""
     cfg = f32(get_smoke(arch))
-    with pytest.raises(NotImplementedError, match="item 12b"):
+    from repro_torch.serve.engine import TP_FAMILIES, check_tp_serving
+    assert cfg.family in TP_FAMILIES
+    check_tp_serving(cfg, _mesh())
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, n_heads=6, n_kv_heads=6)
+    match = "query heads" if cfg.family == "vlm" else "8 SSD heads"
+    with pytest.raises(NotImplementedError, match=match):
+        check_tp_serving(cfg, _mesh(None, (1, 3)))
+    with pytest.raises(NotImplementedError, match=match):
         InferenceEngine({"embed": torch.zeros(1)}, cfg, device="cpu",
-                        mesh=_mesh())
+                        mesh=_mesh(None, (1, 3)))
 
 
 def test_tp_refuses_clock_and_plan_features():
